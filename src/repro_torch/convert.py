@@ -3,16 +3,19 @@
 A JAX ``repro.core.DiscoSolver`` holds its sharded state as device arrays;
 read as numpy (``np.asarray``), they become a port
 :class:`repro_torch.core.disco.DiscoSolver` here, without re-running the
-port's own partitioner and tiling. One Newton step of each can then be
-compared on identical inputs.
+port's own partitioner, padding or tiling. One Newton step of each can
+then be compared on identical inputs.
 
-Arrays, by the JAX solver's attribute names:
+Arrays, by the JAX solver's attribute names (:data:`STATE_KEYS` for
+sparse input, :data:`DENSE_STATE_KEYS` for dense):
 
-* both partitions: ``ell_data``, ``ell_cols``, ``ell_dataT``,
+* sparse, both partitions: ``ell_data``, ``ell_cols``, ``ell_dataT``,
   ``ell_colsT`` (stacked ``(m, ...)``), ``X_tau``, ``y``, ``y_tau``, and
-  ``perm`` (its partition's ``_part.perm``);
-* ``partition='samples'``: ``weights``; ``partition='features'``:
-  ``smask``.
+  ``perm`` (its partition's ``_part.perm``); ``partition='samples'`` adds
+  ``weights``, ``partition='features'`` adds ``smask``;
+* dense, both partitions: ``X`` (the whole padded matrix), ``X_tau``,
+  ``y``, ``y_tau``; ``partition='samples'`` adds ``weights``. The shard
+  count is the JAX mesh's, passed as ``m``.
 
 An iterate crosses over in the solver's internal layout (padded, in
 partition order) with :func:`w_to_port`.
@@ -31,22 +34,33 @@ _COMMON = ("ell_data", "ell_cols", "ell_dataT", "ell_colsT", "X_tau", "y",
            "y_tau")
 STATE_KEYS = {"samples": _COMMON + ("weights",),
               "features": _COMMON + ("smask",)}
+_DENSE = ("X", "X_tau", "y", "y_tau")
+DENSE_STATE_KEYS = {"samples": _DENSE + ("weights",), "features": _DENSE}
 
 
 def solver_from_arrays(arrays: Mapping[str, np.ndarray],
                        shape: tuple[int, int], cfg: DiscoConfig, *,
-                       device=None) -> DiscoSolver:
+                       m: int | None = None, device=None) -> DiscoSolver:
     """A port solver holding the given state. ``shape`` is the original
-    ``(d, n)``; the shard count is the leading axis of ``ell_data``."""
-    keys = STATE_KEYS[cfg.partition]
-    missing = [k for k in keys + ("perm",) if k not in arrays]
+    ``(d, n)``. Dense state (an ``X`` array) is split into ``m`` shards
+    (default 1); for sparse state the shard count is the leading axis of
+    ``ell_data``."""
+    dense = "X" in arrays
+    keys = (DENSE_STATE_KEYS if dense else STATE_KEYS)[cfg.partition]
+    keys_needed = keys if dense else keys + ("perm",)
+    missing = [k for k in keys_needed if k not in arrays]
     if missing:
         raise KeyError(f"missing solver arrays: {missing}")
+    if not dense:
+        m = np.shape(arrays["ell_data"])[0]
     solver = DiscoSolver.__new__(DiscoSolver)
-    group = InProcessGroup(np.shape(arrays["ell_data"])[0])
-    solver._setup(cfg, tuple(shape), group, device)
-    solver._load_state({k: np.asarray(arrays[k]) for k in keys},
-                       np.asarray(arrays["perm"]))
+    solver._setup(cfg, tuple(shape), InProcessGroup(m or 1), device,
+                  sparse=not dense)
+    state = {k: np.asarray(arrays[k]) for k in keys}
+    if dense:
+        solver._load_dense_state(state)
+    else:
+        solver._load_state(state, np.asarray(arrays["perm"]))
     return solver
 
 

@@ -2,7 +2,9 @@
 from repro_torch.core import comm
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit, resolve_device)
-from repro_torch.core.hvp import (EllOperator, HvpOperator, OperatorCell,
+from repro_torch.core.glm import GLMProblem
+from repro_torch.core.hvp import (DenseKernelOperator, DenseOperator,
+                                  EllOperator, HvpOperator, OperatorCell,
                                   UnsupportedHvpError, cell_id,
                                   make_local_operator, operator_cells,
                                   resolve_cell, validate_solver_cell)
@@ -15,8 +17,9 @@ from repro_torch.core.preconditioner import (IdentityPreconditioner,
 
 __all__ = [
     "comm", "DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
-    "resolve_device",
-    "EllOperator", "HvpOperator", "OperatorCell", "UnsupportedHvpError",
+    "resolve_device", "GLMProblem",
+    "DenseKernelOperator", "DenseOperator", "EllOperator", "HvpOperator",
+    "OperatorCell", "UnsupportedHvpError",
     "cell_id", "make_local_operator", "operator_cells", "resolve_cell",
     "validate_solver_cell",
     "HUBER", "LOGISTIC", "LOSSES", "POISSON", "QUADRATIC", "SQUARED_HINGE",

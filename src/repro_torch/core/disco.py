@@ -12,11 +12,14 @@ Partitioning:
 The damped update is  w_{k+1} = w_k - v_k / (1 + delta_k),
 delta_k = sqrt(v_k^T H v_k).
 
-This slice ports the in-memory sparse path: a :class:`CSRMatrix` input,
-classic PCG, f32 tiles. Every product with X goes through the blocked-ELL
-ops, hence the CUDA kernels on the card. Dense input, Hessian subsampling,
-the SAG preconditioner, s-step PCG, bf16 tiles, checkpointing and tracing
-are not yet ported and raise.
+The port runs the in-memory paths: a sparse :class:`CSRMatrix` input
+(every product with X through the blocked-ELL ops) or a dense ``(d, n)``
+f32 array or tensor (margins and gradient in ``torch.matmul``, as the JAX
+package leaves them to XLA; every HVP of PCG through the dense kernels
+with ``use_kernel=True``, else ``torch.matmul``), classic PCG, f32. On the
+card the ops are the CUDA kernels. Hessian subsampling, the SAG
+preconditioner, s-step PCG, bf16 tiles, checkpointing and tracing are not
+yet ported and raise.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.data.sparse import (CSRMatrix, EllPair,
                                      shard_csrs_from_partition)
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.utils.padding import pad_to_multiple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +49,9 @@ class DiscoConfig:
     as the JAX package's ``repro.core.DiscoConfig``.
 
     Ported here: loss, lam, mu, tau, partition, precond ('woodbury' |
-    'none'), max_outer, max_pcg, pcg_rel_tol, grad_tol, hvp_fused,
-    partition_strategy, partition_block, ell_block_d, ell_block_n. The
+    'none'), max_outer, max_pcg, pcg_rel_tol, grad_tol, use_kernel (dense
+    input), hvp_fused, partition_strategy, partition_block, ell_block_d,
+    ell_block_n (sparse input). The
     fields for the paths not yet ported must keep their defaults
     (``hessian_subsample=1``, ``hvp_dtype='float32'``, ``pcg_block_s=1``,
     ``trace=False``, ``precond != 'sag'``); the out-of-core fields are
@@ -95,7 +100,8 @@ class DiscoResult:
             comm_rounds_cum, comm_floats_cum).
         ledger: analytic communication totals (:class:`comm.CommLedger`).
         converged: True iff ||grad|| reached ``cfg.grad_tol``.
-        partition_info: :meth:`Partition.stats` of the load balance.
+        partition_info: :meth:`Partition.stats` of the load balance
+            (sparse input; None for dense, which slices equal-width).
         stream_stats, replan_events: out-of-core fields, always empty here.
     """
 
@@ -135,11 +141,27 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
+def _to_device(a, device) -> torch.Tensor:
+    """A numpy array or tensor on ``device``, floating types as f32,
+    contiguous; no copy when it is already so."""
+    if not isinstance(a, torch.Tensor):
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:     # e.g. read from another framework
+            a = a.copy()
+        a = torch.from_numpy(a)
+    if a.is_floating_point():
+        a = a.to(torch.float32)
+    return a.to(device).contiguous()
+
+
 class DiscoSolver:
-    """Distributed inexact damped Newton for problem (P), sparse input.
+    """Distributed inexact damped Newton for problem (P).
 
     Args:
-        X: (d, n) :class:`CSRMatrix` in the feature-major convention.
+        X: (d, n) data in the feature-major convention: a
+            :class:`CSRMatrix` (sparse), or a dense numpy array or tensor
+            (any device; it is moved to ``device`` as f32, without a copy
+            when it is already there).
         y: (n,) labels (+-1 for classification losses).
         cfg: solver hyperparameters.
         group: the shards (default: one shard).
@@ -148,15 +170,24 @@ class DiscoSolver:
 
     def __init__(self, X, y, cfg: DiscoConfig,
                  group: InProcessGroup | None = None, device=None):
-        if not isinstance(X, CSRMatrix):
-            raise _not_ported("dense input (pass a CSRMatrix)")
+        sparse = isinstance(X, CSRMatrix)
+        if not sparse and not isinstance(X, torch.Tensor):
+            X = np.asarray(X)
+        if len(X.shape) != 2:
+            raise ValueError("X must be (d, n)")
+        if isinstance(y, torch.Tensor):
+            y = y.detach().cpu().numpy()
         y = np.asarray(y)
         if y.shape != (X.shape[1],):
             raise ValueError("X must be (d, n), y (n,)")
-        self._setup(cfg, X.shape, group, device)
-        self._init_sparse(X, y)
+        self._setup(cfg, tuple(X.shape), group, device, sparse=sparse)
+        if sparse:
+            self._init_sparse(X, y)
+        else:
+            self._init_dense(X, y)
 
-    def _setup(self, cfg: DiscoConfig, shape, group, device) -> None:
+    def _setup(self, cfg: DiscoConfig, shape, group, device, *,
+               sparse: bool) -> None:
         if cfg.hessian_subsample < 1.0:
             raise _not_ported("hessian_subsample < 1")
         if cfg.precond == "sag":
@@ -168,7 +199,7 @@ class DiscoSolver:
         hvp_tile_dtype(cfg.hvp_dtype)
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
-                             sparse=True)
+                             sparse=sparse, use_kernel=cfg.use_kernel)
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg
@@ -178,7 +209,9 @@ class DiscoSolver:
         self.tau = min(cfg.tau, self.n)
         self.group = group or InProcessGroup(1)
         self.m = self.group.size
+        self._sparse = sparse
         self._part: Partition | None = None
+        self.smask = None
 
     def _init_sparse(self, X: CSRMatrix, y):
         """Partition (load-balanced), tile and shard a sparse matrix.
@@ -224,24 +257,37 @@ class DiscoSolver:
         self._part = part
         self._load_state(state, part.perm)
 
+    def _init_dense(self, X, y):
+        """Pad and shard a dense matrix, once.
+
+        DiSCO-F pads d to a multiple of m with zero rows, DiSCO-S pads n
+        with zero columns of zero weight; the preconditioner samples are
+        the first tau columns. A tensor already on the device with no
+        padding to do is used as it is, without a copy.
+        """
+        cfg, m, tau = self.cfg, self.m, self.tau
+        X_tau, y_tau = X[:, :tau], y[:tau]
+        if cfg.partition == "features":
+            Xp, _ = pad_to_multiple(X, 0, m)
+            X_tau_p, _ = pad_to_multiple(X_tau, 0, m)
+            state = dict(X=Xp, X_tau=X_tau_p, y=y, y_tau=y_tau)
+        else:
+            Xp, _ = pad_to_multiple(X, 1, m)
+            yp, npad = pad_to_multiple(y, 0, m)
+            wts = np.pad(np.ones(self.n, np.float32), (0, npad))
+            state = dict(X=Xp, X_tau=X_tau, y=yp, weights=wts, y_tau=y_tau)
+        self._load_dense_state(state)
+
     def _load_state(self, state: dict, perm: np.ndarray) -> None:
-        """Move the host arrays of the sharded state to the device.
+        """Move the host arrays of the sharded sparse state to the device.
 
         Samples state: ``y``/``weights`` (n_padded,) in partition order,
         ``X_tau`` (d_padded, tau) replicated. Features state: ``y``/
         ``smask`` (n_padded,) replicated, ``X_tau`` (d_padded, tau) in
         partition order. Both: the stacked ``(m, ...)`` ELL arrays.
         """
-        def put(a):
-            a = np.ascontiguousarray(a)
-            if not a.flags.writeable:     # e.g. read from another framework
-                a = a.copy()
-            t = torch.from_numpy(a)
-            if t.is_floating_point():
-                t = t.to(torch.float32)
-            return t.to(self.device)
-
         m = self.m
+        put = lambda a: _to_device(a, self.device)
         self._perm = np.asarray(perm)
         self.ell_data = put(state["ell_data"])
         self.ell_cols = put(state["ell_cols"])
@@ -250,11 +296,44 @@ class DiscoSolver:
         if self.ell_data.shape[0] != m:
             raise ValueError(f"state has {self.ell_data.shape[0]} shards, "
                              f"the group {m}")
+        self._locs = [EllPair(self.ell_data[s], self.ell_cols[s],
+                              self.ell_dataT[s], self.ell_colsT[s])
+                      for s in range(m)]
+        if self.cfg.partition == "features":
+            self.smask = put(state["smask"])
+        self._load_vectors(state)
+
+    def _load_dense_state(self, state: dict) -> None:
+        """Move the dense state to the device: ``X`` (d_padded, n) for
+        DiSCO-F, (d, n_padded) for DiSCO-S, and the vectors as for the
+        sparse state (without ``smask``: DiSCO-F pads only d). Each shard
+        is a view of ``X``: a block of rows (DiSCO-F) or of columns
+        (DiSCO-S)."""
+        m = self.m
+        self.X = _to_device(state["X"], self.device)
+        if self.cfg.partition == "features":
+            d_loc, rem = divmod(self.X.shape[0], m)
+            self._locs = [self.X[s * d_loc:(s + 1) * d_loc]
+                          for s in range(m)]
+            self._perm = np.arange(self.X.shape[0])
+        else:
+            n_loc, rem = divmod(self.X.shape[1], m)
+            self._locs = [self.X[:, s * n_loc:(s + 1) * n_loc]
+                          for s in range(m)]
+        if rem:
+            raise ValueError(f"X {tuple(self.X.shape)} does not split into "
+                             f"{m} equal shards")
+        self._load_vectors(state)
+
+    def _load_vectors(self, state: dict) -> None:
+        """The vectors and the preconditioner slab, and the step built on
+        the loaded shards."""
+        m = self.m
+        put = lambda a: _to_device(a, self.device)
         self.y_tau = put(state["y_tau"])
         X_tau = put(state["X_tau"])
         if self.cfg.partition == "features":
             self.y = put(state["y"])
-            self.smask = put(state["smask"])
             self.X_tau = X_tau.reshape(m, -1, X_tau.shape[1])
             self._w_shape = (m, X_tau.shape[0] // m)
         else:
@@ -262,40 +341,56 @@ class DiscoSolver:
             self.weights = put(state["weights"]).reshape(m, -1)
             self.X_tau = X_tau
             self._w_shape = (X_tau.shape[0],)
-        self._step = self._build_step_sparse()
+        self._step = self._build_step()
 
     # ------------------------------------------------------------------
-    def _build_step_sparse(self):
-        """The Newton step, every X product routed through the blocked-ELL
-        ops. Returns ``step(w) -> (w_new, stats)``."""
+    def _build_step(self):
+        """The Newton step over the shards ``self._locs``. Margins and
+        gradient go through the blocked-ELL ops (sparse) or
+        ``torch.matmul`` (dense); PCG's HVPs through the local operator
+        of :func:`repro_torch.core.hvp.make_local_operator`. Returns
+        ``step(w) -> (w_new, stats)``."""
         cfg, loss, group = self.cfg, self.loss, self.group
         n, tau, m = self.n, self.tau, self.m
-        ells = [EllPair(self.ell_data[s], self.ell_cols[s],
-                        self.ell_dataT[s], self.ell_colsT[s])
-                for s in range(m)]
+        locs = self._locs
+        if self._sparse:
+            def xt(s, v):                  # X_s^T v
+                return kops.ell_matvec(locs[s].dataT, locs[s].colsT, v)
+
+            def xv(s, v):                  # X_s v
+                return kops.ell_matvec(locs[s].data, locs[s].cols, v)
+        else:
+            def xt(s, v):
+                return locs[s].T @ v
+
+            def xv(s, v):
+                return locs[s] @ v
 
         if cfg.partition == "features":
+            smask = self.smask
+
             def step(w):                                   # w: (m, d_j)
-                margins = group.all_reduce(
-                    [kops.ell_matvec(e.dataT, e.colsT, w[s])
-                     for s, e in enumerate(ells)])
-                d1 = loss.d1(margins, self.y) * self.smask
-                c = loss.d2(margins, self.y) * self.smask
-                g = torch.stack([kops.ell_matvec(e.data, e.cols, d1)
-                                 for e in ells]) / n + cfg.lam * w
+                margins = group.all_reduce([xt(s, w[s]) for s in range(m)])
+                d1 = loss.d1(margins, self.y)
+                c = loss.d2(margins, self.y)
+                vals = loss.value(margins, self.y)
+                if smask is not None:          # ELL-padded samples
+                    d1, c, vals = d1 * smask, c * smask, vals * smask
+                g = torch.stack([xv(s, d1) for s in range(m)]) / n \
+                    + cfg.lam * w
                 gnorm = torch.sqrt(group.all_reduce(
                     [torch.dot(g[s], g[s]) for s in range(m)]))
-                fval = torch.sum(loss.value(margins, self.y) * self.smask) \
-                    / n + 0.5 * cfg.lam * group.all_reduce(
-                        [torch.dot(w[s], w[s]) for s in range(m)])
+                fval = torch.sum(vals) / n + 0.5 * cfg.lam * \
+                    group.all_reduce([torch.dot(w[s], w[s])
+                                      for s in range(m)])
                 coeffs_tau = loss.d2(margins[:tau], self.y_tau)
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_features(
-                    ells, c, n, cfg.lam, g, eps, cfg.max_pcg,
+                    locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
                     coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
                     precond=cfg.precond, X_tau_loc=self.X_tau,
-                    hvp_fused=cfg.hvp_fused)
+                    hvp_fused=cfg.hvp_fused, use_kernel=cfg.use_kernel)
                 w_new = w - res.v / (1.0 + res.delta)
                 return w_new, dict(grad_norm=gnorm, f=fval,
                                    pcg_iters=res.iters, delta=res.delta,
@@ -303,13 +398,11 @@ class DiscoSolver:
 
         else:  # samples
             def step(w):                                   # w: (d_padded,)
-                margins = torch.stack([kops.ell_matvec(e.dataT, e.colsT, w)
-                                       for e in ells])     # (m, n_loc)
-                d1 = loss.d1(margins, self.y) * self.weights
+                margins = torch.stack([xt(s, w) for s in range(m)])
+                d1 = loss.d1(margins, self.y) * self.weights   # (m, n_loc)
                 c = loss.d2(margins, self.y) * self.weights
                 g = group.all_reduce(
-                    [kops.ell_matvec(e.data, e.cols, d1[s])
-                     for s, e in enumerate(ells)]) / n + cfg.lam * w
+                    [xv(s, d1[s]) for s in range(m)]) / n + cfg.lam * w
                 gnorm = torch.sqrt(torch.dot(g, g))
                 fval = group.all_reduce(
                     [torch.sum(loss.value(margins[s], self.y[s])
@@ -319,10 +412,10 @@ class DiscoSolver:
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_samples(
-                    ells, c, n, cfg.lam, g, eps, cfg.max_pcg,
+                    locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
                     X_tau=self.X_tau, coeffs_tau=coeffs_tau, mu=cfg.mu,
                     group=group, precond=cfg.precond,
-                    hvp_fused=cfg.hvp_fused)
+                    hvp_fused=cfg.hvp_fused, use_kernel=cfg.use_kernel)
                 w_new = w - res.v / (1.0 + res.delta)
                 return w_new, dict(grad_norm=gnorm, f=fval,
                                    pcg_iters=res.iters, delta=res.delta,
@@ -409,7 +502,8 @@ def disco_fit(X, y, cfg: DiscoConfig | None = None,
     """One-call convenience wrapper: build a :class:`DiscoSolver`, fit.
 
     Args:
-        X: (d, n) feature-major :class:`CSRMatrix`.
+        X: (d, n) feature-major :class:`CSRMatrix`, or a dense numpy
+            array or tensor.
         y: (n,) labels.
         cfg: solver hyperparameters (defaults: :class:`DiscoConfig`).
         group: the shards (default: one shard).

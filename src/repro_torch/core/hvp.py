@@ -8,12 +8,15 @@ The registry gives every (family, layout, partition, fusion, dtype) cell
 the same supported/unsupported verdict as the JAX package's
 ``repro.core.hvp``; :func:`resolve_cell` turns an unsupported combination
 into an :class:`UnsupportedHvpError` naming the cell. The port implements
-the blocked-ELL layout (:class:`EllOperator`); the dense layouts are not
-yet ported and raise.
+the dense layouts (:class:`DenseOperator`, plain ``torch.matmul``;
+:class:`DenseKernelOperator`, the dense kernels) and the blocked-ELL one
+(:class:`EllOperator`); the streamed layout is not yet ported.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 from repro_torch.data.sparse import EllPair
 from repro_torch.kernels import ops as kops
@@ -157,6 +160,53 @@ class HvpOperator:
         return self.pass_b(self.pass_a(u))
 
 
+class DenseOperator(HvpOperator):
+    """Dense layout in plain ``torch.matmul`` (two-pass only; no kernel)."""
+
+    layout = "dense"
+
+    def __init__(self, X, coeffs):
+        self.X = X
+        self.coeffs = coeffs
+
+    def pass_a(self, u):
+        """``X^T u`` via a dense matvec."""
+        return self.X.T @ u
+
+    def pass_b(self, z):
+        """``X (c .* z)``; with no coefficients, plain ``X z``."""
+        if self.coeffs is None:
+            return self.X @ z
+        return self.X @ (self.coeffs * z)
+
+
+class DenseKernelOperator(HvpOperator):
+    """Dense layout through the dense GLM kernels (``xt_u``, ``x_cz``);
+    ``fused=True`` selects the one-pass ``x_c_xt_u`` for the full
+    product."""
+
+    layout = "dense_kernel"
+
+    def __init__(self, X, coeffs, fused=False):
+        self.X = X
+        self.coeffs = coeffs
+        self.fused = bool(fused)
+
+    def pass_a(self, u):
+        """``X^T u`` via the ``xt_u`` kernel."""
+        return kops.xt_u(self.X, u)
+
+    def pass_b(self, z):
+        """``X (c .* z)`` via the ``x_cz`` kernel, the scale fused."""
+        return kops.x_cz_local(self.X, self.coeffs, z)
+
+    def apply(self, u):
+        """Full product; the one-pass fused kernel when built fused."""
+        if self.fused:
+            return kops.x_c_xt_u(self.X, self.coeffs, u)
+        return self.pass_b(self.pass_a(u))
+
+
 class EllOperator(HvpOperator):
     """Blocked-ELL sparse layout; the pair carries forward + transposed
     tilings, and ``fused=True`` completes both directions from the
@@ -190,13 +240,16 @@ def make_local_operator(X_loc, coeffs, *, use_kernel: bool = False,
                         fused: bool = False,
                         partition: str = "samples") -> HvpOperator:
     """Build the local HVP operator for one shard — the one dispatch point
-    the PCG loops use. An :class:`EllPair` selects :class:`EllOperator`;
-    dense layouts are not yet ported and raise."""
+    the PCG loops use. An :class:`EllPair` selects :class:`EllOperator`; a
+    dense ``(d_loc, n_loc)`` tensor selects :class:`DenseKernelOperator`
+    with ``use_kernel``, else :class:`DenseOperator`."""
     if isinstance(X_loc, EllPair):
         resolve_cell("binary", "ell", partition, fused)
         return EllOperator(X_loc, coeffs, fused=fused)
+    if not isinstance(X_loc, torch.Tensor) or X_loc.dim() != 2:
+        raise TypeError("X_loc must be an EllPair or a 2-D tensor")
     layout = "dense_kernel" if use_kernel else "dense"
     resolve_cell("binary", layout, partition, fused)
-    raise UnsupportedHvpError(
-        f"HVP dispatch cell {cell_id('binary', layout, partition, fused, 'float32')} "
-        "is not yet ported to repro_torch (only the blocked-ELL layout is)")
+    if use_kernel:
+        return DenseKernelOperator(X_loc, coeffs, fused=fused)
+    return DenseOperator(X_loc, coeffs)

@@ -21,7 +21,7 @@ device sync per PCG iteration.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
@@ -29,6 +29,10 @@ from repro_torch.core.hvp import make_local_operator
 from repro_torch.core.preconditioner import WoodburyPreconditioner
 from repro_torch.data.sparse import EllPair
 from repro_torch.parallel.collectives import InProcessGroup
+
+# one shard's data: a blocked-ELL pair, or a dense (d_loc, n_loc) tensor
+# (a view into the solver's whole matrix)
+Shard = Union[EllPair, torch.Tensor]
 
 
 class PCGResult(NamedTuple):
@@ -95,9 +99,8 @@ def _features_precond(precond, X_tau_loc, coeffs_tau, lam, mu):
     """Block-diagonal P^{[j]} per shard from its rows ``X_tau_loc[j]``."""
     if precond == "woodbury":
         if X_tau_loc is None:
-            raise ValueError("sparse pcg_features needs the dense "
-                             "X_tau_loc slab for the Woodbury "
-                             "preconditioner")
+            raise ValueError("pcg_features needs the dense X_tau_loc slab "
+                             "for the Woodbury preconditioner")
         blocks = [WoodburyPreconditioner.build_blockdiag(
             X_tau_loc[s], coeffs_tau, lam, mu)
             for s in range(X_tau_loc.shape[0])]
@@ -112,25 +115,29 @@ def _features_precond(precond, X_tau_loc, coeffs_tau, lam, mu):
 # Algorithm 2 — DiSCO-S (sample partitioning)
 # ---------------------------------------------------------------------------
 
-def pcg_samples(X_locs: Sequence[EllPair], coeffs_loc, n_global, lam, g,
+def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
                 eps, max_iter, X_tau=None, coeffs_tau=None, mu=0.0,
                 group: InProcessGroup | None = None, precond="woodbury",
-                block_s=1, hvp_fused=False):
+                block_s=1, hvp_fused=False, use_kernel=False):
     """Classic PCG of DiSCO-S over the shards of ``group``.
 
-    X_locs     : one :class:`EllPair` per shard (its sample columns)
+    X_locs     : per shard, its sample columns: an :class:`EllPair`, or a
+                 dense (d, n_loc) tensor
     coeffs_loc : (m, n_loc) phi'' at w_k, one row per shard
     g          : (d,) replicated gradient
     X_tau      : (d, tau) replicated preconditioner samples
     precond    : 'woodbury' | 'none'
-    hvp_fused  : every local product runs the one-pass ``ell_hvp``
-                 (the sample-partitioned product completes both
-                 directions before the all-reduce)
+    hvp_fused  : every local product runs the one-pass kernel
+                 (``ell_hvp`` or ``x_c_xt_u``: the sample-partitioned
+                 product completes both directions before the all-reduce)
+    use_kernel : dense shards go through the dense kernels (else plain
+                 ``torch.matmul``); ignored for ELL shards
     """
     _check_classic(block_s)
     group = group or InProcessGroup(len(X_locs))
     n_global = torch.tensor(float(n_global), dtype=g.dtype, device=g.device)
-    ops = [make_local_operator(X_locs[s], coeffs_loc[s], fused=hvp_fused,
+    ops = [make_local_operator(X_locs[s], coeffs_loc[s],
+                               use_kernel=use_kernel, fused=hvp_fused,
                                partition="samples")
            for s in range(group.size)]
 
@@ -146,27 +153,32 @@ def pcg_samples(X_locs: Sequence[EllPair], coeffs_loc, n_global, lam, g,
 # Algorithm 3 — DiSCO-F (feature partitioning)
 # ---------------------------------------------------------------------------
 
-def pcg_features(X_locs: Sequence[EllPair], coeffs, n_global, lam, g_loc,
+def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
                  eps, max_iter, coeffs_tau=None, mu=0.0,
                  group: InProcessGroup | None = None, precond="woodbury",
-                 block_s=1, X_tau_loc=None, hvp_fused=False):
+                 block_s=1, X_tau_loc=None, hvp_fused=False,
+                 use_kernel=False):
     """Classic PCG of DiSCO-F over the shards of ``group``.
 
-    X_locs    : one :class:`EllPair` per shard (its feature rows)
+    X_locs    : per shard, its feature rows: an :class:`EllPair`, or a
+                dense (d_j, n) tensor
     coeffs    : (n,) phi'' at w_k, replicated
     g_loc     : (m, d_j) gradient, one row per shard
     X_tau_loc : (m, d_j, tau) dense shard rows of the preconditioner
                 samples
     hvp_fused : on a one-shard group the whole HVP runs the one-pass
-                ``ell_hvp``; with more shards the n-vector all-reduce
-                separates the passes, so they stay two-pass
+                kernel (``ell_hvp`` or ``x_c_xt_u``); with more shards the
+                n-vector all-reduce separates the passes, so they stay
+                two-pass
+    use_kernel: dense shards go through the dense kernels (else plain
+                ``torch.matmul``); ignored for ELL shards
     """
     _check_classic(block_s)
     group = group or InProcessGroup(len(X_locs))
     n_global = torch.tensor(float(n_global), dtype=g_loc.dtype,
                             device=g_loc.device)
-    ops = [make_local_operator(X_locs[s], coeffs, fused=hvp_fused,
-                               partition="features")
+    ops = [make_local_operator(X_locs[s], coeffs, use_kernel=use_kernel,
+                               fused=hvp_fused, partition="features")
            for s in range(group.size)]
     fuse_full = hvp_fused and group.size == 1
 

@@ -1,19 +1,9 @@
 // Device helpers shared by the blocked-ELL kernels (ell_mv.cu, ell_hvp.cu).
 #pragma once
 
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace ell {
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  return s;
-}
 
 // part[r * 32 + lane] += sum_b tile[r, b] * vec[b] for the rows r of this
 // warp (r = warp, warp + nwarps, ...). tile is (rows, cols) row-major in
@@ -46,14 +36,6 @@ __device__ __forceinline__ void tile_rows_dot(const float* __restrict__ tile,
     }
     part[r * 32 + lane] += acc;
   }
-}
-
-// Dynamic shared memory above 48 KB must be opted into per kernel.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 }  // namespace ell

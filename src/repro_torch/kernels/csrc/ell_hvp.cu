@@ -66,7 +66,7 @@ __global__ void ell_hvp_kernel(const float* __restrict__ dataT,
                              warp, nwarps);
   }
   for (int a = warp; a < bc; a += nwarps) {
-    const float s = ell::warp_sum(part[a * 32 + lane]);
+    const float s = kern::warp_sum(part[a * 32 + lane]);
     if (lane == 0) cz[a] = HAS_C ? __ldg(c + j * bc + a) * s : s;
   }
   __syncthreads();
@@ -128,7 +128,7 @@ cudaError_t launch(const float* dataT, const int* colsT, const float* u,
                        static_cast<size_t>(G) * br) *
                       sizeof(float);
   auto kernel = ell_hvp_kernel<VEC4, HAS_C>;
-  cudaError_t err = ell::allow_smem(kernel, smem);
+  cudaError_t err = kern::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<ncb, threads, smem, stream>>>(dataT, colsT, u, c, y, WT, bc, br,
                                          nrb, G);

@@ -59,7 +59,7 @@ __global__ void ell_mv_kernel(const float* __restrict__ data,
   }
 
   for (int r = warp; r < br; r += nwarps) {
-    const float s = ell::warp_sum(part[r * 32 + lane]);
+    const float s = kern::warp_sum(part[r * 32 + lane]);
     if (lane == 0) y[i * br + r] = s;
   }
 }
@@ -71,7 +71,7 @@ cudaError_t launch(const float* data, const int* cols, const float* v,
   const size_t smem = (static_cast<size_t>(bc) + 32 * static_cast<size_t>(br)) *
                       sizeof(float);
   auto kernel = ell_mv_kernel<VEC4, HAS_C>;
-  cudaError_t err = ell::allow_smem(kernel, smem);
+  cudaError_t err = kern::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<nb, threads, smem, stream>>>(data, cols, v, c, y, W, br, bc, ncb);
   return cudaGetLastError();

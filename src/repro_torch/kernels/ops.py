@@ -1,14 +1,20 @@
-"""Public blocked-ELL ops, dispatched by the device of their tensors.
+"""Public HVP ops, dense and blocked-ELL, dispatched by the device of their
+tensors.
 
 CUDA tensors go to the hand-written kernels of
-:mod:`repro_torch.kernels.sparse_hvp` (a failed launch raises); CPU tensors
-go to the plain versions of :mod:`repro_torch.kernels.ref`. There is no
-switch that routes CUDA tensors to the plain versions.
+:mod:`repro_torch.kernels.glm_hvp` (dense) and
+:mod:`repro_torch.kernels.sparse_hvp` (blocked ELL); a failed launch
+raises. CPU tensors go to the plain versions of
+:mod:`repro_torch.kernels.ref`. There is no switch that routes CUDA
+tensors to the plain versions. The dense ops port ``repro/kernels/ops.py``
+without its per-call padding: the kernels take ragged shapes and strided
+row-major views as they are.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import glm_hvp as _dense
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_hvp as _sparse
 
@@ -21,6 +27,59 @@ def _on_cuda(*tensors) -> bool:
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {kind!r}")
     return kind == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# dense GLM HVP
+# ---------------------------------------------------------------------------
+
+def glm_hvp(X, c, u, lam, *, fused=False):
+    """H u = X diag(c) X^T u / n + lam u through the dense kernels.
+
+    ``fused=True`` takes the one-pass :func:`x_c_xt_u`; otherwise pass A
+    (:func:`xt_u`) then pass B (:func:`x_cz_local`).
+    """
+    y = x_c_xt_u(X, c, u) if fused else x_cz_local(X, c, xt_u(X, u))
+    return y / X.shape[1] + lam * u
+
+
+def xt_u(X, u):
+    """z = X^T u (pass A only — what DiSCO-F all-reduces).
+    X (d, n), u (d,) -> z (n,) f32."""
+    if _on_cuda(X, u):
+        return _dense.xt_u(X, u)
+    return _ref.ref_xt_u(X, u)
+
+
+def x_cz_local(X, c, z):
+    """y = X (c .* z) (pass B only; the scale is fused in the kernel).
+    X (d, n), c (optional) and z (n,) -> y (d,) f32."""
+    if _on_cuda(X, c, z):
+        return _dense.x_cz(X, c, z)
+    return _ref.ref_x_cz(X, z if c is None else c * z)
+
+
+def x_c_xt_u(X, c, u):
+    """y = X (c .* (X^T u)) in one streaming pass over X.
+
+    Legal wherever no collective separates the two passes (every DiSCO-S
+    local product, single-shard DiSCO-F). On the card it is the fused
+    kernel when its panel fits shared memory
+    (:func:`repro_torch.kernels.glm_hvp.fused_panel_width`), else the
+    two-pass route: the ``xt_u`` kernel, then ``x_cz``.
+    """
+    if _on_cuda(X, c, u):
+        if _dense.fused_panel_width(X.shape[0]) is not None:
+            return _dense.x_c_xt_u(X, c, u)
+        return _dense.x_cz(X, c, _dense.xt_u(X, u))
+    if c is None:
+        return _ref.ref_x_cz(X, _ref.ref_xt_u(X, u))
+    return _ref.ref_x_c_xt_u(X, c, u)
+
+
+# ---------------------------------------------------------------------------
+# blocked-ELL sparse HVP
+# ---------------------------------------------------------------------------
 
 
 def ell_matvec(data, cols, v, c=None, *, out_dtype=torch.float32):

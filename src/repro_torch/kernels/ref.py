@@ -1,15 +1,40 @@
-"""Plain PyTorch versions of the blocked-ELL kernels (the contract).
+"""Plain PyTorch versions of the hand-written kernels (the contract).
 
-Each ``ref_*`` computes what its CUDA kernel in
-:mod:`repro_torch.kernels.sparse_hvp` computes, with the JAX package's
-oracle contract: padding slots (``cols = 0``, zero tile) gather the real
-vector block 0 and multiply it by zeros, products accumulate in f32, and
-the result is ``out_dtype`` (f32 by default). The CPU tests run these;
-``chip_smoke.py`` holds the kernels against them on the card.
+Each ``ref_*`` computes what its CUDA kernel computes, with the JAX
+package's oracle contract (``repro/kernels/ref.py``):
+
+* dense GLM HVP (:mod:`repro_torch.kernels.glm_hvp`): ``ref_xt_u``,
+  ``ref_x_cz`` and ``ref_x_c_xt_u``;
+* blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
+  (``cols = 0``, zero tile) gather the real vector block 0 and multiply
+  it by zeros, products accumulate in f32, and the result is
+  ``out_dtype`` (f32 by default).
+
+The CPU tests and the port's CPU path run these; ``chip_smoke.py`` holds
+the kernels against them on the card.
 """
 from __future__ import annotations
 
 import torch
+
+
+def ref_xt_u(X, u):
+    """z = X^T u   (DiSCO-F's one communicated n-vector, pre-all-reduce)."""
+    return X.T @ u
+
+
+def ref_x_cz(X, cz):
+    """y = X @ cz  (second half of the HVP chain; the kernel fuses c)."""
+    return X @ cz
+
+
+def ref_x_c_xt_u(X, c, u):
+    """Fused one-pass HVP core  y = X (c .* (X^T u)).
+
+    Exactly the two-pass chain ``ref_x_cz(X, c * ref_xt_u(X, u))``: the
+    fused kernel changes the dataflow (one read of X), not the math.
+    """
+    return ref_x_cz(X, c * ref_xt_u(X, u))
 
 
 def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32):

@@ -117,10 +117,42 @@ def test_cell_registry_matches_jax():
 
 
 def test_dense_layout_not_yet_ported():
+    """The dense layouts build their operators now; what the dense path
+    still lacks (bf16 tiles, s-step PCG) raises "not yet ported", and the
+    plain dense layout has no fused kernel, as in the reference."""
+    from repro_torch import DiscoConfig, DiscoSolver
     X = torch.zeros((8, 8))
-    for use_kernel in (False, True):
-        with pytest.raises(thvp.UnsupportedHvpError, match="not yet ported"):
-            thvp.make_local_operator(X, None, use_kernel=use_kernel)
+    assert isinstance(thvp.make_local_operator(X, None),
+                      thvp.DenseOperator)
+    assert isinstance(thvp.make_local_operator(X, None, use_kernel=True),
+                      thvp.DenseKernelOperator)
+    with pytest.raises(thvp.UnsupportedHvpError, match="use_kernel=True"):
+        thvp.make_local_operator(X, None, fused=True)
+    for override in (dict(hvp_dtype="bfloat16"), dict(pcg_block_s=2)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
+                        DiscoConfig(use_kernel=True, **override),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("use_kernel,fused",
+                         [(False, False), (True, False), (True, True)])
+def test_dense_operators_match_jax(use_kernel, fused):
+    rng = np.random.default_rng(4)
+    X = (rng.standard_normal((40, 70)) / np.sqrt(40)).astype(np.float32)
+    c = rng.uniform(0, 0.25, 70).astype(np.float32)
+    u = rng.standard_normal(40).astype(np.float32)
+    z = rng.standard_normal(70).astype(np.float32)
+    jop = jhvp.make_local_operator(jnp.asarray(X), jnp.asarray(c),
+                                   use_kernel=use_kernel, fused=fused)
+    top = thvp.make_local_operator(T(X), T(c), use_kernel=use_kernel,
+                                   fused=fused)
+    assert type(top).__name__ == type(jop).__name__
+    assert top.layout == jop.layout and top.fused == fused
+    for name, arg in (("pass_a", u), ("pass_b", z), ("apply", u)):
+        np.testing.assert_allclose(getattr(top, name)(T(arg)).numpy(),
+                                   np.asarray(getattr(jop, name)(arg)),
+                                   rtol=1e-5, atol=1e-6)
 
 
 def _pair(block=16, seed=0):

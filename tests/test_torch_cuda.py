@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import DiscoConfig, disco_fit
+from repro_torch import DiscoConfig, InProcessGroup, disco_fit
 from repro_torch.data.sparse import ell_from_csr, make_sparse_glm_data
-from repro_torch.kernels import ops, ref, sparse_hvp
+from repro_torch.data.synthetic import make_glm_data
+from repro_torch.kernels import build, glm_hvp, ops, ref, sparse_hvp
 
 pytestmark = pytest.mark.cuda
 
@@ -78,13 +79,14 @@ def test_cuda_ell_hvp_matches_plain(dev, block, with_c):
 def test_cuda_ops_launch_the_kernels(dev):
     fwd, tr = _layouts(16)
     T = lambda a: torch.from_numpy(a).to(dev)
-    sparse_hvp.reset_launch_counts()
+    build.reset_launch_counts()
     ops.ell_matvec(T(fwd.data), T(fwd.cols),
                    torch.ones(fwd.n_col_blocks * 16, device=dev))
     ops.ell_hvp(T(tr.data), T(tr.cols),
                 torch.ones(fwd.n_row_blocks * 16, device=dev),
                 fwd=(T(fwd.data), T(fwd.cols)))
-    assert sparse_hvp.launch_counts() == {"ell_mv": 1, "ell_hvp": 1}
+    assert build.launch_counts() == {"ell_mv": 1, "ell_hvp": 1, "xt_u": 0,
+                                     "x_cz": 0, "x_c_xt_u": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -102,3 +104,92 @@ def test_cuda_disco_fit_matches_cpu(dev, partition, fused):
     np.testing.assert_allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6)
     assert [h["pcg_iters"] for h in on_card.history] == \
         [h["pcg_iters"] for h in on_cpu.history]
+
+
+# ---------------------------------------------------------------------------
+# dense GLM HVP kernels
+# ---------------------------------------------------------------------------
+
+# ragged shapes (n % 4 != 0 takes the scalar loads), a multiple-of-4 one
+# (16-byte loads), and a d past the fused kernel's widest panel (bn = 16)
+DENSE_SHAPES = [(200, 300), (131, 77), (64, 4099), (2000, 2048)]
+
+
+def _dense(dev, d, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((d, n), generator=g, device=dev) / d ** 0.5
+    u = torch.randn(d, generator=g, device=dev)
+    z = torch.randn(n, generator=g, device=dev)
+    c = torch.rand(n, generator=g, device=dev)
+    return X, u, z, c
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("with_c", [False, True])
+def test_cuda_dense_kernels_match_plain(dev, shape, with_c):
+    X, u, z, c = _dense(dev, *shape, seed=sum(shape))
+    c = c if with_c else None
+    cz = z if c is None else c * z
+    cases = [(glm_hvp.xt_u(X, u), ref.ref_xt_u(X, u)),
+             (glm_hvp.x_cz(X, c, z), ref.ref_x_cz(X, cz)),
+             (glm_hvp.x_c_xt_u(X, c, u),
+              ref.ref_x_cz(X, ref.ref_xt_u(X, u) * (1 if c is None else c)))]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("block_n", glm_hvp.PANEL_WIDTHS)
+def test_cuda_fused_every_panel_width(dev, block_n):
+    X, u, _, c = _dense(dev, 300, 1001, seed=block_n)
+    got = glm_hvp.x_c_xt_u(X, c, u, _block_n=block_n)
+    assert _rel(got, ref.ref_x_c_xt_u(X, c, u)) <= 1e-5
+    again = glm_hvp.x_c_xt_u(X, c, u, _block_n=block_n)
+    assert torch.equal(got, again)          # no atomics: repeatable
+
+
+def test_cuda_dense_kernels_take_column_slices(dev):
+    """A DiSCO-S shard is a column slice (a strided view) of X."""
+    X, u, z, c = _dense(dev, 96, 1024, seed=3)
+    view = X[:, 256:512]
+    cs, zs = c[256:512], z[256:512]
+    for kernel, plain in (
+            (lambda A: glm_hvp.xt_u(A, u), lambda A: ref.ref_xt_u(A, u)),
+            (lambda A: glm_hvp.x_cz(A, cs, zs),
+             lambda A: ref.ref_x_cz(A, cs * zs)),
+            (lambda A: glm_hvp.x_c_xt_u(A, cs, u),
+             lambda A: ref.ref_x_c_xt_u(A, cs, u))):
+        assert _rel(kernel(view), plain(view.contiguous())) <= 1e-5
+
+
+def test_cuda_dense_ops_launch_the_kernels(dev):
+    X, u, z, c = _dense(dev, 64, 256, seed=4)
+    build.reset_launch_counts()
+    ops.xt_u(X, u)
+    ops.x_cz_local(X, c, z)
+    ops.x_c_xt_u(X, c, u)
+    big = torch.zeros((12_000, 8), device=dev)   # past the fit rule
+    ops.x_c_xt_u(big, None, torch.zeros(12_000, device=dev))
+    assert build.launch_counts() == {"ell_mv": 0, "ell_hvp": 0, "xt_u": 2,
+                                     "x_cz": 2, "x_c_xt_u": 1}
+
+
+@pytest.mark.parametrize("partition", ["samples", "features"])
+@pytest.mark.parametrize("m,fused", [(1, False), (1, True), (4, False)])
+def test_cuda_dense_disco_fit_matches_cpu(dev, partition, m, fused):
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                      grad_tol=0.0, partition=partition, use_kernel=True,
+                      hvp_fused=fused)
+    build.reset_launch_counts()
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    np.testing.assert_allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6)
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    if fused and (partition == "samples" or m == 1):
+        assert counts["x_c_xt_u"] > 0 and counts["xt_u"] == 0
+    else:
+        assert counts["xt_u"] > 0 and counts["x_cz"] > 0

@@ -166,10 +166,17 @@ def test_unported_options_raise(override):
 
 
 def test_dense_input_and_checkpoint_raise():
+    """Dense input fits now (it raised before the dense path was ported;
+    tests/test_torch_dense.py holds it to the reference): the same matrix
+    dense and sparse gives the same w within rounding. Checkpointing
+    still raises "not yet ported"."""
     X, y, Xt = _data()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        disco_fit(X.todense(), y, DiscoConfig(**KW), device="cpu")
-    solver = DiscoSolver(Xt, y, DiscoConfig(**KW), device="cpu")
+    cfg = DiscoConfig(**KW)
+    dense = disco_fit(X.todense(), y, cfg, device="cpu")
+    sparse = disco_fit(Xt, y, cfg, device="cpu")
+    np.testing.assert_allclose(dense.w, sparse.w, rtol=RTOL, atol=ATOL)
+    assert dense.partition_info is None
+    solver = DiscoSolver(Xt, y, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         solver.fit(checkpoint_dir="ckpt")
 

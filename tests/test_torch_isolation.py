@@ -18,16 +18,27 @@ SCRIPT = textwrap.dedent("""
     sys.modules["jax"] = None          # any import of jax now fails
     import numpy as np
     import repro_torch
-    from repro_torch import (CSRMatrix, DiscoConfig, InProcessGroup,
-                             disco_fit, make_sparse_glm_data)
+    from repro_torch import (CSRMatrix, DiscoConfig, GLMProblem,
+                             InProcessGroup, disco_fit, make_glm_data,
+                             make_sparse_glm_data)
     import repro_torch.convert, repro_torch.kernels.sparse_hvp
+    import repro_torch.kernels.glm_hvp, repro_torch.kernels.build
     X, y, _ = make_sparse_glm_data(d=48, n=80, density=0.2, seed=0)
+    Xd, yd, _ = make_glm_data(d=30, n=50, seed=0)
     for partition in ("samples", "features"):
         r = disco_fit(X, y, DiscoConfig(partition=partition, tau=16,
                                         max_outer=2, ell_block_d=8,
                                         ell_block_n=8),
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.w.shape == (48,)
+        r = disco_fit(Xd, yd, DiscoConfig(partition=partition, tau=16,
+                                          max_outer=2, use_kernel=True,
+                                          hvp_fused=True),
+                      group=InProcessGroup(2), device="cpu")
+        assert np.isfinite(r.w).all() and r.w.shape == (30,)
+        assert r.grad_norms[-1] < r.grad_norms[0]
+    import torch
+    assert GLMProblem.create(Xd, yd, device="cpu").grad(torch.zeros(30)).shape == (30,)
     leaked = sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro."))
     assert not leaked, leaked

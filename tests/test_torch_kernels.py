@@ -1,11 +1,13 @@
-"""The port's blocked-ELL ops against the JAX package's kernels.
+"""The port's HVP ops, blocked-ELL and dense, against the JAX package's
+kernels.
 
 Same numpy layouts and vectors through ``repro.kernels.ops`` (the Pallas
 kernels, in interpret mode as the suite's conftest sets) and
 ``repro_torch.kernels.ops`` on CPU tensors, which run the plain PyTorch
-versions. Tolerance rtol=1e-5, atol=1e-6: f32 sums taken in another
-order. The CUDA kernels themselves run only on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+versions. Tolerance: rtol=1e-5 with atol=1e-6 (ELL) or 1e-5 (dense, whose
+sums run over up to 300 terms): f32 sums taken in another order. The CUDA
+kernels themselves run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ import torch
 
 from repro.data.sparse import ell_from_csr, make_sparse_glm_data
 from repro.kernels import ops as jops
+from repro_torch.data.synthetic import make_glm_data
+from repro_torch.kernels import build, glm_hvp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_hvp
 
@@ -96,13 +100,18 @@ def test_ell_hvp_fwd_replays_two_pass_exactly():
 
 
 def test_cpu_calls_launch_no_kernel():
-    sparse_hvp.reset_launch_counts()
+    build.reset_launch_counts()
     fwd, tr = _layouts(8)
     T = torch.from_numpy
     tops.ell_matvec(T(fwd.data), T(fwd.cols),
                     torch.ones(fwd.n_col_blocks * 8))
     tops.ell_hvp(T(tr.data), T(tr.cols), torch.ones(fwd.n_row_blocks * 8))
-    assert sparse_hvp.launch_counts() == {"ell_mv": 0, "ell_hvp": 0}
+    X = torch.ones((6, 10))
+    tops.xt_u(X, torch.ones(6))
+    tops.x_cz_local(X, torch.ones(10), torch.ones(10))
+    tops.x_c_xt_u(X, torch.ones(10), torch.ones(6))
+    assert build.launch_counts() == {"ell_mv": 0, "ell_hvp": 0, "xt_u": 0,
+                                     "x_cz": 0, "x_c_xt_u": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -116,6 +125,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sparse_hvp.ell_hvp(T(tr.data), T(tr.cols),
                            torch.ones(fwd.n_row_blocks * 8))
+    X = torch.ones((6, 10))
+    for call in (lambda: glm_hvp.xt_u(X, torch.ones(6)),
+                 lambda: glm_hvp.x_cz(X, None, torch.ones(10)),
+                 lambda: glm_hvp.x_c_xt_u(X, None, torch.ones(6))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
 
 
 def test_ops_refuse_other_devices():
@@ -130,10 +145,123 @@ def test_ops_refuse_other_devices():
 
 
 def test_kernel_sources_and_build_target():
-    for k in sparse_hvp.KERNELS:
+    assert [k.name for k in build.KERNELS] == [
+        "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u"]
+    for k in build.KERNELS:
         assert k.source.is_file()
-        assert k.library_path().parent == sparse_hvp.BUILD_DIR
-    assert "arch=compute_90a,code=sm_90a" in sparse_hvp.NVCC_FLAGS
+        assert k.library_path().parent == build.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # each library is named by its source and the headers it includes
+    names = lambda k: [p.name for p in build.local_includes(k.source)]
+    assert names(build.ELL_MV) == ["ell_common.cuh", "common.cuh"]
+    assert names(build.X_CZ) == ["common.cuh"]
+    assert names(build.XT_U) == ["partials.cuh", "common.cuh"]
     # the build directory is ignored by git
-    gitignore = sparse_hvp.BUILD_DIR.parents[1] / ".gitignore"
+    gitignore = build.BUILD_DIR.parents[1] / ".gitignore"
     assert "build/" in gitignore.read_text().split()
+
+
+# ---------------------------------------------------------------------------
+# dense GLM HVP ops
+# ---------------------------------------------------------------------------
+
+DENSE_RTOL, DENSE_ATOL = 1e-5, 1e-5
+DENSE_SHAPES = [(200, 300), (131, 77)]      # ragged against every block
+DENSE_CASES = [("xt_u", False), ("x_cz_local", False), ("x_cz_local", True),
+               ("x_c_xt_u", False), ("x_c_xt_u", True)]
+
+
+def _dense_inputs(d, n, seed):
+    """The solver's kind of data: power-law features, unit-norm columns."""
+    X, _, _ = make_glm_data(d, n, seed=seed)
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(d).astype(np.float32)
+    z = rng.standard_normal(n).astype(np.float32)
+    c = rng.uniform(0.0, 0.25, n).astype(np.float32)
+    return X, u, z, c
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("case", DENSE_CASES, ids=lambda c: f"{c[0]}-c{c[1]}")
+def test_dense_ops_match_jax(shape, case):
+    """xt_u, x_cz_local and x_c_xt_u at ragged shapes (the JAX wrappers pad
+    to 512 blocks; the port does not pad), with and without the scale c
+    (JAX's ops always take one: ones stand for none)."""
+    op, with_c = case
+    X, u, z, c = _dense_inputs(*shape, seed=sum(shape))
+    T = torch.from_numpy
+    c_j = c if with_c else np.ones_like(c)
+    c_t = T(c) if with_c else None
+    if op == "xt_u":
+        ref, got = jops.xt_u(X, u), tops.xt_u(T(X), T(u))
+    elif op == "x_cz_local":
+        ref = jops.x_cz_local(X, c_j, z)
+        got = tops.x_cz_local(T(X), c_t, T(z))
+    else:
+        ref = jops.x_c_xt_u(X, c_j, u)
+        got = tops.x_c_xt_u(T(X), c_t, T(u))
+    assert got.dtype == torch.float32
+    assert got.shape == np.shape(ref)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=DENSE_RTOL, atol=DENSE_ATOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_dense_glm_hvp_matches_jax(fused):
+    X, u, _, c = _dense_inputs(200, 300, seed=5)
+    T = torch.from_numpy
+    ref = jops.glm_hvp(X, c, u, 1e-3, fused=fused)
+    got = tops.glm_hvp(T(X), T(c), T(u), 1e-3, fused=fused)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=DENSE_RTOL, atol=DENSE_ATOL)
+
+
+def test_dense_ops_take_strided_views():
+    """A DiSCO-S shard is a column slice of the whole matrix: the ops take
+    it as a view and give what they give on a copy."""
+    X, u, _, c = _dense_inputs(40, 96, seed=2)
+    Xt = torch.from_numpy(X)
+    view = Xt[:, 32:64]
+    assert not view.is_contiguous()
+    cs, ut = torch.from_numpy(c[32:64]), torch.from_numpy(u)
+    for f in (lambda A: tops.xt_u(A, ut),
+              lambda A: tops.x_cz_local(A, cs, torch.ones(32)),
+              lambda A: tops.x_c_xt_u(A, cs, ut)):
+        assert torch.equal(f(view), f(view.contiguous()))
+
+
+def test_fused_fit_rule():
+    """The fused kernel's panel fits one CTA's shared memory: 8 columns
+    at d = 4096, none past d of about 11,000."""
+    assert glm_hvp.fused_panel_width(4096) == 8
+    assert glm_hvp.fused_panel_width(1024) == 32
+    assert glm_hvp.fused_panel_width(11_000) == 4
+    assert glm_hvp.fused_panel_width(12_000) is None
+    for d in (1, 200, 4096, 11_000):
+        bn = glm_hvp.fused_panel_width(d)
+        assert glm_hvp.fused_smem_bytes(d, bn) <= glm_hvp.SMEM_LIMIT
+    assert glm_hvp.fused_smem_bytes(4096, 8) == 4 * (4096 * 9 + 33 * 8)
+
+
+def test_fused_op_routes_past_the_fit_rule(monkeypatch):
+    """On the card, a panel that does not fit takes the two-pass route
+    through the xt_u and x_cz kernels, never a plain version."""
+    calls = []
+    monkeypatch.setattr(tops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(glm_hvp, "xt_u",
+                        lambda X, u: calls.append("xt_u") or X.T @ u)
+    monkeypatch.setattr(glm_hvp, "x_cz",
+                        lambda X, c, z: calls.append("x_cz") or X @ (c * z))
+    monkeypatch.setattr(glm_hvp, "x_c_xt_u",
+                        lambda X, c, u: calls.append("x_c_xt_u"))
+    for d in (4096, 12_000):
+        X = torch.zeros((d, 3))
+        tops.x_c_xt_u(X, torch.ones(3), torch.ones(d))
+    assert calls == ["x_c_xt_u", "xt_u", "x_cz"]
+
+
+def test_xt_u_slices_fill_the_card():
+    assert glm_hvp.xt_u_slices(4096, 262_144, 132) == 5
+    assert glm_hvp.xt_u_slices(4096, 4 * 256 * 1056, 132) == 1
+    assert glm_hvp.xt_u_slices(100, 10, 132) == 2     # 64 rows at least
