@@ -7,31 +7,44 @@ Usage, from the repository root on a machine with one Hopper card:
 
 Five phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the five hand-written CUDA kernels from
+1. Build: compiles the nine hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
    all at once) and prints the card's name and power limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card (relative L2 error <= 1e-5 in f32): ``ell_mv`` and ``ell_hvp`` at
    8x8, 16x16 and 128x128 tiles on layouts with padding slots; ``xt_u``,
    ``x_cz`` and ``x_c_xt_u`` at ragged dense shapes and every panel width;
-   each with and without the scale ``c``. Then a small sparse and a small
-   dense solve on the card against the same solves on the CPU.
+   each with and without the scale ``c``; the multi-vector ``ell_mm``,
+   ``ell_hvp_mm`` (also against the two-pass ``ell_mm`` pair),
+   ``xt_multi`` and ``x_cz_multi`` at s = 1, 2, 4, 5 and 8 columns, on
+   contiguous and strided blocks. The s-step Gram solve is timed on the
+   card and on the CPU. Then small sparse and dense solves, classic and
+   s-step, on the card against the same solves on the CPU.
 3. Sparse slice: ``disco_fit`` at the shape of LIBSVM rcv1.binary's
    training split (d = 47,236 features, n = 20,242 samples, about 1.5 M
    nonzeros, synthetic power-law data from a seed): DiSCO-S and DiSCO-F
    at m = 1 and m = 4 shards, two-pass, plus the fused HVP for both at
-   m = 1. On the first run's layouts ``ell_mv`` and ``ell_hvp`` are timed
-   beside their plain versions and PyTorch's block-sparse (BSR) product,
-   and a full-width gradient and HVP are held against the plain versions;
-   a second fit of the first run is profiled.
+   m = 1. On the first run's layouts ``ell_mv``, ``ell_hvp``, ``ell_mm``
+   and ``ell_hvp_mm`` (at s = 5, the columns of a DiSCO-S round at
+   ``pcg_block_s = 4``) are timed beside their plain versions and
+   PyTorch's block-sparse (BSR) product, and held against the plain
+   versions at full width; a second fit of the first run is profiled.
+   Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
+   m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
+   held to the launches the code predicts, the classic convergence check
+   and the classic m = 1 ``w``; the first is profiled.
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
    ``make_glm_data`` recipe from a seed; the same six runs. At full width
    ``xt_u``, ``x_cz`` and ``x_c_xt_u`` are held against their plain
-   versions and timed beside them and beside ``torch.mv``; a second fit
-   of the first run is profiled. Every Newton step must decrease f, and
-   m = 4 and fused runs must end at the m = 1 two-pass ``w``.
+   versions and timed beside them and beside ``torch.mv``, and so are
+   ``xt_multi`` and ``x_cz_multi`` at s = 5 beside ``torch.matmul``; a
+   second fit of the first run is profiled. Every Newton step must
+   decrease f, and m = 4 and fused runs must end at the m = 1 two-pass
+   ``w``. Then three s-step runs: DiSCO-S and DiSCO-F at m = 1 and
+   DiSCO-F m = 4 fused (its basis operator on ``x_c_xt_u``), with the
+   same checks.
 5. Report: the kernels' JSON line.
 
 Each slice zeroes the kernels' launch counts just before each fit and
@@ -72,15 +85,29 @@ DENSE_SHAPES = [(200, 300), (131, 77), (64, 4099), (2000, 2048)]
 REL_TOL_KERNEL = 1e-5
 REL_TOL_W = 1e-4
 REPS = 20
+# s-step PCG: Krylov dimensions per round, and the columns of a DiSCO-S
+# round at that s, at which the multi-vector kernels are timed
+SSTEP_S = 4
+TIMED_S = SSTEP_S + 1
+SSTEP_RUNS = [("samples", 1, False), ("features", 1, False),
+              ("samples", 1, True), ("features", 4, False)]
+DENSE_SSTEP_RUNS = [("samples", 1, False), ("features", 1, False),
+                    ("features", 4, True)]
+MULTI_S = (1, 2, 4, 5, 8)
 
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
             "ell_hvp": "src/repro/kernels/sparse_hvp.py:204",
             "xt_u": "src/repro/kernels/glm_hvp.py:81",
             "x_cz": "src/repro/kernels/glm_hvp.py:124",
-            "x_c_xt_u": "src/repro/kernels/glm_hvp.py:258"}
-SPARSE_KERNELS = ("ell_mv", "ell_hvp")
-DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u")
+            "x_c_xt_u": "src/repro/kernels/glm_hvp.py:258",
+            "ell_mm": "src/repro/kernels/sparse_hvp.py:136",
+            "ell_hvp_mm": "src/repro/kernels/sparse_hvp.py:268",
+            "xt_multi": "src/repro/kernels/glm_hvp.py:168",
+            "x_cz_multi": "src/repro/kernels/glm_hvp.py:208"}
+SPARSE_KERNELS = ("ell_mv", "ell_hvp", "ell_mm", "ell_hvp_mm")
+DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi")
+DENSE_SINGLE = ("xt_u", "x_cz", "x_c_xt_u")
 
 FAILURES: list[str] = []
 
@@ -259,6 +286,82 @@ def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
                                    f"{e:.2e}")
 
 
+def phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs) -> None:
+    """The multi-vector kernels at small ragged shapes, s in MULTI_S, with
+    and without c, on contiguous and strided (first s of s + 1 columns)
+    blocks: ell_mm on both layouts and ell_hvp_mm (also against the
+    two-pass ell_mm pair) at 8x8, 16x16 and 128x128 tiles; xt_multi and
+    x_cz_multi at DENSE_SHAPES. One check line per kernel and shape, with
+    the worst error over its cases."""
+    from repro_torch.data.sparse import ell_from_csr, make_sparse_glm_data
+    dev = torch.device("cuda")
+    T = lambda a: torch.from_numpy(a).to(dev)
+
+    def block(rows, k, seed, strided):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        B = torch.randn((rows, k + 1), generator=g, device=dev)
+        return B[:, :k] if strided else B[:, :k].contiguous()
+
+    for size in (8, 16, 128):
+        if size <= 16:
+            X, _, _ = make_sparse_glm_data(d=70, n=90, density=0.05, seed=2)
+        else:
+            X, _, _ = make_sparse_glm_data(d=2000, n=1500, density=0.005,
+                                           seed=2)
+        fwd = ell_from_csr(X, size, size)
+        tr = ell_from_csr(X.transpose(), size, size)
+        data, cols, dataT, colsT = map(T, (fwd.data, fwd.cols, tr.data,
+                                           tr.cols))
+        n_col, n_row = fwd.n_col_blocks * size, fwd.n_row_blocks * size
+        worst = {"ell_mm": 0.0, "ell_hvp_mm": 0.0}
+        for k in MULTI_S:
+            for with_c in (False, True):
+                strided = (k + with_c) % 2 == 1
+                V = block(n_col, k, 10 * k + with_c, strided)
+                U = block(n_row, k, 10 * k + with_c + 5, strided)
+                c = (torch.rand(n_col, device=dev) if with_c else None)
+                cases = [
+                    ("ell_mm", sparse_hvp.ell_mm(data, cols, V, c),
+                     ref.ref_ell_mm(data, cols, V, c)),
+                    ("ell_mm", sparse_hvp.ell_mm(dataT, colsT, U),
+                     ref.ref_ell_mm(dataT, colsT, U)),
+                    ("ell_hvp_mm", sparse_hvp.ell_hvp_mm(dataT, colsT, U, c),
+                     ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)),
+                    ("ell_hvp_mm", sparse_hvp.ell_hvp_mm(dataT, colsT, U, c),
+                     sparse_hvp.ell_mm(data, cols,
+                                       sparse_hvp.ell_mm(dataT, colsT, U),
+                                       c))]
+                torch.cuda.synchronize()
+                for name, got, want in cases:
+                    worst[name] = max(worst[name],
+                                      record_err(errs, name, got, want))
+        for name, e in worst.items():
+            check(e <= REL_TOL_KERNEL, f"{name} {size}x{size} s in "
+                  f"{list(MULTI_S)}, c and strided blocks: worst rel err "
+                  f"{e:.2e}")
+    for d, n in DENSE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(d * n)
+        Xd = torch.randn((d, n), generator=g, device=dev) / d ** 0.5
+        c = torch.rand(n, generator=g, device=dev)
+        worst = {"xt_multi": 0.0, "x_cz_multi": 0.0}
+        for k in MULTI_S:
+            U = block(d, k, k, strided=k % 2 == 1)
+            Z = block(n, k, k + 1, strided=k % 2 == 0)
+            cases = [("xt_multi", glm_hvp.xt_multi(Xd, U),
+                      ref.ref_xt_multi(Xd, U)),
+                     ("x_cz_multi", glm_hvp.x_cz_multi(Xd, c, Z),
+                      ref.ref_x_cz_multi(Xd, c, Z)),
+                     ("x_cz_multi", glm_hvp.x_cz_multi(Xd, None, Z),
+                      ref.ref_x_cz_multi(Xd, None, Z))]
+            torch.cuda.synchronize()
+            for name, got, want in cases:
+                worst[name] = max(worst[name],
+                                  record_err(errs, name, got, want))
+        for name, e in worst.items():
+            check(e <= REL_TOL_KERNEL, f"{name} {d}x{n} s in "
+                  f"{list(MULTI_S)}: worst rel err {e:.2e}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -339,8 +442,9 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
 
 def library_bsr_ms(torch, data, cols, v):
     """Time of PyTorch's block-sparse (BSR) matrix product for the same
-    A v, from the layout's nonempty tiles; None if the card's PyTorch
-    cannot run it. A yardstick only: the port never calls it."""
+    A v (v of shape (n,) or (n, s)), from the layout's nonempty tiles;
+    None if the card's PyTorch cannot run it. A yardstick only: the port
+    never calls it."""
     nrb, W, br, bc = data.shape
     keep = (data.reshape(nrb, W, -1) != 0).any(dim=2)
     counts = keep.sum(dim=1)
@@ -349,11 +453,12 @@ def library_bsr_ms(torch, data, cols, v):
     try:
         bsr = torch.sparse_bsr_tensor(
             crow, cols[keep].to(torch.int64), data[keep],
-            size=(nrb * br, v.numel()))
-        vv = v.unsqueeze(1)
-        got = (bsr @ vv).squeeze(1)
-        want = torch.einsum("iwab,iwb->ia", data,
-                            v.reshape(-1, bc)[cols.long()]).reshape(-1)
+            size=(nrb * br, v.shape[0]))
+        vv = v.reshape(v.shape[0], -1)
+        got = bsr @ vv
+        want = torch.einsum("iwab,iwbs->ias", data,
+                            vv.reshape(-1, bc, vv.shape[1])[cols.long()]
+                            ).reshape(got.shape)
         if rel_err(got, want) > 1e-4:
             print("library BSR product disagrees; not timed")
             return None
@@ -361,6 +466,151 @@ def library_bsr_ms(torch, data, cols, v):
     except (RuntimeError, NotImplementedError) as exc:
         print(f"library BSR product unavailable: {exc}")
         return None
+
+
+def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
+    """Full-width checks and timings of ell_mm and ell_hvp_mm at TIMED_S
+    columns on the first run's layouts (DiSCO-S, m = 1), U a strided view
+    of a wider block as DiSCO-F passes it."""
+    dev = solver.device
+    data, cols = solver.ell_data[0], solver.ell_cols[0]
+    dataT, colsT = solver.ell_dataT[0], solver.ell_colsT[0]
+    nrb, W, br, bc = data.shape
+    ncb, WT = dataT.shape[:2]
+    s = TIMED_S
+    g = torch.Generator(device=dev).manual_seed(4)
+    c = 0.25 * solver.weights[0]
+    V = torch.randn((ncb * bc, s + 1), generator=g, device=dev)[:, :s]
+    U = torch.randn((nrb * br, s + 1), generator=g, device=dev)[:, :s]
+    two_k = sparse_hvp.ell_mm(data, cols, sparse_hvp.ell_mm(dataT, colsT, U),
+                              c)
+    two_p = ref.ref_ell_mm(data, cols, ref.ref_ell_mm(dataT, colsT, U), c)
+    fused_k = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c)
+    fused_p = ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)
+    fwd_k = sparse_hvp.ell_mm(data, cols, V)
+    fwd_p = ref.ref_ell_mm(data, cols, V)
+    torch.cuda.synchronize()
+    for what, kname, got, want in (
+            ("forward", "ell_mm", fwd_k, fwd_p),
+            ("two-pass HVP", "ell_mm", two_k, two_p),
+            ("fused HVP", "ell_hvp_mm", fused_k, fused_p),
+            ("fused HVP vs the ell_mm pair", "ell_hvp_mm", fused_k, two_k)):
+        e = record_err(errs, kname, got, want)
+        check(e <= REL_TOL_KERNEL, f"{kname} full width s={s} {what}: rel "
+                                   f"err {e:.2e}")
+    check(bool(torch.equal(fwd_k, sparse_hvp.ell_mm(data, cols, V))),
+          "ell_mm full width: repeatable bit for bit")
+    del two_k, two_p, fused_k, fused_p, fwd_k, fwd_p
+
+    tiles_f, tiles_t = nonempty_tiles(data), nonempty_tiles(dataT)
+    out = {}
+    ms = time_ms(lambda: sparse_hvp.ell_mm(data, cols, V))
+    layout_bytes = 4 * (data.numel() + cols.numel() + V.numel() + nrb * br * s)
+    bms, by = bound_ms(tiles_f, br * bc, 4 * (cols.numel() + V.numel()
+                                              + nrb * br * s), 2 * s)
+    out["ell_mm"] = dict(
+        ms=ms, plain_ms=time_ms(lambda: ref.ref_ell_mm(data, cols, V)),
+        bound_ms=bms, bound_by=by,
+        library_ms=library_bsr_ms(torch, data, cols, V.contiguous()),
+        bytes=layout_bytes, gbps=layout_bytes / ms / 1e6,
+        ms_transposed=time_ms(lambda: sparse_hvp.ell_mm(dataT, colsT, U)),
+        ms_forward_with_c=time_ms(
+            lambda: sparse_hvp.ell_mm(data, cols, V, c)),
+        ms_by_s={k: time_ms(lambda: sparse_hvp.ell_mm(data, cols, V[:, :k]))
+                 for k in (1, 2, 4)},
+        ell_mv_ms=time_ms(lambda: sparse_hvp.ell_mv(data, cols,
+                                                    V[:, 0].contiguous())),
+        tiles_nonempty=tiles_f, tiles_stored=nrb * W, shape=[nrb, W, br, bc, s])
+    ms = time_ms(lambda: sparse_hvp.ell_hvp_mm(dataT, colsT, U, c))
+    read_bytes = 4 * (2 * dataT.numel() + 2 * colsT.numel() + U.numel()
+                      + c.numel() + nrb * br * s)
+    bms, by = bound_ms(tiles_t, br * bc, 4 * (colsT.numel() + U.numel()
+                                              + c.numel() + nrb * br * s),
+                       4 * s)
+    out["ell_hvp_mm"] = dict(
+        ms=ms, plain_ms=time_ms(
+            lambda: ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        bytes=read_bytes, gbps=read_bytes / ms / 1e6,
+        two_pass_ell_mm_ms=time_ms(lambda: sparse_hvp.ell_mm(
+            data, cols, sparse_hvp.ell_mm(dataT, colsT, U), c)),
+        tiles_nonempty=tiles_t, tiles_stored=ncb * WT,
+        shape=[ncb, WT, bc, br, s])
+    for name, m in out.items():
+        print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
+              f" {m['gbps']:.0f} GB/s over {m['bytes'] / 1e9:.2f} GB read,"
+              f" bound {m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}),"
+              f" plain {m['plain_ms'] * 1e3:.1f} us,"
+              f" library {m['library_ms']}", flush=True)
+    print("ell_mm detail " + json.dumps(
+        {k: out["ell_mm"][k] for k in ("ms_transposed", "ms_forward_with_c",
+                                       "ms_by_s", "ell_mv_ms")})
+          + " ell_hvp_mm two-pass pair "
+          + json.dumps(out["ell_hvp_mm"]["two_pass_ell_mm_ms"]), flush=True)
+    return out
+
+
+def time_gram_solve(torch) -> None:
+    """Host milliseconds of one s-step Gram solve (``pcg._solve_round`` on
+    an (s+1) x (s+1) system at s = SSTEP_S), each call ended by a device
+    sync, on the card and on the CPU; printed, not gated."""
+    from repro_torch.core.pcg import _solve_round
+    g = torch.Generator().manual_seed(5)
+    k = SSTEP_S + 1
+    U = torch.randn((64, k), generator=g) * torch.logspace(0, 2, k)
+    H = torch.randn((64, 64), generator=g) / 8
+    H = H @ H.T + torch.eye(64)
+    G, B, b = U.T @ H @ U, U.T @ U, U.T @ torch.randn(64, generator=g)
+    out = {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        args = [t.to(dev) for t in (G, B, b)]
+        for _ in range(3):
+            a = _solve_round(*args, SSTEP_S)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            a = _solve_round(*args, SSTEP_S)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[where] = (statistics.median(times) * 1e3, a.cpu())
+    print(f"gram solve (s={SSTEP_S}): {out['card'][0]:.3f} ms host time per "
+          f"call on the card, {out['cpu'][0]:.3f} ms on the CPU; rel diff "
+          f"of a {rel_err(out['card'][1], out['cpu'][1]):.2e}", flush=True)
+
+
+def predicted_launches(sparse, partition, m, fused, s, steps, rounds):
+    """The kernel launches an s-step fit makes, from the code's structure
+    (core/pcg.py, core/disco.py): per Newton step the margins and the
+    gradient (sparse input: one ell_mv each per shard; dense: cuBLAS); per
+    round s - 1 basis-operator products (the whole local HVP: for DiSCO-S
+    on one shard only, for DiSCO-F on every shard) and one batched round
+    (DiSCO-S: apply_multi per shard; DiSCO-F: one apply_multi when fused
+    on one shard, else pass A and pass B multi per shard)."""
+    n = dict.fromkeys(SPARSE_KERNELS + DENSE_KERNELS, 0)
+    basis = (s - 1) * rounds * (m if partition == "features" else
+                                (1 if m == 1 else 0))
+    if sparse:
+        n["ell_mv"] += 2 * m * steps
+        if fused:
+            n["ell_hvp"] += basis
+        else:
+            n["ell_mv"] += 2 * basis
+    elif fused:
+        n["x_c_xt_u"] += basis
+    else:
+        n["xt_u"] += basis
+        n["x_cz"] += basis
+    one_apply = partition == "samples" or (fused and m == 1)
+    per_round = m if partition == "samples" or not one_apply else 1
+    if sparse and fused and one_apply:
+        n["ell_hvp_mm"] += per_round * rounds
+    elif sparse:
+        n["ell_mm"] += 2 * per_round * rounds
+    else:
+        n["xt_multi"] += per_round * rounds
+        n["x_cz_multi"] += per_round * rounds
+    return n
 
 
 def run_tag(partition: str, m: int, fused: bool) -> str:
@@ -417,6 +667,8 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
         ell_bytes = 4 * (solver.ell_data.numel() + solver.ell_dataT.numel())
         if timings is None:
             timings = measure_kernels(torch, solver, sparse_hvp, ref, errs)
+            timings.update(measure_sparse_multi(torch, solver, sparse_hvp,
+                                                ref, errs))
             torch.cuda.reset_peak_memory_stats()
         res, counts = fit_counted(torch, build, solver)
         for k in SPARSE_KERNELS:
@@ -433,7 +685,7 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
         check(counts["ell_mv"] > 0, f"{tag}: ell_mv launched")
         if fused:
             check(counts["ell_hvp"] > 0, f"{tag}: ell_hvp launched")
-        results[(partition, m, fused)] = res.w
+        results[(partition, m, fused)] = (res.w, row["pcg_iters"])
         if (partition, m, fused) == RUNS[0]:
             try:
                 profile_fit(torch, solver)
@@ -443,12 +695,80 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
         gc.collect()
         torch.cuda.empty_cache()
 
-    e = rel_w(results[("samples", 4, False)], results[("samples", 1, False)])
+    w = {k: v[0] for k, v in results.items()}
+    e = rel_w(w[("samples", 4, False)], w[("samples", 1, False)])
     check(e <= 1e-3, f"DiSCO-S m=4 vs m=1: rel diff of w {e:.2e}")
     for p in ("samples", "features"):
-        e = rel_w(results[(p, 1, True)], results[(p, 1, False)])
+        e = rel_w(w[(p, 1, True)], w[(p, 1, False)])
         check(e <= 1e-4, f"{p} fused vs two-pass: rel diff of w {e:.2e}")
+    sstep_phase(torch, rt, build, X, y, SOLVE, SSTEP_RUNS,
+                {p: results[(p, 1, False)] for p in ("samples", "features")},
+                True, launches)
     return timings, launches
+
+
+def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
+                launches):
+    """The s-step runs of a slice (``pcg_block_s = SSTEP_S``): each held
+    to the launches the code predicts, the slice's convergence check and
+    the classic m = 1 ``w`` of its partition (``classic``); fused against
+    two-pass. The first run is profiled and its host syncs counted."""
+    prefix = "" if sparse else "dense "
+    results = {}
+    for partition, m, fused in runs:
+        tag = f"{prefix}s-step s={SSTEP_S} " + run_tag(partition, m, fused)
+        cfg = rt.DiscoConfig(partition=partition, hvp_fused=fused,
+                             pcg_block_s=SSTEP_S, **solve)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res, counts = fit_counted(torch, build, solver)
+        for k in launches:
+            launches[k] += counts[k]
+        hist = res.history
+        rounds = [int(h["pcg_iters"]) for h in hist]
+        base_w, base_iters = classic[partition]
+        row = run_row(torch, tag, res, counts, setup_s,
+                      classic_m1_pcg_iters=base_iters,
+                      f=[h["f"] for h in hist])
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and res.w.shape == (X.shape[0],), f"{tag}: finite w of shape (d,)")
+        want = predicted_launches(sparse, partition, m, fused, SSTEP_S,
+                                  len(hist), sum(rounds))
+        got = {k: counts[k] for k in want}
+        check(got == want and sum(rounds) > 0,
+              f"{tag}: launches as predicted {json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        if sparse:
+            g0, g1 = row["grad_norm_first"], row["grad_norm_last"]
+            check(g1 <= 1e-3 * g0, f"{tag}: grad_norm {g0:.3e} -> {g1:.3e}")
+        else:
+            check_f_decreases(tag, hist)
+        e = rel_w(res.w, base_w)
+        tol = 1e-3 if sparse else REL_TOL_W
+        check(e <= tol, f"{tag} vs classic m=1: rel diff of w {e:.2e} "
+                        f"(<= {tol:g})")
+        print(f"{tag}: rounds per step {rounds} (classic m=1 iterations "
+              f"{base_iters}), median iter_s {row['iter_s_median']:.4f}",
+              flush=True)
+        results[(partition, m, fused)] = res.w
+        if (partition, m, fused) == runs[0]:
+            try:
+                profile_fit(torch, solver, count_syncs=True,
+                            rounds=sum(rounds))
+            except RuntimeError as exc:   # a measurement only, not a check
+                print(f"profile unavailable: {exc}", flush=True)
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    for p in ("samples", "features"):
+        if (p, 1, True) in results and (p, 1, False) in results:
+            e = rel_w(results[(p, 1, True)], results[(p, 1, False)])
+            check(e <= 1e-4, f"{prefix}s-step {p} fused vs two-pass: rel "
+                             f"diff of w {e:.2e}")
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +821,7 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
     flops = {"xt_u": 2 * d * n, "x_cz": 2 * d * n + n,
              "x_c_xt_u": 4 * d * n + n}
     out = {}
-    for name in DENSE_KERNELS:
+    for name in DENSE_SINGLE:
         got, want = kernel[name](), plain[name]()
         lib = library.get(name, pair)()
         torch.cuda.synchronize()
@@ -536,6 +856,7 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
         lambda: glm_hvp.x_cz(X, c, glm_hvp.xt_u(X, u)))
     out["xt_u"]["slices"] = glm_hvp.xt_u_slices(
         d, n, torch.cuda.get_device_properties(X.device).multi_processor_count)
+    out.update(measure_dense_multi(torch, X, c, glm_hvp, ref, errs))
     for name in DENSE_KERNELS:
         m = out[name]
         print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
@@ -546,6 +867,54 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
     print("x_c_xt_u detail " + json.dumps(
         {k: fused[k] for k in ("panel", "panel_ms", "two_pass_kernels_ms",
                                "library_pair_ms")}), flush=True)
+    return out
+
+
+def measure_dense_multi(torch, X, c, glm_hvp, ref, errs) -> dict:
+    """Full-width checks and timings of xt_multi and x_cz_multi at
+    TIMED_S columns, beside torch.matmul (cuBLAS) of the same product,
+    and their times at 1, 4 and 8 columns (one read of X serves them
+    all)."""
+    d, n = X.shape
+    s = TIMED_S
+    g = torch.Generator(device=X.device).manual_seed(3)
+    U8 = torch.randn((d, 8), generator=g, device=X.device)
+    Z8 = torch.randn((n, 8), generator=g, device=X.device)
+    U, Z = U8[:, :s].contiguous(), Z8[:, :s].contiguous()
+    kernel = {"xt_multi": lambda k=s: glm_hvp.xt_multi(X, U8[:, :k]),
+              "x_cz_multi": lambda k=s: glm_hvp.x_cz_multi(X, c, Z8[:, :k])}
+    plain = {"xt_multi": lambda: ref.ref_xt_multi(X, U),
+             "x_cz_multi": lambda: ref.ref_x_cz_multi(X, c, Z)}
+    library = {"xt_multi": lambda: X.t() @ U,
+               "x_cz_multi": lambda: X @ (c[:, None] * Z)}
+    vec_bytes = {"xt_multi": 4 * (d * s + n * s),
+                 "x_cz_multi": 4 * (n * s + n + d * s)}
+    flops = {"xt_multi": 2 * d * n * s, "x_cz_multi": 2 * d * n * s + n * s}
+    out = {}
+    for name in ("xt_multi", "x_cz_multi"):
+        got, want, lib = kernel[name](), plain[name](), library[name]()
+        torch.cuda.synchronize()
+        e = record_err(errs, name, got, want)
+        check(e <= REL_TOL_KERNEL, f"{name} full width {d}x{n} s={s} "
+                                   f"(strided): rel err {e:.2e}")
+        check(bool(torch.equal(got, kernel[name]())),
+              f"{name} full width: repeatable bit for bit")
+        lib_ok = rel_err(lib, got) <= REL_TOL_KERNEL
+        if not lib_ok:
+            print(f"library call for {name} disagrees with the kernel "
+                  f"({rel_err(lib, got):.2e}); not timed", flush=True)
+        del got, want, lib
+        nbytes = 4 * d * n + vec_bytes[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops[name] / F32_FLOPS_PER_S
+        ms = time_ms(kernel[name])
+        out[name] = dict(
+            ms=ms, plain_ms=time_ms(plain[name]),
+            library_ms=time_ms(library[name]) if lib_ok else None,
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, gbps=nbytes / ms / 1e6, shape=[d, n, s],
+            ms_by_s={k: time_ms(lambda: kernel[name](k)) for k in (1, 4, 8)})
     return out
 
 
@@ -579,7 +948,7 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     timings = measure_dense_kernels(torch, X, glm_hvp, ref, errs)
     launches = dict.fromkeys(DENSE_KERNELS, 0)
-    results = {}
+    results, iters = {}, {}
     for partition, m, fused in RUNS:
         tag = "dense " + run_tag(partition, m, fused)
         cfg = rt.DiscoConfig(partition=partition, hvp_fused=fused,
@@ -608,6 +977,7 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
             check(counts["xt_u"] > 0 and counts["x_cz"] > 0,
                   f"{tag}: xt_u and x_cz launched")
         results[(partition, m, fused)] = res.w
+        iters[(partition, m, fused)] = [int(h["pcg_iters"]) for h in hist]
         if (partition, m, fused) == RUNS[0]:
             try:
                 profile_fit(torch, solver)
@@ -623,18 +993,37 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
                             ((p, 1, True), "fused vs two-pass")):
             e = rel_w(results[other], base)
             check(e <= REL_TOL_W, f"dense {p} {what}: rel diff of w {e:.2e}")
+    sstep_phase(torch, rt, build, X, y, DENSE_SOLVE, DENSE_SSTEP_RUNS,
+                {p: (results[(p, 1, False)], iters[(p, 1, False)])
+                 for p in ("samples", "features")}, False, launches)
     del X, y
     gc.collect()
     torch.cuda.empty_cache()
     return timings, launches
 
 
-def profile_fit(torch, solver) -> None:
+def count_host_syncs(torch, solver) -> int:
+    """Host-device synchronizations of one more ``fit()``, counted with
+    PyTorch's sync debug mode (it warns at each one)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solver.fit()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_fit(torch, solver, count_syncs=False, rounds=None) -> None:
     """Where the time of one whole solve goes: a second ``fit()`` under
     ``torch.profiler``; device busy time is the sum of the device-side
     events (kernels, copies, fills: one stream, so they do not overlap),
     not of the host ops that launched them. The profiler's own host cost
-    makes the idle share an upper bound."""
+    makes the idle share an upper bound. With ``count_syncs``, a third
+    fit counts the host syncs (per PCG round: ``rounds``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -654,16 +1043,20 @@ def profile_fit(torch, solver) -> None:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * 1e-6
-    print("profile " + json.dumps(dict(
-        wall_s=wall, device_busy_s=busy,
-        busy_share=busy / wall if wall > 0 else None,
-        top=[dict(name=k[:60], calls=c, device_s=t * 1e-6)
-             for t, c, k in rows[:8]])), flush=True)
+    out = dict(wall_s=wall, device_busy_s=busy,
+               busy_share=busy / wall if wall > 0 else None,
+               top=[dict(name=k[:60], calls=c, device_s=t * 1e-6)
+                    for t, c, k in rows[:12 if count_syncs else 8]])
+    if count_syncs:
+        syncs = count_host_syncs(torch, solver)
+        out.update(host_syncs=syncs, rounds=rounds,
+                   host_syncs_per_round=syncs / rounds if rounds else None)
+    print("profile " + json.dumps(out), flush=True)
 
 
 def same_solve(tag, on_card, on_cpu) -> None:
     """The card's solve equals the CPU's: w within rtol 1e-4 / atol 1e-6
-    and the same PCG iterations per step."""
+    and the same PCG iterations (or s-step rounds) per step."""
     import numpy as np
     close = bool(np.allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6))
     same_iters = [h["pcg_iters"] for h in on_card.history] == \
@@ -678,8 +1071,9 @@ def same_solve(tag, on_card, on_cpu) -> None:
 def small_reference(torch, rt) -> None:
     """Small solves on the card against the same solves on the CPU (the
     plain versions, which the repository's tests hold to the JAX
-    package): sparse DiSCO-S, and dense DiSCO-S at m = 4 two-pass and
-    DiSCO-F at m = 1 fused."""
+    package): sparse DiSCO-S classic and s-step (s = 4, fused), dense
+    DiSCO-S at m = 4 two-pass, DiSCO-F at m = 1 fused and DiSCO-S s-step
+    (s = 3)."""
     X, y, _ = rt.make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
                                       beta=0.5, seed=1)
     cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
@@ -687,14 +1081,23 @@ def small_reference(torch, rt) -> None:
                          partition="samples")
     same_solve("small sparse solve", rt.disco_fit(X, y, cfg, device="cuda"),
                rt.disco_fit(X, y, cfg, device="cpu"))
+    cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                         grad_tol=0.0, ell_block_d=16, ell_block_n=16,
+                         partition="samples", hvp_fused=True, pcg_block_s=4)
+    same_solve("small sparse s-step s=4 DiSCO-S m=1 fused",
+               rt.disco_fit(X, y, cfg, device="cuda"),
+               rt.disco_fit(X, y, cfg, device="cpu"))
     X, y, _ = rt.make_glm_data(d=98, n=202, seed=1)
-    for partition, m, fused in (("samples", 4, False),
-                                ("features", 1, True)):
+    for partition, m, fused, s in (("samples", 4, False, 1),
+                                   ("features", 1, True, 1),
+                                   ("samples", 1, False, 3)):
         cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100,
                              max_outer=4, grad_tol=0.0, use_kernel=True,
-                             partition=partition, hvp_fused=fused)
+                             partition=partition, hvp_fused=fused,
+                             pcg_block_s=s)
         group = rt.InProcessGroup(m)
-        same_solve(f"small dense {run_tag(partition, m, fused)}",
+        kind = "" if s == 1 else f" s-step s={s}"
+        same_solve(f"small dense{kind} {run_tag(partition, m, fused)}",
                    rt.disco_fit(X, y, cfg, group=group, device="cuda"),
                    rt.disco_fit(X, y, cfg, group=group, device="cpu"))
 
@@ -722,6 +1125,8 @@ def main() -> int:
     errs = {k.name: dict(rel=0.0, abs=0.0) for k in build.KERNELS}
     phase_kernels(torch, sparse_hvp, ref, errs)
     phase_dense_kernels(torch, glm_hvp, ref, errs)
+    phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
+    time_gram_solve(torch)
     small_reference(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
     t_sparse = time.perf_counter() - t_start

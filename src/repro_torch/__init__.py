@@ -5,8 +5,9 @@ Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
 entry points (:func:`disco_fit`, :class:`DiscoSolver`) run on the card
 unless the caller passes ``device='cpu'``. Input is a sparse
 :class:`CSRMatrix` or a dense ``(d, n)`` array or tensor; on the card
-every HVP of PCG goes through the hand-written Hopper kernels of
-:mod:`repro_torch.kernels` (for dense input with ``use_kernel=True``).
+every HVP of PCG, classic or s-step (``pcg_block_s > 1``), goes through
+the hand-written Hopper kernels of :mod:`repro_torch.kernels` (for dense
+input with ``use_kernel=True``).
 """
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit)

@@ -1,4 +1,5 @@
-"""Analytic communication accounting (paper Tables 2-4), classic PCG.
+"""Analytic communication accounting (paper Tables 2-4), classic and
+s-step PCG.
 
 Counts the collectives the way the paper does:
 
@@ -64,3 +65,23 @@ def disco_f_pcg_cost(n: int, iters: int) -> tuple[int, int, int]:
     iterations: one n-vector reduceAll each, plus two scalar reduceAlls
     counted in floats and SPMD collectives but not as vector rounds."""
     return 1 * iters, (n + 2) * iters, 3 * iters
+
+
+def disco_s_sstep_cost(d: int, s: int, rounds: int) -> tuple[int, int, int]:
+    """(rounds, floats, spmd) for ``rounds`` s-step DiSCO-S rounds: per
+    round the (d, s+1) trial basis is broadcast and the (d, s+1) batched
+    HVP reduced, the pair of one classic iteration carrying s+1 vectors;
+    the Gram system is replicated and costs nothing. Under SPMD the pair
+    is one all-reduce per round."""
+    k = s + 1
+    return 2 * rounds, 2 * d * k * rounds, 1 * rounds
+
+
+def disco_f_sstep_cost(n: int, s: int, rounds: int) -> tuple[int, int, int]:
+    """(rounds, floats, spmd) for ``rounds`` s-step DiSCO-F rounds: one
+    (n, s) reduceAll of the batched pass A (H p_prev is carried from the
+    previous round), plus one small reduceAll of the Gram payload
+    (2(s+1)^2 + (s+1) floats), counted in floats and SPMD collectives but
+    not as a vector round, as the classic path's scalar reduceAlls."""
+    k = s + 1
+    return 1 * rounds, (n * s + 2 * k * k + k) * rounds, 2 * rounds

@@ -16,10 +16,11 @@ The port runs the in-memory paths: a sparse :class:`CSRMatrix` input
 (every product with X through the blocked-ELL ops) or a dense ``(d, n)``
 f32 array or tensor (margins and gradient in ``torch.matmul``, as the JAX
 package leaves them to XLA; every HVP of PCG through the dense kernels
-with ``use_kernel=True``, else ``torch.matmul``), classic PCG, f32. On the
-card the ops are the CUDA kernels. Hessian subsampling, the SAG
-preconditioner, s-step PCG, bf16 tiles, checkpointing and tracing are not
-yet ported and raise.
+with ``use_kernel=True``, else ``torch.matmul``), classic or s-step PCG
+(``pcg_block_s > 1``), f32. On the card the ops are the CUDA kernels.
+Hessian subsampling, the SAG preconditioner, bf16 tiles, checkpointing,
+tracing and s-step PCG on fused dense input (its ``x_c_xt_multi``
+kernel) are not yet ported and raise.
 """
 from __future__ import annotations
 
@@ -50,12 +51,15 @@ class DiscoConfig:
 
     Ported here: loss, lam, mu, tau, partition, precond ('woodbury' |
     'none'), max_outer, max_pcg, pcg_rel_tol, grad_tol, use_kernel (dense
-    input), hvp_fused, partition_strategy, partition_block, ell_block_d,
-    ell_block_n (sparse input). The
-    fields for the paths not yet ported must keep their defaults
-    (``hessian_subsample=1``, ``hvp_dtype='float32'``, ``pcg_block_s=1``,
-    ``trace=False``, ``precond != 'sag'``); the out-of-core fields are
-    unused.
+    input), hvp_fused, pcg_block_s (s-step PCG; ``max_pcg`` then caps
+    rounds), partition_strategy, partition_block, ell_block_d,
+    ell_block_n (sparse input). The fields for the paths not yet ported
+    must keep their defaults (``hessian_subsample=1``,
+    ``hvp_dtype='float32'``, ``trace=False``, ``precond != 'sag'``), and
+    ``pcg_block_s > 1`` with fused dense kernels
+    (``use_kernel=hvp_fused=True``) raises for DiSCO-S and for DiSCO-F
+    on one shard, whose s-step round needs the ``x_c_xt_multi`` kernel;
+    the out-of-core fields are unused.
     """
 
     loss: str = "logistic"
@@ -96,7 +100,7 @@ class DiscoResult:
     Attributes:
         w: (d,) solution in the *original* feature order.
         history: per-outer-iteration stats dicts (grad_norm, f,
-            pcg_iters, delta, pcg_r_norm, iter_s, outer_iter,
+            pcg_iters (rounds with ``pcg_block_s > 1``), delta, pcg_r_norm, iter_s, outer_iter,
             comm_rounds_cum, comm_floats_cum).
         ledger: analytic communication totals (:class:`comm.CommLedger`).
         converged: True iff ||grad|| reached ``cfg.grad_tol``.
@@ -192,8 +196,6 @@ class DiscoSolver:
             raise _not_ported("hessian_subsample < 1")
         if cfg.precond == "sag":
             raise _not_ported("precond='sag'")
-        if cfg.pcg_block_s > 1:
-            raise _not_ported("s-step PCG (pcg_block_s > 1)")
         if cfg.trace:
             raise _not_ported("tracing (trace=True)")
         hvp_tile_dtype(cfg.hvp_dtype)
@@ -209,6 +211,11 @@ class DiscoSolver:
         self.tau = min(cfg.tau, self.n)
         self.group = group or InProcessGroup(1)
         self.m = self.group.size
+        if (cfg.pcg_block_s > 1 and not sparse and cfg.use_kernel
+                and cfg.hvp_fused
+                and (cfg.partition == "samples" or self.m == 1)):
+            raise _not_ported("s-step PCG on fused dense input (its round "
+                              "needs the x_c_xt_multi kernel)")
         self._sparse = sparse
         self._part: Partition | None = None
         self.smask = None
@@ -389,8 +396,9 @@ class DiscoSolver:
                 res = pcg_features(
                     locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
                     coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
-                    precond=cfg.precond, X_tau_loc=self.X_tau,
-                    hvp_fused=cfg.hvp_fused, use_kernel=cfg.use_kernel)
+                    precond=cfg.precond, block_s=cfg.pcg_block_s,
+                    X_tau_loc=self.X_tau, hvp_fused=cfg.hvp_fused,
+                    use_kernel=cfg.use_kernel)
                 w_new = w - res.v / (1.0 + res.delta)
                 return w_new, dict(grad_norm=gnorm, f=fval,
                                    pcg_iters=res.iters, delta=res.delta,
@@ -415,7 +423,8 @@ class DiscoSolver:
                     locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
                     X_tau=self.X_tau, coeffs_tau=coeffs_tau, mu=cfg.mu,
                     group=group, precond=cfg.precond,
-                    hvp_fused=cfg.hvp_fused, use_kernel=cfg.use_kernel)
+                    block_s=cfg.pcg_block_s, hvp_fused=cfg.hvp_fused,
+                    use_kernel=cfg.use_kernel)
                 w_new = w - res.v / (1.0 + res.delta)
                 return w_new, dict(grad_norm=gnorm, f=fval,
                                    pcg_iters=res.iters, delta=res.delta,
@@ -425,13 +434,22 @@ class DiscoSolver:
 
     # ------------------------------------------------------------------
     def _comm_costs(self, pcg_iters: int) -> tuple[int, int, int]:
-        """Paper-style (rounds, floats, spmd) of one classic outer step."""
+        """Paper-style (rounds, floats, spmd) of one outer step;
+        ``pcg_iters`` is PCG iterations, or rounds (each worth up to
+        ``pcg_block_s`` iterations) on the s-step path."""
+        s = self.cfg.pcg_block_s
         if self.cfg.partition == "features":
             r1, f1, s1 = comm.disco_f_outer_cost(self.n, self.d, self.m)
-            r2, f2, s2 = comm.disco_f_pcg_cost(self.n, pcg_iters)
+            if s > 1:
+                r2, f2, s2 = comm.disco_f_sstep_cost(self.n, s, pcg_iters)
+            else:
+                r2, f2, s2 = comm.disco_f_pcg_cost(self.n, pcg_iters)
         else:
             r1, f1, s1 = comm.disco_s_outer_cost(self.d)
-            r2, f2, s2 = comm.disco_s_pcg_cost(self.d, pcg_iters)
+            if s > 1:
+                r2, f2, s2 = comm.disco_s_sstep_cost(self.d, s, pcg_iters)
+            else:
+                r2, f2, s2 = comm.disco_s_pcg_cost(self.d, pcg_iters)
         return r1 + r2, f1 + f2, s1 + s2
 
     def _w_to_original(self, w) -> np.ndarray:

@@ -159,6 +159,18 @@ class HvpOperator:
         """Full local product ``X_loc (c .* X_loc^T u)``."""
         return self.pass_b(self.pass_a(u))
 
+    def pass_a_multi(self, U):
+        """Batched pass A: ``Z = X_loc^T U`` for U (d_loc, s)."""
+        raise NotImplementedError
+
+    def pass_b_multi(self, Z):
+        """Batched pass B: ``X_loc (c[:, None] .* Z)`` for Z (n_loc, s)."""
+        raise NotImplementedError
+
+    def apply_multi(self, U):
+        """Batched full local product (the s-step round's HVP)."""
+        return self.pass_b_multi(self.pass_a_multi(U))
+
 
 class DenseOperator(HvpOperator):
     """Dense layout in plain ``torch.matmul`` (two-pass only; no kernel)."""
@@ -179,11 +191,23 @@ class DenseOperator(HvpOperator):
             return self.X @ z
         return self.X @ (self.coeffs * z)
 
+    def pass_a_multi(self, U):
+        """``X^T U`` via one dense matmul."""
+        return self.X.T @ U
+
+    def pass_b_multi(self, Z):
+        """``X (c[:, None] .* Z)`` via one dense matmul."""
+        if self.coeffs is None:
+            return self.X @ Z
+        return self.X @ (self.coeffs[:, None] * Z)
+
 
 class DenseKernelOperator(HvpOperator):
-    """Dense layout through the dense GLM kernels (``xt_u``, ``x_cz``);
-    ``fused=True`` selects the one-pass ``x_c_xt_u`` for the full
-    product."""
+    """Dense layout through the dense GLM kernels (``xt_u``, ``x_cz`` and
+    their multi-vector ``xt_multi``, ``x_cz_multi``); ``fused=True``
+    selects the one-pass ``x_c_xt_u`` for the full product. The fused
+    multi-vector product needs ``x_c_xt_multi``, which is not yet
+    ported."""
 
     layout = "dense_kernel"
 
@@ -200,11 +224,28 @@ class DenseKernelOperator(HvpOperator):
         """``X (c .* z)`` via the ``x_cz`` kernel, the scale fused."""
         return kops.x_cz_local(self.X, self.coeffs, z)
 
+    def pass_a_multi(self, U):
+        """``X^T U`` via the ``xt_multi`` kernel."""
+        return kops.xt_multi(self.X, U)
+
+    def pass_b_multi(self, Z):
+        """``X (c[:, None] .* Z)`` via the ``x_cz_multi`` kernel."""
+        return kops.x_cz_multi(self.X, self.coeffs, Z)
+
     def apply(self, u):
         """Full product; the one-pass fused kernel when built fused."""
         if self.fused:
             return kops.x_c_xt_u(self.X, self.coeffs, u)
         return self.pass_b(self.pass_a(u))
+
+    def apply_multi(self, U):
+        """Batched full product (two-pass); built fused, it needs the
+        ``x_c_xt_multi`` kernel and raises."""
+        if self.fused:
+            raise NotImplementedError(
+                "the fused dense multi-vector HVP (the x_c_xt_multi "
+                "kernel) is not yet ported to repro_torch")
+        return self.pass_b_multi(self.pass_a_multi(U))
 
 
 class EllOperator(HvpOperator):
@@ -227,6 +268,14 @@ class EllOperator(HvpOperator):
         """``X (c .* z)`` over the forward ELL tiles."""
         return kops.ell_matvec(self.ell.data, self.ell.cols, z, self.coeffs)
 
+    def pass_a_multi(self, U):
+        """``X^T U`` over the transposed ELL tiles."""
+        return kops.ell_matmat(self.ell.dataT, self.ell.colsT, U)
+
+    def pass_b_multi(self, Z):
+        """``X (c[:, None] .* Z)`` over the forward ELL tiles."""
+        return kops.ell_matmat(self.ell.data, self.ell.cols, Z, self.coeffs)
+
     def apply(self, u):
         """Full product; the one-pass fused ELL kernel when built fused."""
         if self.fused:
@@ -234,6 +283,15 @@ class EllOperator(HvpOperator):
                                 self.coeffs,
                                 fwd=(self.ell.data, self.ell.cols))
         return self.pass_b(self.pass_a(u))
+
+    def apply_multi(self, U):
+        """Batched full product; the one-pass ``ell_hvp_mm`` kernel when
+        built fused."""
+        if self.fused:
+            return kops.ell_hvp_mm(self.ell.dataT, self.ell.colsT, U,
+                                   self.coeffs,
+                                   fwd=(self.ell.data, self.ell.cols))
+        return self.pass_b_multi(self.pass_a_multi(U))
 
 
 def make_local_operator(X_loc, coeffs, *, use_kernel: bool = False,

@@ -12,8 +12,12 @@ raises; nothing here falls back to the plain versions in
 
 The kernels, and the modules whose wrappers launch them:
 
-  ell_mv, ell_hvp           :mod:`repro_torch.kernels.sparse_hvp`
-  xt_u, x_cz, x_c_xt_u      :mod:`repro_torch.kernels.glm_hvp`
+  ell_mv, ell_hvp, ell_mm, ell_hvp_mm      :mod:`repro_torch.kernels.sparse_hvp`
+  xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi
+                                           :mod:`repro_torch.kernels.glm_hvp`
+
+The multi-vector kernels (``ell_mm``, ``ell_hvp_mm``, ``xt_multi``,
+``x_cz_multi``) take 1 to :data:`MAX_COLS` vectors per launch.
 
 Each wrapper adds one to its kernel's ``launches`` count when it launches
 the kernel and nowhere else, so a run can show that it went through the
@@ -37,6 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 600
+MAX_COLS = 8     # kern::kMaxCols in csrc/common.cuh
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
@@ -108,7 +113,20 @@ X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _I, _I, _I, _P])
 # (X, ld, c, u, y, part, d, n, bn, grid, threads, stream)
 X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P])
-KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U)
+# (tiles, cols, V, ldv, c, Y, n_blocks, W, rows, cols-per-tile,
+#  n_in_blocks, s, threads, stream)
+ELL_MM = CudaKernel("ell_mm", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P])
+ELL_HVP_MM = CudaKernel("ell_hvp_mm", [_P, _P, _P, _L, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _P])
+# (X, ld, U, ldu, Z, part, d, n, s, slices, threads, stream)
+XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
+                                   _I, _P])
+# (X, ld, c, Z, ldz, Y, d, n, s, threads, stream)
+X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
+                                       _I, _P])
+KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
+           XT_MULTI, X_CZ_MULTI)
 
 
 def _nvcc() -> str:
@@ -179,6 +197,31 @@ def check_tensor(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_columns(name, M, rows, device) -> tuple[int, int]:
+    """Check a row-major f32 (rows, s) block of 1 to :data:`MAX_COLS`
+    columns on ``device`` (any row stride, such as the first s columns of
+    a wider basis); return (s, row stride)."""
+    if not isinstance(M, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if M.device != device:
+        raise ValueError(f"{name} is on {M.device}, expected {device}")
+    if M.dtype != torch.float32:
+        raise TypeError(f"{name} must be torch.float32, got {M.dtype}")
+    if M.dim() != 2 or M.shape[0] != rows:
+        raise ValueError(f"{name} must be ({rows}, s), got {tuple(M.shape)}")
+    s = M.shape[1]
+    if not 1 <= s <= MAX_COLS:
+        raise ValueError(f"{name} has {s} columns; the multi-vector kernels "
+                         f"take 1 to {MAX_COLS} per launch")
+    if s > 1 and M.stride(1) != 1:
+        raise ValueError(f"{name} must be row-major ({name}.stride(1) == 1)")
+    ld = M.stride(0) if rows > 1 else s
+    if ld < s:
+        raise ValueError(f"{name}'s row stride {ld} is shorter than a row "
+                         f"({s})")
+    return s, ld
 
 
 def check_card(device: torch.device) -> None:

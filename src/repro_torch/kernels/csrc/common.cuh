@@ -8,6 +8,12 @@
 
 namespace kern {
 
+// Most columns (probe vectors) one launch of a multi-vector kernel takes
+// (ell_mm, ell_hvp_mm, xt_multi, x_cz_multi): each thread keeps that many
+// accumulators per output row or column in registers. The wrappers check
+// it (MAX_COLS in kernels/build.py) and the entry points refuse more.
+constexpr int kMaxCols = 8;
+
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -2,7 +2,7 @@
 their launch wrappers.
 
 The PCG inner loop's  H u = X diag(c) X^T u / n + lam u  on a dense
-feature-major ``X (d, n)``, in three kernels in ``csrc/``, each built and
+feature-major ``X (d, n)``, in five kernels in ``csrc/``, each built and
 bound by :mod:`repro_torch.kernels.build` and called on PyTorch's current
 stream:
 
@@ -13,11 +13,17 @@ stream:
 * ``x_c_xt_u`` (``csrc/x_c_xt_u.cu``) — the fused one-pass
   ``y = X (c .* (X^T u))`` from column panels held in shared memory;
   replaces ``repro/kernels/glm_hvp.py::x_c_xt_u``.
+* ``xt_multi``   (``csrc/xt_multi.cu``) — the s-step pass A ``Z = X^T U``
+  over s vectors; replaces ``repro/kernels/glm_hvp.py::xt_multi``.
+* ``x_cz_multi`` (``csrc/x_cz_multi.cu``) — the s-step pass B
+  ``Y = X (c .* Z)``; replaces ``repro/kernels/glm_hvp.py::x_cz_multi``.
 
 ``X`` may be any row-major f32 view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
 stride and handle ragged edges, so nothing is padded or copied per call.
-All three accumulate in f32 and need no atomics: each result is
+``U`` and ``Z`` of the multi-vector kernels are row-major blocks of 1 to
+:data:`~repro_torch.kernels.build.MAX_COLS` columns with any row stride.
+All five accumulate in f32 and need no atomics: each result is
 repeatable bit for bit on a given card. A failed launch raises; nothing
 here falls back to the plain versions in :mod:`repro_torch.kernels.ref`.
 """
@@ -27,10 +33,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import (X_C_XT_U, X_CZ, XT_U, check_card,
+from repro_torch.kernels.build import (X_C_XT_U, X_CZ, X_CZ_MULTI, XT_MULTI,
+                                       XT_U, check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 
-THREADS = 256            # threads per CTA of xt_u and x_cz
+THREADS = 256            # threads per CTA of xt_u, x_cz and the multis
 FUSED_THREADS = 1024     # threads per CTA of x_c_xt_u
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
 SMEM_PER_SM = 233_472    # shared memory of one SM for resident CTAs (228 KB)
@@ -163,3 +170,41 @@ def x_c_xt_u(X, c, u, *, _block_n: int | None = None):
         X_C_XT_U.launch(ptr(X), ld, ptr(c), ptr(u), ptr(y), ptr(part), d, n,
                         bn, grid, FUSED_THREADS, stream_of(dev))
     return y
+
+
+def xt_multi(X, U):
+    """Z = X^T U on the card.  X (d, n) row-major f32, U (d, s) row-major
+    (any row stride) -> Z (n, s)."""
+    dev = X.device
+    check_card(dev)
+    ld = _check_matrix(X, dev)
+    d, n = X.shape
+    s, ldu = check_columns("U", U, d, dev)
+    Z = torch.empty((n, s), dtype=torch.float32, device=dev)
+    if d == 0 or n == 0:
+        return Z.zero_()
+    slices = xt_u_slices(d, n, _sm_count(dev.index or 0))
+    part = (torch.empty((slices, n, s), dtype=torch.float32, device=dev)
+            if slices > 1 else None)
+    with torch.cuda.device(dev):
+        XT_MULTI.launch(ptr(X), ld, ptr(U), ldu, ptr(Z), ptr(part), d, n, s,
+                        slices, THREADS, stream_of(dev))
+    return Z
+
+
+def x_cz_multi(X, c, Z):
+    """Y = X (c[:, None] .* Z) on the card.  X (d, n) row-major f32, c
+    (optional, n,), Z (n, s) row-major (any row stride) -> Y (d, s)."""
+    dev = X.device
+    check_card(dev)
+    ld = _check_matrix(X, dev)
+    d, n = X.shape
+    s, ldz = check_columns("Z", Z, n, dev)
+    _check_vector("c", c, n, dev)
+    Y = torch.empty((d, s), dtype=torch.float32, device=dev)
+    if d == 0 or n == 0:
+        return Y.zero_()
+    with torch.cuda.device(dev):
+        X_CZ_MULTI.launch(ptr(X), ld, ptr(c), ptr(Z), ldz, ptr(Y), d, n, s,
+                          THREADS, stream_of(dev))
+    return Y

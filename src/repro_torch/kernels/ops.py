@@ -59,6 +59,23 @@ def x_cz_local(X, c, z):
     return _ref.ref_x_cz(X, z if c is None else c * z)
 
 
+def xt_multi(X, U):
+    """Z = X^T U over s probe vectors (multi-vector pass A, s-step rounds).
+    X (d, n), U (d, s) row-major (``U.stride(1) == 1``, any row stride)
+    -> Z (n, s) f32."""
+    if _on_cuda(X, U):
+        return _dense.xt_multi(X, U)
+    return _ref.ref_xt_multi(X, U)
+
+
+def x_cz_multi(X, c, Z):
+    """Y = X (c[:, None] .* Z) (multi-vector pass B, the scale fused).
+    X (d, n), c (optional, n,), Z (n, s) -> Y (d, s) f32."""
+    if _on_cuda(X, c, Z):
+        return _dense.x_cz_multi(X, c, Z)
+    return _ref.ref_x_cz_multi(X, c, Z)
+
+
 def x_c_xt_u(X, c, u):
     """y = X (c .* (X^T u)) in one streaming pass over X.
 
@@ -96,6 +113,19 @@ def ell_matvec(data, cols, v, c=None, *, out_dtype=torch.float32):
     return _ref.ref_ell_mv(data, cols, v, c, out_dtype=out_dtype)
 
 
+def ell_matmat(data, cols, V, c=None, *, out_dtype=torch.float32):
+    """Y = A @ (c[:, None] .* V) over s probe vectors (s-step rounds).
+
+    V : (ncb * bc, s) row-major (``V.stride(1) == 1``, any row stride)
+    -> (nb * br, s) in ``out_dtype``. The kernel takes the true ``s`` (up
+    to :data:`repro_torch.kernels.sparse_hvp.MAX_COLS`); nothing is
+    padded.
+    """
+    if _on_cuda(data, cols, V, c):
+        return _sparse.ell_mm(data, cols, V, c, out_dtype=out_dtype)
+    return _ref.ref_ell_mm(data, cols, V, c, out_dtype=out_dtype)
+
+
 def ell_hvp(dataT, colsT, u, c=None, *, fwd=None, out_dtype=torch.float32):
     """One-pass blocked-ELL HVP: y = A (c .* (A^T u)).
 
@@ -112,3 +142,19 @@ def ell_hvp(dataT, colsT, u, c=None, *, fwd=None, out_dtype=torch.float32):
         z = _ref.ref_ell_mv(dataT, colsT, u)
         return _ref.ref_ell_mv(fwd[0], fwd[1], z, c, out_dtype=out_dtype)
     return _ref.ref_ell_hvp_t(dataT, colsT, u, c, out_dtype=out_dtype)
+
+
+def ell_hvp_mm(dataT, colsT, U, c=None, *, fwd=None,
+               out_dtype=torch.float32):
+    """One-pass blocked-ELL multi-vector HVP: Y = A (c .* (A^T U)).
+
+    U : (nrb * br, s) -> (nrb * br, s); the layout and ``fwd`` contract of
+    :func:`ell_hvp`: on the card always the fused kernel, on the CPU with
+    ``fwd`` the exact two-pass pair of plain versions.
+    """
+    if _on_cuda(dataT, colsT, U, c):
+        return _sparse.ell_hvp_mm(dataT, colsT, U, c, out_dtype=out_dtype)
+    if fwd is not None:
+        Z = _ref.ref_ell_mm(dataT, colsT, U)
+        return _ref.ref_ell_mm(fwd[0], fwd[1], Z, c, out_dtype=out_dtype)
+    return _ref.ref_ell_hvp_mm_t(dataT, colsT, U, c, out_dtype=out_dtype)

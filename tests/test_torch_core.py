@@ -118,8 +118,9 @@ def test_cell_registry_matches_jax():
 
 def test_dense_layout_not_yet_ported():
     """The dense layouts build their operators now; what the dense path
-    still lacks (bf16 tiles, s-step PCG) raises "not yet ported", and the
-    plain dense layout has no fused kernel, as in the reference."""
+    still lacks (bf16 tiles, s-step PCG on fused dense kernels, whose round
+    needs x_c_xt_multi) raises "not yet ported", and the plain dense
+    layout has no fused kernel, as in the reference."""
     from repro_torch import DiscoConfig, DiscoSolver
     X = torch.zeros((8, 8))
     assert isinstance(thvp.make_local_operator(X, None),
@@ -128,11 +129,15 @@ def test_dense_layout_not_yet_ported():
                       thvp.DenseKernelOperator)
     with pytest.raises(thvp.UnsupportedHvpError, match="use_kernel=True"):
         thvp.make_local_operator(X, None, fused=True)
-    for override in (dict(hvp_dtype="bfloat16"), dict(pcg_block_s=2)):
+    for override in (dict(hvp_dtype="bfloat16"),
+                     dict(pcg_block_s=2, hvp_fused=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
                         DiscoConfig(use_kernel=True, **override),
                         device="cpu")
+    # the two-pass dense s-step path builds
+    DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
+                DiscoConfig(use_kernel=True, pcg_block_s=2), device="cpu")
 
 
 @pytest.mark.parametrize("use_kernel,fused",
@@ -275,7 +280,53 @@ def test_pcg_features_matches_jax(precond):
 
 
 def test_pcg_sstep_not_yet_ported():
-    arrs, _, _, _ = _pcg_problem()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pcg_samples([EllPair(*map(T, arrs))], None, 1, 0.0,
-                    torch.zeros(8), 0.0, 1, block_s=4)
+    """s-step PCG is ported now (it raised before): one s-step solve of
+    each partition (no preconditioner, so it takes several rounds) matches
+    the JAX package's on the same Newton system (the same rounds, v within
+    rtol 1e-4, as the classic solves here), and a fused dense operator,
+    whose batched product needs the unported x_c_xt_multi kernel, raises
+    "not yet ported"."""
+    arrs, Xd, c, g = _pcg_problem(seed=5)
+    d, n = Xd.shape
+    nr, nc = arrs[0].shape[0] * 16, arrs[2].shape[0] * 16
+    cp = np.pad(c, (0, nc - n))
+    gp = np.pad(g, (0, nr - d))
+    tau = 100
+    X_tau = np.pad(Xd[:, :tau], ((0, nr - d), (0, 0)))
+    eps = 0.05 * float(np.linalg.norm(g))
+
+    def body_s(cc, gg, Xt, ct):
+        return j_pcg_samples(JEllPair(*arrs), cc, n, LAM, gg, eps, 256,
+                             X_tau=Xt, coeffs_tau=ct, mu=1e-2,
+                             axis_name="data", precond="none", block_s=3,
+                             axis_size=1)
+
+    def body_f(cc, gg, Xt, ct):
+        return j_pcg_features(JEllPair(*arrs), cc, n, LAM, gg, eps, 256,
+                              coeffs_tau=ct, mu=1e-2, axis_name="model",
+                              X_tau_loc=Xt, precond="none", block_s=3,
+                              axis_size=1)
+
+    ref_s = _run_single_device(body_s, (P(), P(), P(), P()),
+                               JPCGResult(P(), P(), P(), P()), "data",
+                               cp, gp, X_tau, c[:tau])
+    ref_f = _run_single_device(body_f, (P(), P("model"), P("model", None),
+                                        P()),
+                               JPCGResult(P("model"), P(), P(), P()),
+                               "model", cp, gp, X_tau, c[:tau])
+    pair = [EllPair(*map(T, arrs))]
+    got_s = pcg_samples(pair, T(cp)[None], n, LAM, T(gp), eps, 256,
+                        X_tau=T(X_tau), coeffs_tau=T(c[:tau]), mu=1e-2,
+                        precond="none", block_s=3)
+    got_f = pcg_features(pair, T(cp), n, LAM, T(gp)[None], eps, 256,
+                         coeffs_tau=T(c[:tau]), mu=1e-2,
+                         X_tau_loc=T(X_tau)[None], precond="none",
+                         block_s=3)
+    for got, v, ref in ((got_s, got_s.v, ref_s), (got_f, got_f.v[0], ref_f)):
+        assert got.iters == int(ref.iters) and got.iters > 1
+        np.testing.assert_allclose(v.numpy(), np.asarray(ref.v), rtol=1e-4,
+                                   atol=1e-5)
+    op = thvp.make_local_operator(torch.ones((4, 6)), None, use_kernel=True,
+                                  fused=True)
+    with pytest.raises(NotImplementedError, match="x_c_xt_multi"):
+        op.apply_multi(torch.ones((4, 2)))

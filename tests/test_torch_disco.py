@@ -159,10 +159,20 @@ def test_converted_state_one_step_matches_jax(partition, fused):
     dict(hvp_dtype="bfloat16"), dict(trace=True)],
     ids=lambda o: next(iter(o)))
 def test_unported_options_raise(override):
-    _, y, Xt = _data()
+    """The options not yet ported raise "not yet ported". s-step PCG is
+    ported now: on sparse input it builds, and only on fused dense
+    kernels (the x_c_xt_multi cells) does it still raise."""
+    X, y, Xt = _data()
+    cfg = DiscoConfig(**dict(KW, **override))
+    if "pcg_block_s" in override:
+        assert DiscoSolver(Xt, y, cfg, device="cpu").cfg.pcg_block_s == 2
+        with pytest.raises(NotImplementedError, match="x_c_xt_multi"):
+            DiscoSolver(X.todense(), y, DiscoConfig(**dict(
+                KW, use_kernel=True, hvp_fused=True, **override)),
+                device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DiscoSolver(Xt, y, DiscoConfig(**dict(KW, **override)),
-                    device="cpu")
+        DiscoSolver(Xt, y, cfg, device="cpu")
 
 
 def test_dense_input_and_checkpoint_raise():

@@ -37,6 +37,11 @@ SCRIPT = textwrap.dedent("""
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.w.shape == (30,)
         assert r.grad_norms[-1] < r.grad_norms[0]
+        r = disco_fit(X, y, DiscoConfig(partition=partition, tau=16,
+                                        max_outer=2, ell_block_d=8,
+                                        ell_block_n=8, pcg_block_s=3),
+                      group=InProcessGroup(2), device="cpu")
+        assert np.isfinite(r.w).all() and r.grad_norms[-1] < r.grad_norms[0]
     import torch
     assert GLMProblem.create(Xd, yd, device="cpu").grad(torch.zeros(30)).shape == (30,)
     leaked = sorted(m for m in sys.modules

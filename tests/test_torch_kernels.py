@@ -99,6 +99,108 @@ def test_ell_hvp_fwd_replays_two_pass_exactly():
                                rtol=RTOL, atol=ATOL)
 
 
+# s values of the multi-vector ops: 1, a power of two, DiSCO-S at s = 4
+# (5 columns), and the kernels' cap
+MULTI_S = [1, 2, 5, 8]
+
+
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("with_c", [False, True])
+@pytest.mark.parametrize("layout", ["forward", "transposed"])
+@pytest.mark.parametrize("s", MULTI_S)
+def test_ell_matmat_matches_jax(block, with_c, layout, s):
+    rng = np.random.default_rng(100 + block + s)
+    fwd, tr = _layouts(block)
+    ell = fwd if layout == "forward" else tr
+    n_in = ell.n_col_blocks * block
+    V = rng.standard_normal((n_in, s)).astype(np.float32)
+    c = rng.uniform(0.0, 0.25, n_in).astype(np.float32) if with_c else None
+    ref = np.asarray(jops.ell_matmat(ell.data, ell.cols, V, c))
+    T = torch.from_numpy
+    got = tops.ell_matmat(T(ell.data), T(ell.cols), T(V),
+                          None if c is None else T(c))
+    assert got.dtype == torch.float32
+    assert got.shape == (ell.n_row_blocks * block, s)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("with_c", [False, True])
+@pytest.mark.parametrize("with_fwd", [False, True])
+@pytest.mark.parametrize("s", MULTI_S)
+def test_ell_hvp_mm_matches_jax(block, with_c, with_fwd, s):
+    rng = np.random.default_rng(200 + block + s)
+    fwd, tr = _layouts(block, seed=1)
+    U = rng.standard_normal((fwd.n_row_blocks * block, s)).astype(np.float32)
+    c = (rng.uniform(0.0, 0.25, tr.n_row_blocks * block).astype(np.float32)
+         if with_c else None)
+    jf = (fwd.data, fwd.cols) if with_fwd else None
+    ref = np.asarray(jops.ell_hvp_mm(tr.data, tr.cols, U, c, fwd=jf))
+    T = torch.from_numpy
+    tf = (T(fwd.data), T(fwd.cols)) if with_fwd else None
+    got = tops.ell_hvp_mm(T(tr.data), T(tr.cols), T(U),
+                          None if c is None else T(c), fwd=tf)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_multi_ops_equal_their_columns():
+    """Each column of a multi-vector op is the single-vector op on that
+    column (within f32 rounding), also for a strided column view (the
+    first s columns of an (., s + 1) basis)."""
+    rng = np.random.default_rng(5)
+    fwd, tr = _layouts(16, seed=2)
+    T = torch.from_numpy
+    data, cols, dataT, colsT = map(T, (fwd.data, fwd.cols, tr.data,
+                                       tr.cols))
+    basis = T(rng.standard_normal((fwd.n_row_blocks * 16, 5))
+              .astype(np.float32))
+    U = basis[:, :4]
+    assert not U.is_contiguous()
+    c = T(rng.uniform(0, 1, tr.n_row_blocks * 16).astype(np.float32))
+    Z = tops.ell_matmat(dataT, colsT, U)
+    Y = tops.ell_hvp_mm(dataT, colsT, U, c, fwd=(data, cols))
+    for j in range(4):
+        u = U[:, j].contiguous()
+        np.testing.assert_allclose(
+            Z[:, j].numpy(), tops.ell_matvec(dataT, colsT, u).numpy(),
+            rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            Y[:, j].numpy(),
+            tops.ell_hvp(dataT, colsT, u, c, fwd=(data, cols)).numpy(),
+            rtol=1e-6, atol=1e-6)
+    X, u, _, cd = _dense_inputs(40, 96, seed=6)
+    Xt = T(X)
+    Ub = T(rng.standard_normal((40, 3)).astype(np.float32))
+    Zd = tops.xt_multi(Xt, Ub)
+    Yd = tops.x_cz_multi(Xt, T(cd), Zd)
+    for j in range(3):
+        np.testing.assert_allclose(Zd[:, j].numpy(),
+                                   tops.xt_u(Xt, Ub[:, j]).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            Yd[:, j].numpy(),
+            tops.x_cz_local(Xt, T(cd), Zd[:, j].contiguous()).numpy(),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_multi_kernels_cap_their_columns():
+    """The multi-vector kernels take 1 to MAX_COLS row-major columns with
+    any row stride; their wrappers check that before a launch."""
+    cpu = torch.device("cpu")
+    basis = torch.ones((32, build.MAX_COLS + 1))
+    assert build.check_columns("U", basis[:, :3], 32, cpu) == (3, 9)
+    assert build.check_columns("U", torch.ones((1, 2)), 1, cpu) == (2, 2)
+    with pytest.raises(ValueError, match=f"1 to {build.MAX_COLS}"):
+        build.check_columns("U", basis, 32, cpu)
+    with pytest.raises(ValueError, match="row-major"):
+        build.check_columns("U", basis.T[:, :2], 9, cpu)
+    with pytest.raises(ValueError, match=r"\(16, s\)"):
+        build.check_columns("U", basis, 16, cpu)
+    # the plain versions on the CPU take any width
+    X = torch.ones((6, 10))
+    assert tops.xt_multi(X, torch.ones((6, 12))).shape == (10, 12)
+
+
 def test_cpu_calls_launch_no_kernel():
     build.reset_launch_counts()
     fwd, tr = _layouts(8)
@@ -110,8 +212,15 @@ def test_cpu_calls_launch_no_kernel():
     tops.xt_u(X, torch.ones(6))
     tops.x_cz_local(X, torch.ones(10), torch.ones(10))
     tops.x_c_xt_u(X, torch.ones(10), torch.ones(6))
-    assert build.launch_counts() == {"ell_mv": 0, "ell_hvp": 0, "xt_u": 0,
-                                     "x_cz": 0, "x_c_xt_u": 0}
+    tops.ell_matmat(T(fwd.data), T(fwd.cols),
+                    torch.ones((fwd.n_col_blocks * 8, 3)))
+    tops.ell_hvp_mm(T(tr.data), T(tr.cols),
+                    torch.ones((fwd.n_row_blocks * 8, 3)))
+    tops.xt_multi(X, torch.ones((6, 3)))
+    tops.x_cz_multi(X, None, torch.ones((10, 3)))
+    assert build.launch_counts() == {
+        "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
+        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -125,10 +234,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sparse_hvp.ell_hvp(T(tr.data), T(tr.cols),
                            torch.ones(fwd.n_row_blocks * 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_hvp.ell_mm(T(fwd.data), T(fwd.cols),
+                          torch.ones((fwd.n_col_blocks * 8, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_hvp.ell_hvp_mm(T(tr.data), T(tr.cols),
+                              torch.ones((fwd.n_row_blocks * 8, 2)))
     X = torch.ones((6, 10))
     for call in (lambda: glm_hvp.xt_u(X, torch.ones(6)),
                  lambda: glm_hvp.x_cz(X, None, torch.ones(10)),
-                 lambda: glm_hvp.x_c_xt_u(X, None, torch.ones(6))):
+                 lambda: glm_hvp.x_c_xt_u(X, None, torch.ones(6)),
+                 lambda: glm_hvp.xt_multi(X, torch.ones((6, 2))),
+                 lambda: glm_hvp.x_cz_multi(X, None, torch.ones((10, 2)))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
@@ -146,7 +263,8 @@ def test_ops_refuse_other_devices():
 
 def test_kernel_sources_and_build_target():
     assert [k.name for k in build.KERNELS] == [
-        "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u"]
+        "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u", "ell_mm",
+        "ell_hvp_mm", "xt_multi", "x_cz_multi"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -156,6 +274,12 @@ def test_kernel_sources_and_build_target():
     assert names(build.ELL_MV) == ["ell_common.cuh", "common.cuh"]
     assert names(build.X_CZ) == ["common.cuh"]
     assert names(build.XT_U) == ["partials.cuh", "common.cuh"]
+    assert names(build.ELL_HVP_MM) == ["ell_common.cuh", "common.cuh"]
+    assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
+    assert names(build.X_CZ_MULTI) == ["common.cuh"]
+    # the C header's column cap is the one the wrappers check
+    assert f"kMaxCols = {build.MAX_COLS};" in (
+        build.CSRC / "common.cuh").read_text()
     # the build directory is ignored by git
     gitignore = build.BUILD_DIR.parents[1] / ".gitignore"
     assert "build/" in gitignore.read_text().split()
@@ -213,6 +337,32 @@ def test_dense_glm_hvp_matches_jax(fused):
     T = torch.from_numpy
     ref = jops.glm_hvp(X, c, u, 1e-3, fused=fused)
     got = tops.glm_hvp(T(X), T(c), T(u), 1e-3, fused=fused)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=DENSE_RTOL, atol=DENSE_ATOL)
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("op", ["xt_multi", "x_cz_multi", "x_cz_multi-c"])
+@pytest.mark.parametrize("s", MULTI_S)
+def test_dense_multi_ops_match_jax(shape, op, s):
+    """xt_multi and x_cz_multi at ragged shapes and true widths s (the JAX
+    wrappers pad s to 128 lanes and d, n to 512 blocks; the port pads
+    nothing), with and without c (JAX's x_cz_multi always takes one)."""
+    d, n = shape
+    X, _, _, c = _dense_inputs(d, n, seed=d + n + s)
+    rng = np.random.default_rng(s)
+    T = torch.from_numpy
+    if op == "xt_multi":
+        U = rng.standard_normal((d, s)).astype(np.float32)
+        ref, got = jops.xt_multi(X, U), tops.xt_multi(T(X), T(U))
+    else:
+        Z = rng.standard_normal((n, s)).astype(np.float32)
+        with_c = op.endswith("-c")
+        ref = jops.x_cz_multi(X, c if with_c else np.ones_like(c), Z)
+        got = tops.x_cz_multi(T(X), T(c) if with_c else None, T(Z))
+    assert got.dtype == torch.float32
+    assert got.shape == np.shape(ref)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                rtol=DENSE_RTOL, atol=DENSE_ATOL)
 
