@@ -5,9 +5,9 @@ Usage, from the repository root on a machine with one Hopper card:
 
     python3 chip_smoke.py
 
-Five phases; any failed check makes the exit code nonzero.
+Six phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the nine hand-written CUDA kernels from
+1. Build: compiles the ten hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
    all at once) and prints the card's name and power limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
@@ -16,10 +16,13 @@ Five phases; any failed check makes the exit code nonzero.
    ``x_cz`` and ``x_c_xt_u`` at ragged dense shapes and every panel width;
    each with and without the scale ``c``; the multi-vector ``ell_mm``,
    ``ell_hvp_mm`` (also against the two-pass ``ell_mm`` pair),
-   ``xt_multi`` and ``x_cz_multi`` at s = 1, 2, 4, 5 and 8 columns, on
-   contiguous and strided blocks. The s-step Gram solve is timed on the
-   card and on the CPU. Then small sparse and dense solves, classic and
-   s-step, on the card against the same solves on the CPU.
+   ``xt_multi``, ``x_cz_multi`` and the fused ``x_c_xt_multi`` (at every
+   panel width, also against ``x_c_xt_u`` column by column and against
+   the ``xt_multi`` + ``x_cz_multi`` pair) at s = 1, 2, 4, 5 and 8
+   columns, on contiguous and strided blocks. The s-step Gram solve is
+   timed on the card and on the CPU. Then small solves on the card against
+   the same solves on the CPU: sparse and dense, classic and s-step (fused
+   dense s-step included), a λ-path and softmax.
 3. Sparse slice: ``disco_fit`` at the shape of LIBSVM rcv1.binary's
    training split (d = 47,236 features, n = 20,242 samples, about 1.5 M
    nonzeros, synthetic power-law data from a seed): DiSCO-S and DiSCO-F
@@ -39,13 +42,21 @@ Five phases; any failed check makes the exit code nonzero.
    ``make_glm_data`` recipe from a seed; the same six runs. At full width
    ``xt_u``, ``x_cz`` and ``x_c_xt_u`` are held against their plain
    versions and timed beside them and beside ``torch.mv``, and so are
-   ``xt_multi`` and ``x_cz_multi`` at s = 5 beside ``torch.matmul``; a
+   ``xt_multi``, ``x_cz_multi`` and ``x_c_xt_multi`` at s = 5 beside
+   ``torch.matmul`` (``x_c_xt_multi`` also beside the kernel pair); a
    second fit of the first run is profiled. Every Newton step must
    decrease f, and m = 4 and fused runs must end at the m = 1 two-pass
-   ``w``. Then three s-step runs: DiSCO-S and DiSCO-F at m = 1 and
-   DiSCO-F m = 4 fused (its basis operator on ``x_c_xt_u``), with the
-   same checks.
-5. Report: the kernels' JSON line.
+   ``w``. Then six s-step runs: DiSCO-S and DiSCO-F at m = 1 two-pass,
+   DiSCO-F m = 4 fused (its basis operator on ``x_c_xt_u``), and the
+   fused rounds on ``x_c_xt_multi``: DiSCO-S at m = 1 and m = 4, DiSCO-F
+   at m = 1; with the same checks.
+5. Workloads on the dense slice's X: a warm λ-path (λ = 1e-2, 1e-3,
+   1e-4; fused s-step DiSCO-S, scored on 32,768 held-out samples of the
+   same model), multinomial softmax with K = 10 classes (DiSCO-S m = 1
+   and DiSCO-F m = 4, classic and s-step), and Poisson and Huber
+   regression (fused DiSCO-S); each held to its predicted launches or
+   its convergence, and the λ-path's last point to the classic ``w``.
+6. Report: the kernels' JSON line.
 
 Each slice zeroes the kernels' launch counts just before each fit and
 reads them just after; every kernel of the slice must have run. The line
@@ -92,8 +103,17 @@ TIMED_S = SSTEP_S + 1
 SSTEP_RUNS = [("samples", 1, False), ("features", 1, False),
               ("samples", 1, True), ("features", 4, False)]
 DENSE_SSTEP_RUNS = [("samples", 1, False), ("features", 1, False),
-                    ("features", 4, True)]
+                    ("features", 4, True), ("samples", 1, True),
+                    ("samples", 4, True), ("features", 1, True)]
 MULTI_S = (1, 2, 4, 5, 8)
+MAX_COLS = 8                     # columns per multi-vector kernel launch
+# the workloads on the dense slice's X
+LAMBDAS = (1e-2, 1e-3, 1e-4)
+N_VAL = 32_768
+SOFTMAX_K = 10
+SOFTMAX_SOLVE = dict(lam=1e-3, max_outer=8, grad_tol=0.0, use_kernel=True)
+SOFTMAX_RUNS = [("samples", 1, 1), ("samples", 1, 2), ("features", 4, 1),
+                ("features", 4, 2)]
 
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
@@ -104,9 +124,11 @@ REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
             "ell_mm": "src/repro/kernels/sparse_hvp.py:136",
             "ell_hvp_mm": "src/repro/kernels/sparse_hvp.py:268",
             "xt_multi": "src/repro/kernels/glm_hvp.py:168",
-            "x_cz_multi": "src/repro/kernels/glm_hvp.py:208"}
+            "x_cz_multi": "src/repro/kernels/glm_hvp.py:208",
+            "x_c_xt_multi": "src/repro/kernels/glm_hvp.py:302"}
 SPARSE_KERNELS = ("ell_mv", "ell_hvp", "ell_mm", "ell_hvp_mm")
-DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi")
+DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi",
+                 "x_c_xt_multi")
 DENSE_SINGLE = ("xt_u", "x_cz", "x_c_xt_u")
 
 FAILURES: list[str] = []
@@ -362,6 +384,52 @@ def phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs) -> None:
                   f"{list(MULTI_S)}: worst rel err {e:.2e}")
 
 
+def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
+    """x_c_xt_multi at DENSE_SHAPES, s in MULTI_S, with and without c, on
+    contiguous and strided (first s of s + 1 columns) U, at every panel
+    width that fits: against its plain version, repeatable bit for bit;
+    then column k against x_c_xt_u on U[:, k], and the whole against the
+    xt_multi + x_cz_multi pair. Relative L2 throughout (the sums cancel in
+    places, so no elementwise tolerance). One check line per shape."""
+    dev = torch.device("cuda")
+    for d, n in DENSE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(3 * d + n)
+        X = torch.randn((d, n), generator=g, device=dev) / d ** 0.5
+        c = torch.rand(n, generator=g, device=dev)
+        worst, same, widths = 0.0, True, set()
+        worst_col, worst_pair = 0.0, 0.0
+        for k in MULTI_S:
+            B = torch.randn((d, k + 1), generator=g, device=dev)
+            for U in (B[:, :k].contiguous(), B[:, :k]):
+                for cc in (None, c):
+                    want = ref.ref_x_c_xt_multi(X, cc, U)
+                    for bn in glm_hvp.PANEL_WIDTHS:
+                        if glm_hvp.fused_multi_smem_bytes(d, bn, k) > \
+                                glm_hvp.SMEM_LIMIT:
+                            continue
+                        widths.add(bn)
+                        got = glm_hvp.x_c_xt_multi(X, cc, U, _block_n=bn)
+                        again = glm_hvp.x_c_xt_multi(X, cc, U, _block_n=bn)
+                        torch.cuda.synchronize()
+                        worst = max(worst, record_err(errs, "x_c_xt_multi",
+                                                      got, want))
+                        same &= bool(torch.equal(got, again))
+            Y = glm_hvp.x_c_xt_multi(X, c, U)
+            pair = glm_hvp.x_cz_multi(X, c, glm_hvp.xt_multi(X, U))
+            torch.cuda.synchronize()
+            worst_pair = max(worst_pair,
+                             record_err(errs, "x_c_xt_multi", Y, pair))
+            for j in range(k):
+                col = glm_hvp.x_c_xt_u(X, c, U[:, j].contiguous())
+                worst_col = max(worst_col, rel_err(Y[:, j], col))
+        check(worst <= REL_TOL_KERNEL and same and worst_col <= REL_TOL_KERNEL
+              and worst_pair <= REL_TOL_KERNEL,
+              f"x_c_xt_multi {d}x{n} s in {list(MULTI_S)}, c and strided U, "
+              f"panels {sorted(widths)}: worst rel err {worst:.2e}, "
+              f"repeatable {same}; columns vs x_c_xt_u {worst_col:.2e}; vs "
+              f"the xt_multi + x_cz_multi pair {worst_pair:.2e}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -579,14 +647,21 @@ def time_gram_solve(torch) -> None:
           f"of a {rel_err(out['card'][1], out['cpu'][1]):.2e}", flush=True)
 
 
+def groups(cols: int) -> int:
+    """Launches of a multi-vector op on ``cols`` columns (kernels/ops.py
+    splits past MAX_COLS)."""
+    return -(-cols // MAX_COLS)
+
+
 def predicted_launches(sparse, partition, m, fused, s, steps, rounds):
     """The kernel launches an s-step fit makes, from the code's structure
     (core/pcg.py, core/disco.py): per Newton step the margins and the
     gradient (sparse input: one ell_mv each per shard; dense: cuBLAS); per
     round s - 1 basis-operator products (the whole local HVP: for DiSCO-S
     on one shard only, for DiSCO-F on every shard) and one batched round
-    (DiSCO-S: apply_multi per shard; DiSCO-F: one apply_multi when fused
-    on one shard, else pass A and pass B multi per shard)."""
+    (DiSCO-S: apply_multi per shard on s + 1 columns; DiSCO-F: one
+    apply_multi on s columns when fused on one shard, else pass A and
+    pass B multi per shard), one launch per column group."""
     n = dict.fromkeys(SPARSE_KERNELS + DENSE_KERNELS, 0)
     basis = (s - 1) * rounds * (m if partition == "features" else
                                 (1 if m == 1 else 0))
@@ -603,10 +678,13 @@ def predicted_launches(sparse, partition, m, fused, s, steps, rounds):
         n["x_cz"] += basis
     one_apply = partition == "samples" or (fused and m == 1)
     per_round = m if partition == "samples" or not one_apply else 1
+    per_round *= groups(s + 1 if partition == "samples" else s)
     if sparse and fused and one_apply:
         n["ell_hvp_mm"] += per_round * rounds
     elif sparse:
         n["ell_mm"] += 2 * per_round * rounds
+    elif fused and one_apply:
+        n["x_c_xt_multi"] += per_round * rounds
     else:
         n["xt_multi"] += per_round * rounds
         n["x_cz_multi"] += per_round * rounds
@@ -780,7 +858,8 @@ def make_dense_data(torch, dev, d, n, cond_decay, seed):
     generator (on the host the (d, d) @ (d, n) product alone is about
     9 TFLOP): feature covariance with singular values k^-cond_decay,
     unit-norm columns, +-1 labels from a logistic model of a random
-    w_true. Returns X (d, n) f32 and y (n,) on the card."""
+    w_true. Returns X (d, n) f32 and y (n,) on the card, and the model
+    (mixing matrix, w_true, margin scale) for held-out samples."""
     g = torch.Generator(device=dev).manual_seed(seed)
     f64 = torch.float64
     scales = torch.arange(1, d + 1, dtype=f64, device=dev) ** (-cond_decay)
@@ -792,8 +871,22 @@ def make_dense_data(torch, dev, d, n, cond_decay, seed):
     X /= torch.clamp(torch.linalg.norm(X, dim=0, keepdim=True), min=1e-12)
     w_true = torch.randn(d, generator=g, device=dev) / d ** 0.5
     margins = X.T @ w_true
-    p = torch.sigmoid(margins / torch.clamp(margins.std(), min=1e-9))
+    scale = torch.clamp(margins.std(), min=1e-9)
+    p = torch.sigmoid(margins / scale)
     y = torch.where(torch.rand(n, generator=g, device=dev) < p, 1.0, -1.0)
+    return X, y, dict(A=A, w_true=w_true, scale=scale)
+
+
+def held_out(torch, model, n, seed):
+    """``n`` more samples of the same model (the recipe's steps after the
+    covariance, from a generator seeded with ``seed``)."""
+    A, w_true = model["A"], model["w_true"]
+    g = torch.Generator(device=A.device).manual_seed(seed)
+    X = A @ torch.randn((A.shape[0], n), generator=g, device=A.device)
+    X /= torch.clamp(torch.linalg.norm(X, dim=0, keepdim=True), min=1e-12)
+    p = torch.sigmoid(X.T @ w_true / model["scale"])
+    y = torch.where(torch.rand(n, generator=g, device=A.device) < p, 1.0,
+                    -1.0)
     return X, y
 
 
@@ -871,33 +964,52 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
 
 
 def measure_dense_multi(torch, X, c, glm_hvp, ref, errs) -> dict:
-    """Full-width checks and timings of xt_multi and x_cz_multi at
-    TIMED_S columns, beside torch.matmul (cuBLAS) of the same product,
-    and their times at 1, 4 and 8 columns (one read of X serves them
-    all)."""
+    """Full-width checks and timings of xt_multi, x_cz_multi and the fused
+    x_c_xt_multi at TIMED_S columns, beside torch.matmul (cuBLAS) of the
+    same product (for x_c_xt_multi the two-call pair, and the kernel
+    pair), and their times at 1, 4 and 8 columns (one read of X serves
+    them all). The checks take strided blocks (the first s columns of 8);
+    the timings take the main path's layouts: xt_multi the strided U that
+    DiSCO-F passes, x_cz_multi the contiguous Z that pass A and the
+    all-reduce leave, x_c_xt_multi the contiguous basis of a DiSCO-S
+    round. x_cz_multi and x_c_xt_multi re-read their (n, s) or (d, s)
+    block from L2, so a strided block is slower; its time is kept too."""
     d, n = X.shape
     s = TIMED_S
     g = torch.Generator(device=X.device).manual_seed(3)
     U8 = torch.randn((d, 8), generator=g, device=X.device)
     Z8 = torch.randn((n, 8), generator=g, device=X.device)
-    U, Z = U8[:, :s].contiguous(), Z8[:, :s].contiguous()
-    kernel = {"xt_multi": lambda k=s: glm_hvp.xt_multi(X, U8[:, :k]),
-              "x_cz_multi": lambda k=s: glm_hvp.x_cz_multi(X, c, Z8[:, :k])}
+    Uc = {k: U8[:, :k].contiguous() for k in (1, 4, s, 8)}
+    Zc = {k: Z8[:, :k].contiguous() for k in (1, 4, s, 8)}
+    U, Z = Uc[s], Zc[s]
+    checked = {"xt_multi": lambda: glm_hvp.xt_multi(X, U8[:, :s]),
+               "x_cz_multi": lambda: glm_hvp.x_cz_multi(X, c, Z8[:, :s]),
+               "x_c_xt_multi": lambda: glm_hvp.x_c_xt_multi(X, c, U8[:, :s])}
+    timed = {"xt_multi": lambda k=s: glm_hvp.xt_multi(X, U8[:, :k]),
+             "x_cz_multi": lambda k=s: glm_hvp.x_cz_multi(X, c, Zc[k]),
+             "x_c_xt_multi": lambda k=s: glm_hvp.x_c_xt_multi(X, c, Uc[k])}
     plain = {"xt_multi": lambda: ref.ref_xt_multi(X, U),
-             "x_cz_multi": lambda: ref.ref_x_cz_multi(X, c, Z)}
+             "x_cz_multi": lambda: ref.ref_x_cz_multi(X, c, Z),
+             "x_c_xt_multi": lambda: ref.ref_x_c_xt_multi(X, c, U)}
     library = {"xt_multi": lambda: X.t() @ U,
                "x_cz_multi": lambda: X @ (c[:, None] * Z)}
+    # no single PyTorch call computes x_c_xt_multi: the two-call pair is
+    # kept beside it
+    pair = lambda: X @ (c[:, None] * (X.t() @ U))
     vec_bytes = {"xt_multi": 4 * (d * s + n * s),
-                 "x_cz_multi": 4 * (n * s + n + d * s)}
-    flops = {"xt_multi": 2 * d * n * s, "x_cz_multi": 2 * d * n * s + n * s}
+                 "x_cz_multi": 4 * (n * s + n + d * s),
+                 "x_c_xt_multi": 4 * (2 * d * s + n)}
+    flops = {"xt_multi": 2 * d * n * s, "x_cz_multi": 2 * d * n * s + n * s,
+             "x_c_xt_multi": 4 * d * n * s + n * s}
     out = {}
-    for name in ("xt_multi", "x_cz_multi"):
-        got, want, lib = kernel[name](), plain[name](), library[name]()
+    for name in ("xt_multi", "x_cz_multi", "x_c_xt_multi"):
+        got, want = checked[name](), plain[name]()
+        lib = library.get(name, pair)()
         torch.cuda.synchronize()
         e = record_err(errs, name, got, want)
         check(e <= REL_TOL_KERNEL, f"{name} full width {d}x{n} s={s} "
                                    f"(strided): rel err {e:.2e}")
-        check(bool(torch.equal(got, kernel[name]())),
+        check(bool(torch.equal(got, checked[name]())),
               f"{name} full width: repeatable bit for bit")
         lib_ok = rel_err(lib, got) <= REL_TOL_KERNEL
         if not lib_ok:
@@ -907,14 +1019,32 @@ def measure_dense_multi(torch, X, c, glm_hvp, ref, errs) -> dict:
         nbytes = 4 * d * n + vec_bytes[name]
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops[name] / F32_FLOPS_PER_S
-        ms = time_ms(kernel[name])
+        ms = time_ms(timed[name])
+        lib_ms = time_ms(library.get(name, pair)) if lib_ok else None
         out[name] = dict(
             ms=ms, plain_ms=time_ms(plain[name]),
-            library_ms=time_ms(library[name]) if lib_ok else None,
+            library_ms=lib_ms if name in library else None,
             bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, gbps=nbytes / ms / 1e6, shape=[d, n, s],
-            ms_by_s={k: time_ms(lambda: kernel[name](k)) for k in (1, 4, 8)})
+            ms_by_s={k: time_ms(lambda: timed[name](k)) for k in (1, 4, 8)})
+        if name != "xt_multi":
+            out[name]["ms_strided"] = time_ms(checked[name])
+        if name not in library:
+            out[name]["library_pair_ms"] = lib_ms
+    fused = out["x_c_xt_multi"]
+    fused.update(
+        panel=glm_hvp.fused_multi_panel_width(d, s),
+        kernel_pair_ms=time_ms(lambda: glm_hvp.x_cz_multi(
+            X, c, glm_hvp.xt_multi(X, U))),
+        x_c_xt_u_ms=time_ms(lambda: glm_hvp.x_c_xt_u(X, c, Uc[1][:, 0])))
+    print("x_c_xt_multi detail " + json.dumps(
+        {k: fused[k] for k in ("panel", "ms_by_s", "ms_strided",
+                               "kernel_pair_ms", "library_pair_ms",
+                               "x_c_xt_u_ms")})
+          + " x_cz_multi " + json.dumps(
+              {k: out["x_cz_multi"][k] for k in ("ms_by_s", "ms_strided")}),
+          flush=True)
     return out
 
 
@@ -941,7 +1071,7 @@ def check_f_decreases(tag, hist) -> None:
 def phase_dense(torch, rt, build, glm_hvp, ref, errs):
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    X, y = make_dense_data(torch, dev, **DENSE)
+    X, y, model = make_dense_data(torch, dev, **DENSE)
     torch.cuda.synchronize()
     print(f"dense data on the card: d={X.shape[0]} n={X.shape[1]} "
           f"({X.numel() * 4 / 2**30:.2f} GiB, "
@@ -996,10 +1126,207 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
     sstep_phase(torch, rt, build, X, y, DENSE_SOLVE, DENSE_SSTEP_RUNS,
                 {p: (results[(p, 1, False)], iters[(p, 1, False)])
                  for p in ("samples", "features")}, False, launches)
-    del X, y
+    lambda_path_phase(torch, rt, build, X, y, model,
+                      results[("samples", 1, False)], launches)
+    softmax_phase(torch, rt, build, X, launches)
+    glm_losses_phase(torch, rt, build, X, model, launches)
+    del X, y, model
     gc.collect()
     torch.cuda.empty_cache()
     return timings, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+def lambda_path_phase(torch, rt, build, X, y, model, classic_w,
+                      launches) -> None:
+    """A warm λ-path on the dense slice: fused s-step DiSCO-S m = 1
+    (every round one x_c_xt_multi) at LAMBDAS, scored on N_VAL held-out
+    samples of the same model (seed 1). Checks: ``with_lam`` allocates
+    nothing (X shared), the launches the code predicts (x_c_xt_multi
+    among them), f decreasing at every point, and the last point
+    (λ = 1e-4) at the classic m = 1 two-pass ``w``."""
+    X_val, y_val = held_out(torch, model, N_VAL, seed=1)
+    cfg = rt.DiscoConfig(partition="samples", hvp_fused=True,
+                         pcg_block_s=SSTEP_S,
+                         **dict(DENSE_SOLVE, grad_tol=1e-8))
+    solver = rt.DiscoSolver(X, y, cfg, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    other = solver.with_lam(LAMBDAS[1])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after == before and other.X is solver.X
+          and other.X.data_ptr() == X.data_ptr(),
+          f"lambda path: with_lam allocated {after - before} bytes and "
+          f"shares X")
+    del solver, other
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = rt.lambda_path_fit(X, y, LAMBDAS, cfg, device="cuda",
+                              X_val=X_val, y_val=y_val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    want = dict.fromkeys(DENSE_KERNELS, 0)
+    points = []
+    for lam, res, passes, vloss in zip(path.lambdas, path.results,
+                                       path.x_passes, path.val_losses):
+        hist = res.history
+        rounds = [int(h["pcg_iters"]) for h in hist]
+        for k, v in predicted_launches(False, "samples", 1, True, SSTEP_S,
+                                       len(hist), sum(rounds)).items():
+            if k in want:
+                want[k] += v
+        check_f_decreases(f"lambda path point {lam:g}", hist)
+        points.append(dict(
+            lam=lam, newton_iters=len(hist), rounds=rounds,
+            iter_s_median=statistics.median(h["iter_s"] for h in hist),
+            x_passes=passes, val_loss=vloss,
+            grad_norm_first=hist[0]["grad_norm"],
+            grad_norm_last=hist[-1]["grad_norm"]))
+    print("lambda path " + json.dumps(dict(
+        points=points, best_lambda=path.best_lambda, wall_s=wall,
+        total_x_passes=path.total_x_passes, n_val=N_VAL,
+        launches={k: counts[k] for k in DENSE_KERNELS})), flush=True)
+    got = {k: counts[k] for k in want}
+    check(got == want and counts["x_c_xt_multi"] > 0,
+          f"lambda path: launches as predicted {json.dumps(want)}"
+          + ("" if got == want else f", got {json.dumps(got)}"))
+    e = rel_w(path.results[-1].w, classic_w)
+    check(path.lambdas[-1] == DENSE_SOLVE["lam"] and e <= REL_TOL_W,
+          f"lambda path: the lambda={path.lambdas[-1]:g} endpoint vs the "
+          f"classic m=1 w: rel diff {e:.2e}")
+    del X_val, y_val, path
+
+
+def softmax_launches(partition, m, s, units):
+    """The dense kernel launches of a softmax fit (core/softmax.py), from
+    its PCG iterations or s-step rounds: a K-class product is one
+    multi-vector op each way, ``groups(K)`` launches; classic: per
+    iteration one product per shard; s-step: per round s - 1 basis
+    products (the whole HVP on one DiSCO-S shard, each shard's block for
+    DiSCO-F, the tau-sample estimate in torch.matmul for DiSCO-S on
+    several) and the batched round, K (s + 1) (DiSCO-S) or K s (DiSCO-F)
+    columns per shard."""
+    K = SOFTMAX_K
+    if s <= 1:
+        per = m * groups(K)
+    else:
+        basis = (s - 1) * (m * groups(K) if partition == "features"
+                           else (groups(K) if m == 1 else 0))
+        per = basis + m * groups(K * (s + 1) if partition == "samples"
+                                 else K * s)
+    n = dict.fromkeys(DENSE_KERNELS, 0)
+    n["xt_multi"] = n["x_cz_multi"] = per * units
+    return n
+
+
+def softmax_phase(torch, rt, build, X, launches) -> None:
+    """Multinomial softmax on the dense slice's X with SOFTMAX_K classes
+    (labels argmax(X^T W_true + noise), W_true from seed 2): SOFTMAX_RUNS,
+    each held to its predicted launches (with the 8-column split) and to
+    f decreasing; DiSCO-F m = 4 against DiSCO-S m = 1, s-step against
+    classic."""
+    dev = X.device
+    d, n = X.shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    W_true = torch.randn((d, SOFTMAX_K), generator=g, device=dev)
+    labels = torch.argmax(X.T @ W_true + torch.randn(
+        (n, SOFTMAX_K), generator=g, device=dev), dim=1)
+    del W_true
+    out = {}
+    for partition, m, s in SOFTMAX_RUNS:
+        tag = (f"softmax K={SOFTMAX_K} "
+               + ("DiSCO-S" if partition == "samples" else "DiSCO-F")
+               + f" m={m} " + ("classic" if s == 1 else f"s-step s={s}"))
+        cfg = rt.SoftmaxConfig(partition=partition, pcg_block_s=s,
+                               n_classes=SOFTMAX_K, **SOFTMAX_SOLVE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.SoftmaxSolver(X, labels, cfg, group=rt.InProcessGroup(m),
+                                  device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(solver.X.data_ptr() == X.data_ptr(),
+              f"{tag}: the solver shards X in place (no copy)")
+        build.reset_launch_counts()
+        res = solver.fit()
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        hist = res.history
+        units = [int(h["pcg_iters"]) for h in hist]
+        print("run " + json.dumps(dict(
+            run=tag, newton_iters=len(hist), pcg_iters=units,
+            grad_norm_first=hist[0]["grad_norm"],
+            grad_norm_last=hist[-1]["grad_norm"],
+            iter_s_median=statistics.median(h["iter_s"] for h in hist),
+            setup_s=setup_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=counts, f=[h["f"] for h in hist])), flush=True)
+        check(bool(torch.from_numpy(res.W).isfinite().all())
+              and res.W.shape == (d, SOFTMAX_K),
+              f"{tag}: finite W of shape (d, K)")
+        want = softmax_launches(partition, m, s, sum(units))
+        got = {k: counts[k] for k in want}
+        check(got == want and sum(units) > 0,
+              f"{tag}: launches as predicted {json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        check_f_decreases(tag, hist)
+        out[(partition, m, s)] = res.W
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    for s in (1, 2):
+        e = rel_w(out[("features", 4, s)], out[("samples", 1, s)])
+        check(e <= REL_TOL_W, f"softmax s={s} DiSCO-F m=4 vs DiSCO-S m=1: "
+                              f"rel diff of W {e:.2e}")
+    for p, m in (("samples", 1), ("features", 4)):
+        e = rel_w(out[(p, m, 2)], out[(p, m, 1)])
+        check(e <= REL_TOL_W, f"softmax {p} m={m} s-step vs classic: rel "
+                              f"diff of W {e:.2e}")
+    del labels
+
+
+def glm_losses_phase(torch, rt, build, X, model, launches) -> None:
+    """Poisson and Huber regression on the dense slice's X (the
+    ``make_glm_data`` regression recipe on its model: y = margins + 0.1
+    noise; Poisson counts drawn from exp(margins)), fused DiSCO-S m = 1:
+    every HVP one x_c_xt_u, and the gradient norm down 1e3-fold."""
+    n = X.shape[1]
+    g = torch.Generator(device=X.device).manual_seed(3)
+    margins = X.T @ model["w_true"]
+    targets = {"poisson": torch.poisson(torch.exp(margins), generator=g),
+               "huber": margins + 0.1 * torch.randn(n, generator=g,
+                                                    device=X.device)}
+    for loss, yv in targets.items():
+        tag = f"dense {loss} DiSCO-S m=1 fused"
+        cfg = rt.DiscoConfig(partition="samples", hvp_fused=True,
+                             **dict(DENSE_SOLVE, loss=loss))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, yv, cfg, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res, counts = fit_counted(torch, build, solver)
+        for k in launches:
+            launches[k] += counts[k]
+        row = run_row(torch, tag, res, counts, setup_s,
+                      f=[h["f"] for h in res.history])
+        g0, g1 = row["grad_norm_first"], row["grad_norm_last"]
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and g1 <= 1e-3 * g0,
+              f"{tag}: finite w, grad_norm {g0:.3e} -> {g1:.3e}")
+        check(counts["x_c_xt_u"] > 0 and counts["xt_u"] == 0,
+              f"{tag}: x_c_xt_u launched for every HVP")
+        del solver, res
+    del targets, margins
 
 
 def count_host_syncs(torch, solver) -> int:
@@ -1054,14 +1381,16 @@ def profile_fit(torch, solver, count_syncs=False, rounds=None) -> None:
     print("profile " + json.dumps(out), flush=True)
 
 
-def same_solve(tag, on_card, on_cpu) -> None:
-    """The card's solve equals the CPU's: w within rtol 1e-4 / atol 1e-6
-    and the same PCG iterations (or s-step rounds) per step."""
+def same_solve(tag, on_card, on_cpu, w="w") -> None:
+    """The card's solve equals the CPU's: ``w`` (the result's attribute of
+    that name) within rtol 1e-4 / atol 1e-6 and the same PCG iterations
+    (or s-step rounds) per step."""
     import numpy as np
-    close = bool(np.allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6))
+    a, b = getattr(on_card, w), getattr(on_cpu, w)
+    close = bool(np.allclose(a, b, rtol=1e-4, atol=1e-6))
     same_iters = [h["pcg_iters"] for h in on_card.history] == \
         [h["pcg_iters"] for h in on_cpu.history]
-    e = float(np.max(np.abs(on_card.w - on_cpu.w)))
+    e = float(np.max(np.abs(a - b)))
     check(close and same_iters,
           f"{tag} on the card vs the CPU: w within rtol 1e-4 / atol "
           f"1e-6 {close} (max abs diff {e:.2e}), same PCG iterations "
@@ -1073,7 +1402,12 @@ def small_reference(torch, rt) -> None:
     plain versions, which the repository's tests hold to the JAX
     package): sparse DiSCO-S classic and s-step (s = 4, fused), dense
     DiSCO-S at m = 4 two-pass, DiSCO-F at m = 1 fused and DiSCO-S s-step
-    (s = 3)."""
+    (s = 3); fused dense s-step (x_c_xt_multi rounds: DiSCO-S at m = 1
+    and m = 4, s = 3, and DiSCO-F at m = 1, s = 2, whose s = 4 basis is
+    too ill-conditioned in f32 for rtol 1e-4 between two summation
+    orders); a λ-path on the fused s-step solve; softmax with 10 classes
+    (every product split 8 + 2) on both partitions."""
+    import numpy as np
     X, y, _ = rt.make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
                                       beta=0.5, seed=1)
     cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
@@ -1090,7 +1424,10 @@ def small_reference(torch, rt) -> None:
     X, y, _ = rt.make_glm_data(d=98, n=202, seed=1)
     for partition, m, fused, s in (("samples", 4, False, 1),
                                    ("features", 1, True, 1),
-                                   ("samples", 1, False, 3)):
+                                   ("samples", 1, False, 3),
+                                   ("samples", 1, True, 3),
+                                   ("samples", 4, True, 3),
+                                   ("features", 1, True, 2)):
         cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100,
                              max_outer=4, grad_tol=0.0, use_kernel=True,
                              partition=partition, hvp_fused=fused,
@@ -1100,6 +1437,36 @@ def small_reference(torch, rt) -> None:
         same_solve(f"small dense{kind} {run_tag(partition, m, fused)}",
                    rt.disco_fit(X, y, cfg, group=group, device="cuda"),
                    rt.disco_fit(X, y, cfg, group=group, device="cpu"))
+    X_val, y_val, _ = rt.make_glm_data(d=98, n=150, seed=2)
+    cfg = rt.DiscoConfig(loss="logistic", tau=100, max_outer=6,
+                         grad_tol=1e-6, use_kernel=True, hvp_fused=True,
+                         partition="samples", pcg_block_s=3)
+    paths = [rt.lambda_path_fit(X, y, LAMBDAS, cfg, device=dev,
+                                X_val=X_val, y_val=y_val)
+             for dev in ("cuda", "cpu")]
+    for lam, on_card, on_cpu in zip(LAMBDAS, paths[0].results,
+                                    paths[1].results):
+        same_solve(f"small lambda path point {lam:g}", on_card, on_cpu)
+    check(paths[0].x_passes == paths[1].x_passes
+          and paths[0].best_lambda == paths[1].best_lambda,
+          f"small lambda path on the card vs the CPU: x passes "
+          f"{paths[0].x_passes} vs {paths[1].x_passes}, best lambda "
+          f"{paths[0].best_lambda} vs {paths[1].best_lambda}")
+    X, _, _ = rt.make_glm_data(d=40, n=301, seed=3)
+    rng = np.random.default_rng(2)
+    labels = np.argmax(X.T @ rng.standard_normal((40, SOFTMAX_K))
+                       + 0.1 * rng.standard_normal((301, SOFTMAX_K)), axis=1)
+    for partition, m, s in (("samples", 1, 1), ("samples", 1, 2),
+                            ("features", 4, 2)):
+        cfg = rt.SoftmaxConfig(lam=1e-3, partition=partition, pcg_block_s=s,
+                               use_kernel=True, max_outer=4, grad_tol=0.0,
+                               tau=64)
+        group = rt.InProcessGroup(m)
+        on_card, on_cpu = (rt.softmax_fit(X, labels, cfg, group=group,
+                                          device=dev)
+                           for dev in ("cuda", "cpu"))
+        same_solve(f"small softmax K={SOFTMAX_K} s={s} {partition} m={m}",
+                   on_card, on_cpu, w="W")
 
 
 def main() -> int:
@@ -1126,6 +1493,7 @@ def main() -> int:
     phase_kernels(torch, sparse_hvp, ref, errs)
     phase_dense_kernels(torch, glm_hvp, ref, errs)
     phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
+    phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)

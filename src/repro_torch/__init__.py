@@ -2,8 +2,9 @@
 reference it is held against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
-entry points (:func:`disco_fit`, :class:`DiscoSolver`) run on the card
-unless the caller passes ``device='cpu'``. Input is a sparse
+entry points (:func:`disco_fit`, :class:`DiscoSolver`,
+:func:`lambda_path_fit`, :func:`softmax_fit`, :class:`SoftmaxSolver`) run
+on the card unless the caller passes ``device='cpu'``. Input is a sparse
 :class:`CSRMatrix` or a dense ``(d, n)`` array or tensor; on the card
 every HVP of PCG, classic or s-step (``pcg_block_s > 1``), goes through
 the hand-written Hopper kernels of :mod:`repro_torch.kernels` (for dense
@@ -12,10 +13,15 @@ input with ``use_kernel=True``).
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit)
 from repro_torch.core.glm import GLMProblem
+from repro_torch.core.lambda_path import LambdaPathResult, lambda_path_fit
+from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxResult,
+                                      SoftmaxSolver, softmax_fit)
 from repro_torch.data.sparse import CSRMatrix, make_sparse_glm_data
 from repro_torch.data.synthetic import make_glm_data
 from repro_torch.parallel.collectives import InProcessGroup
 
 __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
-           "GLMProblem", "CSRMatrix", "make_sparse_glm_data",
-           "make_glm_data", "InProcessGroup"]
+           "GLMProblem", "LambdaPathResult", "lambda_path_fit",
+           "SoftmaxConfig", "SoftmaxResult", "SoftmaxSolver", "softmax_fit",
+           "CSRMatrix", "make_sparse_glm_data", "make_glm_data",
+           "InProcessGroup"]

@@ -19,6 +19,11 @@ sparse input, :data:`DENSE_STATE_KEYS` for dense):
 
 An iterate crosses over in the solver's internal layout (padded, in
 partition order) with :func:`w_to_port`.
+
+A JAX ``repro.core.softmax.SoftmaxSolver`` crosses over the same way
+(:func:`softmax_solver_from_arrays`, :data:`SOFTMAX_STATE_KEYS`): ``X``
+(the whole padded matrix), ``Y1`` (one-hot labels), ``X_tau``,
+``Y1_tau``, and for ``partition='samples'`` the sample weights ``wts``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.disco import DiscoConfig, DiscoSolver
+from repro_torch.core.softmax import SoftmaxConfig, SoftmaxSolver
 from repro_torch.parallel.collectives import InProcessGroup
 
 _COMMON = ("ell_data", "ell_cols", "ell_dataT", "ell_colsT", "X_tau", "y",
@@ -36,6 +42,8 @@ STATE_KEYS = {"samples": _COMMON + ("weights",),
               "features": _COMMON + ("smask",)}
 _DENSE = ("X", "X_tau", "y", "y_tau")
 DENSE_STATE_KEYS = {"samples": _DENSE + ("weights",), "features": _DENSE}
+_SOFTMAX = ("X", "Y1", "X_tau", "Y1_tau")
+SOFTMAX_STATE_KEYS = {"samples": _SOFTMAX + ("wts",), "features": _SOFTMAX}
 
 
 def solver_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -61,6 +69,24 @@ def solver_from_arrays(arrays: Mapping[str, np.ndarray],
         solver._load_dense_state(state)
     else:
         solver._load_state(state, np.asarray(arrays["perm"]))
+    return solver
+
+
+def softmax_solver_from_arrays(arrays: Mapping[str, np.ndarray],
+                               shape: tuple[int, int], cfg: SoftmaxConfig,
+                               *, m: int = 1, device=None) -> SoftmaxSolver:
+    """A port softmax solver holding the given state (the JAX solver's
+    arrays, :data:`SOFTMAX_STATE_KEYS`), split into ``m`` shards.
+    ``shape`` is the original ``(d, n)``; K is ``Y1``'s width."""
+    keys = SOFTMAX_STATE_KEYS[cfg.partition]
+    missing = [k for k in keys if k not in arrays]
+    if missing:
+        raise KeyError(f"missing softmax solver arrays: {missing}")
+    state = {k: np.asarray(arrays[k]) for k in keys}
+    solver = SoftmaxSolver.__new__(SoftmaxSolver)
+    solver._setup(cfg, tuple(shape), state["Y1"].shape[1],
+                  InProcessGroup(m), device)
+    solver._load_state(state)
     return solver
 
 

@@ -1,29 +1,39 @@
-"""Paper core: DiSCO-S / DiSCO-F distributed inexact damped Newton."""
+"""Paper core: DiSCO-S / DiSCO-F distributed inexact damped Newton, and
+the workloads on it: λ-path sweeps and multinomial softmax."""
 from repro_torch.core import comm
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit, resolve_device)
 from repro_torch.core.glm import GLMProblem
 from repro_torch.core.hvp import (DenseKernelOperator, DenseOperator,
                                   EllOperator, HvpOperator, OperatorCell,
-                                  UnsupportedHvpError, cell_id,
-                                  make_local_operator, operator_cells,
-                                  resolve_cell, validate_solver_cell)
+                                  SoftmaxHvpOperator, UnsupportedHvpError,
+                                  cell_id, make_local_operator,
+                                  operator_cells, resolve_cell,
+                                  validate_solver_cell)
 from repro_torch.core.losses import (HUBER, LOGISTIC, LOSSES, POISSON,
                                      QUADRATIC, SQUARED_HINGE, get_loss,
                                      make_huber)
+from repro_torch.core.lambda_path import (LambdaPathResult, lambda_path_fit,
+                                          validation_loss, x_passes)
 from repro_torch.core.pcg import PCGResult, pcg_features, pcg_samples
 from repro_torch.core.preconditioner import (IdentityPreconditioner,
                                              WoodburyPreconditioner)
+from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxProblem,
+                                      SoftmaxResult, SoftmaxSolver,
+                                      softmax_fit)
 
 __all__ = [
     "comm", "DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
     "resolve_device", "GLMProblem",
     "DenseKernelOperator", "DenseOperator", "EllOperator", "HvpOperator",
-    "OperatorCell", "UnsupportedHvpError",
+    "OperatorCell", "SoftmaxHvpOperator", "UnsupportedHvpError",
     "cell_id", "make_local_operator", "operator_cells", "resolve_cell",
     "validate_solver_cell",
     "HUBER", "LOGISTIC", "LOSSES", "POISSON", "QUADRATIC", "SQUARED_HINGE",
     "get_loss", "make_huber",
+    "LambdaPathResult", "lambda_path_fit", "validation_loss", "x_passes",
     "PCGResult", "pcg_features", "pcg_samples",
     "IdentityPreconditioner", "WoodburyPreconditioner",
+    "SoftmaxConfig", "SoftmaxProblem", "SoftmaxResult", "SoftmaxSolver",
+    "softmax_fit",
 ]

@@ -18,12 +18,14 @@ f32 array or tensor (margins and gradient in ``torch.matmul``, as the JAX
 package leaves them to XLA; every HVP of PCG through the dense kernels
 with ``use_kernel=True``, else ``torch.matmul``), classic or s-step PCG
 (``pcg_block_s > 1``), f32. On the card the ops are the CUDA kernels.
-Hessian subsampling, the SAG preconditioner, bf16 tiles, checkpointing,
-tracing and s-step PCG on fused dense input (its ``x_c_xt_multi``
-kernel) are not yet ported and raise.
+Hessian subsampling, the SAG preconditioner, bf16 tiles, checkpointing
+and tracing are not yet ported and raise. :meth:`DiscoSolver.with_lam`
+re-targets a built solver at another ``lam`` on the same device tensors
+(the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any
@@ -55,11 +57,8 @@ class DiscoConfig:
     rounds), partition_strategy, partition_block, ell_block_d,
     ell_block_n (sparse input). The fields for the paths not yet ported
     must keep their defaults (``hessian_subsample=1``,
-    ``hvp_dtype='float32'``, ``trace=False``, ``precond != 'sag'``), and
-    ``pcg_block_s > 1`` with fused dense kernels
-    (``use_kernel=hvp_fused=True``) raises for DiSCO-S and for DiSCO-F
-    on one shard, whose s-step round needs the ``x_c_xt_multi`` kernel;
-    the out-of-core fields are unused.
+    ``hvp_dtype='float32'``, ``trace=False``, ``precond != 'sag'``); the
+    out-of-core fields are unused.
     """
 
     loss: str = "logistic"
@@ -211,11 +210,6 @@ class DiscoSolver:
         self.tau = min(cfg.tau, self.n)
         self.group = group or InProcessGroup(1)
         self.m = self.group.size
-        if (cfg.pcg_block_s > 1 and not sparse and cfg.use_kernel
-                and cfg.hvp_fused
-                and (cfg.partition == "samples" or self.m == 1)):
-            raise _not_ported("s-step PCG on fused dense input (its round "
-                              "needs the x_c_xt_multi kernel)")
         self._sparse = sparse
         self._part: Partition | None = None
         self.smask = None
@@ -431,6 +425,21 @@ class DiscoSolver:
                                    pcg_r_norm=res.r_norm)
 
         return step
+
+    # ------------------------------------------------------------------
+    def with_lam(self, lam: float) -> "DiscoSolver":
+        """A shallow copy at another regularization weight, the λ-path's
+        primitive (:mod:`repro_torch.core.lambda_path`).
+
+        Shares every device tensor (X or its ELL layouts, the shard
+        views, labels, weights, the tau slab) with ``self`` and rebuilds
+        only the Newton step, whose closure reads ``lam`` from the
+        config; the step holds no state of its own between fits.
+        """
+        new = copy.copy(self)
+        new.cfg = dataclasses.replace(self.cfg, lam=float(lam))
+        new._step = new._build_step()
+        return new
 
     # ------------------------------------------------------------------
     def _comm_costs(self, pcg_iters: int) -> tuple[int, int, int]:

@@ -10,7 +10,8 @@ the same supported/unsupported verdict as the JAX package's
 into an :class:`UnsupportedHvpError` naming the cell. The port implements
 the dense layouts (:class:`DenseOperator`, plain ``torch.matmul``;
 :class:`DenseKernelOperator`, the dense kernels) and the blocked-ELL one
-(:class:`EllOperator`); the streamed layout is not yet ported.
+(:class:`EllOperator`), and the K-class softmax product on any of them
+(:class:`SoftmaxHvpOperator`); the streamed layout is not yet ported.
 """
 from __future__ import annotations
 
@@ -205,9 +206,8 @@ class DenseOperator(HvpOperator):
 class DenseKernelOperator(HvpOperator):
     """Dense layout through the dense GLM kernels (``xt_u``, ``x_cz`` and
     their multi-vector ``xt_multi``, ``x_cz_multi``); ``fused=True``
-    selects the one-pass ``x_c_xt_u`` for the full product. The fused
-    multi-vector product needs ``x_c_xt_multi``, which is not yet
-    ported."""
+    selects the one-pass ``x_c_xt_u`` and ``x_c_xt_multi`` for the full
+    products."""
 
     layout = "dense_kernel"
 
@@ -239,12 +239,10 @@ class DenseKernelOperator(HvpOperator):
         return self.pass_b(self.pass_a(u))
 
     def apply_multi(self, U):
-        """Batched full product (two-pass); built fused, it needs the
-        ``x_c_xt_multi`` kernel and raises."""
+        """Batched full product; the one-pass ``x_c_xt_multi`` kernel
+        when built fused."""
         if self.fused:
-            raise NotImplementedError(
-                "the fused dense multi-vector HVP (the x_c_xt_multi "
-                "kernel) is not yet ported to repro_torch")
+            return kops.x_c_xt_multi(self.X, self.coeffs, U)
         return self.pass_b_multi(self.pass_a_multi(U))
 
 
@@ -292,6 +290,69 @@ class EllOperator(HvpOperator):
                                    self.coeffs,
                                    fwd=(self.ell.data, self.ell.cols))
         return self.pass_b_multi(self.pass_a_multi(U))
+
+
+class SoftmaxHvpOperator:
+    """K-class softmax Hessian application as one multi-vector HVP.
+
+    For multinomial softmax with weights ``W`` (d, K) and probabilities
+    ``P = softmax(X^T W)`` the local Hessian product on a direction ``U``
+    (d, K) is
+
+        ``H_loc U = X S,   S = P .* V - P .* rowsum(P .* V),  V = X^T U``
+
+    — pass A and pass B are the base operator's multi-vector passes (all
+    K classes in one op call each), with the class coupling ``S`` between
+    them. Because the coupling sits between the passes, no one-pass fused
+    kernel exists for softmax (the registry marks those cells
+    unsupported).
+
+    Args:
+        base: any :class:`HvpOperator` over the local shard (built with
+            ``coeffs=None``: the coupling replaces the scalar d2
+            coefficients).
+        probs: ``(n_loc, K)`` class probabilities at the current iterate.
+        weights: optional ``(n_loc,)`` sample weights (padding).
+    """
+
+    family = "softmax"
+    fused = False
+
+    def __init__(self, base: HvpOperator, probs, weights=None):
+        self.base = base
+        self.layout = base.layout
+        self.probs = probs
+        self.weights = weights
+
+    def coupling(self, V):
+        """The class coupling ``S = P.*V - P.*rowsum(P.*V)`` of ``V``
+        (n, K) or (n, K, s) (per trailing batch column), sample weights
+        folded in."""
+        P = self.probs if V.dim() == 2 else self.probs[:, :, None]
+        PV = P * V
+        S = PV - P * torch.sum(PV, dim=1, keepdim=True)
+        if self.weights is not None:
+            wts = self.weights[:, None]
+            if V.dim() == 3:
+                wts = wts[:, :, None]
+            S = wts * S
+        return S
+
+    def apply(self, U):
+        """Local K-class Hessian product on one ``(d_loc, K)`` direction:
+        one multi-vector pass each way."""
+        return self.base.pass_b_multi(self.coupling(
+            self.base.pass_a_multi(U)))
+
+    def apply_batch(self, U3):
+        """Batched product on ``(d_loc, K, s)`` stacked directions: the
+        s-step round's s directions times K classes ride one multi-vector
+        op of width ``K * s`` each way."""
+        d, K, s = U3.shape
+        V = self.base.pass_a_multi(U3.reshape(d, K * s))
+        n = V.shape[0]
+        S = self.coupling(V.reshape(n, K, s))
+        return self.base.pass_b_multi(S.reshape(n, K * s)).reshape(d, K, s)
 
 
 def make_local_operator(X_loc, coeffs, *, use_kernel: bool = False,

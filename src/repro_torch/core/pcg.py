@@ -211,6 +211,17 @@ def _feature_scales_update(scales, B, s):
     return torch.clamp(scales * ratios, 1e-6, 1e6)
 
 
+def _sharded_gram(group, U, W, r):
+    """(U^T W, U^T U, U^T r) of sharded ``(m, rows, k)`` bases, in one
+    all-reduce of the concatenated payload (DiSCO-F's Gram collective)."""
+    k = U.shape[2]
+    payload = group.all_reduce([torch.cat([
+        (U[j].T @ W[j]).reshape(-1), (U[j].T @ U[j]).reshape(-1),
+        U[j].T @ r[j]]) for j in range(group.size)])
+    return (payload[:k * k].reshape(k, k),
+            payload[k * k:2 * k * k].reshape(k, k), payload[2 * k * k:])
+
+
 # ---------------------------------------------------------------------------
 # preconditioner factories
 # ---------------------------------------------------------------------------
@@ -412,13 +423,7 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
             return torch.cat([Wk, Hp[:, :, None]], dim=2)
 
     def gram(U, W, r_loc):
-        # one all-reduce of the concatenated U^T W, U^T U, U^T r payload
-        k = U.shape[2]
-        payload = group.all_reduce([torch.cat([
-            (U[j].T @ W[j]).reshape(-1), (U[j].T @ U[j]).reshape(-1),
-            U[j].T @ r_loc[j]]) for j in range(m)])
-        return (payload[:k * k].reshape(k, k),
-                payload[k * k:2 * k * k].reshape(k, k), payload[2 * k * k:])
+        return _sharded_gram(group, U, W, r_loc)
 
     return _sstep_loop(build_basis, hvp_round, gram,
                        lambda scales, B: _feature_scales_update(scales, B, s),

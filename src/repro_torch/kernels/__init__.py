@@ -8,6 +8,7 @@ Dense (feature-major ``X (d, n)``):
   x_c_xt_u     fused one-pass y = X (c .* (X^T u))  (kernel ``x_c_xt_u``)
   xt_multi     Z = X^T U, U (d, s)                  (kernel ``xt_multi``)
   x_cz_multi   Y = X (c .* Z), Z (n, s)             (kernel ``x_cz_multi``)
+  x_c_xt_multi fused one-pass Y = X (c .* (X^T U))  (kernel ``x_c_xt_multi``)
 
 (``ops.glm_hvp``, the whole H u, is not re-exported here: the name is
 the kernels' module :mod:`repro_torch.kernels.glm_hvp`.)
@@ -19,14 +20,17 @@ Blocked ELL (sparse):
   ell_matmat   Y = A (c .* V), V (ncb * bc, s)      (kernel ``ell_mm``)
   ell_hvp_mm   fused one-pass Y = A (c .* (A^T U))  (kernel ``ell_hvp_mm``)
 
-All dispatch by device: CUDA tensors launch the kernels
-(:mod:`repro_torch.kernels.glm_hvp`, :mod:`repro_torch.kernels.sparse_hvp`,
-built by :mod:`repro_torch.kernels.build`), CPU tensors run the plain
-versions (:mod:`repro_torch.kernels.ref`).
+The multi-vector ops take any number of columns (on the card, launches
+of at most ``build.MAX_COLS`` each). All dispatch by device: CUDA tensors
+launch the kernels (:mod:`repro_torch.kernels.glm_hvp`,
+:mod:`repro_torch.kernels.sparse_hvp`, built by
+:mod:`repro_torch.kernels.build`), CPU tensors run the plain versions
+(:mod:`repro_torch.kernels.ref`).
 """
 from repro_torch.kernels.ops import (ell_hvp, ell_hvp_mm, ell_matmat,
-                                     ell_matvec, x_c_xt_u, x_cz_local,
-                                     x_cz_multi, xt_multi, xt_u)
+                                     ell_matvec, x_c_xt_multi, x_c_xt_u,
+                                     x_cz_local, x_cz_multi, xt_multi, xt_u)
 
 __all__ = ["ell_matvec", "ell_hvp", "ell_matmat", "ell_hvp_mm", "xt_u",
-           "x_cz_local", "x_c_xt_u", "xt_multi", "x_cz_multi"]
+           "x_cz_local", "x_c_xt_u", "xt_multi", "x_cz_multi",
+           "x_c_xt_multi"]

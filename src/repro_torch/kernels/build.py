@@ -13,11 +13,13 @@ raises; nothing here falls back to the plain versions in
 The kernels, and the modules whose wrappers launch them:
 
   ell_mv, ell_hvp, ell_mm, ell_hvp_mm      :mod:`repro_torch.kernels.sparse_hvp`
-  xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi
+  xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi
                                            :mod:`repro_torch.kernels.glm_hvp`
 
 The multi-vector kernels (``ell_mm``, ``ell_hvp_mm``, ``xt_multi``,
-``x_cz_multi``) take 1 to :data:`MAX_COLS` vectors per launch.
+``x_cz_multi``, ``x_c_xt_multi``) take 1 to :data:`MAX_COLS` vectors per
+launch; the ops of :mod:`repro_torch.kernels.ops` split wider blocks into
+launches of at most that many.
 
 Each wrapper adds one to its kernel's ``launches`` count when it launches
 the kernel and nowhere else, so a run can show that it went through the
@@ -125,8 +127,11 @@ XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
 # (X, ld, c, Z, ldz, Y, d, n, s, threads, stream)
 X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
                                        _I, _P])
+# (X, ld, c, U, ldu, Y, part, d, n, s, bn, grid, threads, stream)
+X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _P])
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
-           XT_MULTI, X_CZ_MULTI)
+           XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI)
 
 
 def _nvcc() -> str:

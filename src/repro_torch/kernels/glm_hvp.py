@@ -2,7 +2,7 @@
 their launch wrappers.
 
 The PCG inner loop's  H u = X diag(c) X^T u / n + lam u  on a dense
-feature-major ``X (d, n)``, in five kernels in ``csrc/``, each built and
+feature-major ``X (d, n)``, in six kernels in ``csrc/``, each built and
 bound by :mod:`repro_torch.kernels.build` and called on PyTorch's current
 stream:
 
@@ -17,13 +17,16 @@ stream:
   over s vectors; replaces ``repro/kernels/glm_hvp.py::xt_multi``.
 * ``x_cz_multi`` (``csrc/x_cz_multi.cu``) — the s-step pass B
   ``Y = X (c .* Z)``; replaces ``repro/kernels/glm_hvp.py::x_cz_multi``.
+* ``x_c_xt_multi`` (``csrc/x_c_xt_multi.cu``) — the fused one-pass
+  ``Y = X (c .* (X^T U))`` over s vectors, from column panels held in
+  shared memory; replaces ``repro/kernels/glm_hvp.py::x_c_xt_multi``.
 
 ``X`` may be any row-major f32 view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
 stride and handle ragged edges, so nothing is padded or copied per call.
 ``U`` and ``Z`` of the multi-vector kernels are row-major blocks of 1 to
 :data:`~repro_torch.kernels.build.MAX_COLS` columns with any row stride.
-All five accumulate in f32 and need no atomics: each result is
+All six accumulate in f32 and need no atomics: each result is
 repeatable bit for bit on a given card. A failed launch raises; nothing
 here falls back to the plain versions in :mod:`repro_torch.kernels.ref`.
 """
@@ -33,11 +36,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import (X_C_XT_U, X_CZ, X_CZ_MULTI, XT_MULTI,
-                                       XT_U, check_card, check_columns,
+from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_U, X_CZ,
+                                       X_CZ_MULTI, XT_MULTI, XT_U,
+                                       check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 
-THREADS = 256            # threads per CTA of xt_u, x_cz and the multis
+THREADS = 256            # threads per CTA of xt_u, x_cz, xt_multi, x_cz_multi
 FUSED_THREADS = 1024     # threads per CTA of x_c_xt_u
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
 SMEM_PER_SM = 233_472    # shared memory of one SM for resident CTAs (228 KB)
@@ -58,6 +62,37 @@ def fused_panel_width(d: int) -> int | None:
         if fused_smem_bytes(d, bn) <= SMEM_LIMIT:
             return bn
     return None
+
+
+def fused_multi_threads(s: int) -> int:
+    """Threads per CTA of ``x_c_xt_multi`` at s columns (``threads_for``
+    in ``csrc/x_c_xt_multi.cu``): 1024 up to s = 5, 512 above, where the
+    per-thread sums would spill at 1024 threads' register budget."""
+    return 1024 if s <= 5 else 512
+
+
+def fused_multi_smem_bytes(d: int, bn: int, s: int) -> int:
+    """Shared memory of one ``x_c_xt_multi`` CTA: the (d, bn) panel, the
+    CTA's partial Y (d, s), the warps' column partials and c .* Z."""
+    return 4 * (d * bn + d * s + (fused_multi_threads(s) // 32 + 1) * bn * s)
+
+
+def fused_multi_panel_width(d: int, s: int) -> int | None:
+    """The fit rule of the fused multi-vector kernel at s columns: the
+    widest panel whose working set fits one CTA's shared memory (8 columns
+    at d = 4096 and s = 5, 4 at s = 8), or None when even 4 do not; then
+    the product takes the two-pass route."""
+    for bn in PANEL_WIDTHS:
+        if fused_multi_smem_bytes(d, bn, s) <= SMEM_LIMIT:
+            return bn
+    return None
+
+
+def _grid(dev, n: int, bn: int, smem: int, threads: int) -> int:
+    """CTAs of a persistent panel kernel: as many as are resident at once
+    (by shared memory and threads), at most one per panel."""
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
+    return min(-(-n // bn), per_sm * _sm_count(dev.index or 0))
 
 
 def xt_u_slices(d: int, n: int, sm_count: int) -> int:
@@ -162,9 +197,7 @@ def x_c_xt_u(X, c, u, *, _block_n: int | None = None):
     y = torch.empty(d, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return y.zero_()
-    per_sm = max(1, min(SMEM_PER_SM // (fused_smem_bytes(d, bn) + 1024),
-                        2048 // FUSED_THREADS))
-    grid = min(-(-n // bn), per_sm * _sm_count(dev.index or 0))
+    grid = _grid(dev, n, bn, fused_smem_bytes(d, bn), FUSED_THREADS)
     part = torch.empty((grid, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         X_C_XT_U.launch(ptr(X), ld, ptr(c), ptr(u), ptr(y), ptr(part), d, n,
@@ -207,4 +240,37 @@ def x_cz_multi(X, c, Z):
     with torch.cuda.device(dev):
         X_CZ_MULTI.launch(ptr(X), ld, ptr(c), ptr(Z), ldz, ptr(Y), d, n, s,
                           THREADS, stream_of(dev))
+    return Y
+
+
+def x_c_xt_multi(X, c, U, *, _block_n: int | None = None):
+    """Y = X (c[:, None] .* (X^T U)) on the card, in one pass over X.
+
+    X (d, n) row-major f32, c (optional, n,), U (d, s) row-major (any row
+    stride, 1 to :data:`~repro_torch.kernels.build.MAX_COLS` columns) ->
+    Y (d, s). The panel is :func:`fused_multi_panel_width` columns wide;
+    raises ValueError when no panel fits shared memory. ``_block_n`` (4,
+    8, 16 or 32) overrides the width for the checks that hold every width
+    at one ``d``; no solver path sets it.
+    """
+    dev = X.device
+    check_card(dev)
+    ld = _check_matrix(X, dev)
+    d, n = X.shape
+    s, ldu = check_columns("U", U, d, dev)
+    _check_vector("c", c, n, dev)
+    bn = fused_multi_panel_width(d, s) if _block_n is None else _block_n
+    if bn not in PANEL_WIDTHS or fused_multi_smem_bytes(d, bn, s) > SMEM_LIMIT:
+        raise ValueError(f"no x_c_xt_multi panel fits shared memory at "
+                         f"d = {d}, s = {s} (block_n = {bn})")
+    Y = torch.empty((d, s), dtype=torch.float32, device=dev)
+    if d == 0 or n == 0:
+        return Y.zero_()
+    threads = fused_multi_threads(s)
+    grid = _grid(dev, n, bn, fused_multi_smem_bytes(d, bn, s), threads)
+    part = torch.empty((grid, d, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        X_C_XT_MULTI.launch(ptr(X), ld, ptr(c), ptr(U), ldu, ptr(Y),
+                            ptr(part), d, n, s, bn, grid, threads,
+                            stream_of(dev))
     return Y

@@ -9,6 +9,14 @@ raises. CPU tensors go to the plain versions of
 tensors to the plain versions. The dense ops port ``repro/kernels/ops.py``
 without its per-call padding: the kernels take ragged shapes and strided
 row-major views as they are.
+
+The multi-vector ops (:func:`xt_multi`, :func:`x_cz_multi`,
+:func:`x_c_xt_multi`, :func:`ell_matmat`, :func:`ell_hvp_mm`) take any
+number of columns. A kernel launch takes at most
+:data:`~repro_torch.kernels.build.MAX_COLS`, so on the card a wider block
+(a K-class softmax HVP is K columns, its s-step round K (s + 1)) goes in
+column groups of that many, each a strided view, one launch (one read of
+the data) per group, and the results are joined.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 from repro_torch.kernels import glm_hvp as _dense
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_hvp as _sparse
+from repro_torch.kernels.build import MAX_COLS
 
 
 def _on_cuda(*tensors) -> bool:
@@ -27,6 +36,16 @@ def _on_cuda(*tensors) -> bool:
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {kind!r}")
     return kind == "cuda"
+
+
+def _by_columns(launch, M):
+    """``launch`` over the column groups of ``M`` (at most MAX_COLS
+    columns each, strided views), the results joined along columns."""
+    s = M.shape[1]
+    if s <= MAX_COLS:
+        return launch(M)
+    return torch.cat([launch(M[:, i:i + MAX_COLS])
+                      for i in range(0, s, MAX_COLS)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +83,7 @@ def xt_multi(X, U):
     X (d, n), U (d, s) row-major (``U.stride(1) == 1``, any row stride)
     -> Z (n, s) f32."""
     if _on_cuda(X, U):
-        return _dense.xt_multi(X, U)
+        return _by_columns(lambda G: _dense.xt_multi(X, G), U)
     return _ref.ref_xt_multi(X, U)
 
 
@@ -72,8 +91,27 @@ def x_cz_multi(X, c, Z):
     """Y = X (c[:, None] .* Z) (multi-vector pass B, the scale fused).
     X (d, n), c (optional, n,), Z (n, s) -> Y (d, s) f32."""
     if _on_cuda(X, c, Z):
-        return _dense.x_cz_multi(X, c, Z)
+        return _by_columns(lambda G: _dense.x_cz_multi(X, c, G), Z)
     return _ref.ref_x_cz_multi(X, c, Z)
+
+
+def x_c_xt_multi(X, c, U):
+    """Y = X (c[:, None] .* (X^T U)) in one streaming pass over X per
+    column group (the s-step round's batched HVP on fused dense input).
+
+    X (d, n), c (optional, n,), U (d, s) row-major (any row stride) ->
+    Y (d, s) f32. Legal where :func:`x_c_xt_u` is. On the card each group
+    of at most MAX_COLS columns is the fused kernel when its panel fits
+    shared memory (:func:`repro_torch.kernels.glm_hvp.fused_multi_panel_width`),
+    else the two-pass route: the ``xt_multi`` kernel, then ``x_cz_multi``.
+    """
+    if _on_cuda(X, c, U):
+        def launch(G):
+            if _dense.fused_multi_panel_width(X.shape[0], G.shape[1]):
+                return _dense.x_c_xt_multi(X, c, G)
+            return _dense.x_cz_multi(X, c, _dense.xt_multi(X, G))
+        return _by_columns(launch, U)
+    return _ref.ref_x_c_xt_multi(X, c, U)
 
 
 def x_c_xt_u(X, c, u):
@@ -118,11 +156,12 @@ def ell_matmat(data, cols, V, c=None, *, out_dtype=torch.float32):
 
     V : (ncb * bc, s) row-major (``V.stride(1) == 1``, any row stride)
     -> (nb * br, s) in ``out_dtype``. The kernel takes the true ``s`` (up
-    to :data:`repro_torch.kernels.sparse_hvp.MAX_COLS`); nothing is
+    to MAX_COLS per launch, in column groups past that); nothing is
     padded.
     """
     if _on_cuda(data, cols, V, c):
-        return _sparse.ell_mm(data, cols, V, c, out_dtype=out_dtype)
+        return _by_columns(lambda G: _sparse.ell_mm(
+            data, cols, G, c, out_dtype=out_dtype), V)
     return _ref.ref_ell_mm(data, cols, V, c, out_dtype=out_dtype)
 
 
@@ -153,7 +192,8 @@ def ell_hvp_mm(dataT, colsT, U, c=None, *, fwd=None,
     ``fwd`` the exact two-pass pair of plain versions.
     """
     if _on_cuda(dataT, colsT, U, c):
-        return _sparse.ell_hvp_mm(dataT, colsT, U, c, out_dtype=out_dtype)
+        return _by_columns(lambda G: _sparse.ell_hvp_mm(
+            dataT, colsT, G, c, out_dtype=out_dtype), U)
     if fwd is not None:
         Z = _ref.ref_ell_mm(dataT, colsT, U)
         return _ref.ref_ell_mm(fwd[0], fwd[1], Z, c, out_dtype=out_dtype)

@@ -4,8 +4,8 @@ Each ``ref_*`` computes what its CUDA kernel computes, with the JAX
 package's oracle contract (``repro/kernels/ref.py``):
 
 * dense GLM HVP (:mod:`repro_torch.kernels.glm_hvp`): ``ref_xt_u``,
-  ``ref_x_cz``, ``ref_x_c_xt_u`` and the multi-vector ``ref_xt_multi``
-  and ``ref_x_cz_multi``;
+  ``ref_x_cz``, ``ref_x_c_xt_u`` and the multi-vector ``ref_xt_multi``,
+  ``ref_x_cz_multi`` and ``ref_x_c_xt_multi``;
 * blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
   (``cols = 0``, zero tile) gather the real vector block 0 and multiply
   it by zeros, products accumulate in f32, and the result is
@@ -47,6 +47,15 @@ def ref_x_c_xt_u(X, c, u):
     fused kernel changes the dataflow (one read of X), not the math.
     """
     return ref_x_cz(X, c * ref_xt_u(X, u))
+
+
+def ref_x_c_xt_multi(X, c, U):
+    """Fused one-pass multi-vector HVP core  Y = X (c .* (X^T U)).
+
+    Exactly the two-pass chain ``ref_x_cz_multi(X, c, ref_xt_multi(X, U))``,
+    as :func:`ref_x_c_xt_u` is for one vector; ``c`` None means no scale.
+    """
+    return ref_x_cz_multi(X, c, ref_xt_multi(X, U))
 
 
 def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32):

@@ -118,9 +118,10 @@ def test_cell_registry_matches_jax():
 
 def test_dense_layout_not_yet_ported():
     """The dense layouts build their operators now; what the dense path
-    still lacks (bf16 tiles, s-step PCG on fused dense kernels, whose round
-    needs x_c_xt_multi) raises "not yet ported", and the plain dense
-    layout has no fused kernel, as in the reference."""
+    still lacks (bf16 tiles) raises "not yet ported", and the plain dense
+    layout has no fused kernel, as in the reference. s-step PCG builds on
+    two-pass and on fused dense kernels (the fused round, x_c_xt_multi,
+    is ported)."""
     from repro_torch import DiscoConfig, DiscoSolver
     X = torch.zeros((8, 8))
     assert isinstance(thvp.make_local_operator(X, None),
@@ -129,15 +130,21 @@ def test_dense_layout_not_yet_ported():
                       thvp.DenseKernelOperator)
     with pytest.raises(thvp.UnsupportedHvpError, match="use_kernel=True"):
         thvp.make_local_operator(X, None, fused=True)
-    for override in (dict(hvp_dtype="bfloat16"),
-                     dict(pcg_block_s=2, hvp_fused=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
-                        DiscoConfig(use_kernel=True, **override),
-                        device="cpu")
-    # the two-pass dense s-step path builds
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
+                    DiscoConfig(use_kernel=True, hvp_dtype="bfloat16"),
+                    device="cpu")
+    # the dense s-step paths build, two-pass and fused, and the fused one
+    # runs a step
     DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
                 DiscoConfig(use_kernel=True, pcg_block_s=2), device="cpu")
+    for partition in ("samples", "features"):
+        solver = DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
+                             DiscoConfig(use_kernel=True, hvp_fused=True,
+                                         pcg_block_s=2, max_outer=1,
+                                         partition=partition, tau=4),
+                             device="cpu")
+        assert np.isfinite(solver.fit().w).all()
 
 
 @pytest.mark.parametrize("use_kernel,fused",
@@ -283,9 +290,9 @@ def test_pcg_sstep_not_yet_ported():
     """s-step PCG is ported now (it raised before): one s-step solve of
     each partition (no preconditioner, so it takes several rounds) matches
     the JAX package's on the same Newton system (the same rounds, v within
-    rtol 1e-4, as the classic solves here), and a fused dense operator,
-    whose batched product needs the unported x_c_xt_multi kernel, raises
-    "not yet ported"."""
+    rtol 1e-4, as the classic solves here), and a fused dense operator's
+    batched product (x_c_xt_multi, which raised "not yet ported" before)
+    matches the JAX package's fused dense operator."""
     arrs, Xd, c, g = _pcg_problem(seed=5)
     d, n = Xd.shape
     nr, nc = arrs[0].shape[0] * 16, arrs[2].shape[0] * 16
@@ -326,7 +333,46 @@ def test_pcg_sstep_not_yet_ported():
         assert got.iters == int(ref.iters) and got.iters > 1
         np.testing.assert_allclose(v.numpy(), np.asarray(ref.v), rtol=1e-4,
                                    atol=1e-5)
-    op = thvp.make_local_operator(torch.ones((4, 6)), None, use_kernel=True,
-                                  fused=True)
-    with pytest.raises(NotImplementedError, match="x_c_xt_multi"):
-        op.apply_multi(torch.ones((4, 2)))
+    rng = np.random.default_rng(6)
+    Xs = rng.standard_normal((12, 30)).astype(np.float32)
+    cs = rng.uniform(0.0, 0.25, 30).astype(np.float32)
+    Us = rng.standard_normal((12, 3)).astype(np.float32)
+    op = thvp.make_local_operator(T(Xs), T(cs), use_kernel=True, fused=True)
+    jop = jhvp.make_local_operator(jnp.asarray(Xs), jnp.asarray(cs),
+                                   use_kernel=True, fused=True)
+    np.testing.assert_allclose(op.apply_multi(T(Us)).numpy(),
+                               np.asarray(jop.apply_multi(jnp.asarray(Us))),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_softmax_operator_matches_jax(use_kernel, weighted):
+    """The K-class coupling, the one-direction product and the batched
+    (d, K, s) product of SoftmaxHvpOperator against the JAX package's on
+    the same probabilities, directions and sample weights (rtol 1e-5)."""
+    rng = np.random.default_rng(14)
+    d, n, K, s = 9, 40, 3, 2
+    X = rng.standard_normal((d, n)).astype(np.float32)
+    A = rng.standard_normal((n, K)).astype(np.float32)
+    P = np.exp(A) / np.exp(A).sum(axis=1, keepdims=True)
+    wts = (rng.uniform(0, 1, n) > 0.2).astype(np.float32) if weighted \
+        else None
+    U = rng.standard_normal((d, K)).astype(np.float32)
+    U3 = rng.standard_normal((d, K, s)).astype(np.float32)
+    jop = jhvp.SoftmaxHvpOperator(
+        jhvp.make_local_operator(jnp.asarray(X), None,
+                                 use_kernel=use_kernel),
+        jnp.asarray(P), None if wts is None else jnp.asarray(wts))
+    top = thvp.SoftmaxHvpOperator(
+        thvp.make_local_operator(T(X), None, use_kernel=use_kernel), T(P),
+        None if wts is None else T(wts))
+    assert top.family == "softmax" and not top.fused
+    assert top.layout == ("dense_kernel" if use_kernel else "dense")
+    V = (X.T @ U).astype(np.float32)
+    for got, ref in (
+            (top.coupling(T(V)), jop.coupling(jnp.asarray(V))),
+            (top.apply(T(U)), jop.apply(jnp.asarray(U))),
+            (top.apply_batch(T(U3)), jop.apply_batch(jnp.asarray(U3)))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)

@@ -87,7 +87,8 @@ def test_cuda_ops_launch_the_kernels(dev):
                 fwd=(T(fwd.data), T(fwd.cols)))
     assert build.launch_counts() == {
         "ell_mv": 1, "ell_hvp": 1, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
-        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0}
+        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
+        "x_c_xt_multi": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -172,9 +173,14 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
     ops.x_c_xt_u(X, c, u)
     big = torch.zeros((12_000, 8), device=dev)   # past the fit rule
     ops.x_c_xt_u(big, None, torch.zeros(12_000, device=dev))
+    ops.x_c_xt_multi(X, c, torch.ones((64, 5), device=dev))
+    ops.x_c_xt_multi(X, c, torch.ones((64, 20), device=dev))   # 8 + 8 + 4
+    bigger = torch.zeros((20_000, 8), device=dev)   # past the multi fit rule
+    ops.x_c_xt_multi(bigger, None, torch.zeros((20_000, 8), device=dev))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 2, "x_cz": 2, "x_c_xt_u": 1,
-        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0}
+        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 1, "x_cz_multi": 1,
+        "x_c_xt_multi": 4}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -276,12 +282,16 @@ def test_cuda_multi_kernels_refuse_too_many_columns(dev):
         glm_hvp.xt_multi(X, torch.ones((8, 9), device=dev))
     with pytest.raises(ValueError, match="1 to 8"):
         glm_hvp.x_cz_multi(X, None, torch.ones((16, 9), device=dev))
+    with pytest.raises(ValueError, match="1 to 8"):
+        glm_hvp.x_c_xt_multi(X, None, torch.ones((8, 9), device=dev))
 
 
 @pytest.mark.parametrize("case", [
     ("sparse", "samples", 1, False, 4), ("sparse", "samples", 1, True, 4),
     ("sparse", "features", 1, True, 2), ("sparse", "features", 4, False, 2),
-    ("dense", "samples", 1, False, 3), ("dense", "features", 4, True, 2)],
+    ("dense", "samples", 1, False, 3), ("dense", "features", 4, True, 2),
+    ("dense", "samples", 1, True, 3), ("dense", "samples", 4, True, 2),
+    ("dense", "features", 1, True, 2)],
     ids=lambda c: "-".join(map(str, c)))
 def test_cuda_sstep_disco_fit_matches_cpu(dev, case):
     """A small s-step solve on the card equals the same solve on the CPU,
@@ -302,7 +312,9 @@ def test_cuda_sstep_disco_fit_matches_cpu(dev, case):
     else:
         X, y, _ = make_glm_data(d=98, n=202, seed=1)
         kw.update(use_kernel=True)
-        round_kernels = ("xt_multi", "x_cz_multi")
+        round_kernels = (("x_c_xt_multi",)
+                         if fused and (partition == "samples" or m == 1)
+                         else ("xt_multi", "x_cz_multi"))
     cfg = DiscoConfig(**kw)
     build.reset_launch_counts()
     on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
@@ -313,3 +325,120 @@ def test_cuda_sstep_disco_fit_matches_cpu(dev, case):
         [h["pcg_iters"] for h in on_cpu.history]
     for k in round_kernels:
         assert counts[k] > 0, (k, counts)
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-vector kernel (x_c_xt_multi), the column split, and the
+# entry points on it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("s", MULTI_S)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_cuda_x_c_xt_multi_matches_plain(dev, shape, s, with_c):
+    """At every panel width that fits, on contiguous and strided U: the
+    plain version (relative L2 <= 1e-5), repeatable bit for bit; and the
+    kernel against the xt_multi + x_cz_multi pair and, column by column,
+    against x_c_xt_u."""
+    d, n = shape
+    X, _, _, c = _dense(dev, d, n, seed=d + n + s)
+    c = c if with_c else None
+    for strided in (False, True):
+        U = _basis(dev, d, s, 7 * s, strided=strided)
+        want = ref.ref_x_c_xt_multi(X, c, U)
+        widths = [bn for bn in glm_hvp.PANEL_WIDTHS
+                  if glm_hvp.fused_multi_smem_bytes(d, bn, s)
+                  <= glm_hvp.SMEM_LIMIT]
+        assert widths
+        for bn in widths:
+            got = glm_hvp.x_c_xt_multi(X, c, U, _block_n=bn)
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= 1e-5, (bn, strided)
+            assert torch.equal(got, glm_hvp.x_c_xt_multi(X, c, U,
+                                                         _block_n=bn))
+    got = glm_hvp.x_c_xt_multi(X, c, U)
+    pair = glm_hvp.x_cz_multi(X, c, glm_hvp.xt_multi(X, U))
+    assert _rel(got, pair) <= 1e-5
+    for k in range(s):
+        col = glm_hvp.x_c_xt_u(X, c, U[:, k].contiguous())
+        assert _rel(got[:, k], col) <= 1e-5
+
+
+def test_cuda_multi_ops_split_columns(dev):
+    """Every multi-vector op at 20 columns: launches of 8, 8 and 4
+    columns, joined, equal to one plain call (relative L2 <= 1e-5)."""
+    X, _, _, c = _dense(dev, 200, 300, seed=9)
+    U = _basis(dev, 200, 20, 1, strided=False)
+    Z = _basis(dev, 300, 20, 2, strided=True)
+    fwd, tr = _layouts(16)
+    T = lambda a: torch.from_numpy(a).to(dev)
+    data, cols, dataT, colsT = map(T, (fwd.data, fwd.cols, tr.data,
+                                       tr.cols))
+    V = _basis(dev, fwd.n_col_blocks * 16, 20, 3, strided=False)
+    W = _basis(dev, fwd.n_row_blocks * 16, 20, 4, strided=True)
+    cv = torch.rand(fwd.n_col_blocks * 16, device=dev)
+    build.reset_launch_counts()
+    cases = [
+        (ops.xt_multi(X, U), ref.ref_xt_multi(X, U)),
+        (ops.x_cz_multi(X, c, Z), ref.ref_x_cz_multi(X, c, Z)),
+        (ops.x_c_xt_multi(X, c, U), ref.ref_x_c_xt_multi(X, c, U)),
+        (ops.ell_matmat(data, cols, V, cv), ref.ref_ell_mm(data, cols, V,
+                                                           cv)),
+        (ops.ell_hvp_mm(dataT, colsT, W, cv),
+         ref.ref_ell_hvp_mm_t(dataT, colsT, W, cv))]
+    counts = build.launch_counts()
+    for name in ("xt_multi", "x_cz_multi", "x_c_xt_multi", "ell_mm",
+                 "ell_hvp_mm"):
+        assert counts[name] == 3, (name, counts)
+    for got, want in cases:
+        assert got.shape == want.shape and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("partition,m,s,use_kernel", [
+    ("samples", 1, 1, True), ("samples", 1, 2, True),
+    ("samples", 4, 2, False), ("features", 4, 1, True),
+    ("features", 4, 2, True)], ids=lambda v: str(v))
+def test_cuda_softmax_fit_matches_cpu(dev, partition, m, s, use_kernel):
+    """A small softmax solve (K = 10 classes, so every HVP is a column
+    split of 8 + 2) on the card equals the same solve on the CPU."""
+    from repro_torch import SoftmaxConfig, softmax_fit
+    X, _, _ = make_glm_data(d=40, n=301, seed=3)
+    rng = np.random.default_rng(2)
+    y = np.argmax(X.T @ rng.standard_normal((40, 10))
+                  + 0.1 * rng.standard_normal((301, 10)), axis=1)
+    cfg = SoftmaxConfig(lam=1e-3, partition=partition, pcg_block_s=s,
+                        use_kernel=use_kernel, max_outer=4, grad_tol=0.0,
+                        tau=64)
+    build.reset_launch_counts()
+    on_card = softmax_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = softmax_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    np.testing.assert_allclose(on_card.W, on_cpu.W, rtol=1e-4, atol=1e-6)
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    if use_kernel:
+        assert counts["xt_multi"] > 0 and counts["x_cz_multi"] > 0
+
+
+def test_cuda_lambda_path_matches_cpu(dev):
+    """A small λ-path on the fused dense s-step solve (x_c_xt_multi in
+    every round) on the card equals the same path on the CPU."""
+    from repro_torch import lambda_path_fit
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    Xv, yv, _ = make_glm_data(d=98, n=150, seed=2)
+    cfg = DiscoConfig(loss="logistic", tau=100, max_outer=6, grad_tol=1e-6,
+                      partition="samples", use_kernel=True, hvp_fused=True,
+                      pcg_block_s=3)
+    build.reset_launch_counts()
+    on_card = lambda_path_fit(X, y, [1e-2, 1e-3, 1e-4], cfg, X_val=Xv,
+                              y_val=yv)
+    assert build.launch_counts()["x_c_xt_multi"] > 0
+    on_cpu = lambda_path_fit(X, y, [1e-2, 1e-3, 1e-4], cfg, X_val=Xv,
+                             y_val=yv, device="cpu")
+    assert on_card.x_passes == on_cpu.x_passes
+    assert on_card.best_lambda == on_cpu.best_lambda
+    np.testing.assert_allclose(on_card.val_losses, on_cpu.val_losses,
+                               rtol=1e-5)
+    for a, b in zip(on_card.results, on_cpu.results):
+        np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-6)

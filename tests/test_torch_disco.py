@@ -160,16 +160,17 @@ def test_converted_state_one_step_matches_jax(partition, fused):
     ids=lambda o: next(iter(o)))
 def test_unported_options_raise(override):
     """The options not yet ported raise "not yet ported". s-step PCG is
-    ported now: on sparse input it builds, and only on fused dense
-    kernels (the x_c_xt_multi cells) does it still raise."""
+    ported now: it builds on sparse input and on fused dense kernels (the
+    x_c_xt_multi cells, which raised until that kernel was ported)."""
     X, y, Xt = _data()
     cfg = DiscoConfig(**dict(KW, **override))
     if "pcg_block_s" in override:
         assert DiscoSolver(Xt, y, cfg, device="cpu").cfg.pcg_block_s == 2
-        with pytest.raises(NotImplementedError, match="x_c_xt_multi"):
-            DiscoSolver(X.todense(), y, DiscoConfig(**dict(
-                KW, use_kernel=True, hvp_fused=True, **override)),
-                device="cpu")
+        for m in (1, 4):
+            dense = DiscoSolver(X.todense(), y, DiscoConfig(**dict(
+                KW, use_kernel=True, hvp_fused=True, partition="samples",
+                **override)), group=InProcessGroup(m), device="cpu")
+            assert dense.cfg.pcg_block_s == 2 and len(dense._locs) == m
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DiscoSolver(Xt, y, cfg, device="cpu")
@@ -201,3 +202,67 @@ def test_warm_start_roundtrip():
     assert r2.grad_norms[0] < r1.grad_norms[-1]
     assert r2.grad_norms[-1] <= r1.grad_norms[-1]
     assert torch.from_numpy(r2.w).isfinite().all()
+
+
+def _glm_loss_problem(loss):
+    """The Poisson / Huber problem of ``tests/test_hvp_operator.py``
+    (12 x 120 Gaussian data, lam = 1e-3) and its f64 NumPy Newton
+    optimum."""
+    rng = np.random.default_rng(13)
+    d, n = 12, 120
+    X = (rng.standard_normal((d, n)) * 0.3).astype(np.float32)
+    w_true = rng.standard_normal(d).astype(np.float32) * 0.2
+    a = X.T @ w_true
+    if loss == "poisson":
+        y = rng.poisson(np.exp(a)).astype(np.float32)
+    else:
+        y = (a + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    Xd, yd, lam = np.asarray(X, np.float64), np.asarray(y, np.float64), 1e-3
+    w = np.zeros(d)
+    for _ in range(60):
+        m = Xd.T @ w
+        if loss == "poisson":
+            d1, d2 = np.exp(m) - yd, np.exp(m)
+        else:                                   # huber, delta = 1.0
+            r_ = m - yd
+            d1 = np.clip(r_, -1.0, 1.0)
+            d2 = (np.abs(r_) <= 1.0).astype(np.float64)
+        g = Xd @ d1 / n + lam * w
+        H = Xd @ (d2[:, None] * Xd.T) / n + lam * np.eye(d)
+        w = w - np.linalg.solve(H, g)
+        if np.linalg.norm(g) < 1e-12:
+            break
+    return X, y, w
+
+
+@pytest.mark.parametrize("loss", ["poisson", "huber"])
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+@pytest.mark.parametrize("partition", ["samples", "features"])
+def test_glm_losses_match_jax_and_newton(loss, kind, partition):
+    """Poisson and Huber ride the whole solver unchanged (the loss enters
+    only through its d1/d2 coefficients): the port's solve equals the JAX
+    package's (w within rtol 1e-4 / atol 1e-6, as many Newton steps, the
+    same PCG iterations in every step whose gradient norm is above 1e-6;
+    below that, 1e-5 of the first step's, the gradient is f32 rounding
+    and the two differ in it by several percent) and ends at the f64
+    Newton optimum (rel <= 1e-4)."""
+    from repro.data.sparse import CSRMatrix as JCSRMatrix
+    X, y, w64 = _glm_loss_problem(loss)
+    kw = dict(loss=loss, partition=partition, lam=1e-3, max_outer=25,
+              max_pcg=100, grad_tol=1e-7, tau=32, ell_block_d=16,
+              ell_block_n=16)
+    if kind == "sparse":
+        Xj, Xt = JCSRMatrix.from_dense(X), CSRMatrix.from_dense(X)
+    else:
+        Xj = Xt = X
+    ref = j_disco_fit(Xj, y, JDiscoConfig(**kw))
+    got = disco_fit(Xt, y, DiscoConfig(**kw), device="cpu")
+    np.testing.assert_allclose(got.w, np.asarray(ref.w), rtol=RTOL,
+                               atol=ATOL)
+    assert len(got.history) == len(ref.history)
+    for a, b in zip(got.history, ref.history):
+        if float(b["grad_norm"]) > 1e-6:
+            assert a["pcg_iters"] == int(b["pcg_iters"])
+    assert got.history[-1]["grad_norm"] <= 1e-5
+    for w in (got.w, np.asarray(ref.w)):
+        assert np.linalg.norm(w - w64) / np.linalg.norm(w64) <= 1e-4

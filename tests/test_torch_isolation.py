@@ -42,6 +42,24 @@ SCRIPT = textwrap.dedent("""
                                         ell_block_n=8, pcg_block_s=3),
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.grad_norms[-1] < r.grad_norms[0]
+    import repro_torch.core.lambda_path, repro_torch.core.softmax
+    from repro_torch import SoftmaxConfig, lambda_path_fit, softmax_fit
+    labels = np.argmax(Xd[:3].T, axis=1)
+    for partition in ("samples", "features"):
+        r = softmax_fit(Xd, labels, SoftmaxConfig(partition=partition,
+                                                  max_outer=2, tau=16,
+                                                  use_kernel=True,
+                                                  pcg_block_s=2),
+                        group=InProcessGroup(2), device="cpu")
+        assert np.isfinite(r.W).all() and r.W.shape == (30, 3)
+        assert r.grad_norms[-1] < r.grad_norms[0]
+    path = lambda_path_fit(Xd, yd, [1e-2, 1e-3],
+                           DiscoConfig(tau=16, max_outer=2, use_kernel=True,
+                                       hvp_fused=True, pcg_block_s=2,
+                                       partition="samples"),
+                           X_val=Xd, y_val=yd, device="cpu")
+    assert path.lambdas == [1e-2, 1e-3] and path.best_lambda in path.lambdas
+    assert all(np.isfinite(r.w).all() for r in path.results)
     import torch
     assert GLMProblem.create(Xd, yd, device="cpu").grad(torch.zeros(30)).shape == (30,)
     leaked = sorted(m for m in sys.modules
@@ -85,3 +103,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DiscoSolver(X, y, cfg, device="cuda")
     assert isinstance(X, CSRMatrix)
+    from repro_torch import SoftmaxConfig, lambda_path_fit, softmax_fit
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lambda_path_fit(X, y, [1e-2, 1e-3], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        softmax_fit(X.todense(), (y > 0).astype(int),
+                    SoftmaxConfig(max_outer=1))

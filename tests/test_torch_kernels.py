@@ -218,9 +218,11 @@ def test_cpu_calls_launch_no_kernel():
                     torch.ones((fwd.n_row_blocks * 8, 3)))
     tops.xt_multi(X, torch.ones((6, 3)))
     tops.x_cz_multi(X, None, torch.ones((10, 3)))
+    tops.x_c_xt_multi(X, torch.ones(10), torch.ones((6, 20)))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
-        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0}
+        "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
+        "x_c_xt_multi": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -245,7 +247,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                  lambda: glm_hvp.x_cz(X, None, torch.ones(10)),
                  lambda: glm_hvp.x_c_xt_u(X, None, torch.ones(6)),
                  lambda: glm_hvp.xt_multi(X, torch.ones((6, 2))),
-                 lambda: glm_hvp.x_cz_multi(X, None, torch.ones((10, 2)))):
+                 lambda: glm_hvp.x_cz_multi(X, None, torch.ones((10, 2))),
+                 lambda: glm_hvp.x_c_xt_multi(X, None, torch.ones((6, 2)))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
@@ -264,7 +267,7 @@ def test_ops_refuse_other_devices():
 def test_kernel_sources_and_build_target():
     assert [k.name for k in build.KERNELS] == [
         "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u", "ell_mm",
-        "ell_hvp_mm", "xt_multi", "x_cz_multi"]
+        "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -277,6 +280,7 @@ def test_kernel_sources_and_build_target():
     assert names(build.ELL_HVP_MM) == ["ell_common.cuh", "common.cuh"]
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == ["common.cuh"]
+    assert names(build.X_C_XT_MULTI) == ["partials.cuh", "common.cuh"]
     # the C header's column cap is the one the wrappers check
     assert f"kMaxCols = {build.MAX_COLS};" in (
         build.CSRC / "common.cuh").read_text()
@@ -415,3 +419,142 @@ def test_xt_u_slices_fill_the_card():
     assert glm_hvp.xt_u_slices(4096, 262_144, 132) == 5
     assert glm_hvp.xt_u_slices(4096, 4 * 256 * 1056, 132) == 1
     assert glm_hvp.xt_u_slices(100, 10, 132) == 2     # 64 rows at least
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-vector op (x_c_xt_multi) and the column split
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, ref) -> float:
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - ref)
+                 / np.linalg.norm(ref))
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("s", MULTI_S)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_x_c_xt_multi_matches_jax(shape, s, with_c):
+    """The plain fused multi-vector HVP against the JAX package's
+    ``x_c_xt_multi`` (its Pallas kernel in interpret mode) at ragged
+    shapes and true widths s, with and without c (JAX's op always takes
+    one: ones stand for none). Relative L2 <= 1e-5: the sums of the
+    products cancel in places, so an elementwise rtol is not the measure
+    (the JAX package's own kernel and plain version differ by 2.5e-4 on
+    single elements there)."""
+    d, n = shape
+    X, _, _, c = _dense_inputs(d, n, seed=d + n + s)
+    U = np.random.default_rng(s).standard_normal((d, s)).astype(np.float32)
+    T = torch.from_numpy
+    ref = jops.x_c_xt_multi(X, c if with_c else np.ones_like(c), U)
+    got = tops.x_c_xt_multi(T(X), T(c) if with_c else None, T(U))
+    assert got.dtype == torch.float32 and got.shape == np.shape(ref)
+    assert _rel_l2(got.numpy(), ref) <= 1e-5
+    # and column k is the one-vector fused op on U[:, k]
+    for k in range(s):
+        col = tops.x_c_xt_u(T(X), T(c) if with_c else None,
+                            T(U[:, k].copy()))
+        assert _rel_l2(got[:, k].numpy(), col.numpy()) <= 1e-6
+
+
+def test_multi_ops_split_columns(monkeypatch):
+    """On the card a multi-vector op wider than MAX_COLS goes in column
+    groups of at most MAX_COLS, one launch each, and gives what one call
+    of the plain version gives on the whole block (here with the card's
+    wrappers replaced by plain versions that refuse more than MAX_COLS
+    columns, at 20 columns: groups of 8, 8 and 4)."""
+    widths = []
+
+    def capped(plain, pos):
+        """``plain`` with the column check of a card wrapper on its
+        argument ``pos``."""
+        def call(*args, **kw):
+            assert args[pos].shape[1] <= build.MAX_COLS
+            widths.append(args[pos].shape[1])
+            return plain(*args, **kw)
+        return call
+
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(tops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(glm_hvp, "xt_multi", capped(ref.ref_xt_multi, 1))
+    monkeypatch.setattr(glm_hvp, "x_cz_multi",
+                        capped(ref.ref_x_cz_multi, 2))
+    monkeypatch.setattr(glm_hvp, "x_c_xt_multi",
+                        capped(ref.ref_x_c_xt_multi, 2))
+    monkeypatch.setattr(sparse_hvp, "ell_mm", capped(ref.ref_ell_mm, 2))
+    monkeypatch.setattr(sparse_hvp, "ell_hvp_mm",
+                        capped(ref.ref_ell_hvp_mm_t, 2))
+    rng = np.random.default_rng(20)
+    T = torch.from_numpy
+    X, _, _, c = _dense_inputs(40, 96, seed=20)
+    Xt, ct = T(X), T(c)
+    U = T(rng.standard_normal((40, 20)).astype(np.float32))
+    Z = T(rng.standard_normal((96, 20)).astype(np.float32))
+    fwd, tr = _layouts(16, seed=3)
+    data, cols, dataT, colsT = map(T, (fwd.data, fwd.cols, tr.data,
+                                       tr.cols))
+    V = T(rng.standard_normal((fwd.n_col_blocks * 16, 20))
+          .astype(np.float32))
+    W = T(rng.standard_normal((fwd.n_row_blocks * 16, 20))
+          .astype(np.float32))
+    cv = T(rng.uniform(0, 1, fwd.n_col_blocks * 16).astype(np.float32))
+    cases = [
+        (tops.xt_multi(Xt, U), ref.ref_xt_multi(Xt, U)),
+        (tops.x_cz_multi(Xt, ct, Z), ref.ref_x_cz_multi(Xt, ct, Z)),
+        (tops.x_c_xt_multi(Xt, ct, U), ref.ref_x_c_xt_multi(Xt, ct, U)),
+        (tops.ell_matmat(data, cols, V, cv),
+         ref.ref_ell_mm(data, cols, V, cv)),
+        (tops.ell_hvp_mm(dataT, colsT, W, cv),
+         ref.ref_ell_hvp_mm_t(dataT, colsT, W, cv))]
+    assert widths == [8, 8, 4] * 5
+    for got, want in cases:
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    widths.clear()
+    tops.x_c_xt_multi(Xt, ct, U[:, :8])        # up to MAX_COLS: one call
+    assert widths == [8]
+
+
+def test_fused_multi_fit_rule():
+    """The fused multi-vector kernel's panel fits one CTA's shared memory
+    beside the partial Y (d, s): 8 columns at d = 4096 up to s = 5 (about
+    218 KB at s = 5, 1024 threads), 4 at s = 6 to 8 (512 threads), none
+    once even 4 do not fit."""
+    assert glm_hvp.fused_multi_smem_bytes(4096, 8, 5) == \
+        4 * (4096 * 13 + 33 * 8 * 5)
+    assert glm_hvp.fused_multi_smem_bytes(4096, 4, 8) == \
+        4 * (4096 * 12 + 17 * 4 * 8)
+    assert [glm_hvp.fused_multi_panel_width(4096, s)
+            for s in range(1, 9)] == [8, 8, 8, 8, 8, 4, 4, 4]
+    assert [glm_hvp.fused_multi_threads(s) for s in (1, 5, 6, 8)] == \
+        [1024, 1024, 512, 512]
+    assert glm_hvp.fused_multi_panel_width(1024, 1) == 32
+    assert glm_hvp.fused_multi_panel_width(20_000, 8) is None
+    for d in (1, 200, 4096, 9000):
+        for s in range(1, build.MAX_COLS + 1):
+            bn = glm_hvp.fused_multi_panel_width(d, s)
+            if bn is not None:
+                assert glm_hvp.fused_multi_smem_bytes(d, bn, s) <= \
+                    glm_hvp.SMEM_LIMIT
+
+
+def test_fused_multi_op_routes_past_the_fit_rule(monkeypatch):
+    """On the card, a column group whose panel does not fit takes the
+    two-pass route through the xt_multi and x_cz_multi kernels, never a
+    plain version."""
+    calls = []
+    monkeypatch.setattr(tops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(glm_hvp, "xt_multi",
+                        lambda X, U: calls.append("xt_multi") or X.T @ U)
+    monkeypatch.setattr(glm_hvp, "x_cz_multi",
+                        lambda X, c, Z: calls.append("x_cz_multi")
+                        or X @ (c[:, None] * Z))
+    monkeypatch.setattr(glm_hvp, "x_c_xt_multi",
+                        lambda X, c, U: calls.append("x_c_xt_multi")
+                        or X @ (c[:, None] * (X.T @ U)))
+    for d in (4096, 20_000):
+        tops.x_c_xt_multi(torch.zeros((d, 3)), torch.ones(3),
+                          torch.ones((d, 8)))
+    assert calls == ["x_c_xt_multi", "xt_multi", "x_cz_multi"]

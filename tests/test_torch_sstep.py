@@ -10,7 +10,9 @@ plain versions). Each solve asserts equal PCG rounds per Newton step
 rtol=1e-4, atol=1e-6, the classic path's tolerance. The problems are
 those of ``test_torch_disco.py`` (sparse, 96 x 200, 16 x 16 tiles) and
 ``test_torch_dense.py`` (dense, 98 x 202); at m = 4 the JAX reference runs
-in one subprocess with four forced host devices.
+in one subprocess with four forced host devices. The dense fused cases
+run the fused multi-vector HVP (``x_c_xt_multi``) in every round of
+DiSCO-S and of one-shard DiSCO-F.
 
 Every solve also runs the JAX package on its plain versions
 (``REPRO_KERNEL_MODE=ref``), the reference's own counterpart of the
@@ -57,13 +59,17 @@ DENSE_DATA = dict(d=98, n=202, seed=1)
 
 # (input, partition, variant, s); sparse variants: fused or two-pass,
 # dense: 'matmul' (use_kernel=False), 'kernel' (two-pass kernels),
-# 'fused' (DiSCO-F on several shards only: its basis operator fuses, its
-# rounds run the two-pass multi-vector kernels)
-CASES_1 = ([("sparse", p, v, s) for p in ("samples", "features")
-            for v in ("two-pass", "fused") for s in (2, 4)]
-           + [("dense", p, v, s) for p in ("samples", "features")
-              for v in ("matmul", "kernel") for s in (2, 3)])
-CASES_4 = CASES_1 + [("dense", "features", "fused", s) for s in (2, 3)]
+# 'fused' (the fused kernels: every round of DiSCO-S, and of DiSCO-F on one
+# shard, is one x_c_xt_multi; DiSCO-F on several shards fuses its basis
+# operator and runs its rounds on the two-pass multi-vector kernels)
+TWO_PASS_1 = ([("sparse", p, v, s) for p in ("samples", "features")
+               for v in ("two-pass", "fused") for s in (2, 4)]
+              + [("dense", p, v, s) for p in ("samples", "features")
+                 for v in ("matmul", "kernel") for s in (2, 3)])
+CASES_1 = TWO_PASS_1 + [("dense", p, "fused", s)
+                        for p in ("samples", "features") for s in (2, 3, 4)]
+CASES_4 = TWO_PASS_1 + [("dense", p, "fused", s)
+                        for p in ("features", "samples") for s in (2, 3)]
 
 
 def _id(case):
@@ -75,9 +81,12 @@ def _kw(case) -> dict:
     if kind == "sparse":
         return dict(SPARSE_KW, partition=partition, pcg_block_s=s,
                     hvp_fused=variant == "fused")
+    # at s = 4 the dense problem meets the default PCG tolerance in one
+    # round per step; a tighter one makes the rounds build on each other
     return dict(DENSE_KW, partition=partition, pcg_block_s=s,
                 use_kernel=variant != "matmul",
-                hvp_fused=variant == "fused")
+                hvp_fused=variant == "fused",
+                **({"pcg_rel_tol": 0.01} if s == 4 else {}))
 
 
 def _data(kind):
@@ -338,14 +347,29 @@ def test_sstep_needs_half_the_rounds(partition):
 
 @pytest.mark.parametrize("partition,m", [("samples", 1), ("samples", 4),
                                          ("features", 1)])
-def test_fused_dense_sstep_not_yet_ported(partition, m):
-    """The s-step rounds of these cells need the fused multi-vector dense
-    kernel (x_c_xt_multi), which is not yet ported: set-up raises."""
+def test_fused_dense_sstep_not_yet_ported(partition, m, monkeypatch):
+    """These cells raised "not yet ported" until the fused multi-vector
+    dense op (x_c_xt_multi) was ported. They build and run now: every
+    round's batched HVP goes through ``ops.x_c_xt_multi`` (m times per
+    round), and on the CPU, whose plain fused version is the two-pass
+    composition, the solve equals the two-pass kernel s-step solve bit
+    for bit."""
+    from repro_torch.kernels import ops
     X, y, _ = _data("dense")
+    calls = []
+    fused_op = ops.x_c_xt_multi
+    monkeypatch.setattr(ops, "x_c_xt_multi",
+                        lambda *a: calls.append(1) or fused_op(*a))
     kw = _kw(("dense", partition, "fused", 2))
-    with pytest.raises(NotImplementedError, match="x_c_xt_multi"):
-        disco_fit(X, y, DiscoConfig(**kw), group=InProcessGroup(m),
-                  device="cpu")
+    fused = disco_fit(X, y, DiscoConfig(**kw), group=InProcessGroup(m),
+                      device="cpu")
+    two_pass = disco_fit(X, y, DiscoConfig(**dict(kw, hvp_fused=False)),
+                         group=InProcessGroup(m), device="cpu")
+    rounds = sum(int(h["pcg_iters"]) for h in fused.history)
+    assert rounds > len(fused.history) and len(calls) == m * rounds
+    assert np.array_equal(fused.w, two_pass.w)
+    assert [h["pcg_iters"] for h in fused.history] == \
+        [h["pcg_iters"] for h in two_pass.history]
 
 
 def report():
