@@ -5,9 +5,9 @@ Usage, from the repository root on a machine with one Hopper card:
 
     python3 chip_smoke.py
 
-Six phases; any failed check makes the exit code nonzero.
+Eight phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the ten hand-written CUDA kernels from
+1. Build: compiles the eleven hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
    all at once) and prints the card's name and power limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
@@ -19,7 +19,11 @@ Six phases; any failed check makes the exit code nonzero.
    ``xt_multi``, ``x_cz_multi`` and the fused ``x_c_xt_multi`` (at every
    panel width, also against ``x_c_xt_u`` column by column and against
    the ``xt_multi`` + ``x_cz_multi`` pair) at s = 1, 2, 4, 5 and 8
-   columns, on contiguous and strided blocks. The s-step Gram solve is
+   columns, on contiguous and strided blocks; ``flash_attention`` (K11)
+   in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
+   on the same bf16 inputs) over GQA groups 1, 2, 4, 5 and 16, ragged S,
+   S != T with ``kv_len`` < T, causal, non-causal and window 50, head_dim
+   32, 64 and 128, each call repeated bit for bit. The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
    dense s-step included), a λ-path and softmax.
@@ -56,10 +60,31 @@ Six phases; any failed check makes the exit code nonzero.
    and DiSCO-F m = 4, classic and s-step), and Poisson and Huber
    regression (fused DiSCO-S); each held to its predicted launches or
    its convergence, and the λ-path's last point to the classic ``w``.
-6. Report: the kernels' JSON line.
+6. Flash attention timed: K11 at olmo-1b's call in a 4 x 4,096-token
+   prefill, ``(4, 16, 4096, 128)`` causal in bf16 and in f32, at
+   ``prefill_32k``'s length ``(1, 16, 32768, 128)`` bf16 (3 reps; no
+   plain version: its scores would take 68 GB) and at chatglm3-6b's heads
+   ``(2, 32 -> 2, 2048, 128)``, each beside the plain version and beside
+   ``scaled_dot_product_attention`` (the yardstick; the port never calls
+   it), with its bound; one JSON line per shape.
+7. Serving slice: olmo-1b at its published width (16 layers, d_model
+   2,048, 16 heads of 128, d_ff 8,192, vocab 50,304) in bf16, weights
+   from seed 0 on the card. Prefill ``forward(last_only=True)`` of 4
+   prompts of 4,096 tokens, 16 K11 launches per forward (time, tokens/s,
+   K11's device time from the profiler, peak memory); ``Engine.generate``
+   of 4 prompts of 128 tokens and 32 new tokens (ms per decode step,
+   tokens/s, no K11 launch), greedy output repeated and a request alone
+   equal to it in the batch; ``ContinuousEngine`` serving 6 requests on 4
+   slots. Then in f32 (TF32 off): the prefill's last logits against the
+   teacher-forced replay through ``decode_step`` on 2 x 512 tokens
+   (relative L2 <= 1e-3, argmax equal); olmo-1b and chatglm3-6b at 2
+   layers, card against CPU (<= 1e-4); chatglm3-6b's bf16 prefill of
+   2 x 2,048 tokens, K11 at GQA group 16.
+8. Report: the kernels' JSON line.
 
-Each slice zeroes the kernels' launch counts just before each fit and
-reads them just after; every kernel of the slice must have run. The line
+Each slice zeroes the kernels' launch counts just before each fit or
+forward and reads them just after; every kernel of the slice must have
+run. The line
 before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
@@ -68,6 +93,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +141,49 @@ SOFTMAX_SOLVE = dict(lam=1e-3, max_outer=8, grad_tol=0.0, use_kernel=True)
 SOFTMAX_RUNS = [("samples", 1, 1), ("samples", 1, 2), ("features", 4, 1),
                 ("features", 4, 2)]
 
+# flash attention (K11) and the dense decoder serving slice
+BF16_FLOPS_PER_S = 989.4e12      # bf16 dense tensor-core rate
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # relative L2 vs plain f32
+FLASH_CASES = [
+    # B, Hq, Hkv, S, T, Dh, causal, window, kv_len
+    (2, 4, 2, 128, 128, 64, True, 0, None),   # tests/test_kernels.py:91-96
+    (1, 8, 2, 256, 256, 64, True, 64, None),
+    (2, 2, 2, 96, 96, 32, False, 0, None),
+    (1, 4, 1, 200, 200, 64, True, 0, None),
+    (1, 4, 4, 130, 130, 64, False, 50, None),
+    (1, 16, 4, 64, 64, 128, True, 0, None),
+    (1, 5, 1, 97, 97, 128, True, 0, None),    # group 5, ragged S
+    (2, 32, 2, 63, 63, 128, True, 0, None),   # group 16 (chatglm3-6b)
+    (1, 16, 16, 200, 200, 128, False, 50, None),
+    (1, 4, 1, 63, 200, 32, True, 0, 150),     # S != T, kv_len < T
+    (1, 8, 2, 200, 97, 64, False, 50, 80),
+    (2, 20, 4, 97, 300, 128, True, 50, 250),
+    (1, 16, 1, 1000, 1000, 128, True, 0, None),
+]
+# name: B, Hq, Hkv, S (= T), Dh, dtype, reps, time the plain version; all
+# causal. main: olmo-1b's call in a prefill of 4 x 4,096 tokens (one
+# layer); prefill_32k: one layer's call at that shape's length, whose
+# plain version would need 68 GB of f32 scores; gqa: chatglm3-6b's heads
+FLASH_TIMED = {
+    "main_bf16": (4, 16, 16, 4096, 128, "bfloat16", REPS, True),
+    "main_f32": (4, 16, 16, 4096, 128, "float32", REPS, True),
+    "prefill_32k_bf16": (1, 16, 16, 32768, 128, "bfloat16", 3, False),
+    "gqa_bf16": (2, 32, 2, 2048, 128, "bfloat16", REPS, True),
+}
+# K11's device functions, as the profiler names them
+FLASH_KERNEL_NAMES = re.compile(r"flash_(mma|f32)_kernel")
+MODEL_ARCH = "olmo-1b"
+PREFILL = (4, 4096)          # train_4k's length, the batch cut to 4
+PREFILL_REPS = 3
+DECODE_PROFILED = 8          # decode steps under the profiler
+SERVE = dict(batch=4, prompt=128, new=32)
+CONSISTENCY = (2, 512)       # f32 prefill vs decode replay
+# bf16 prefill (K11's tensor-core kernel) vs the same forward in f32 on the
+# same weights: bf16 rounds every activation of every layer (2^-9 each),
+# so the limit is bf16-sized; tests/test_torch_models.py holds the CPU's
+# bf16 forward to the same limit at 16 layers
+BF16_MODEL_TOL = 5e-2
+
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
             "ell_hvp": "src/repro/kernels/sparse_hvp.py:204",
@@ -125,7 +194,8 @@ REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
             "ell_hvp_mm": "src/repro/kernels/sparse_hvp.py:268",
             "xt_multi": "src/repro/kernels/glm_hvp.py:168",
             "x_cz_multi": "src/repro/kernels/glm_hvp.py:208",
-            "x_c_xt_multi": "src/repro/kernels/glm_hvp.py:302"}
+            "x_c_xt_multi": "src/repro/kernels/glm_hvp.py:302",
+            "flash_attention": "src/repro/kernels/flash_attention.py:85"}
 SPARSE_KERNELS = ("ell_mv", "ell_hvp", "ell_mm", "ell_hvp_mm")
 DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi",
                  "x_c_xt_multi")
@@ -1329,34 +1399,33 @@ def glm_losses_phase(torch, rt, build, X, model, launches) -> None:
     del targets, margins
 
 
-def count_host_syncs(torch, solver) -> int:
-    """Host-device synchronizations of one more ``fit()``, counted with
-    PyTorch's sync debug mode (it warns at each one)."""
+def count_host_syncs(torch, fn) -> int:
+    """Host-device synchronizations of one call of ``fn`` (such as one
+    more ``fit()``), counted with PyTorch's sync debug mode (it warns at
+    each one)."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            solver.fit()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def profile_fit(torch, solver, count_syncs=False, rounds=None) -> None:
-    """Where the time of one whole solve goes: a second ``fit()`` under
-    ``torch.profiler``; device busy time is the sum of the device-side
-    events (kernels, copies, fills: one stream, so they do not overlap),
-    not of the host ops that launched them. The profiler's own host cost
-    makes the idle share an upper bound. With ``count_syncs``, a third
-    fit counts the host syncs (per PCG round: ``rounds``)."""
+def device_profile(torch, fn):
+    """``fn()`` under ``torch.profiler``: its wall time and the device-side
+    events as (device µs, calls, name), largest first. Device busy time is
+    their sum (kernels, copies, fills: one stream, so they do not
+    overlap), not that of the host ops that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.fit()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -1369,13 +1438,22 @@ def profile_fit(torch, solver, count_syncs=False, rounds=None) -> None:
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
+    return wall, rows
+
+
+def profile_fit(torch, solver, count_syncs=False, rounds=None) -> None:
+    """Where the time of one whole solve goes: a second ``fit()`` under
+    ``torch.profiler`` (:func:`device_profile`). The profiler's own host
+    cost makes the idle share an upper bound. With ``count_syncs``, a
+    third fit counts the host syncs (per PCG round: ``rounds``)."""
+    wall, rows = device_profile(torch, solver.fit)
     busy = sum(r[0] for r in rows) * 1e-6
     out = dict(wall_s=wall, device_busy_s=busy,
                busy_share=busy / wall if wall > 0 else None,
                top=[dict(name=k[:60], calls=c, device_s=t * 1e-6)
                     for t, c, k in rows[:12 if count_syncs else 8]])
     if count_syncs:
-        syncs = count_host_syncs(torch, solver)
+        syncs = count_host_syncs(torch, solver.fit)
         out.update(host_syncs=syncs, rounds=rounds,
                    host_syncs_per_round=syncs / rounds if rounds else None)
     print("profile " + json.dumps(out), flush=True)
@@ -1469,6 +1547,376 @@ def small_reference(torch, rt) -> None:
                    on_card, on_cpu, w="W")
 
 
+# ---------------------------------------------------------------------------
+# flash attention (K11) and the dense decoder serving slice
+# ---------------------------------------------------------------------------
+
+def attended_pairs(S, T, causal, window, kv_len=None) -> int:
+    """(q, k) pairs the masks keep for one (batch, head): the work the
+    kernel must do on these inputs."""
+    import numpy as np
+    kv_len = T if kv_len is None else kv_len
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(kv_len, i + 1) if causal else np.full(S, kv_len)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(S, int)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_bound(B, Hq, Hkv, S, T, Dh, esize, causal, window, kv_len=None):
+    """Least time of one call: 4 Dh flops per attended pair over the bf16
+    tensor-core rate (f32: the CUDA-core rate), or q, k, v and o moved
+    once over the HBM rate, whichever is larger."""
+    pairs = B * Hq * attended_pairs(S, T, causal, window, kv_len)
+    flops = 4 * Dh * pairs
+    nbytes = esize * Dh * (2 * B * Hq * S + 2 * B * Hkv * T)
+    t_ops = flops / (BF16_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(pairs=pairs, flops=flops, bytes=nbytes,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    return mk(B, Hq, S, Dh), mk(B, Hkv, T, Dh), mk(B, Hkv, T, Dh)
+
+
+def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
+    """K11 against its plain version on the card, f32 (TF32 off) and bf16
+    (against the plain version in f32 on the same bf16 inputs), over
+    FLASH_CASES; each call is repeated and must match bit for bit. For
+    bf16 it also prints the error of the plain f32 output rounded to bf16,
+    the part of the kernel's error that the output dtype alone makes (the
+    rest comes from P rounded to bf16 before the PV product)."""
+    rounding = []
+    for i, (B, Hq, Hkv, S, T, Dh, causal, window, kv_len) in enumerate(
+            FLASH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, i)
+            kw = dict(causal=causal, window=window, kv_len=kv_len)
+            got = flash.flash_attention(q, k, v, **kw)
+            again = flash.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+            torch.cuda.synchronize()
+            tag = (f"flash_attention {str(dtype)[6:]} B={B} Hq={Hq} "
+                   f"Hkv={Hkv} S={S} T={T} Dh={Dh} causal={causal} "
+                   f"window={window} kv_len={kv_len}")
+            if dtype == torch.float32:
+                e = record_err(errs, "flash_attention", got, want)
+            else:
+                e = record_err(bf16_errs, "flash_attention", got.float(),
+                               want)
+                rounding.append(
+                    [e, rel_err(want.to(torch.bfloat16).float(), want)])
+                tag += f" (output rounding alone {rounding[-1][1]:.2e})"
+            tol = FLASH_TOL[str(dtype)[6:]]
+            check(e <= tol and torch.equal(got, again)
+                  and bool(got.isfinite().all()),
+                  f"{tag}: rel err {e:.2e} (<= {tol:g}), repeats bit for "
+                  f"bit {torch.equal(got, again)}")
+    print("flash_attention bf16 error against output rounding " + json.dumps(
+        dict(kernel_rel_err_max=max(r[0] for r in rounding),
+             output_rounding_rel_err_max=max(r[1] for r in rounding),
+             ratio_max=max(r[0] / r[1] for r in rounding),
+             per_case=rounding)), flush=True)
+
+
+def phase_flash_timing(torch, flash, ref, errs, bf16_errs) -> dict:
+    """K11 timed at FLASH_TIMED beside its plain version (where the scores
+    fit) and beside ``scaled_dot_product_attention`` (the library
+    yardstick; the port never calls it). One JSON line per shape."""
+    import torch.nn.functional as F
+    rows = {}
+    for name, (B, Hq, Hkv, S, Dh, dtype_name, reps, plain) in \
+            FLASH_TIMED.items():
+        dtype = getattr(torch, dtype_name)
+        q, k, v = flash_inputs(torch, B, Hq, Hkv, S, S, Dh, dtype, 99)
+        kernel = lambda: flash.flash_attention(q, k, v, causal=True)
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
+        got, lib = kernel(), library()
+        row = dict(shape=[B, Hq, Hkv, S, S, Dh], dtype=dtype_name,
+                   causal=True, **flash_bound(B, Hq, Hkv, S, S, Dh,
+                                              q.element_size(), True, 0))
+        if plain:
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+            torch.cuda.synchronize()
+            e = record_err(errs if dtype == torch.float32 else bf16_errs,
+                           "flash_attention", got.float(), want)
+            tol = FLASH_TOL[str(dtype)[6:]]
+            check(e <= tol, f"flash_attention {name} {row['shape']}: rel "
+                            f"err {e:.2e} (<= {tol:g})")
+            row.update(rel_err_vs_plain=e, abs_err_vs_plain=float(
+                (got.float() - want).abs().max()))
+            del want
+            row["plain_ms"] = time_ms(
+                lambda: ref.flash_attention_ref(q, k, v), reps=reps)
+        else:
+            row["plain_ms"] = None     # scores of B*Hq*S*S f32 do not fit
+        lib_err = rel_err(lib.float(), got.float())
+        del got, lib
+        row["ms"] = time_ms(kernel, reps=reps)
+        row["library_ms"] = time_ms(library, reps=reps)
+        row["library_rel_diff"] = lib_err
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        print(f"flash_attention {name} " + json.dumps(row), flush=True)
+        rows[name] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_model(torch, rt, build) -> int:
+    """The serving slice: olmo-1b at its published width in bf16, weights
+    from seed 0. Prefill ``forward(last_only=True)`` of PREFILL tokens (16
+    K11 launches each), then ``Engine.generate`` and ``ContinuousEngine``
+    decode (no K11 launch). Returns K11's launches on this path."""
+    import numpy as np
+    cfg = rt.get_config(MODEL_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == (16, 2048, 16, 16, 128, 8192, 50304, "bfloat16"),
+          f"{MODEL_ARCH} at its published width in bf16")
+    t0 = time.perf_counter()
+    model = rt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count() == 1_176_764_416,
+          f"{MODEL_ARCH}: {n_params} parameters on the card "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    B, S = PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    prefill = lambda: rt.forward(cfg, model, {"tokens": tokens},
+                                 last_only=True)[0]
+    logits = prefill()                                     # warm-up
+    launches, times = 0, []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PREFILL_REPS):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        n = build.launch_counts()["flash_attention"]
+        launches += n
+        check(n == cfg.num_layers, f"prefill: {n} K11 launches per forward "
+                                   f"(one per layer: {cfg.num_layers})")
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+          and logits.dtype == torch.float32
+          and bool(logits.isfinite().all()),
+          f"prefill logits {tuple(logits.shape)} {logits.dtype}, finite")
+    wall, rows = device_profile(torch, prefill)
+    busy = sum(r[0] for r in rows) * 1e-6
+    k11 = sum(r[0] for r in rows if FLASH_KERNEL_NAMES.search(r[2])) * 1e-6
+    med = statistics.median(times)
+    print("model prefill " + json.dumps(dict(
+        arch=MODEL_ARCH, batch=B, seq=S, dtype=cfg.dtype, params=n_params,
+        forward_s=times, forward_s_median=med, tokens_per_s=B * S / med,
+        k11_s_per_forward=k11, k11_share=k11 / busy if busy else None,
+        profiled_wall_s=wall, device_busy_s=busy,
+        busy_share=busy / wall if wall else None,
+        top=[dict(name=k[:60], calls=c, device_s=t * 1e-6)
+             for t, c, k in rows[:8]],
+        max_memory_allocated=peak)), flush=True)
+    bf16_against_f32(torch, rt, cfg, model, tokens, logits,
+                     f"{MODEL_ARCH} B={B} S={S}")
+    del logits
+
+    # decode: Engine.generate replays the prompts through decode_step
+    rng = np.random.default_rng(2)
+    reqs = [rt.Request(prompt=rng.integers(0, cfg.vocab_size,
+                                           SERVE["prompt"]).tolist(),
+                       max_new_tokens=SERVE["new"])
+            for _ in range(SERVE["batch"])]
+    eng = rt.Engine(cfg, model, batch_size=SERVE["batch"],
+                    max_len=S + 64)
+    eng.generate(reqs[:1])                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = build.launch_counts()["flash_attention"]
+    check(n == 0, f"decode: {n} K11 launches (decode attention is plain)")
+    steps = SERVE["prompt"] + outs[0].steps - 1            # decode_step calls
+    new = sum(len(o.tokens) for o in outs)
+    check(all(len(o.tokens) == SERVE["new"] for o in outs),
+          f"Engine: every request got {SERVE['new']} tokens")
+    print("model decode " + json.dumps(dict(
+        arch=MODEL_ARCH, batch=SERVE["batch"], prompt=SERVE["prompt"],
+        new_tokens=SERVE["new"], max_len=S + 64, generate_s=dt,
+        decode_steps=steps, ms_per_decode_step=1e3 * dt / steps,
+        new_tokens_per_s=new / dt,
+        max_memory_allocated=torch.cuda.max_memory_allocated())),
+        flush=True)
+    # where a decode step's time goes: DECODE_PROFILED steps on a fresh
+    # cache under the profiler, and the host syncs of as many more
+    cache = rt.init_cache(cfg, SERVE["batch"], S + 64)
+
+    def decode(n=DECODE_PROFILED):
+        nonlocal cache
+        for t in range(n):
+            _, cache = rt.decode_step(cfg, model, tokens[:, t:t + 1], cache)
+    decode()                                               # warm-up
+    wall, rows = device_profile(torch, decode)
+    busy = sum(r[0] for r in rows) * 1e-6
+    print("model decode profile " + json.dumps(dict(
+        steps=DECODE_PROFILED, profiled_wall_s=wall, device_busy_s=busy,
+        busy_share=busy / wall if wall else None,
+        device_ms_per_step=1e3 * busy / DECODE_PROFILED,
+        host_syncs_per_step=count_host_syncs(torch, decode)
+        / DECODE_PROFILED,
+        launches_per_step=sum(r[1] for r in rows) / DECODE_PROFILED,
+        top=[dict(name=k[:60], calls=c, device_s=t * 1e-6)
+             for t, c, k in rows[:8]])), flush=True)
+    del cache
+    again = eng.generate(reqs)
+    check([o.tokens for o in again] == [o.tokens for o in outs],
+          "Engine: greedy output repeats on a second run")
+    solo = eng.generate(reqs[:1])
+    check(solo[0].tokens == outs[0].tokens,
+          "Engine: a request alone equals the same request in the batch")
+    ce = rt.ContinuousEngine(cfg, model, batch_size=SERVE["batch"],
+                             max_len=256)
+    for i in range(6):
+        ce.submit(rt.Request(prompt=rng.integers(0, cfg.vocab_size,
+                                                 16).tolist(),
+                             max_new_tokens=8))
+    build.reset_launch_counts()
+    done = ce.run_until_done(max_ticks=200)
+    check(sorted(done) == list(range(6))
+          and all(len(c.tokens) == 8 for c in done.values())
+          and build.launch_counts()["flash_attention"] == 0,
+          f"ContinuousEngine: 6 requests over {SERVE['batch']} slots all "
+          f"finished in {ce.ticks} ticks, no K11 launch")
+    del model, eng, ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_against_f32(torch, rt, cfg, model, tokens, logits, tag) -> None:
+    """The bf16 prefill's last logits against the same forward in f32 on
+    the same weights upcast, through K11's f32 kernel (held to the plain
+    version at 1e-5): relative L2 <= BF16_MODEL_TOL. This holds the bf16
+    tensor-core kernel inside the model against a reference."""
+    from repro_torch.models import DecoderLM
+    f32 = cfg.replace(dtype="float32")
+    up = DecoderLM(f32, None, torch.float32, torch.device("cuda"))
+    up.load_state_dict(model.state_dict())
+    want = rt.forward(f32, up, {"tokens": tokens}, last_only=True)[0]
+    e = rel_err(logits, want)
+    same = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    check(e <= BF16_MODEL_TOL,
+          f"{tag}: bf16 prefill vs the f32 forward on the same weights, "
+          f"last logits rel L2 {e:.2e} (<= {BF16_MODEL_TOL:g}), argmax "
+          f"equal in {same:.2f} of rows")
+    del up, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_against_cpu(torch, rt, cfg, seq, seed, tag) -> None:
+    """``forward`` on the card (K11, f32) against the port on the CPU (the
+    plain version) on the same weights: relative L2 <= 1e-4."""
+    from repro_torch.models import DecoderLM
+    model = rt.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    on_cpu = DecoderLM(cfg, None, torch.float32, torch.device("cpu"))
+    on_cpu.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
+                           generator=torch.Generator().manual_seed(seed))
+    got = rt.forward(cfg, model, {"tokens": tokens})[0].cpu()
+    want = rt.forward(cfg, on_cpu, {"tokens": tokens})[0]
+    e = rel_err(got, want)
+    check(e <= 1e-4, f"{tag}: card vs CPU forward of {seq} tokens in f32, "
+                     f"rel L2 {e:.2e} (<= 1e-4)")
+    del model, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_model_consistency(torch, rt, build) -> None:
+    """At full width in f32 (TF32 off, so no tolerance rests on it):
+    olmo-1b's prefill (K11) against the teacher-forced replay through
+    ``decode_step`` (plain decode attention); olmo-1b at 2 layers and
+    chatglm3-6b at 2 layers, card against CPU; and chatglm3-6b's bf16
+    prefill, K11 at GQA group 16."""
+    cfg = rt.get_config(MODEL_ARCH).replace(dtype="float32")
+    model = rt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    B, S = CONSISTENCY
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    build.reset_launch_counts()
+    fwd = rt.forward(cfg, model, {"tokens": tokens}, last_only=True)[0]
+    n = build.launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    cache = rt.init_cache(cfg, B, S)
+    for t in range(S):
+        dec, cache = rt.decode_step(cfg, model, tokens[:, t:t + 1], cache)
+    torch.cuda.synchronize()
+    e = rel_err(dec, fwd)
+    same = bool((dec.argmax(-1) == fwd.argmax(-1)).all())
+    check(e <= 1e-3 and same and n == cfg.num_layers,
+          f"{MODEL_ARCH} f32 B={B} S={S}: prefill ({n} K11 launches) vs "
+          f"decode replay ({time.perf_counter() - t0:.1f} s), last logits "
+          f"rel L2 {e:.2e} (<= 1e-3), argmax equal {same}")
+    del model, cache, fwd, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_against_cpu(torch, rt, cfg.replace(num_layers=2), 256, 4,
+                     f"{MODEL_ARCH} 2 layers")
+
+    glm = rt.get_config("chatglm3-6b").replace(num_layers=2)
+    check(glm.num_heads // glm.num_kv_heads == 16,
+          "chatglm3-6b: GQA group 16")
+    model = rt.init_params(glm, torch.Generator(device="cuda").manual_seed(5))
+    tokens = torch.randint(0, glm.vocab_size, (2, 2048), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(7))
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = rt.forward(glm, model, {"tokens": tokens}, last_only=True)[0]
+    torch.cuda.synchronize()
+    n = build.launch_counts()["flash_attention"]
+    check(n == 2 and bool(logits.isfinite().all()),
+          f"chatglm3-6b 2 layers bf16 prefill of 2x2048 "
+          f"({time.perf_counter() - t0:.2f} s): {n} K11 launches at group "
+          f"16, finite logits")
+    bf16_against_f32(torch, rt, glm, model, tokens, logits,
+                     "chatglm3-6b 2 layers 2x2048")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_against_cpu(torch, rt, glm.replace(dtype="float32"), 256, 6,
+                     "chatglm3-6b 2 layers")
+
+
+def report_row(name, t, launches, err) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line: the
+    contract's keys, then the rest of its timing record."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "gbps",
+            "bytes")
+    return dict(
+        name=name, route="cuda", source=SOURCE.format(name),
+        replaces=REPLACES[name], launches=launches,
+        max_abs_err=err["abs"], max_rel_err=err["rel"],
+        ms=t["ms"], us_per_call=t["ms"] * 1e3, plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_us=t["bound_ms"] * 1e3,
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        gbps=t["gbps"], bytes=t["bytes"],
+        **{k: v for k, v in t.items() if k not in keys})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1481,6 +1929,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch as rt
     from repro_torch.kernels import build, glm_hvp, ref, sparse_hvp
+    from repro_torch.kernels import flash_attention as flash
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -1494,6 +1943,8 @@ def main() -> int:
     phase_dense_kernels(torch, glm_hvp, ref, errs)
     phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
+    bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
+    phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
@@ -1502,27 +1953,30 @@ def main() -> int:
                                                 ref, errs)
     timings.update(dense_timings)
     launches.update(dense_launches)
+    t_model = time.perf_counter()
+    flash_rows = phase_flash_timing(torch, flash, ref, errs, bf16_errs)
+    launches["flash_attention"] = phase_model(torch, rt, build)
+    phase_model_consistency(torch, rt, build)
+    main_row = flash_rows["main_bf16"]
+    timings["flash_attention"] = dict(
+        main_row, gbps=main_row["bytes"] / main_row["ms"] / 1e6,
+        max_rel_err_bf16=bf16_errs["flash_attention"]["rel"],
+        max_abs_err_bf16=bf16_errs["flash_attention"]["abs"],
+        **{f"{k}_ms": r["ms"] for k, r in flash_rows.items()
+           if k != "main_bf16"})
+    t_model = time.perf_counter() - t_model
 
     kernels = []
     for k in build.KERNELS:
         name, t = k.name, timings[k.name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE.format(name),
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=errs[name]["abs"], max_rel_err=errs[name]["rel"],
-            ms=t["ms"], us_per_call=t["ms"] * 1e3, plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_us=t["bound_ms"] * 1e3,
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            gbps=t["gbps"], bytes=t["bytes"],
-            **{k: v for k, v in t.items() if k not in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "gbps", "bytes")}))
+        kernels.append(report_row(name, t, launches[name], errs[name]))
         check(launches[name] > 0, f"{name} launched on the main path "
                                   f"({launches[name]} launches)")
         check(errs[name]["rel"] <= REL_TOL_KERNEL,
               f"{name} max rel err {errs[name]['rel']:.2e}")
     print(f"total {time.perf_counter() - t_start:.1f} s (sparse slice and "
-          f"before {t_sparse:.1f} s)", flush=True)
+          f"before {t_sparse:.1f} s, K11 timing and the model slice "
+          f"{t_model:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILURES),

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the DiSCO solver (the JAX package ``repro`` is the
-reference it is held against).
+"""PyTorch/CUDA port of the DiSCO solver and of the model zoo's dense
+decoders (the JAX package ``repro`` is the reference it is held against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
 entry points (:func:`disco_fit`, :class:`DiscoSolver`,
@@ -9,7 +9,15 @@ on the card unless the caller passes ``device='cpu'``. Input is a sparse
 every HVP of PCG, classic or s-step (``pcg_block_s > 1``), goes through
 the hand-written Hopper kernels of :mod:`repro_torch.kernels` (for dense
 input with ``use_kernel=True``).
+
+The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b:
+:func:`get_config`) are served by :func:`init_params`, :func:`forward`
+(prefill, every layer's attention on the hand-written flash kernel),
+:func:`init_cache` / :func:`decode_step`, :class:`Engine` and
+:class:`ContinuousEngine`, and ``python -m repro_torch.launch.serve``;
+they too run on the card unless given ``device='cpu'``.
 """
+from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit)
 from repro_torch.core.glm import GLMProblem
@@ -18,10 +26,14 @@ from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxResult,
                                       SoftmaxSolver, softmax_fit)
 from repro_torch.data.sparse import CSRMatrix, make_sparse_glm_data
 from repro_torch.data.synthetic import make_glm_data
+from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.serve import ContinuousEngine, Engine, Request
 
 __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
            "GLMProblem", "LambdaPathResult", "lambda_path_fit",
            "SoftmaxConfig", "SoftmaxResult", "SoftmaxSolver", "softmax_fit",
            "CSRMatrix", "make_sparse_glm_data", "make_glm_data",
-           "InProcessGroup"]
+           "InProcessGroup", "ModelConfig", "get_config", "get_smoke_config",
+           "init_params", "forward", "init_cache", "decode_step", "Engine",
+           "ContinuousEngine", "Request"]

@@ -24,6 +24,10 @@ A JAX ``repro.core.softmax.SoftmaxSolver`` crosses over the same way
 (:func:`softmax_solver_from_arrays`, :data:`SOFTMAX_STATE_KEYS`): ``X``
 (the whole padded matrix), ``Y1`` (one-hot labels), ``X_tau``,
 ``Y1_tau``, and for ``partition='samples'`` the sample weights ``wts``.
+
+A JAX model-zoo parameter dict (``repro.models.init_params``), read as
+numpy, becomes the port's :class:`~repro_torch.models.DecoderLM` with
+:func:`lm_params_from_jax`.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.disco import DiscoConfig, DiscoSolver
+from repro_torch.core.disco import DiscoConfig, DiscoSolver, resolve_device
 from repro_torch.core.softmax import SoftmaxConfig, SoftmaxSolver
+from repro_torch.models.model import DecoderLM, check_ported
 from repro_torch.parallel.collectives import InProcessGroup
 
 _COMMON = ("ell_data", "ell_cols", "ell_dataT", "ell_colsT", "X_tau", "y",
@@ -95,3 +100,63 @@ def w_to_port(solver: DiscoSolver, w: np.ndarray) -> torch.Tensor:
     solver's iterate."""
     w = np.asarray(w, np.float32).reshape(solver._w_shape)
     return torch.from_numpy(w.copy()).to(solver.device)
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; bf16 (``ml_dtypes``, which
+    ``torch.from_numpy`` rejects) crosses as its uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_jax(cfg, params: Mapping, *, device=None) -> DecoderLM:
+    """The port's model holding a JAX parameter dict's weights.
+
+    ``params`` is the nested dict of ``repro.models.init_params`` (numpy
+    or anything ``np.asarray`` reads). Its stacked ``(num_layers, ...)``
+    layer arrays are split layer by layer (``params["layers"]["attn"]
+    ["wq"][i]`` becomes ``layers.i.attn.wq``); every weight keeps the JAX
+    ``(in, out)`` orientation, which the port's layers use as it is
+    (``y = x @ w``). The model's dtype is the arrays'. Raises on a missing,
+    extra or misshapen array.
+    """
+    check_ported(cfg)
+    dev = resolve_device(device)
+    state = {}
+    for path, arr in _flatten(params):
+        t = _to_tensor(arr)
+        if path[0] == "layers":
+            if t.shape[0] != cfg.num_layers:
+                raise ValueError(f"{'/'.join(path)}: {t.shape[0]} stacked "
+                                 f"layers, expected {cfg.num_layers}")
+            for i in range(cfg.num_layers):
+                state[".".join(("layers", str(i)) + path[1:])] = t[i]
+        else:
+            state[".".join(path)] = t
+    emb = state.get("embed.embedding")
+    model = DecoderLM(cfg, None, cfg.torch_dtype if emb is None else emb.dtype,
+                      dev)
+    expected = dict(model.named_parameters())
+    missing = sorted(set(expected) - set(state))
+    extra = sorted(set(state) - set(expected))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in expected.items():
+            if tuple(state[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(state[name].shape)}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(state[name])
+    return model

@@ -1,5 +1,5 @@
-"""HVP kernels: hand-written CUDA for Hopper, with a plain PyTorch version
-beside each.
+"""HVP and attention kernels: hand-written CUDA for Hopper, with a plain
+PyTorch version beside each.
 
 Dense (feature-major ``X (d, n)``):
 
@@ -10,8 +10,10 @@ Dense (feature-major ``X (d, n)``):
   x_cz_multi   Y = X (c .* Z), Z (n, s)             (kernel ``x_cz_multi``)
   x_c_xt_multi fused one-pass Y = X (c .* (X^T U))  (kernel ``x_c_xt_multi``)
 
-(``ops.glm_hvp``, the whole H u, is not re-exported here: the name is
-the kernels' module :mod:`repro_torch.kernels.glm_hvp`.)
+(``ops.glm_hvp``, the whole H u, and ``ops.flash_attention`` are not
+re-exported here: the names are the kernels' modules
+:mod:`repro_torch.kernels.glm_hvp` and
+:mod:`repro_torch.kernels.flash_attention`.)
 
 Blocked ELL (sparse):
 
@@ -20,10 +22,14 @@ Blocked ELL (sparse):
   ell_matmat   Y = A (c .* V), V (ncb * bc, s)      (kernel ``ell_mm``)
   ell_hvp_mm   fused one-pass Y = A (c .* (A^T U))  (kernel ``ell_hvp_mm``)
 
+Attention (``ops.flash_attention``): online-softmax attention with GQA and
+causal / sliding-window masks (kernel ``flash_attention``).
+
 The multi-vector ops take any number of columns (on the card, launches
 of at most ``build.MAX_COLS`` each). All dispatch by device: CUDA tensors
 launch the kernels (:mod:`repro_torch.kernels.glm_hvp`,
-:mod:`repro_torch.kernels.sparse_hvp`, built by
+:mod:`repro_torch.kernels.sparse_hvp`,
+:mod:`repro_torch.kernels.flash_attention`, built by
 :mod:`repro_torch.kernels.build`), CPU tensors run the plain versions
 (:mod:`repro_torch.kernels.ref`).
 """

@@ -15,6 +15,7 @@ The kernels, and the modules whose wrappers launch them:
   ell_mv, ell_hvp, ell_mm, ell_hvp_mm      :mod:`repro_torch.kernels.sparse_hvp`
   xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi
                                            :mod:`repro_torch.kernels.glm_hvp`
+  flash_attention                          :mod:`repro_torch.kernels.flash_attention`
 
 The multi-vector kernels (``ell_mm``, ``ell_hvp_mm``, ``xt_multi``,
 ``x_cz_multi``, ``x_c_xt_multi``) take 1 to :data:`MAX_COLS` vectors per
@@ -130,8 +131,13 @@ X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
 # (X, ld, c, U, ldu, Y, part, d, n, s, bn, grid, threads, stream)
 X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _P])
+# (q, k, v, o, B, Hq, Hkv, S, T, Dh, kv_len, causal, window, scale, bf16,
+#  stream)
+FLASH_ATTENTION = CudaKernel("flash_attention", [_P, _P, _P, _P, _I, _I, _I,
+                                                 _I, _I, _I, _I, _I, _I,
+                                                 ctypes.c_float, _I, _P])
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
-           XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI)
+           XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION)
 
 
 def _nvcc() -> str:

@@ -1,9 +1,10 @@
-"""Public HVP ops, dense and blocked-ELL, dispatched by the device of their
-tensors.
+"""Public HVP ops, dense and blocked-ELL, and flash attention, dispatched by
+the device of their tensors.
 
 CUDA tensors go to the hand-written kernels of
-:mod:`repro_torch.kernels.glm_hvp` (dense) and
-:mod:`repro_torch.kernels.sparse_hvp` (blocked ELL); a failed launch
+:mod:`repro_torch.kernels.glm_hvp` (dense),
+:mod:`repro_torch.kernels.sparse_hvp` (blocked ELL) and
+:mod:`repro_torch.kernels.flash_attention`; a failed launch
 raises. CPU tensors go to the plain versions of
 :mod:`repro_torch.kernels.ref`. There is no switch that routes CUDA
 tensors to the plain versions. The dense ops port ``repro/kernels/ops.py``
@@ -17,11 +18,15 @@ number of columns. A kernel launch takes at most
 (a K-class softmax HVP is K columns, its s-step round K (s + 1)) goes in
 column groups of that many, each a strided view, one launch (one read of
 the data) per group, and the results are joined.
+
+:func:`flash_attention` ports the JAX op without its per-call padding of S
+and T to block multiples: the kernel masks its ragged tiles.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import glm_hvp as _dense
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_hvp as _sparse
@@ -198,3 +203,22 @@ def ell_hvp_mm(dataT, colsT, U, c=None, *, fwd=None,
         Z = _ref.ref_ell_mm(dataT, colsT, U)
         return _ref.ref_ell_mm(fwd[0], fwd[1], Z, c, out_dtype=out_dtype)
     return _ref.ref_ell_hvp_mm_t(dataT, colsT, U, c, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Flash attention with GQA and causal / sliding-window masking.
+
+    q (B, Hq, S, Dh), k/v (B, Hkv, T, Dh) -> (B, Hq, S, Dh) in q's dtype,
+    positions from 0 for q and k. CUDA tensors launch the hand-written
+    kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`);
+    CPU tensors take :func:`~repro_torch.kernels.ref.flash_attention_ref`.
+    """
+    if _on_cuda(q, k, v):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale)

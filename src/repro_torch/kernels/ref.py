@@ -9,7 +9,11 @@ package's oracle contract (``repro/kernels/ref.py``):
 * blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
   (``cols = 0``, zero tile) gather the real vector block 0 and multiply
   it by zeros, products accumulate in f32, and the result is
-  ``out_dtype`` (f32 by default).
+  ``out_dtype`` (f32 by default);
+* attention (:mod:`repro_torch.kernels.flash_attention`):
+  ``flash_attention_ref`` is the flash kernel's own function, and
+  ``ref_attention`` ports the JAX package's attention oracle. The two
+  line positions up differently and agree only when S == T.
 
 The CPU tests and the port's CPU path run these; ``chip_smoke.py`` holds
 the kernels against them on the card.
@@ -116,3 +120,78 @@ def ref_ell_hvp_mm_t(dataT, colsT, U, c=None, out_dtype=torch.float32):
     y = torch.zeros((nrb, br, s), dtype=torch.float32, device=U.device)
     y.index_add_(0, colsT.reshape(-1).long(), contrib.reshape(-1, br, s))
     return y.reshape(nrb * br, s).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30          # the flash kernel's mask value (never -inf: no NaN)
+
+
+def _repeat_kv(k, group):
+    """GQA: kv-head j serves q-heads j * group .. (j + 1) * group - 1."""
+    return k if group == 1 else k.repeat_interleave(group, dim=1)
+
+
+def flash_attention_ref(q, k, v, causal=True, window=0, scale=None,
+                        kv_len=None):
+    """What the flash kernel computes (``repro/kernels/flash_attention.py``
+    ``_flash_kernel``), in one pass over the whole score matrix.
+
+    q : (B, Hq, S, Dh), k/v : (B, Hkv, T, Dh), Hq % Hkv == 0. Positions
+    run from 0 for q and k alike (``diff = q_pos - k_pos``); keys at or
+    past ``kv_len`` (default T) are never attended; ``causal`` keeps
+    diff >= 0 and ``window > 0`` keeps diff < window. Scores, softmax
+    statistics and the sum run in f32; the denominator is floored at
+    1e-30, so a row with no key to attend is 0. Returns q.dtype.
+    """
+    B, Hq, S, Dh = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    kv_len = T if kv_len is None else kv_len
+    scale = Dh ** -0.5 if scale is None else scale
+    kf = _repeat_kv(k.float(), Hq // Hkv)
+    vf = _repeat_kv(v.float(), Hq // Hkv)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)).mul_(scale)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    diff = q_pos - k_pos
+    mask = (k_pos < kv_len).expand(S, T)
+    if causal:
+        mask = mask & (diff >= 0)
+    if window > 0:
+        mask = mask & (diff < window)
+    s.masked_fill_(~mask, NEG_INF)
+    p = s.sub_(s.amax(-1, keepdim=True)).exp_().masked_fill_(~mask, 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min_(1e-30)
+    return (torch.matmul(p, vf) / l).to(q.dtype)
+
+
+def ref_attention(q, k, v, causal=True, window=0, scale=None):
+    """Masked multi-head attention oracle (``repro/kernels/ref.py``
+    ``ref_attention``).
+
+    q : (B, Hq, S, Dh), k/v : (B, Hkv, T, Dh); GQA by head repetition.
+    The last q lines up with the last k (``diff = q_pos + (T - S) -
+    k_pos``); window > 0 adds diff < window. Masked logits are -inf, so a
+    row with no key to attend is NaN, as in the JAX oracle. Softmax in
+    f32 whatever the input dtype.
+    """
+    B, Hq, S, Dh = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    kf = _repeat_kv(k.float(), Hq // Hkv)
+    vf = _repeat_kv(v.float(), Hq // Hkv)
+    scale = Dh ** -0.5 if scale is None else scale
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * scale
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    diff = (q_pos + (T - S)) - k_pos
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= diff >= 0
+    if window and window > 0:
+        mask &= diff < window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)

@@ -88,7 +88,7 @@ def test_cuda_ops_launch_the_kernels(dev):
     assert build.launch_counts() == {
         "ell_mv": 1, "ell_hvp": 1, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
-        "x_c_xt_multi": 0}
+        "x_c_xt_multi": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -180,7 +180,7 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 2, "x_cz": 2, "x_c_xt_u": 1,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 1, "x_cz_multi": 1,
-        "x_c_xt_multi": 4}
+        "x_c_xt_multi": 4, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -442,3 +442,80 @@ def test_cuda_lambda_path_matches_cpu(dev):
                                rtol=1e-5)
     for a, b in zip(on_card.results, on_cpu.results):
         np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K11) and the dense decoders
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Hq, Hkv, S, T, Dh, causal, window, kv_len
+    (2, 4, 2, 128, 128, 64, True, 0, None),
+    (1, 8, 2, 256, 256, 64, True, 64, None),
+    (2, 2, 2, 96, 96, 32, False, 0, None),
+    (1, 16, 1, 97, 97, 128, True, 0, None),
+    (1, 5, 1, 63, 200, 128, False, 50, 150),
+    (1, 4, 4, 200, 130, 32, True, 0, 100),
+]
+
+
+def _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, device=dev, generator=g).to(dtype)
+    return mk(B, Hq, S, Dh), mk(B, Hkv, T, Dh), mk(B, Hkv, T, Dh)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(dev, case, dtype):
+    """Relative L2 <= 1e-5 in f32 against the plain version in full f32
+    (TF32 off); in bf16 <= 1e-2 against the plain version in f32 on the
+    same bf16 inputs (the output's rounding). Bit-for-bit repeatable."""
+    from repro_torch.kernels import flash_attention as flash
+    B, Hq, Hkv, S, T, Dh, causal, window, kv_len = case
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.reset_launch_counts()
+    got = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len)
+    again = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flash_attention"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window,
+                                   kv_len=kv_len)
+    assert _rel(got.float(), want) <= (1e-5 if dtype == torch.float32
+                                       else 1e-2)
+
+
+def test_cuda_dense_decoder_matches_cpu(dev):
+    """chatglm3-6b's smoke config (GQA, partial RoPE, QKV bias) in f32:
+    prefill and decode on the card equal the CPU's (relative L2 <= 1e-4:
+    f32 sums in another order through two layers), and the prefill runs
+    one flash launch per layer, decode none."""
+    from repro_torch import (Engine, Request, decode_step, forward,
+                             get_smoke_config, init_cache, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("chatglm3-6b")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    on_cpu = init_params(cfg, device="cpu")
+    on_cpu.load_state_dict(model.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    build.reset_launch_counts()
+    got, _ = forward(cfg, model, {"tokens": tokens})
+    assert build.launch_counts()["flash_attention"] == cfg.num_layers
+    want, _ = forward(cfg, on_cpu, {"tokens": tokens})
+    assert _rel(got.cpu(), want) <= 1e-4
+    cache = init_cache(cfg, 2, 48)
+    build.reset_launch_counts()
+    for t in range(8):
+        step, cache = decode_step(cfg, model, tokens[:, t:t + 1], cache)
+        assert _rel(step[:, 0].cpu(), want[:, t]) <= 1e-4
+    assert build.launch_counts()["flash_attention"] == 0
+    reqs = [Request(prompt=[5, 6, 7], max_new_tokens=5)]
+    assert Engine(cfg, model, batch_size=2, max_len=32).generate(reqs)[0] \
+        .tokens == Engine(cfg, on_cpu, batch_size=2,
+                          max_len=32).generate(reqs)[0].tokens

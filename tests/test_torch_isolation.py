@@ -62,6 +62,25 @@ SCRIPT = textwrap.dedent("""
     assert all(np.isfinite(r.w).all() for r in path.results)
     import torch
     assert GLMProblem.create(Xd, yd, device="cpu").grad(torch.zeros(30)).shape == (30,)
+    import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
+    import repro_torch.kernels.flash_attention
+    from repro_torch import (ContinuousEngine, Engine, Request, decode_step,
+                             forward, get_smoke_config, init_cache,
+                             init_params)
+    cfg = get_smoke_config("chatglm3-6b")
+    model = init_params(cfg, device="cpu")
+    logits, _ = forward(cfg, model, {"tokens": np.ones((2, 9), np.int64)},
+                        last_only=True)
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    cache = init_cache(cfg, 2, 8, device="cpu")
+    logits, cache = decode_step(cfg, model, np.ones((2, 1), np.int64), cache)
+    assert torch.isfinite(logits).all() and cache["index"] == 1
+    out = Engine(cfg, model, batch_size=2, max_len=16).generate(
+        [Request(prompt=[1, 2], max_new_tokens=3)])
+    assert len(out[0].tokens) == 3
+    eng = ContinuousEngine(cfg, model, batch_size=2, max_len=16)
+    eng.submit(Request(prompt=[3], max_new_tokens=2))
+    assert len(eng.run_until_done()[0].tokens) == 2
     leaked = sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro."))
     assert not leaked, leaked
@@ -109,3 +128,16 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         softmax_fit(X.todense(), (y > 0).astype(int),
                     SoftmaxConfig(max_outer=1))
+
+
+def test_model_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The model zoo's entry points, like the solver's, default to the card
+    and raise without one."""
+    from repro_torch import Engine, get_smoke_config, init_cache, init_params
+    from repro_torch.convert import lm_params_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("olmo-1b")
+    for call in (lambda: init_params(cfg), lambda: init_cache(cfg, 1, 8),
+                 lambda: Engine(cfg), lambda: lm_params_from_jax(cfg, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -219,10 +219,12 @@ def test_cpu_calls_launch_no_kernel():
     tops.xt_multi(X, torch.ones((6, 3)))
     tops.x_cz_multi(X, None, torch.ones((10, 3)))
     tops.x_c_xt_multi(X, torch.ones(10), torch.ones((6, 20)))
+    tops.flash_attention(torch.ones((1, 2, 5, 32)), torch.ones((1, 1, 7, 32)),
+                         torch.ones((1, 1, 7, 32)))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
-        "x_c_xt_multi": 0}
+        "x_c_xt_multi": 0, "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -267,7 +269,8 @@ def test_ops_refuse_other_devices():
 def test_kernel_sources_and_build_target():
     assert [k.name for k in build.KERNELS] == [
         "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u", "ell_mm",
-        "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi"]
+        "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi",
+        "flash_attention"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -281,6 +284,7 @@ def test_kernel_sources_and_build_target():
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == ["common.cuh"]
     assert names(build.X_C_XT_MULTI) == ["partials.cuh", "common.cuh"]
+    assert names(build.FLASH_ATTENTION) == ["common.cuh"]
     # the C header's column cap is the one the wrappers check
     assert f"kMaxCols = {build.MAX_COLS};" in (
         build.CSRC / "common.cuh").read_text()
