@@ -21,9 +21,13 @@ Eight phases; any failed check makes the exit code nonzero.
    the ``xt_multi`` + ``x_cz_multi`` pair) at s = 1, 2, 4, 5 and 8
    columns, on contiguous and strided blocks; ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
-   on the same bf16 inputs) over GQA groups 1, 2, 4, 5 and 16, ragged S,
-   S != T with ``kv_len`` < T, causal, non-causal and window 50, head_dim
-   32, 64 and 128, each call repeated bit for bit. The s-step Gram solve is
+   on the same bf16 inputs, and at most 1.5x the error of the plain
+   output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
+   ragged S, S != T with ``kv_len`` < T, causal, non-causal and windows,
+   head_dim 32, 64 and 128, S and T at the bf16 kernel's tile edges (127,
+   128, 129, 257), each on contiguous inputs, on transposed (B, S, H, Dh)
+   views and on views cut from wider rows, each call repeated bit for
+   bit. The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
    dense s-step included), a λ-path and softmax.
@@ -34,7 +38,8 @@ Eight phases; any failed check makes the exit code nonzero.
    m = 1. On the first run's layouts ``ell_mv``, ``ell_hvp``, ``ell_mm``
    and ``ell_hvp_mm`` (at s = 5, the columns of a DiSCO-S round at
    ``pcg_block_s = 4``) are timed beside their plain versions and
-   PyTorch's block-sparse (BSR) product, and held against the plain
+   PyTorch's block-sparse (BSR) product (``ell_mv`` and ``ell_mm`` on the
+   transposed layout too), and held against the plain
    versions at full width; a second fit of the first run is profiled.
    Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
@@ -61,7 +66,8 @@ Eight phases; any failed check makes the exit code nonzero.
    regression (fused DiSCO-S); each held to its predicted launches or
    its convergence, and the λ-path's last point to the classic ``w``.
 6. Flash attention timed: K11 at olmo-1b's call in a 4 x 4,096-token
-   prefill, ``(4, 16, 4096, 128)`` causal in bf16 and in f32, at
+   prefill, ``(4, 16, 4096, 128)`` causal in bf16 (contiguous, and on the
+   head-major views the model passes) and in f32, at
    ``prefill_32k``'s length ``(1, 16, 32768, 128)`` bf16 (3 reps; no
    plain version: its scores would take 68 GB) and at chatglm3-6b's heads
    ``(2, 32 -> 2, 2048, 128)``, each beside the plain version and beside
@@ -71,7 +77,8 @@ Eight phases; any failed check makes the exit code nonzero.
    2,048, 16 heads of 128, d_ff 8,192, vocab 50,304) in bf16, weights
    from seed 0 on the card. Prefill ``forward(last_only=True)`` of 4
    prompts of 4,096 tokens, 16 K11 launches per forward (time, tokens/s,
-   K11's device time from the profiler, peak memory); ``Engine.generate``
+   K11's device time from the profiler, which must find it, peak
+   memory); ``Engine.generate``
    of 4 prompts of 128 tokens and 32 new tokens (ms per decode step,
    tokens/s, no K11 launch), greedy output repeated and a request alone
    equal to it in the batch; ``ContinuousEngine`` serving 6 requests on 4
@@ -159,19 +166,44 @@ FLASH_CASES = [
     (1, 8, 2, 200, 97, 64, False, 50, 80),
     (2, 20, 4, 97, 300, 128, True, 50, 250),
     (1, 16, 1, 1000, 1000, 128, True, 0, None),
+    # the bf16 kernel's edges: 128-row q tiles (64 a warpgroup), 128-key
+    # kv tiles, a window inside one tile and one across more than two,
+    # kv_len inside the last tile, group 16
+    (1, 4, 2, 127, 127, 128, True, 0, None),
+    (1, 4, 2, 128, 128, 32, True, 0, None),
+    (2, 4, 1, 129, 129, 64, True, 0, None),
+    (1, 4, 2, 257, 257, 128, True, 0, None),
+    (1, 4, 4, 257, 257, 64, True, 100, None),
+    (1, 4, 2, 600, 600, 128, True, 300, None),
+    (1, 2, 2, 257, 257, 32, False, 300, None),
+    (1, 4, 2, 129, 257, 128, True, 0, 250),
+    (1, 8, 2, 300, 300, 64, False, 0, 290),
+    (1, 32, 2, 257, 257, 128, True, 0, None),
+    (1, 16, 1, 128, 129, 128, False, 0, None),
+    # q tiles that attend no key: alone, and paired with one that does
+    (1, 4, 1, 600, 97, 32, True, 64, None),
 ]
-# name: B, Hq, Hkv, S (= T), Dh, dtype, reps, time the plain version; all
-# causal. main: olmo-1b's call in a prefill of 4 x 4,096 tokens (one
-# layer); prefill_32k: one layer's call at that shape's length, whose
+# contiguous (B, H, S, Dh); a (B, S, H, Dh) tensor transposed, as the
+# model passes its projections; the same cut from rows of Dh + 8
+FLASH_LAYOUTS = ("contiguous", "head_major", "sliced")
+FLASH_ROUNDING_RATIO = 1.5   # bf16 error over the output rounding's alone
+# name: B, Hq, Hkv, S (= T), Dh, dtype, reps, time the plain version,
+# layout; all causal. main: olmo-1b's call in a prefill of 4 x 4,096
+# tokens (one layer), contiguous and as the model passes it (head-major
+# views); prefill_32k: one layer's call at that shape's length, whose
 # plain version would need 68 GB of f32 scores; gqa: chatglm3-6b's heads
 FLASH_TIMED = {
-    "main_bf16": (4, 16, 16, 4096, 128, "bfloat16", REPS, True),
-    "main_f32": (4, 16, 16, 4096, 128, "float32", REPS, True),
-    "prefill_32k_bf16": (1, 16, 16, 32768, 128, "bfloat16", 3, False),
-    "gqa_bf16": (2, 32, 2, 2048, 128, "bfloat16", REPS, True),
+    "main_bf16": (4, 16, 16, 4096, 128, "bfloat16", REPS, True,
+                  "contiguous"),
+    "main_bf16_head_major": (4, 16, 16, 4096, 128, "bfloat16", REPS, False,
+                             "head_major"),
+    "main_f32": (4, 16, 16, 4096, 128, "float32", REPS, True, "contiguous"),
+    "prefill_32k_bf16": (1, 16, 16, 32768, 128, "bfloat16", 3, False,
+                         "contiguous"),
+    "gqa_bf16": (2, 32, 2, 2048, 128, "bfloat16", REPS, True, "contiguous"),
 }
 # K11's device functions, as the profiler names them
-FLASH_KERNEL_NAMES = re.compile(r"flash_(mma|f32)_kernel")
+FLASH_KERNEL_NAMES = re.compile(r"flash_(wgmma|f32)_kernel")
 MODEL_ARCH = "olmo-1b"
 PREFILL = (4, 4096)          # train_4k's length, the batch cut to 4
 PREFILL_REPS = 3
@@ -552,7 +584,9 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
     out["ell_mv"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         bytes=layout_bytes, gbps=layout_bytes / ms / 1e6,
-        ms_transposed=ms_t, ms_forward_with_c=ms_c,
+        ms_transposed=ms_t,
+        library_ms_transposed=library_bsr_ms(torch, dataT, colsT, u),
+        ms_forward_with_c=ms_c,
         tiles_nonempty=tiles_f, tiles_stored=nrb * W,
         shape=[nrb, W, br, bc])
     # ell_hvp on the transposed layout with c: the fused HVP
@@ -652,6 +686,8 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         library_ms=library_bsr_ms(torch, data, cols, V.contiguous()),
         bytes=layout_bytes, gbps=layout_bytes / ms / 1e6,
         ms_transposed=time_ms(lambda: sparse_hvp.ell_mm(dataT, colsT, U)),
+        library_ms_transposed=library_bsr_ms(torch, dataT, colsT,
+                                             U.contiguous()),
         ms_forward_with_c=time_ms(
             lambda: sparse_hvp.ell_mm(data, cols, V, c)),
         ms_by_s={k: time_ms(lambda: sparse_hvp.ell_mm(data, cols, V[:, :k]))
@@ -681,8 +717,10 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
               f" plain {m['plain_ms'] * 1e3:.1f} us,"
               f" library {m['library_ms']}", flush=True)
     print("ell_mm detail " + json.dumps(
-        {k: out["ell_mm"][k] for k in ("ms_transposed", "ms_forward_with_c",
-                                       "ms_by_s", "ell_mv_ms")})
+        {k: out["ell_mm"][k] for k in ("ms_transposed",
+                                       "library_ms_transposed",
+                                       "ms_forward_with_c", "ms_by_s",
+                                       "ell_mv_ms")})
           + " ell_hvp_mm two-pass pair "
           + json.dumps(out["ell_hvp_mm"]["two_pass_ell_mm_ms"]), flush=True)
     return out
@@ -1576,10 +1614,19 @@ def flash_bound(B, Hq, Hkv, S, T, Dh, esize, causal, window, kv_len=None):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, seed):
+def flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, seed,
+                 layout="contiguous"):
+    """q, k, v from a seed, laid out as FLASH_LAYOUTS names."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
-    return mk(B, Hq, S, Dh), mk(B, Hkv, T, Dh), mk(B, Hkv, T, Dh)
+    if layout == "contiguous":
+        mk = lambda b, h, n: torch.randn((b, h, n, Dh), generator=g,
+                                         device="cuda").to(dtype)
+    else:
+        pad = 8 if layout == "sliced" else 0
+        mk = lambda b, h, n: torch.randn(
+            (b, n, h, Dh + pad), generator=g,
+            device="cuda").to(dtype)[..., :Dh].transpose(1, 2)
+    return mk(B, Hq, S), mk(B, Hkv, T), mk(B, Hkv, T)
 
 
 def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
@@ -1592,16 +1639,18 @@ def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
     rounding = []
     for i, (B, Hq, Hkv, S, T, Dh, causal, window, kv_len) in enumerate(
             FLASH_CASES):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, i)
+        for dtype, layout in ((d, l) for d in (torch.float32, torch.bfloat16)
+                              for l in FLASH_LAYOUTS):
+            q, k, v = flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, i,
+                                   layout)
             kw = dict(causal=causal, window=window, kv_len=kv_len)
             got = flash.flash_attention(q, k, v, **kw)
             again = flash.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                            **kw)
             torch.cuda.synchronize()
-            tag = (f"flash_attention {str(dtype)[6:]} B={B} Hq={Hq} "
-                   f"Hkv={Hkv} S={S} T={T} Dh={Dh} causal={causal} "
+            tag = (f"flash_attention {str(dtype)[6:]} {layout} B={B} "
+                   f"Hq={Hq} Hkv={Hkv} S={S} T={T} Dh={Dh} causal={causal} "
                    f"window={window} kv_len={kv_len}")
             if dtype == torch.float32:
                 e = record_err(errs, "flash_attention", got, want)
@@ -1616,11 +1665,14 @@ def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
                   and bool(got.isfinite().all()),
                   f"{tag}: rel err {e:.2e} (<= {tol:g}), repeats bit for "
                   f"bit {torch.equal(got, again)}")
+    ratio = max(r[0] / r[1] for r in rounding)
     print("flash_attention bf16 error against output rounding " + json.dumps(
         dict(kernel_rel_err_max=max(r[0] for r in rounding),
              output_rounding_rel_err_max=max(r[1] for r in rounding),
-             ratio_max=max(r[0] / r[1] for r in rounding),
-             per_case=rounding)), flush=True)
+             ratio_max=ratio, per_case=rounding)), flush=True)
+    check(ratio <= FLASH_ROUNDING_RATIO,
+          f"flash_attention bf16: error at most {ratio:.3f}x the output "
+          f"rounding's alone (<= {FLASH_ROUNDING_RATIO})")
 
 
 def phase_flash_timing(torch, flash, ref, errs, bf16_errs) -> dict:
@@ -1629,17 +1681,18 @@ def phase_flash_timing(torch, flash, ref, errs, bf16_errs) -> dict:
     yardstick; the port never calls it). One JSON line per shape."""
     import torch.nn.functional as F
     rows = {}
-    for name, (B, Hq, Hkv, S, Dh, dtype_name, reps, plain) in \
+    for name, (B, Hq, Hkv, S, Dh, dtype_name, reps, plain, layout) in \
             FLASH_TIMED.items():
         dtype = getattr(torch, dtype_name)
-        q, k, v = flash_inputs(torch, B, Hq, Hkv, S, S, Dh, dtype, 99)
+        q, k, v = flash_inputs(torch, B, Hq, Hkv, S, S, Dh, dtype, 99, layout)
         kernel = lambda: flash.flash_attention(q, k, v, causal=True)
         library = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
         got, lib = kernel(), library()
         row = dict(shape=[B, Hq, Hkv, S, S, Dh], dtype=dtype_name,
-                   causal=True, **flash_bound(B, Hq, Hkv, S, S, Dh,
-                                              q.element_size(), True, 0))
+                   layout=layout, causal=True,
+                   **flash_bound(B, Hq, Hkv, S, S, Dh, q.element_size(),
+                                 True, 0))
         if plain:
             want = ref.flash_attention_ref(q.float(), k.float(), v.float())
             torch.cuda.synchronize()
@@ -1715,6 +1768,9 @@ def phase_model(torch, rt, build) -> int:
     wall, rows = device_profile(torch, prefill)
     busy = sum(r[0] for r in rows) * 1e-6
     k11 = sum(r[0] for r in rows if FLASH_KERNEL_NAMES.search(r[2])) * 1e-6
+    check(k11 > 0, f"prefill: the profiler finds K11's kernels "
+                   f"({FLASH_KERNEL_NAMES.pattern}), {k11 * 1e3:.2f} ms a "
+                   f"forward")
     med = statistics.median(times)
     print("model prefill " + json.dumps(dict(
         arch=MODEL_ARCH, batch=B, seq=S, dtype=cfg.dtype, params=n_params,

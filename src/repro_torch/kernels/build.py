@@ -131,11 +131,12 @@ X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
 # (X, ld, c, U, ldu, Y, part, d, n, s, bn, grid, threads, stream)
 X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _P])
-# (q, k, v, o, B, Hq, Hkv, S, T, Dh, kv_len, causal, window, scale, bf16,
+# (q, k, v, o, strides: 12 int64, the (batch, head, row) strides of q, k,
+#  v and o; B, Hq, Hkv, S, T, Dh, kv_len, causal, window, scale, bf16,
 #  stream)
-FLASH_ATTENTION = CudaKernel("flash_attention", [_P, _P, _P, _P, _I, _I, _I,
-                                                 _I, _I, _I, _I, _I, _I,
-                                                 ctypes.c_float, _I, _P])
+FLASH_ATTENTION = CudaKernel("flash_attention", [
+    _P, _P, _P, _P, ctypes.POINTER(_L), _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, _I, _P])
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
            XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION)
 

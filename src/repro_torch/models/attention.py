@@ -94,10 +94,11 @@ def attention_block(cfg, attn, x, positions):
     q, k, v = _project_qkv(cfg, attn, x)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
-    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(),
-                            causal=True,
+    # head-major views of the (B, S, H, D) projections: the kernel reads
+    # them where they lie and writes o as a view of (B, S, H, D), so
+    # neither side copies
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
                             window=cfg.window if cfg.attention == "sliding"
                             else 0)
     B, S = x.shape[:2]

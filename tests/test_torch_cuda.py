@@ -456,25 +456,54 @@ FLASH_CASES = [
     (1, 16, 1, 97, 97, 128, True, 0, None),
     (1, 5, 1, 63, 200, 128, False, 50, 150),
     (1, 4, 4, 200, 130, 32, True, 0, 100),
+    # the bf16 kernel's edges: 128-row q tiles (64 a warpgroup), 128-key
+    # kv tiles, a window inside one tile and one across more than two,
+    # kv_len inside the last tile, group 16
+    (1, 4, 2, 127, 127, 128, True, 0, None),
+    (1, 4, 2, 128, 128, 32, True, 0, None),
+    (2, 4, 1, 129, 129, 64, True, 0, None),
+    (1, 4, 2, 257, 257, 128, True, 0, None),
+    (1, 4, 4, 257, 257, 64, True, 100, None),
+    (1, 4, 2, 600, 600, 128, True, 300, None),
+    (1, 2, 2, 257, 257, 32, False, 300, None),
+    (1, 4, 2, 129, 257, 128, True, 0, 250),
+    (1, 8, 2, 300, 300, 64, False, 0, 290),
+    (1, 32, 2, 257, 257, 128, True, 0, None),
+    (1, 16, 1, 128, 129, 128, False, 0, None),
+    # q tiles that attend no key: alone, and paired with one that does
+    (1, 4, 1, 600, 97, 32, True, 64, None),
 ]
+# contiguous (B, H, S, Dh); a (B, S, H, Dh) tensor transposed, as the
+# model passes its projections; the same cut from rows of Dh + 8
+FLASH_LAYOUTS = ("contiguous", "head_major", "sliced")
 
 
-def _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype, seed=0):
+def _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype, seed=0,
+                  layout="contiguous"):
     g = torch.Generator(device=dev).manual_seed(seed)
-    mk = lambda *s: torch.randn(s, device=dev, generator=g).to(dtype)
-    return mk(B, Hq, S, Dh), mk(B, Hkv, T, Dh), mk(B, Hkv, T, Dh)
+    if layout == "contiguous":
+        mk = lambda b, h, n: torch.randn((b, h, n, Dh), device=dev,
+                                         generator=g).to(dtype)
+    else:
+        pad = 8 if layout == "sliced" else 0
+        mk = lambda b, h, n: torch.randn(
+            (b, n, h, Dh + pad), device=dev,
+            generator=g).to(dtype)[..., :Dh].transpose(1, 2)
+    return mk(B, Hq, S), mk(B, Hkv, T), mk(B, Hkv, T)
 
 
+@pytest.mark.parametrize("layout", FLASH_LAYOUTS)
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_cuda_flash_attention_matches_plain(dev, case, dtype):
+def test_cuda_flash_attention_matches_plain(dev, case, dtype, layout):
     """Relative L2 <= 1e-5 in f32 against the plain version in full f32
     (TF32 off); in bf16 <= 1e-2 against the plain version in f32 on the
-    same bf16 inputs (the output's rounding). Bit-for-bit repeatable."""
+    same bf16 inputs (the output's rounding). Bit-for-bit repeatable. The
+    output of a transposed (B, S, H, Dh) view lies the same way."""
     from repro_torch.kernels import flash_attention as flash
     B, Hq, Hkv, S, T, Dh, causal, window, kv_len = case
-    q, k, v = _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype)
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, S, T, Dh, dtype, layout=layout)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.reset_launch_counts()
     got = flash.flash_attention(q, k, v, causal=causal, window=window,
@@ -484,11 +513,60 @@ def test_cuda_flash_attention_matches_plain(dev, case, dtype):
     torch.cuda.synchronize()
     assert build.launch_counts()["flash_attention"] == 2
     assert got.dtype == dtype and torch.equal(got, again)
+    assert got.transpose(1, 2).is_contiguous() == (layout == "head_major")
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    causal=causal, window=window,
                                    kv_len=kv_len)
     assert _rel(got.float(), want) <= (1e-5 if dtype == torch.float32
                                        else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_without_keys_is_zero(dev, dtype):
+    """kv_len = 0: no q tile has a key to attend, and every row is 0."""
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 130, 64, 64, dtype)
+    got = flash.flash_attention(q, k, v, causal=False, kv_len=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.2, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_scale(dev, scale, dtype):
+    """Any scale, a negative one and 0 included (the bf16 kernel takes the
+    max of the raw scores, or their min under a negative scale)."""
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v = _flash_inputs(dev, 1, 4, 2, 300, 300, 128, dtype, seed=5)
+    got = flash.flash_attention(q, k, v, causal=True, window=200,
+                                scale=scale)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True, window=200, scale=scale)
+    assert _rel(got.float(), want) <= (1e-5 if dtype == torch.float32
+                                       else 1e-2)
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("S", [100, 256])
+def test_cuda_flash_attention_one_key_per_row(dev, Dh, S):
+    """Each q row scores one key far above the rest, so P is a permutation
+    and the bf16 kernel's output is that key's v row exactly: a check of
+    the S accumulator -> P operand -> P V fragment layouts and of the
+    swizzled K and V tiles."""
+    from repro_torch.kernels import flash_attention as flash
+    g = torch.Generator(device=dev).manual_seed(Dh + S)
+    T = 256
+    perm = torch.randperm(T, generator=g, device=dev)[:S]
+    keys = torch.randn((T, Dh), generator=g, device=dev)
+    keys = 40 * keys / keys.norm(dim=1, keepdim=True)
+    q = keys[perm].to(torch.bfloat16)[None, None]
+    k = keys.to(torch.bfloat16)[None, None]
+    v = torch.randn((1, 1, T, Dh), generator=g, device=dev).to(torch.bfloat16)
+    got = flash.flash_attention(q, k, v, causal=False, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, 0], v[0, 0][perm])
 
 
 def test_cuda_dense_decoder_matches_cpu(dev):

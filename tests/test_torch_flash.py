@@ -207,12 +207,117 @@ def test_kernel_wrapper_checks_and_refuses_cpu_tensors():
 
 
 def test_kernel_entry_takes_the_wrappers_arguments():
-    """The C entry point's parameters are the ctypes argument list."""
+    """The C entry point's parameters are the ctypes argument list: four
+    pointers, the 12 strides, then the shape and flags."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     sig = re.search(r'extern "C" int flash_attention_launch\(([^)]*)\)', src)
     params = [p.strip() for p in sig.group(1).split(",")]
-    assert len(params) == len(build.FLASH_ATTENTION.argtypes) == 16
-    assert params[13].startswith("float scale")
+    assert len(params) == len(build.FLASH_ATTENTION.argtypes) == 17
+    assert params[4] == "const long long* strides"
+    assert params[14].startswith("float scale")
     assert "repro/kernels/flash_attention.py" in src
     for dh in tflash.HEAD_DIMS:
         assert f"case {dh}:" in src
+
+
+# ---------------------------------------------------------------------------
+# strided q, k, v: (B, S, H, Dh) tensors seen as (B, H, S, Dh)
+# ---------------------------------------------------------------------------
+
+def _head_major(a, dtype=torch.float32):
+    """A (B, H, S, Dh) numpy array as a view of a (B, S, H, Dh) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                            ).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", tflash.HEAD_DIMS)
+def test_kernel_wrapper_takes_head_major_views(dtype, Dh):
+    """A transposed (B, S, H, Dh) view passes every layout check and meets
+    only the refusal of CPU tensors."""
+    q = torch.zeros((2, 10, 4, Dh), dtype=dtype).transpose(1, 2)
+    k = torch.zeros((2, 12, 2, Dh), dtype=dtype).transpose(1, 2)
+    assert not q.is_contiguous()
+    tflash.check_args(q, k, k, 0, 12)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, k, k)
+
+
+def test_kernel_wrapper_refuses_bad_strides():
+    ok = torch.zeros((1, 10, 4, 64)).transpose(1, 2)
+    wide = torch.zeros((1, 10, 4, 66))          # rows of 264 bytes
+    flat = torch.zeros(1 * 4 * 10 * 64 + 1)
+    bad = [
+        (ok.transpose(2, 3), "last dimension must be contiguous"),
+        (wide[..., :64].transpose(1, 2), "multiples of 16 bytes"),
+        (torch.zeros((1, 1, 10, 64)).expand(1, 4, 10, 64),
+         "multiples of 16 bytes"),
+        (flat[1:].view(1, 4, 10, 64), "16-byte aligned"),
+    ]
+    for q, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            tflash.flash_attention(q, ok, ok)
+        with pytest.raises(ValueError, match=msg):
+            tflash.flash_attention(ok, q[:, :4], q[:, :4])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Dh,causal,win", CASES)
+def test_flash_op_on_head_major_views_matches_jax(B, Hq, Hkv, S, Dh, causal,
+                                                  win):
+    """ops.flash_attention on transposed (B, S, H, Dh) views equals the JAX
+    op on the same numbers laid out (B, H, S, Dh)."""
+    q, k, v = _qkv(B, Hq, Hkv, S, S + 7, Dh, seed=S + Dh + 1)
+    want = _jax(jops.flash_attention, q, k, v, causal=causal, window=win,
+                block_q=64, block_k=64)
+    got = tops.flash_attention(_head_major(q), _head_major(k),
+                               _head_major(v), causal=causal, window=win)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+def test_output_for_follows_q():
+    """o lies as q does when q is a transposed (B, S, H, Dh) view (so the
+    caller's transpose back is free), else it is contiguous."""
+    contiguous = torch.zeros((2, 4, 10, 32))
+    view = torch.zeros((2, 10, 4, 32)).transpose(1, 2)
+    sliced = torch.zeros((2, 10, 4, 40))[..., :32].transpose(1, 2)
+    for q, head_major in ((contiguous, False), (view, True),
+                          (sliced, False)):
+        o = tflash.output_for(q)
+        assert o.shape == q.shape and o.dtype == q.dtype
+        assert o.transpose(1, 2).is_contiguous() == head_major
+        assert o.is_contiguous() != head_major
+
+
+def test_kernel_strides():
+    view = torch.zeros((2, 10, 4, 32)).transpose(1, 2)
+    assert tflash.kernel_strides(view) == (10 * 4 * 32, 32, 4 * 32)
+    # a dimension of size 1 takes the contiguous stride, whatever torch says
+    one = torch.zeros((1, 10, 1, 32)).transpose(1, 2)
+    assert tflash.kernel_strides(one) == (10 * 32, 10 * 32, 32)
+    lone = torch.zeros((1, 4, 1, 32))
+    assert tflash.kernel_strides(lone) == (4 * 32, 32, 32)
+
+
+def test_attention_block_passes_views(monkeypatch):
+    """The prefill hands the kernel head-major views of its (B, S, H, Dh)
+    projections, no copies, and its output matches the copying layout."""
+    from repro_torch import forward, get_smoke_config, init_params
+    from repro_torch.models import attention
+    cfg = get_smoke_config("chatglm3-6b")
+    model = init_params(cfg, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    seen = []
+    plain = attention.ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append([t.transpose(1, 2).is_contiguous() and not
+                     t.is_contiguous() for t in (q, k, v)])
+        return plain(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    want, _ = forward(cfg, model, {"tokens": tokens})
+    monkeypatch.setattr(attention.ops, "flash_attention", spy)
+    got, _ = forward(cfg, model, {"tokens": tokens})
+    assert seen == [[True, True, True]] * cfg.num_layers
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-6)
