@@ -19,7 +19,12 @@ Eight phases; any failed check makes the exit code nonzero.
    ``xt_multi``, ``x_cz_multi`` and the fused ``x_c_xt_multi`` (at every
    panel width, also against ``x_c_xt_u`` column by column and against
    the ``xt_multi`` + ``x_cz_multi`` pair) at s = 1, 2, 4, 5 and 8
-   columns, on contiguous and strided blocks; ``flash_attention`` (K11)
+   columns, on contiguous and strided blocks; ``ell_mv`` and ``ell_mm``
+   on layouts at the edges of their live-tile schedule (W = 300 on 3
+   row-blocks, one full row-block among empty ones, W = 1, 256 x 32 and
+   32 x 256 tiles, 12 x 6 tiles on the direct path), with and without
+   the schedule, each call repeated bit for bit, and with NaN in the
+   padding, which the scheduled calls must not read; ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -39,8 +44,11 @@ Eight phases; any failed check makes the exit code nonzero.
    and ``ell_hvp_mm`` (at s = 5, the columns of a DiSCO-S round at
    ``pcg_block_s = 4``) are timed beside their plain versions and
    PyTorch's block-sparse (BSR) product (``ell_mv`` and ``ell_mm`` on the
-   transposed layout too), and held against the plain
-   versions at full width; a second fit of the first run is profiled.
+   transposed layout too, with the solver's schedules as the main path
+   passes them; their copy path, the tiles stored, nonempty and live,
+   and their times with every slot live and with twice the CTAs), and
+   held against the plain versions at full width; a second fit of the
+   first run is profiled.
    Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
    held to the launches the code predicts, the classic convergence check
@@ -366,6 +374,108 @@ def phase_kernels(torch, sparse_hvp, ref, errs) -> None:
         rng_seed += 1
 
 
+def edge_layouts():
+    """Small layouts at the edges of K1's and K6's live-tile schedule,
+    each with the copy path its shape takes: power-law ones with padding
+    slots at 8 x 8, 16 x 16 and 128 x 128; 3 row-blocks of W = 300 (fewer
+    than the SMs); one full row-block among 199 empty ones; W = 1 with
+    every other row-block empty; 256 x 32 tiles (two row chunks) and
+    32 x 256; and 12 x 6 tiles (24-byte rows, which a bulk copy cannot
+    take: the direct path)."""
+    import numpy as np
+    from repro_torch.data.sparse import (CSRMatrix, ell_from_csr,
+                                         make_sparse_glm_data)
+    rng = np.random.default_rng(11)
+    tiled = lambda a, br, bc: ell_from_csr(CSRMatrix.from_dense(a), br, bc)
+    out = []
+    for block in (8, 16, 128):
+        kw = (dict(d=70, n=90, density=0.05) if block <= 16 else
+              dict(d=2000, n=1500, density=0.005))
+        X, _, _ = make_sparse_glm_data(**kw, seed=2)
+        out.append((f"{block}x{block}", ell_from_csr(X, block, block),
+                    "bulk"))
+    dense = rng.standard_normal((3 * 16, 300 * 16)).astype(np.float32)
+    dense[rng.random(dense.shape) > 0.05] = 0.0
+    out.append(("3 row-blocks of W=300", tiled(dense, 16, 16), "bulk"))
+    dense = np.zeros((200 * 16, 40 * 16), np.float32)
+    dense[77 * 16:78 * 16] = rng.standard_normal((16, 40 * 16))
+    out.append(("one full row-block of 200", tiled(dense, 16, 16), "bulk"))
+    dense = np.zeros((300 * 8, 300 * 8), np.float32)
+    for i in range(0, 300, 2):
+        dense[i * 8:(i + 1) * 8, i * 8:(i + 1) * 8] = \
+            rng.standard_normal((8, 8))
+    out.append(("W=1", tiled(dense, 8, 8), "bulk"))
+    X, _, _ = make_sparse_glm_data(d=1000, n=900, density=0.01, seed=4)
+    for br, bc, path in ((256, 32, "bulk"), (32, 256, "bulk"),
+                         (12, 6, "direct")):
+        out.append((f"{br}x{bc}", ell_from_csr(X, br, bc), path))
+    return out
+
+
+def phase_ell_edges(torch, sparse_hvp, ref, errs) -> None:
+    """K1 and K6 on :func:`edge_layouts`, with the layout's schedule and
+    without (every slot live), with and without c, K6 at s in MULTI_S on
+    a strided V, each call repeated bit for bit and on the path its shape
+    takes; then NaN put into the padding after the schedule is built must
+    leave both results finite and equal (the padding is not read). One
+    check line per layout."""
+    import numpy as np
+    dev = torch.device("cuda")
+    ctas = sparse_hvp.default_ctas(dev)
+    for tag, ell, path in edge_layouts():
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        data, cols = T(ell.data), T(ell.cols)
+        nb, w, br, bc = data.shape
+        sched = sparse_hvp.ell_schedule(data, cols, ctas)
+        n_in = ell.n_col_blocks * bc
+        g = torch.Generator(device=dev).manual_seed(nb)
+        v = torch.randn(n_in, generator=g, device=dev)
+        c = torch.rand(n_in, generator=g, device=dev)
+        worst, same, paths = {"ell_mv": 0.0, "ell_mm": 0.0}, True, set()
+        for sc in (None, sched):
+            for cc in (None, c):
+                got = sparse_hvp.ell_mv(data, cols, v, cc, sched=sc)
+                paths.add(sparse_hvp.last_path["ell_mv"])
+                again = sparse_hvp.ell_mv(data, cols, v, cc, sched=sc)
+                want = ref.ref_ell_mv(data, cols, v, cc)
+                torch.cuda.synchronize()
+                worst["ell_mv"] = max(worst["ell_mv"],
+                                      record_err(errs, "ell_mv", got, want))
+                same &= bool(torch.equal(got, again))
+                for k in MULTI_S:
+                    V = torch.randn((n_in, k + 1), generator=g,
+                                    device=dev)[:, :k]
+                    got = sparse_hvp.ell_mm(data, cols, V, cc, sched=sc)
+                    paths.add(sparse_hvp.last_path["ell_mm"])
+                    again = sparse_hvp.ell_mm(data, cols, V, cc, sched=sc)
+                    want = ref.ref_ell_mm(data, cols, V, cc)
+                    torch.cuda.synchronize()
+                    worst["ell_mm"] = max(worst["ell_mm"], record_err(
+                        errs, "ell_mm", got, want))
+                    same &= bool(torch.equal(got, again))
+        live = sparse_hvp.schedule_parts(sched, nb)[0].long()
+        padding = torch.arange(w, device=dev)[None, :] >= live[:, None]
+        poisoned = data.clone()
+        poisoned[padding] = float("nan")
+        V = torch.randn((n_in, TIMED_S + 1), generator=g,
+                        device=dev)[:, :TIMED_S]
+        y = sparse_hvp.ell_mv(poisoned, cols, v, c, sched=sched)
+        Y = sparse_hvp.ell_mm(poisoned, cols, V, c, sched=sched)
+        torch.cuda.synchronize()
+        skipped = (bool(y.isfinite().all()) and bool(Y.isfinite().all())
+                   and bool(torch.equal(y, sparse_hvp.ell_mv(
+                       data, cols, v, c, sched=sched)))
+                   and bool(torch.equal(Y, sparse_hvp.ell_mm(
+                       data, cols, V, c, sched=sched))))
+        check(max(worst.values()) <= REL_TOL_KERNEL and same and skipped
+              and paths == {path},
+              f"ell_mv / ell_mm {tag} {tuple(data.shape)}, with and without "
+              f"the schedule, c, s in {list(MULTI_S)}: worst rel err "
+              f"{worst['ell_mv']:.2e} / {worst['ell_mm']:.2e}, repeatable "
+              f"{same}, path {sorted(paths)} (want {path}), NaN padding "
+              f"not read {skipped}")
+
+
 def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
     """The dense kernels at ragged shapes (scalar and 16-byte loads, a d
     past the widest panel), with and without c, every panel width of
@@ -538,10 +648,12 @@ def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
 
 def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
     """Full-width timings and checks on the first run's layouts
-    (DiSCO-S, m = 1)."""
+    (DiSCO-S, m = 1), ell_mv with the solver's schedules as the main path
+    passes them."""
     dev = solver.device
     data, cols = solver.ell_data[0], solver.ell_cols[0]
     dataT, colsT = solver.ell_dataT[0], solver.ell_colsT[0]
+    sched, schedT = solver.ell_sched[0], solver.ell_schedT[0]
     nrb, W, br, bc = data.shape
     ncb, WT = dataT.shape[:2]
     g = torch.Generator(device=dev).manual_seed(1)
@@ -551,10 +663,11 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
     d1 = -0.5 * yv * wts
     u = torch.randn(nrb * br, generator=g, device=dev)
 
-    grad_k = sparse_hvp.ell_mv(data, cols, d1)
+    grad_k = sparse_hvp.ell_mv(data, cols, d1, sched=sched)
     grad_p = ref.ref_ell_mv(data, cols, d1)
-    hvp2_k = sparse_hvp.ell_mv(data, cols,
-                               sparse_hvp.ell_mv(dataT, colsT, u), c)
+    hvp2_k = sparse_hvp.ell_mv(
+        data, cols, sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT), c,
+        sched=sched)
     hvp2_p = ref.ref_ell_mv(data, cols, ref.ref_ell_mv(dataT, colsT, u), c)
     hvpf_k = sparse_hvp.ell_hvp(dataT, colsT, u, c)
     hvpf_p = ref.ref_ell_hvp_t(dataT, colsT, u, c)
@@ -571,29 +684,35 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
     v = torch.randn(ncb * bc, generator=g, device=dev)
     out = {}
     # ell_mv on the forward layout without c: the gradient product X d1,
-    # the shape the block-sparse library call computes too
-    ms = time_ms(lambda: sparse_hvp.ell_mv(data, cols, v))
-    ms_t = time_ms(lambda: sparse_hvp.ell_mv(dataT, colsT, u))
-    ms_c = time_ms(lambda: sparse_hvp.ell_mv(data, cols, v, c))
+    # the shape the block-sparse library call computes too. The bytes
+    # are those the kernel reads: the live tiles (with the schedule, as
+    # the main path calls it), cols, v and y.
+    ms = time_ms(lambda: sparse_hvp.ell_mv(data, cols, v, sched=sched))
+    ms_t = time_ms(lambda: sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT))
+    ms_c = time_ms(lambda: sparse_hvp.ell_mv(data, cols, v, c, sched=sched))
     plain = time_ms(lambda: ref.ref_ell_mv(data, cols, v))
-    layout_bytes = data.numel() * 4 + cols.numel() * 4 + v.numel() * 4 \
-        + nrb * br * 4
+    live = schedule_tiles(sparse_hvp, sched, nrb)
+    layout_bytes = 4 * (live * br * bc + cols.numel() + v.numel() + nrb * br)
     bms, by = bound_ms(tiles_f, br * bc, cols.numel() * 4 + v.numel() * 4
                        + nrb * br * 4, 2)
     lib = library_bsr_ms(torch, data, cols, v)
+    lib_t = library_bsr_ms(torch, dataT, colsT, u)
     out["ell_mv"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         bytes=layout_bytes, gbps=layout_bytes / ms / 1e6,
-        ms_transposed=ms_t,
-        library_ms_transposed=library_bsr_ms(torch, dataT, colsT, u),
+        ms_transposed=ms_t, library_ms_transposed=lib_t,
+        bsr_factor=ms / lib if lib else None,
+        bsr_factor_transposed=ms_t / lib_t if lib_t else None,
         ms_forward_with_c=ms_c,
-        tiles_nonempty=tiles_f, tiles_stored=nrb * W,
+        **schedule_detail(torch, sparse_hvp, "ell_mv", data, cols, dataT,
+                          colsT, sched, schedT, (v,), (u,)),
         shape=[nrb, W, br, bc])
     # ell_hvp on the transposed layout with c: the fused HVP
     ms = time_ms(lambda: sparse_hvp.ell_hvp(dataT, colsT, u, c))
     plain = time_ms(lambda: ref.ref_ell_hvp_t(dataT, colsT, u, c))
     two_pass = time_ms(lambda: sparse_hvp.ell_mv(
-        data, cols, sparse_hvp.ell_mv(dataT, colsT, u), c))
+        data, cols, sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT), c,
+        sched=sched))
     read_bytes = 2 * dataT.numel() * 4 + 2 * colsT.numel() * 4 \
         + u.numel() * 4 + c.numel() * 4 + nrb * br * 4
     bms, by = bound_ms(tiles_t, br * bc, colsT.numel() * 4 + u.numel() * 4
@@ -609,7 +728,60 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
               f" bound {m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}),"
               f" plain {m['plain_ms'] * 1e3:.1f} us,"
               f" library {m['library_ms']}", flush=True)
+    print_schedule_detail("ell_mv", out["ell_mv"])
     return out
+
+
+def schedule_tiles(sparse_hvp, sched, nb) -> int:
+    """Live tiles of a schedule of ``nb`` row-blocks."""
+    return int(sparse_hvp.schedule_parts(sched, nb)[1][-1])
+
+
+def schedule_detail(torch, sparse_hvp, name, data, cols, dataT, colsT,
+                    sched, schedT, fwd_args, tr_args) -> dict:
+    """K1's or K6's (``name``) schedule on both layouts: the copy path,
+    the tiles the layouts store, hold nonzeros and count live (the
+    schedule's sum), the time of building the schedule, and the kernel's
+    time with the schedule, with every slot live (no schedule) and with
+    twice the CTAs. ``*_args``: the vector (K1) or block (K6) of each
+    layout."""
+    launch = getattr(sparse_hvp, name)
+    launch(data, cols, *fwd_args, sched=sched)
+    path = sparse_hvp.last_path[name]
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+    out = dict(path=path, ctas=int(sched.numel() - 2 * data.shape[0] - 2),
+               sms=sms)
+    for tag, d, c, sc, args in (("forward", data, cols, sched, fwd_args),
+                                ("transposed", dataT, colsT, schedT,
+                                 tr_args)):
+        nb, w = d.shape[:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc2 = sparse_hvp.ell_schedule(d, c, 2 * sms)
+        torch.cuda.synchronize()
+        out[f"{tag}_schedule_build_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{tag}_tiles_stored"] = nb * w
+        out[f"{tag}_tiles_nonempty"] = nonempty_tiles(d)
+        out[f"{tag}_tiles_live"] = schedule_tiles(sparse_hvp, sc, nb)
+        out[f"{tag}_ms_scheduled"] = time_ms(
+            lambda: launch(d, c, *args, sched=sc))
+        out[f"{tag}_ms_every_slot"] = time_ms(lambda: launch(d, c, *args))
+        out[f"{tag}_ms_2x_ctas"] = time_ms(
+            lambda: launch(d, c, *args, sched=sc2))
+        del sc2
+    out.update(tiles_nonempty=out["forward_tiles_nonempty"],
+               tiles_stored=out["forward_tiles_stored"])
+    return out
+
+
+def print_schedule_detail(name, m) -> None:
+    keys = ("path", "ctas", "sms") + tuple(
+        f"{t}_{k}" for t in ("forward", "transposed")
+        for k in ("tiles_stored", "tiles_nonempty", "tiles_live",
+                  "schedule_build_ms", "ms_scheduled", "ms_every_slot",
+                  "ms_2x_ctas"))
+    print(f"{name} schedule " + json.dumps({k: m[k] for k in keys}),
+          flush=True)
 
 
 def library_bsr_ms(torch, data, cols, v):
@@ -647,6 +819,7 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
     dev = solver.device
     data, cols = solver.ell_data[0], solver.ell_cols[0]
     dataT, colsT = solver.ell_dataT[0], solver.ell_colsT[0]
+    sched, schedT = solver.ell_sched[0], solver.ell_schedT[0]
     nrb, W, br, bc = data.shape
     ncb, WT = dataT.shape[:2]
     s = TIMED_S
@@ -654,12 +827,13 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
     c = 0.25 * solver.weights[0]
     V = torch.randn((ncb * bc, s + 1), generator=g, device=dev)[:, :s]
     U = torch.randn((nrb * br, s + 1), generator=g, device=dev)[:, :s]
-    two_k = sparse_hvp.ell_mm(data, cols, sparse_hvp.ell_mm(dataT, colsT, U),
-                              c)
+    two_k = sparse_hvp.ell_mm(
+        data, cols, sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT), c,
+        sched=sched)
     two_p = ref.ref_ell_mm(data, cols, ref.ref_ell_mm(dataT, colsT, U), c)
     fused_k = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c)
     fused_p = ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)
-    fwd_k = sparse_hvp.ell_mm(data, cols, V)
+    fwd_k = sparse_hvp.ell_mm(data, cols, V, sched=sched)
     fwd_p = ref.ref_ell_mm(data, cols, V)
     torch.cuda.synchronize()
     for what, kname, got, want in (
@@ -670,31 +844,38 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         e = record_err(errs, kname, got, want)
         check(e <= REL_TOL_KERNEL, f"{kname} full width s={s} {what}: rel "
                                    f"err {e:.2e}")
-    check(bool(torch.equal(fwd_k, sparse_hvp.ell_mm(data, cols, V))),
+    check(bool(torch.equal(fwd_k, sparse_hvp.ell_mm(data, cols, V,
+                                                    sched=sched))),
           "ell_mm full width: repeatable bit for bit")
     del two_k, two_p, fused_k, fused_p, fwd_k, fwd_p
 
     tiles_f, tiles_t = nonempty_tiles(data), nonempty_tiles(dataT)
     out = {}
-    ms = time_ms(lambda: sparse_hvp.ell_mm(data, cols, V))
-    layout_bytes = 4 * (data.numel() + cols.numel() + V.numel() + nrb * br * s)
+    ms = time_ms(lambda: sparse_hvp.ell_mm(data, cols, V, sched=sched))
+    ms_t = time_ms(lambda: sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT))
+    live = schedule_tiles(sparse_hvp, sched, nrb)
+    layout_bytes = 4 * (live * br * bc + cols.numel() + V.numel()
+                        + nrb * br * s)
     bms, by = bound_ms(tiles_f, br * bc, 4 * (cols.numel() + V.numel()
                                               + nrb * br * s), 2 * s)
+    lib = library_bsr_ms(torch, data, cols, V.contiguous())
+    lib_t = library_bsr_ms(torch, dataT, colsT, U.contiguous())
     out["ell_mm"] = dict(
         ms=ms, plain_ms=time_ms(lambda: ref.ref_ell_mm(data, cols, V)),
-        bound_ms=bms, bound_by=by,
-        library_ms=library_bsr_ms(torch, data, cols, V.contiguous()),
+        bound_ms=bms, bound_by=by, library_ms=lib,
         bytes=layout_bytes, gbps=layout_bytes / ms / 1e6,
-        ms_transposed=time_ms(lambda: sparse_hvp.ell_mm(dataT, colsT, U)),
-        library_ms_transposed=library_bsr_ms(torch, dataT, colsT,
-                                             U.contiguous()),
+        ms_transposed=ms_t, library_ms_transposed=lib_t,
+        bsr_factor=ms / lib if lib else None,
+        bsr_factor_transposed=ms_t / lib_t if lib_t else None,
         ms_forward_with_c=time_ms(
-            lambda: sparse_hvp.ell_mm(data, cols, V, c)),
-        ms_by_s={k: time_ms(lambda: sparse_hvp.ell_mm(data, cols, V[:, :k]))
-                 for k in (1, 2, 4)},
-        ell_mv_ms=time_ms(lambda: sparse_hvp.ell_mv(data, cols,
-                                                    V[:, 0].contiguous())),
-        tiles_nonempty=tiles_f, tiles_stored=nrb * W, shape=[nrb, W, br, bc, s])
+            lambda: sparse_hvp.ell_mm(data, cols, V, c, sched=sched)),
+        ms_by_s={k: time_ms(lambda: sparse_hvp.ell_mm(
+            data, cols, V[:, :k], sched=sched)) for k in (1, 2, 4)},
+        ell_mv_ms=time_ms(lambda: sparse_hvp.ell_mv(
+            data, cols, V[:, 0].contiguous(), sched=sched)),
+        **schedule_detail(torch, sparse_hvp, "ell_mm", data, cols, dataT,
+                          colsT, sched, schedT, (V,), (U,)),
+        shape=[nrb, W, br, bc, s])
     ms = time_ms(lambda: sparse_hvp.ell_hvp_mm(dataT, colsT, U, c))
     read_bytes = 4 * (2 * dataT.numel() + 2 * colsT.numel() + U.numel()
                       + c.numel() + nrb * br * s)
@@ -707,7 +888,8 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         bound_ms=bms, bound_by=by, library_ms=None,
         bytes=read_bytes, gbps=read_bytes / ms / 1e6,
         two_pass_ell_mm_ms=time_ms(lambda: sparse_hvp.ell_mm(
-            data, cols, sparse_hvp.ell_mm(dataT, colsT, U), c)),
+            data, cols, sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT), c,
+            sched=sched)),
         tiles_nonempty=tiles_t, tiles_stored=ncb * WT,
         shape=[ncb, WT, bc, br, s])
     for name, m in out.items():
@@ -718,11 +900,13 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
               f" library {m['library_ms']}", flush=True)
     print("ell_mm detail " + json.dumps(
         {k: out["ell_mm"][k] for k in ("ms_transposed",
-                                       "library_ms_transposed",
+                                       "library_ms_transposed", "bsr_factor",
+                                       "bsr_factor_transposed",
                                        "ms_forward_with_c", "ms_by_s",
                                        "ell_mv_ms")})
           + " ell_hvp_mm two-pass pair "
           + json.dumps(out["ell_hvp_mm"]["two_pass_ell_mm_ms"]), flush=True)
+    print_schedule_detail("ell_mm", out["ell_mm"])
     return out
 
 
@@ -1998,6 +2182,7 @@ def main() -> int:
     phase_kernels(torch, sparse_hvp, ref, errs)
     phase_dense_kernels(torch, glm_hvp, ref, errs)
     phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
+    phase_ell_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)

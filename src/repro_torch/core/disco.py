@@ -42,6 +42,7 @@ from repro_torch.data.sparse import (CSRMatrix, EllPair,
                                      build_shard_ell_pairs, hvp_tile_dtype,
                                      shard_csrs_from_partition)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sparse_hvp import default_ctas, ell_schedule
 from repro_torch.parallel.collectives import InProcessGroup
 from repro_torch.utils.padding import pad_to_multiple
 
@@ -297,8 +298,18 @@ class DiscoSolver:
         if self.ell_data.shape[0] != m:
             raise ValueError(f"state has {self.ell_data.shape[0]} shards, "
                              f"the group {m}")
+        # each layout's live-tile schedule, built once here and passed
+        # with every product
+        ctas = default_ctas(self.device)
+        self.ell_sched = torch.stack([
+            ell_schedule(self.ell_data[s], self.ell_cols[s], ctas)
+            for s in range(m)])
+        self.ell_schedT = torch.stack([
+            ell_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas)
+            for s in range(m)])
         self._locs = [EllPair(self.ell_data[s], self.ell_cols[s],
-                              self.ell_dataT[s], self.ell_colsT[s])
+                              self.ell_dataT[s], self.ell_colsT[s],
+                              self.ell_sched[s], self.ell_schedT[s])
                       for s in range(m)]
         if self.cfg.partition == "features":
             self.smask = put(state["smask"])
@@ -356,10 +367,12 @@ class DiscoSolver:
         locs = self._locs
         if self._sparse:
             def xt(s, v):                  # X_s^T v
-                return kops.ell_matvec(locs[s].dataT, locs[s].colsT, v)
+                return kops.ell_matvec(locs[s].dataT, locs[s].colsT, v,
+                                       sched=locs[s].schedT)
 
             def xv(s, v):                  # X_s v
-                return kops.ell_matvec(locs[s].data, locs[s].cols, v)
+                return kops.ell_matvec(locs[s].data, locs[s].cols, v,
+                                       sched=locs[s].sched)
         else:
             def xt(s, v):
                 return locs[s].T @ v

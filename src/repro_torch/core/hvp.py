@@ -260,19 +260,23 @@ class EllOperator(HvpOperator):
 
     def pass_a(self, u):
         """``X^T u`` over the transposed ELL tiles."""
-        return kops.ell_matvec(self.ell.dataT, self.ell.colsT, u)
+        return kops.ell_matvec(self.ell.dataT, self.ell.colsT, u,
+                               sched=self.ell.schedT)
 
     def pass_b(self, z):
         """``X (c .* z)`` over the forward ELL tiles."""
-        return kops.ell_matvec(self.ell.data, self.ell.cols, z, self.coeffs)
+        return kops.ell_matvec(self.ell.data, self.ell.cols, z, self.coeffs,
+                               sched=self.ell.sched)
 
     def pass_a_multi(self, U):
         """``X^T U`` over the transposed ELL tiles."""
-        return kops.ell_matmat(self.ell.dataT, self.ell.colsT, U)
+        return kops.ell_matmat(self.ell.dataT, self.ell.colsT, U,
+                               sched=self.ell.schedT)
 
     def pass_b_multi(self, Z):
         """``X (c[:, None] .* Z)`` over the forward ELL tiles."""
-        return kops.ell_matmat(self.ell.data, self.ell.cols, Z, self.coeffs)
+        return kops.ell_matmat(self.ell.data, self.ell.cols, Z, self.coeffs,
+                               sched=self.ell.sched)
 
     def apply(self, u):
         """Full product; the one-pass fused ELL kernel when built fused."""

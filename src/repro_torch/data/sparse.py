@@ -239,18 +239,23 @@ def hvp_tile_dtype(name: str) -> np.dtype:
 
 
 class EllPair(NamedTuple):
-    """Device-side sparse shard operand: four tensors of one shard.
+    """Device-side sparse shard operand: the tensors of one shard.
 
     ``data/cols`` hold the forward blocked-ELL layout of the local shard
     (drives ``X @ v``); ``dataT/colsT`` the transposed layout (drives
     ``X^T u``). Vector lengths are the *padded* dims: ``X @ v`` maps
-    ``(ncb*bc,) -> (nrb*br,)`` and ``X^T u`` the reverse.
+    ``(ncb*bc,) -> (nrb*br,)`` and ``X^T u`` the reverse. ``sched`` and
+    ``schedT`` are the two layouts' live-tile schedules
+    (``repro_torch.kernels.sparse_hvp.ell_schedule``), built once at
+    set-up and passed with every product; None reads every slot.
     """
 
     data: torch.Tensor    # (nrb, W, br, bc)
     cols: torch.Tensor    # (nrb, W) int32
     dataT: torch.Tensor   # (ncb, WT, bc, br)
     colsT: torch.Tensor   # (ncb, WT) int32
+    sched: torch.Tensor | None = None    # int32, of data / cols
+    schedT: torch.Tensor | None = None   # int32, of dataT / colsT
 
     @property
     def padded_shape(self) -> tuple[int, int]:

@@ -103,10 +103,13 @@ class CudaKernel:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
+# (tiles, cols, schedule, ctas, v, c, y, scratch, n_blocks, W, rows,
+#  cols-per-tile, n_in_blocks, path out, stream)
+ELL_MV = CudaKernel("ell_mv", [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _PI, _P])
 # (tiles, cols, vector, c, y, n_blocks, W, rows, cols-per-tile,
 #  n_out_blocks, threads, stream)
-ELL_MV = CudaKernel("ell_mv", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _P])
 ELL_HVP = CudaKernel("ell_hvp", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _P])
 # (X, ld, u, z, part, d, n, slices, threads, stream)
@@ -116,10 +119,13 @@ X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _I, _I, _I, _P])
 # (X, ld, c, u, y, part, d, n, bn, grid, threads, stream)
 X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P])
-# (tiles, cols, V, ldv, c, Y, n_blocks, W, rows, cols-per-tile,
+# (tiles, cols, schedule, ctas, V, ldv, floats readable from V, c, Y,
+#  scratch, n_blocks, W, rows, cols-per-tile, n_in_blocks, s, path out,
+#  stream)
+ELL_MM = CudaKernel("ell_mm", [_P, _P, _P, _I, _P, _L, _L, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _PI, _P])
+# (tiles, cols, U, ldu, c, Y, n_blocks, W, rows, cols-per-tile,
 #  n_in_blocks, s, threads, stream)
-ELL_MM = CudaKernel("ell_mm", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P])
 ELL_HVP_MM = CudaKernel("ell_hvp_mm", [_P, _P, _P, _L, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _P])
 # (X, ld, U, ldu, Z, part, d, n, s, slices, threads, stream)

@@ -1,5 +1,5 @@
-// Device helpers shared by the blocked-ELL kernels (ell_mv.cu, ell_hvp.cu,
-// ell_mm.cu, ell_hvp_mm.cu).
+// Device helpers shared by the fused blocked-ELL kernels (ell_hvp.cu,
+// ell_hvp_mm.cu); ell_mv.cu and ell_mm.cu have their own (ell_stream.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -8,119 +8,50 @@
 //
 // Layout: data (nb, W, br, bc) f32 tiles, cols (nb, W) int32 column-block
 // ids, V (ncb * bc, s) f32 row-major with row stride ldv >= s (a column
-// slice of a wider basis is passed as a view), c (ncb * bc,) f32 or null,
-// Y (nb * br, s) f32 row-major. Padding slots carry cols = 0 and a zero
-// tile. The TPU wrapper padded s to 128 lanes; here s is the true width.
+// slice of a wider basis is passed as a view; v_len floats are readable
+// from V on), c (ncb * bc,) f32 or null, Y (nb * br, s) f32 row-major;
+// sched and scratch (ctas, 2, br, s) as for ell_mv. The TPU wrapper padded
+// s to 128 lanes; here s is the true width.
 //
-// Design: one CTA per (row-block i, chunk of RPW * warps rows): a CTA
-// walks the W slots of its row-block in order and reads only its rows of
-// each tile, so every tile byte is read once in all. Per slot the (bc, s)
-// block of c .* V the tile multiplies is staged in shared memory, s-major,
-// the scale applied on load; warps take RPW rows each and lanes stride
-// over bc with 16-byte loads (a 128-column tile row is one coalesced
-// 512-byte read per warp). Each lane keeps RPW * s partial sums in
-// registers across all W slots; one warp reduction per (row, vector) at
-// the end writes Y. The sum over a row-block stays inside one CTA, so the
-// result is deterministic and needs no atomics.
+// Design: ell_stream.cuh with S = s, one instance per s: the persistent
+// grid over the live tiles and the bulk-copy ring of ell_mv, the stage
+// holding beside each tile the (bc, ldv) span of V it multiplies; the
+// threads copy c .* V s-major into shared memory, and one read of each tile
+// element from shared memory serves all s columns. A lane keeps 8 s sums
+// (at most 64 registers) over its warp's rows. No atomics, repeatable bit
+// for bit.
 //
-// Bound: device-memory bytes. Each tile element is read once and used in
-// 2 s flops (20 at s = 5 against the card's ~20 flops per byte balance
+// Bound: device-memory bytes. Each live tile element is read once and used
+// in 2 s flops (16 at s = 8 against the card's ~20 flops per byte balance
 // for 4-byte elements), so at s <= 8 the tiles' bytes bound it, as for
-// ell_mv, for all s vectors at once. Splitting a row-block's rows over
-// grid.y gives the transposed layout at the rcv1-train shape 318 CTAs of
-// 512 threads instead of ell_mv's 159.
-#include "ell_common.cuh"
+// ell_mv, for all s vectors at once.
+#include "ell_stream.cuh"
 
-namespace {
-
-constexpr int kMaxThreads = 512;   // block size the kernel is compiled for
-
-constexpr int RPW = 4;   // rows per warp
-
-template <bool VEC4, bool HAS_C>
-__global__ void __launch_bounds__(kMaxThreads)
-ell_mm_kernel(const float* __restrict__ data,
-              const int* __restrict__ cols,
-              const float* __restrict__ V, int64_t ldv,
-              const float* __restrict__ c,
-              float* __restrict__ Y, int W, int br, int bc,
-              int ncb, int s) {
-  extern __shared__ __align__(16) float vecT[];   // (s, bc)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int r_first = blockIdx.y * RPW * nwarps + warp;
-  const size_t i = blockIdx.x;
-  const size_t tile_elems = static_cast<size_t>(br) * bc;
-  const float* row = data + i * static_cast<size_t>(W) * tile_elems;
-  const int* row_cols = cols + i * static_cast<size_t>(W);
-
-  float acc[RPW][kern::kMaxCols];
-#pragma unroll
-  for (int k = 0; k < RPW; ++k)
-#pragma unroll
-    for (int j = 0; j < kern::kMaxCols; ++j) acc[k][j] = 0.f;
-
-  for (int k = 0; k < W; ++k) {
-    const int cb = row_cols[k];
-    if (cb < 0 || cb >= ncb) __trap();  // corrupt layout: fail loudly
-    __syncthreads();                    // all readers done with vecT
-    ell::stage_block<HAS_C>(vecT, V, ldv, c, static_cast<size_t>(cb) * bc,
-                            bc, s);
-    __syncthreads();
-    ell::tile_rows_mm<VEC4, RPW>(row + k * tile_elems, vecT, acc, r_first,
-                                 nwarps, br, bc, s, lane);
-  }
-
-#pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    const int r = r_first + k * nwarps;
-#pragma unroll
-    for (int j = 0; j < kern::kMaxCols; ++j) {
-      if (j < s && r < br) {            // uniform over the warp
-        const float sum = kern::warp_sum(acc[k][j]);
-        if (lane == 0) Y[(i * br + r) * s + j] = sum;
-      }
-    }
-  }
-}
-
-template <bool VEC4, bool HAS_C>
-cudaError_t launch(const float* data, const int* cols, const float* V,
-                   int64_t ldv, const float* c, float* Y, int nb, int W,
-                   int br, int bc, int ncb, int s, int threads,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(s) * bc * sizeof(float);
-  auto kernel = ell_mm_kernel<VEC4, HAS_C>;
-  cudaError_t err = kern::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int rows_per_cta = RPW * (threads / 32);
-  const dim3 grid(nb, (br + rows_per_cta - 1) / rows_per_cta);
-  kernel<<<grid, threads, smem, stream>>>(data, cols, V, ldv, c, Y, W, br,
-                                          bc, ncb, s);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// C entry point, called through ctypes. Returns a cudaError_t (0 = launched).
+// C entry point, called through ctypes. Launches the stream kernel and its
+// fix-up, writes the path taken to *path (0 direct, 1 bulk copies), and
+// returns a cudaError_t (0 = launched).
 extern "C" int ell_mm_launch(const float* data, const int* cols,
-                             const float* V, long long ldv, const float* c,
-                             float* Y, int nb, int W, int br, int bc,
-                             int ncb, int s, int threads, void* stream) {
-  if (nb <= 0 || W <= 0 || br <= 0 || bc <= 0 || s <= 0 ||
-      s > kern::kMaxCols || ldv < s || threads <= 0 || threads % 32 != 0 ||
-      threads > kMaxThreads)
+                             const int* sched, int ctas, const float* V,
+                             long long ldv, long long v_len, const float* c,
+                             float* Y, float* scratch, int nb, int W, int br,
+                             int bc, int ncb, int s, int* path, void* stream) {
+  if (!V || s <= 0 || s > kern::kMaxCols || ldv < s ||
+      !ells::valid_args(data, cols, sched, ctas, Y, scratch, nb, W, br, bc,
+                        ncb))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 =
-      bc % 4 == 0 && (reinterpret_cast<uintptr_t>(data) & 15) == 0;
+  const ells::Params p = ells::make_params(data, cols, sched, ctas, V, ldv, c,
+                                           Y, scratch, nb, W, br, bc, ncb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (vec4)
-    err = c ? launch<true, true>(data, cols, V, ldv, c, Y, nb, W, br, bc, ncb, s, threads, st)
-            : launch<true, false>(data, cols, V, ldv, c, Y, nb, W, br, bc, ncb, s, threads, st);
-  else
-    err = c ? launch<false, true>(data, cols, V, ldv, c, Y, nb, W, br, bc, ncb, s, threads, st)
-            : launch<false, false>(data, cols, V, ldv, c, Y, nb, W, br, bc, ncb, s, threads, st);
+  switch (s) {
+    case 1: err = ells::run<1>(p, v_len, path, st); break;
+    case 2: err = ells::run<2>(p, v_len, path, st); break;
+    case 3: err = ells::run<3>(p, v_len, path, st); break;
+    case 4: err = ells::run<4>(p, v_len, path, st); break;
+    case 5: err = ells::run<5>(p, v_len, path, st); break;
+    case 6: err = ells::run<6>(p, v_len, path, st); break;
+    case 7: err = ells::run<7>(p, v_len, path, st); break;
+    default: err = ells::run<8>(p, v_len, path, st); break;
+  }
   return static_cast<int>(err);
 }

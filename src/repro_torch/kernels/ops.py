@@ -142,31 +142,38 @@ def x_c_xt_u(X, c, u):
 # ---------------------------------------------------------------------------
 
 
-def ell_matvec(data, cols, v, c=None, *, out_dtype=torch.float32):
+def ell_matvec(data, cols, v, c=None, *, sched=None,
+               out_dtype=torch.float32):
     """y = A @ (c .* v) for a blocked-ELL operand (sparse HVP pass).
 
     data : (nb, W, br, bc) tiles; cols : (nb, W) int32 column-block ids
     v    : (ncb * bc,) padded input; c optional same-length fused scale
+    sched: the layout's live-tile schedule
+    (:func:`repro_torch.kernels.sparse_hvp.ell_schedule`): the kernel
+    reads only the live tiles; None reads every slot. The plain version
+    reads every slot (the tiles past the live ones are zero).
     returns (nb * br,) in ``out_dtype`` (f32 accumulation). Streaming a
     shard's forward layout computes ``X_loc @ (c * z)`` (pass B); its
     transposed layout computes ``X_loc^T u`` (pass A).
     """
-    if _on_cuda(data, cols, v, c):
-        return _sparse.ell_mv(data, cols, v, c, out_dtype=out_dtype)
+    if _on_cuda(data, cols, v, c, sched):
+        return _sparse.ell_mv(data, cols, v, c, sched=sched,
+                              out_dtype=out_dtype)
     return _ref.ref_ell_mv(data, cols, v, c, out_dtype=out_dtype)
 
 
-def ell_matmat(data, cols, V, c=None, *, out_dtype=torch.float32):
+def ell_matmat(data, cols, V, c=None, *, sched=None,
+               out_dtype=torch.float32):
     """Y = A @ (c[:, None] .* V) over s probe vectors (s-step rounds).
 
     V : (ncb * bc, s) row-major (``V.stride(1) == 1``, any row stride)
-    -> (nb * br, s) in ``out_dtype``. The kernel takes the true ``s`` (up
-    to MAX_COLS per launch, in column groups past that); nothing is
-    padded.
+    -> (nb * br, s) in ``out_dtype``; ``sched`` as for
+    :func:`ell_matvec`. The kernel takes the true ``s`` (up to MAX_COLS
+    per launch, in column groups past that); nothing is padded.
     """
-    if _on_cuda(data, cols, V, c):
+    if _on_cuda(data, cols, V, c, sched):
         return _by_columns(lambda G: _sparse.ell_mm(
-            data, cols, G, c, out_dtype=out_dtype), V)
+            data, cols, G, c, sched=sched, out_dtype=out_dtype), V)
     return _ref.ref_ell_mm(data, cols, V, c, out_dtype=out_dtype)
 
 

@@ -62,11 +62,14 @@ def ref_x_c_xt_multi(X, c, U):
     return ref_x_cz_multi(X, c, ref_xt_multi(X, U))
 
 
-def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32):
+def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32, *,
+               sched=None):
     """Blocked-ELL generalized matvec  y = A (c .* v).
 
     data : (nb, W, br, bc) tiles, cols : (nb, W) column-block indices,
     v/c  : (ncb * bc,) padded vectors -> (nb * br,) in ``out_dtype``.
+    ``sched`` (the kernel's live-tile schedule) is ignored: every slot is
+    read, and the slots past a row-block's live ones hold zero tiles.
     """
     nb, w, br, bc = data.shape
     vv = v if c is None else c * v
@@ -75,11 +78,13 @@ def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32):
     return y.reshape(nb * br).to(out_dtype)
 
 
-def ref_ell_mm(data, cols, V, c=None, out_dtype=torch.float32):
+def ref_ell_mm(data, cols, V, c=None, out_dtype=torch.float32, *,
+               sched=None):
     """Blocked-ELL generalized matmat  Y = A (c[:, None] .* V).
 
     V : (ncb * bc, s) -> (nb * br, s) in ``out_dtype``; the multi-vector
-    version of :func:`ref_ell_mv` (the s-step sparse HVP round).
+    version of :func:`ref_ell_mv` (the s-step sparse HVP round);
+    ``sched`` is ignored, as there.
     """
     nb, w, br, bc = data.shape
     s = V.shape[1]

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the blocked-ELL sparse HVP, and their
-launch wrappers.
+"""Hand-written CUDA kernels for the blocked-ELL sparse HVP, their launch
+wrappers, and the live-tile schedule of a layout.
 
 Four kernels, in ``csrc/``, each built and bound by
 :mod:`repro_torch.kernels.build` and called on PyTorch's current stream:
@@ -15,6 +15,14 @@ Four kernels, in ``csrc/``, each built and bound by
   ``Y = A (c .* (A^T U))`` over s vectors from the transposed layout;
   replaces ``repro/kernels/sparse_hvp.py::ell_hvp_mm``.
 
+``ell_mv`` and ``ell_mm`` share one design (``csrc/ell_stream.cuh``): a
+persistent grid of CTAs over the layout's live tiles, split evenly by
+:func:`ell_schedule`, fed by a ring of bulk copies. A schedule is built
+once per layout (the solver keeps it in :class:`EllPair` ``sched`` /
+``schedT``) and passed with every call; without one the wrapper takes the
+schedule that counts every slot live, which reads what the layout stores,
+padding included.
+
 The multi-vector kernels take the true ``s`` (1 to
 :data:`~repro_torch.kernels.build.MAX_COLS`) and a row-major block with
 any row stride; nothing is padded.
@@ -25,34 +33,124 @@ A failed launch raises; nothing here falls back to the plain versions in
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels.build import (ELL_HVP, ELL_HVP_MM, ELL_MM, ELL_MV,
                                        check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 
-THREADS = 256          # threads per CTA of ell_mv and ell_hvp
-MM_THREADS = 512       # threads per CTA of ell_mm and ell_hvp_mm
+THREADS = 256          # threads per CTA of ell_hvp
+MM_THREADS = 512       # threads per CTA of ell_hvp_mm
+# CTAs of ell_mv and ell_mm per SM: their ring takes most of an SM's
+# shared memory (three 64 KB stages at 128 x 128 tiles)
+CTAS_PER_SM = 1
+H100_SMS = 132         # the SM count a schedule built on the CPU assumes
+_SCHEDULE_CHUNK = 1 << 26   # tile elements tested for nonzeros at a time
+PATHS = ("direct", "bulk")  # the kernels' copy paths, by the code they report
+# the copy path of each kernel's last launch
+last_path: dict[str, str | None] = {"ell_mv": None, "ell_mm": None}
 
 
-def ell_mv(data, cols, v, c=None, *, out_dtype=torch.float32):
+def default_ctas(device) -> int:
+    """CTAs of an ``ell_mv`` / ``ell_mm`` schedule on ``device``:
+    :data:`CTAS_PER_SM` on each of the card's SMs; on the CPU, as for an
+    H100 (132 SMs), so a schedule built there is the card's."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    else:
+        sms = H100_SMS
+    return sms * CTAS_PER_SM
+
+
+def ell_schedule(data, cols, ctas: int) -> torch.Tensor:
+    """The live-tile schedule of a blocked-ELL layout, for ``ctas`` CTAs.
+
+    A row-block's live slots are its slots up to and including the last
+    one holding a nonzero tile (for :func:`ell_from_csr` layouts, exactly
+    its real tiles; a zero tile before a nonzero one counts). Plain torch
+    on the layout's device, reading it once; built once per layout.
+
+    Returns one int32 tensor ``[live (nb), prefix (nb + 1), bounds
+    (ctas + 1)]``: each row-block's live count, their prefix sums, and
+    the CTAs' contiguous ranges ``[bounds[k], bounds[k + 1])`` of the
+    flattened live-tile sequence, sizes differing by at most one (empty
+    when there are fewer live tiles than CTAs).
+    """
+    if data.dim() != 4 or tuple(cols.shape) != tuple(data.shape[:2]):
+        raise ValueError(f"data {tuple(data.shape)} / cols "
+                         f"{tuple(cols.shape)} is not a blocked-ELL layout")
+    nb, w, br, bc = data.shape
+    if w < 1 or ctas < 1:
+        raise ValueError(f"W = {w} and ctas = {ctas} must be positive")
+    dev = data.device
+    flat = data.reshape(nb, w, br * bc)
+    nonzero = torch.empty((nb, w), dtype=torch.bool, device=dev)
+    step = max(1, _SCHEDULE_CHUNK // max(1, flat[0].numel()))
+    for i in range(0, nb, step):
+        nonzero[i:i + step] = (flat[i:i + step] != 0).any(dim=2)
+    slot = torch.arange(1, w + 1, device=dev)
+    return _schedule((nonzero * slot).amax(dim=1), ctas)
+
+
+def _schedule(live, ctas):
+    prefix = torch.zeros(live.numel() + 1, dtype=torch.int64,
+                         device=live.device)
+    torch.cumsum(live, 0, out=prefix[1:])
+    bounds = torch.arange(ctas + 1, device=live.device) * prefix[-1] // ctas
+    return torch.cat([live, prefix, bounds]).to(torch.int32)
+
+
+def schedule_parts(sched, nb: int):
+    """``(live, prefix, bounds)`` views of a schedule of ``nb``
+    row-blocks."""
+    return sched[:nb], sched[nb:2 * nb + 1], sched[2 * nb + 1:]
+
+
+_EVERY_SLOT: dict = {}
+
+
+def _every_slot_schedule(nb, w, dev):
+    """The schedule that counts every slot live (cached per shape)."""
+    key = (nb, w, str(dev))
+    if key not in _EVERY_SLOT:
+        live = torch.full((nb,), w, dtype=torch.int64, device=dev)
+        _EVERY_SLOT[key] = _schedule(live, default_ctas(dev))
+    return _EVERY_SLOT[key]
+
+
+def _check_schedule(sched, nb, w, dev) -> tuple[torch.Tensor, int]:
+    """The schedule to launch with (every slot live for None), and its
+    CTA count."""
+    if sched is None:
+        sched = _every_slot_schedule(nb, w, dev)
+    else:
+        check_tensor("sched", sched, torch.int32, 1, dev)
+    ctas = sched.shape[0] - 2 * nb - 2
+    if ctas < 1:
+        raise ValueError(f"sched of length {sched.shape[0]} does not fit "
+                         f"{nb} row-blocks")
+    return sched, ctas
+
+
+def ell_mv(data, cols, v, c=None, *, sched=None, out_dtype=torch.float32):
     """y = A @ (c .* v) for a blocked-ELL operand, on the card.
 
     data : (nb, W, br, bc) f32 tiles;  cols : (nb, W) int32
     v    : (ncb * bc,) f32 input vector (padded length)
     c    : optional (ncb * bc,) f32 per-element scale (fused in-kernel)
-    returns (nb * br,) in ``out_dtype`` (f32 accumulation)
+    sched: the layout's :func:`ell_schedule`; None reads every slot
+    returns (nb * br,) in ``out_dtype`` (f32 accumulation; no atomics)
     """
     dev = data.device
-    check_card(dev)
-    check_tensor("data", data, torch.float32, 4, dev)
+    _check_layout(data, cols, dev)
     nb, w, br, bc = data.shape
-    check_tensor("cols", cols, torch.int32, 2, dev)
-    if tuple(cols.shape) != (nb, w):
-        raise ValueError(f"cols {tuple(cols.shape)} != {(nb, w)}")
     check_tensor("v", v, torch.float32, 1, dev)
-    if v.shape[0] % bc:
-        raise ValueError(f"len(v) = {v.shape[0]} is not a multiple of {bc}")
+    if v.shape[0] % bc or v.shape[0] == 0:
+        raise ValueError(f"len(v) = {v.shape[0]} is not a positive multiple "
+                         f"of {bc}")
     if c is not None:
         check_tensor("c", c, torch.float32, 1, dev)
         if c.shape != v.shape:
@@ -60,9 +158,14 @@ def ell_mv(data, cols, v, c=None, *, out_dtype=torch.float32):
     y = torch.empty(nb * br, dtype=torch.float32, device=dev)
     if nb == 0:
         return y.to(out_dtype)
+    sched, ctas = _check_schedule(sched, nb, w, dev)
+    scratch = torch.empty(ctas * 2 * br, dtype=torch.float32, device=dev)
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        ELL_MV.launch(ptr(data), ptr(cols), ptr(v), ptr(c), ptr(y), nb, w,
-                      br, bc, v.shape[0] // bc, THREADS, stream_of(dev))
+        ELL_MV.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(v), ptr(c),
+                      ptr(y), ptr(scratch), nb, w, br, bc, v.shape[0] // bc,
+                      ctypes.byref(path), stream_of(dev))
+    last_path["ell_mv"] = PATHS[path.value]
     return y.to(out_dtype)
 
 
@@ -108,12 +211,13 @@ def _check_layout(data, cols, dev):
                          f"{tuple(data.shape[:2])}")
 
 
-def ell_mm(data, cols, V, c=None, *, out_dtype=torch.float32):
+def ell_mm(data, cols, V, c=None, *, sched=None, out_dtype=torch.float32):
     """Y = A @ (c[:, None] .* V) over s vectors, on the card.
 
     data : (nb, W, br, bc) f32 tiles;  cols : (nb, W) int32
     V    : (ncb * bc, s) f32, row-major with any row stride
     c    : optional (ncb * bc,) f32 scale (fused in-kernel)
+    sched: the layout's :func:`ell_schedule`; None reads every slot
     returns (nb * br, s) in ``out_dtype`` (f32 accumulation; no atomics)
     """
     dev = data.device
@@ -129,10 +233,18 @@ def ell_mm(data, cols, V, c=None, *, out_dtype=torch.float32):
     Y = torch.empty((nb * br, s), dtype=torch.float32, device=dev)
     if nb == 0:
         return Y.to(out_dtype)
+    sched, ctas = _check_schedule(sched, nb, w, dev)
+    scratch = torch.empty(ctas * 2 * br * s, dtype=torch.float32, device=dev)
+    # floats readable from V's first element on (the bulk copies take
+    # whole (bc, ldv) spans of V)
+    v_len = V.untyped_storage().nbytes() // 4 - V.storage_offset()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        ELL_MM.launch(ptr(data), ptr(cols), ptr(V), ldv, ptr(c), ptr(Y), nb,
-                      w, br, bc, V.shape[0] // bc, s, MM_THREADS,
+        ELL_MM.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(V), ldv,
+                      v_len, ptr(c), ptr(Y), ptr(scratch), nb, w, br, bc,
+                      V.shape[0] // bc, s, ctypes.byref(path),
                       stream_of(dev))
+    last_path["ell_mm"] = PATHS[path.value]
     return Y.to(out_dtype)
 
 

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch import DiscoConfig, InProcessGroup, disco_fit
-from repro_torch.data.sparse import ell_from_csr, make_sparse_glm_data
+from repro_torch.data.sparse import (CSRMatrix, ell_from_csr,
+                                     make_sparse_glm_data)
 from repro_torch.data.synthetic import make_glm_data
 from repro_torch.kernels import build, glm_hvp, ops, ref, sparse_hvp
 
@@ -235,6 +236,129 @@ def test_cuda_ell_mm_matches_plain(dev, block, s, with_c):
         assert got.shape == (ell.n_row_blocks * block, s)
         assert _rel(got, ref.ref_ell_mm(data, cols, V, c)) <= 1e-5
         assert torch.equal(got, sparse_hvp.ell_mm(data, cols, V, c))
+
+
+def _edge_layout(name):
+    """A layout at an edge of K1's and K6's live-tile schedule, and the
+    copy path its shape takes."""
+    rng = np.random.default_rng(11)
+
+    def tiled(dense, br, bc):
+        return ell_from_csr(CSRMatrix.from_dense(dense), br, bc)
+
+    if name in ("8x8", "16x16", "128x128"):
+        return _layouts(int(name.split("x")[0]), seed=2)[0], "bulk"
+    if name == "w300":          # 3 row-blocks of 300 tiles: fewer than SMs
+        dense = rng.standard_normal((3 * 16, 300 * 16)).astype(np.float32)
+        dense[rng.random(dense.shape) > 0.05] = 0.0
+        ell = tiled(dense, 16, 16)
+        assert ell.data.shape[:2] == (3, 300)
+        return ell, "bulk"
+    if name == "one_full":      # one full row-block among empty ones
+        dense = np.zeros((200 * 16, 40 * 16), np.float32)
+        dense[77 * 16:78 * 16] = rng.standard_normal((16, 40 * 16))
+        return tiled(dense, 16, 16), "bulk"
+    if name == "w1":            # W = 1, every other row-block empty
+        dense = np.zeros((300 * 8, 300 * 8), np.float32)
+        for i in range(0, 300, 2):
+            dense[i * 8:(i + 1) * 8, i * 8:(i + 1) * 8] = \
+                rng.standard_normal((8, 8))
+        ell = tiled(dense, 8, 8)
+        assert ell.width == 1
+        return ell, "bulk"
+    X, _, _ = make_sparse_glm_data(d=1000, n=900, density=0.01, seed=4)
+    br, bc = map(int, name.split("x"))
+    # 12 x 6: a tile row of 24 bytes, which a bulk copy cannot take
+    return ell_from_csr(X, br, bc), "direct" if bc % 4 else "bulk"
+
+
+EDGE_LAYOUTS = ["8x8", "16x16", "128x128", "w300", "one_full", "w1",
+                "256x32", "32x256", "12x6"]
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS)
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_cuda_ell_mv_mm_edge_layouts(dev, name, scheduled):
+    """K1 and K6 against their plain versions on a layout at an edge of
+    the schedule, with the layout's schedule or without (every slot
+    live), with and without c, K6 at every s on a strided V; every call
+    repeated bit for bit, on the copy path the shape calls for."""
+    ell, path = _edge_layout(name)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    data, cols = T(ell.data), T(ell.cols)
+    nb, _, br, bc = data.shape
+    sched = (sparse_hvp.ell_schedule(data, cols,
+                                     sparse_hvp.default_ctas(dev))
+             if scheduled else None)
+    n_in = ell.n_col_blocks * bc
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    v = torch.randn(n_in, generator=g, device=dev)
+    for c in (None, torch.rand(n_in, generator=g, device=dev)):
+        got = sparse_hvp.ell_mv(data, cols, v, c, sched=sched)
+        assert sparse_hvp.last_path["ell_mv"] == path
+        again = sparse_hvp.ell_mv(data, cols, v, c, sched=sched)
+        torch.cuda.synchronize()
+        assert got.shape == (nb * br,)
+        assert _rel(got, ref.ref_ell_mv(data, cols, v, c)) <= 1e-5
+        assert torch.equal(got, again)
+        for s in MULTI_S:
+            V = _basis(dev, n_in, s, s, strided=True)
+            got = sparse_hvp.ell_mm(data, cols, V, c, sched=sched)
+            assert sparse_hvp.last_path["ell_mm"] == path
+            again = sparse_hvp.ell_mm(data, cols, V, c, sched=sched)
+            torch.cuda.synchronize()
+            assert got.shape == (nb * br, s)
+            assert _rel(got, ref.ref_ell_mm(data, cols, V, c)) <= 1e-5
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS)
+def test_cuda_ell_mv_mm_skip_the_padding(dev, name):
+    """With the schedule, K1 and K6 read no padding tile: NaN put into
+    every slot past a row-block's live ones after the schedule is built
+    leaves the results finite and equal to those on the clean layout."""
+    ell, _ = _edge_layout(name)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    data, cols = T(ell.data), T(ell.cols)
+    nb, w = data.shape[:2]
+    sched = sparse_hvp.ell_schedule(data, cols, sparse_hvp.default_ctas(dev))
+    live = sched[:nb].long()
+    padding = torch.arange(w, device=dev)[None, :] >= live[:, None]
+    poisoned = data.clone()
+    poisoned[padding] = float("nan")
+    n_in = ell.n_col_blocks * data.shape[3]
+    v = torch.randn(n_in, device=dev)
+    c = torch.rand(n_in, device=dev)
+    V = _basis(dev, n_in, 5, 1, strided=True)
+    y = sparse_hvp.ell_mv(poisoned, cols, v, c, sched=sched)
+    Y = sparse_hvp.ell_mm(poisoned, cols, V, c, sched=sched)
+    torch.cuda.synchronize()
+    assert bool(y.isfinite().all()) and bool(Y.isfinite().all())
+    assert torch.equal(y, sparse_hvp.ell_mv(data, cols, v, c, sched=sched))
+    assert torch.equal(Y, sparse_hvp.ell_mm(data, cols, V, c, sched=sched))
+
+
+def test_cuda_ell_ops_pass_the_schedule(dev):
+    """The ops hand ``sched`` to the kernels: poisoned padding stays out
+    of ``ops.ell_matvec`` and ``ops.ell_matmat`` (past 8 columns too)."""
+    ell, _ = _edge_layout("16x16")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    data, cols = T(ell.data), T(ell.cols)
+    nb, w = data.shape[:2]
+    sched = sparse_hvp.ell_schedule(data, cols, sparse_hvp.default_ctas(dev))
+    padding = torch.arange(w, device=dev)[None, :] >= sched[:nb, None].long()
+    poisoned = data.clone()
+    poisoned[padding] = float("nan")
+    n_in = ell.n_col_blocks * 16
+    v, V = torch.randn(n_in, device=dev), torch.randn((n_in, 11), device=dev)
+    build.reset_launch_counts()
+    y = ops.ell_matvec(poisoned, cols, v, sched=sched)
+    Y = ops.ell_matmat(poisoned, cols, V, sched=sched)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ell_mv"] == 1
+    assert build.launch_counts()["ell_mm"] == 2
+    assert _rel(y, ref.ref_ell_mv(data, cols, v)) <= 1e-5
+    assert _rel(Y, ref.ref_ell_mm(data, cols, V)) <= 1e-5
 
 
 @pytest.mark.parametrize("block", [8, 16, 128])
