@@ -24,7 +24,13 @@ Eight phases; any failed check makes the exit code nonzero.
    row-blocks, one full row-block among empty ones, W = 1, 256 x 32 and
    32 x 256 tiles, 12 x 6 tiles on the direct path), with and without
    the schedule, each call repeated bit for bit, and with NaN in the
-   padding, which the scheduled calls must not read; ``flash_attention`` (K11)
+   padding, which the scheduled calls must not read; ``ell_hvp`` and
+   ``ell_hvp_mm`` on the same layouts taken as transposed layouts, with
+   their step schedule at the default step_bytes, at one below every
+   row-block and at one above the whole layout, and without one, at s in
+   1, 2, 4, 5 and 8 on contiguous and strided U, with and without c,
+   against their plain versions and the two-pass ``ell_mv`` / ``ell_mm``
+   pair, with NaN in the padding; ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -46,9 +52,13 @@ Eight phases; any failed check makes the exit code nonzero.
    PyTorch's block-sparse (BSR) product (``ell_mv`` and ``ell_mm`` on the
    transposed layout too, with the solver's schedules as the main path
    passes them; their copy path, the tiles stored, nonempty and live,
-   and their times with every slot live and with twice the CTAs), and
-   held against the plain versions at full width; a second fit of the
-   first run is profiled.
+   and their times with every slot live and with twice the CTAs;
+   ``ell_hvp`` and ``ell_hvp_mm`` with the solver's step schedule, their
+   share of bound and GB/s over the live bytes, beside the two-pass pair
+   and two variants of the schedule: one step over the whole layout and
+   half the step_bytes), and held against the plain versions (the fused
+   kernels also against the two-pass pair) at full width; a second fit
+   of the first run is profiled.
    Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
    held to the launches the code predicts, the classic convergence check
@@ -476,6 +486,99 @@ def phase_ell_edges(torch, sparse_hvp, ref, errs) -> None:
               f"not read {skipped}")
 
 
+def forward_of(ell):
+    """The forward layout of A whose transposed layout is ``ell`` (tiles
+    of A^T), for the two-pass pair."""
+    import numpy as np
+    from repro_torch.data.sparse import CSRMatrix, ell_from_csr
+    nb, w, br, bc = ell.data.shape
+    M = np.zeros((nb * br, ell.n_col_blocks * bc), np.float32)
+    for i in range(nb):
+        for k in range(w):
+            j = ell.cols[i, k]
+            M[i * br:(i + 1) * br, j * bc:(j + 1) * bc] += ell.data[i, k]
+    return ell_from_csr(CSRMatrix.from_dense(np.ascontiguousarray(M.T)),
+                        bc, br)
+
+
+HVP_STEPS = {"every slot": None, "default": 0, "one row-block a step": 1,
+             "one step": 1 << 40}    # step_bytes (0: the card's default)
+
+
+def phase_hvp_edges(torch, sparse_hvp, ref, errs) -> None:
+    """K2 and K7 on :func:`edge_layouts` taken as transposed layouts: with
+    the layout's step schedule at the default step_bytes, one below every
+    row-block (each a step alone) and one above the whole layout (one
+    step), and without a schedule (every slot live); with and without c,
+    K7 at s in MULTI_S on contiguous and strided U; against the plain
+    versions and the two-pass pair (ell_mv / ell_mm on the transposed,
+    then the forward layout), on the path the shape takes; with a
+    schedule, NaN in every padding slot must change nothing. One check
+    line per layout."""
+    import numpy as np
+    dev = torch.device("cuda")
+    ctas = sparse_hvp.default_ctas(dev)
+    for tag, ell, path in edge_layouts():
+        fwd = forward_of(ell)
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        clean, colsT, data, cols = T(ell.data), T(ell.cols), T(fwd.data), \
+            T(fwd.cols)
+        nb, w, R, C = clean.shape
+        n_u = ell.n_col_blocks * C
+        g = torch.Generator(device=dev).manual_seed(nb + 1)
+        u = torch.randn(n_u, generator=g, device=dev)
+        c = torch.rand(nb * R, generator=g, device=dev)
+        worst = {"ell_hvp": 0.0, "ell_hvp_mm": 0.0}
+        paths, finite, steps = set(), True, {}
+        for name, step_bytes in HVP_STEPS.items():
+            sched, dataT = None, clean
+            if step_bytes is not None:
+                sched = sparse_hvp.ell_hvp_schedule(
+                    clean, colsT, ctas, step_bytes or None)
+                steps[name] = sched.steps
+                live = sched.parts()[0].long()
+                dataT = clean.clone()
+                dataT[torch.arange(w, device=dev)[None, :]
+                      >= live[:, None]] = float("nan")
+            for cc in (None, c):
+                got = sparse_hvp.ell_hvp(dataT, colsT, u, cc, sched=sched)
+                paths.add(sparse_hvp.last_path["ell_hvp"])
+                pair = sparse_hvp.ell_mv(data, cols, sparse_hvp.ell_mv(
+                    clean, colsT, u), cc)
+                want = ref.ref_ell_hvp_t(clean, colsT, u, cc)
+                torch.cuda.synchronize()
+                finite &= bool(got.isfinite().all())
+                worst["ell_hvp"] = max(worst["ell_hvp"],
+                                       record_err(errs, "ell_hvp", got, want),
+                                       rel_err(got, pair))
+                for k in MULTI_S:
+                    for strided in (False, True):
+                        U = torch.randn((n_u, k + 1), generator=g,
+                                        device=dev)[:, :k]
+                        if not strided:
+                            U = U.contiguous()
+                        got = sparse_hvp.ell_hvp_mm(dataT, colsT, U, cc,
+                                                    sched=sched)
+                        paths.add(sparse_hvp.last_path["ell_hvp_mm"])
+                        pair = sparse_hvp.ell_mm(data, cols, sparse_hvp.ell_mm(
+                            clean, colsT, U), cc)
+                        want = ref.ref_ell_hvp_mm_t(clean, colsT, U, cc)
+                        torch.cuda.synchronize()
+                        finite &= bool(got.isfinite().all())
+                        worst["ell_hvp_mm"] = max(
+                            worst["ell_hvp_mm"],
+                            record_err(errs, "ell_hvp_mm", got, want),
+                            rel_err(got, pair))
+        check(max(worst.values()) <= REL_TOL_KERNEL and finite
+              and paths == {path},
+              f"ell_hvp / ell_hvp_mm {tag} {tuple(clean.shape)}, steps "
+              f"{json.dumps(steps)} and every slot, c, s in "
+              f"{list(MULTI_S)} contiguous and strided: worst rel err "
+              f"(plain and two-pass pair) {worst['ell_hvp']:.2e} / "
+              f"{worst['ell_hvp_mm']:.2e}, NaN padding not read {finite}, "
+              f"path {sorted(paths)} (want {path})")
+
+
 def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
     """The dense kernels at ragged shapes (scalar and 16-byte loads, a d
     past the widest panel), with and without c, every panel width of
@@ -669,16 +772,23 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
         data, cols, sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT), c,
         sched=sched)
     hvp2_p = ref.ref_ell_mv(data, cols, ref.ref_ell_mv(dataT, colsT, u), c)
-    hvpf_k = sparse_hvp.ell_hvp(dataT, colsT, u, c)
+    hs = solver.ell_hvp_sched[0]
+    variants = hvp_variants(sparse_hvp, dataT, colsT, schedT, hs)
+    hvpf_k = sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=hs)
     hvpf_p = ref.ref_ell_hvp_t(dataT, colsT, u, c)
+    cases = [("full-width gradient", "ell_mv", grad_k, grad_p),
+             ("full-width two-pass HVP", "ell_mv", hvp2_k, hvp2_p),
+             ("full-width fused HVP", "ell_hvp", hvpf_k, hvpf_p),
+             ("full-width fused HVP vs the ell_mv pair", "ell_hvp", hvpf_k,
+              hvp2_k)]
+    cases += [(f"full-width fused HVP, {name}", "ell_hvp",
+               sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=sc), hvpf_p)
+              for name, sc in variants.items()]
     torch.cuda.synchronize()
-    for name, kname, got, want in (
-            ("full-width gradient", "ell_mv", grad_k, grad_p),
-            ("full-width two-pass HVP", "ell_mv", hvp2_k, hvp2_p),
-            ("full-width fused HVP", "ell_hvp", hvpf_k, hvpf_p)):
+    for name, kname, got, want in cases:
         e = record_err(errs, kname, got, want)
         check(e <= REL_TOL_KERNEL, f"{name}: rel err {e:.2e}")
-    del grad_p, hvp2_p, hvpf_p
+    del grad_p, hvp2_p, hvpf_p, cases
 
     tiles_f, tiles_t = nonempty_tiles(data), nonempty_tiles(dataT)
     v = torch.randn(ncb * bc, generator=g, device=dev)
@@ -707,21 +817,27 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
         **schedule_detail(torch, sparse_hvp, "ell_mv", data, cols, dataT,
                           colsT, sched, schedT, (v,), (u,)),
         shape=[nrb, W, br, bc])
-    # ell_hvp on the transposed layout with c: the fused HVP
-    ms = time_ms(lambda: sparse_hvp.ell_hvp(dataT, colsT, u, c))
+    # ell_hvp on the transposed layout with c: the fused HVP, with the
+    # solver's step schedule as the main path passes it. Its bytes: the
+    # live tiles, colsT, u, c and y, each once.
+    ms = time_ms(lambda: sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=hs))
     plain = time_ms(lambda: ref.ref_ell_hvp_t(dataT, colsT, u, c))
     two_pass = time_ms(lambda: sparse_hvp.ell_mv(
         data, cols, sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT), c,
         sched=sched))
-    read_bytes = 2 * dataT.numel() * 4 + 2 * colsT.numel() * 4 \
-        + u.numel() * 4 + c.numel() * 4 + nrb * br * 4
+    live_t = schedule_tiles(sparse_hvp, schedT, ncb)
+    live_bytes = 4 * (live_t * br * bc + colsT.numel() + u.numel()
+                      + c.numel() + nrb * br)
     bms, by = bound_ms(tiles_t, br * bc, colsT.numel() * 4 + u.numel() * 4
                        + c.numel() * 4 + nrb * br * 4, 4)
     out["ell_hvp"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        bytes=read_bytes, gbps=read_bytes / ms / 1e6,
-        two_pass_ell_mv_ms=two_pass, tiles_nonempty=tiles_t,
-        tiles_stored=ncb * WT, shape=[ncb, WT, bc, br])
+        bytes=live_bytes, gbps=live_bytes / ms / 1e6,
+        share_of_bound=bms / ms, two_pass_ell_mv_ms=two_pass,
+        **{f"ms_{k}": time_ms(lambda: sparse_hvp.ell_hvp(
+            dataT, colsT, u, c, sched=sc)) for k, sc in variants.items()},
+        **hvp_schedule_detail(torch, hs, variants), tiles_nonempty=tiles_t,
+        tiles_live=live_t, tiles_stored=ncb * WT, shape=[ncb, WT, bc, br])
     for name, m in out.items():
         print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
               f" {m['gbps']:.0f} GB/s over {m['bytes'] / 1e9:.2f} GB read,"
@@ -729,7 +845,39 @@ def measure_kernels(torch, solver, sparse_hvp, ref, errs) -> dict:
               f" plain {m['plain_ms'] * 1e3:.1f} us,"
               f" library {m['library_ms']}", flush=True)
     print_schedule_detail("ell_mv", out["ell_mv"])
+    print_hvp_detail("ell_hvp", out["ell_hvp"], "two_pass_ell_mv_ms")
     return out
+
+
+def hvp_variants(sparse_hvp, dataT, colsT, schedT, hs) -> dict:
+    """The two variants of the solver's step schedule ``hs`` that K2 and
+    K7 are timed with: one step over the whole layout (pass B reads from
+    device memory again: what the L2 reuse buys) and half the chosen
+    step_bytes."""
+    live = sparse_hvp.schedule_parts(schedT, dataT.shape[0])[0]
+    return {k: sparse_hvp.ell_hvp_schedule(dataT, colsT, hs.ctas, sb,
+                                           live=live)
+            for k, sb in (("one_step", 1 << 40),
+                          ("half_step_bytes", hs.step_bytes // 2))}
+
+
+def hvp_schedule_detail(torch, hs, variants) -> dict:
+    """The step schedules' sizes: steps, step_bytes, CTAs, and the card's
+    L2 bytes."""
+    out = dict(steps=hs.steps, step_bytes=hs.step_bytes, ctas=hs.ctas,
+               l2_bytes=torch.cuda.get_device_properties(0).L2_cache_size)
+    for k, sc in variants.items():
+        out[f"steps_{k}"], out[f"step_bytes_{k}"] = sc.steps, sc.step_bytes
+    return out
+
+
+def print_hvp_detail(name, m, pair_key) -> None:
+    keys = ("share_of_bound", pair_key, "ms_one_step",
+            "ms_half_step_bytes", "steps", "step_bytes", "ctas", "l2_bytes",
+            "steps_one_step", "steps_half_step_bytes", "tiles_live",
+            "tiles_stored")
+    print(f"{name} steps " + json.dumps({k: m[k] for k in keys}),
+          flush=True)
 
 
 def schedule_tiles(sparse_hvp, sched, nb) -> int:
@@ -831,19 +979,25 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         data, cols, sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT), c,
         sched=sched)
     two_p = ref.ref_ell_mm(data, cols, ref.ref_ell_mm(dataT, colsT, U), c)
-    fused_k = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c)
+    hs = solver.ell_hvp_sched[0]
+    variants = hvp_variants(sparse_hvp, dataT, colsT, schedT, hs)
+    fused_k = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c, sched=hs)
     fused_p = ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)
     fwd_k = sparse_hvp.ell_mm(data, cols, V, sched=sched)
     fwd_p = ref.ref_ell_mm(data, cols, V)
+    cases = [("forward", "ell_mm", fwd_k, fwd_p),
+             ("two-pass HVP", "ell_mm", two_k, two_p),
+             ("fused HVP", "ell_hvp_mm", fused_k, fused_p),
+             ("fused HVP vs the ell_mm pair", "ell_hvp_mm", fused_k, two_k)]
+    cases += [(f"fused HVP, {name}", "ell_hvp_mm", sparse_hvp.ell_hvp_mm(
+        dataT, colsT, U, c, sched=sc), fused_p)
+        for name, sc in variants.items()]
     torch.cuda.synchronize()
-    for what, kname, got, want in (
-            ("forward", "ell_mm", fwd_k, fwd_p),
-            ("two-pass HVP", "ell_mm", two_k, two_p),
-            ("fused HVP", "ell_hvp_mm", fused_k, fused_p),
-            ("fused HVP vs the ell_mm pair", "ell_hvp_mm", fused_k, two_k)):
+    for what, kname, got, want in cases:
         e = record_err(errs, kname, got, want)
         check(e <= REL_TOL_KERNEL, f"{kname} full width s={s} {what}: rel "
                                    f"err {e:.2e}")
+    del cases
     check(bool(torch.equal(fwd_k, sparse_hvp.ell_mm(data, cols, V,
                                                     sched=sched))),
           "ell_mm full width: repeatable bit for bit")
@@ -876,8 +1030,10 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         **schedule_detail(torch, sparse_hvp, "ell_mm", data, cols, dataT,
                           colsT, sched, schedT, (V,), (U,)),
         shape=[nrb, W, br, bc, s])
-    ms = time_ms(lambda: sparse_hvp.ell_hvp_mm(dataT, colsT, U, c))
-    read_bytes = 4 * (2 * dataT.numel() + 2 * colsT.numel() + U.numel()
+    ms = time_ms(lambda: sparse_hvp.ell_hvp_mm(dataT, colsT, U, c,
+                                               sched=hs))
+    live_t = schedule_tiles(sparse_hvp, schedT, ncb)
+    live_bytes = 4 * (live_t * br * bc + colsT.numel() + U.numel()
                       + c.numel() + nrb * br * s)
     bms, by = bound_ms(tiles_t, br * bc, 4 * (colsT.numel() + U.numel()
                                               + c.numel() + nrb * br * s),
@@ -886,11 +1042,15 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
         ms=ms, plain_ms=time_ms(
             lambda: ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        bytes=read_bytes, gbps=read_bytes / ms / 1e6,
+        bytes=live_bytes, gbps=live_bytes / ms / 1e6,
+        share_of_bound=bms / ms,
         two_pass_ell_mm_ms=time_ms(lambda: sparse_hvp.ell_mm(
             data, cols, sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT), c,
             sched=sched)),
-        tiles_nonempty=tiles_t, tiles_stored=ncb * WT,
+        **{f"ms_{k}": time_ms(lambda: sparse_hvp.ell_hvp_mm(
+            dataT, colsT, U, c, sched=sc)) for k, sc in variants.items()},
+        **hvp_schedule_detail(torch, hs, variants), tiles_nonempty=tiles_t,
+        tiles_live=live_t, tiles_stored=ncb * WT,
         shape=[ncb, WT, bc, br, s])
     for name, m in out.items():
         print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
@@ -907,6 +1067,7 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
           + " ell_hvp_mm two-pass pair "
           + json.dumps(out["ell_hvp_mm"]["two_pass_ell_mm_ms"]), flush=True)
     print_schedule_detail("ell_mm", out["ell_mm"])
+    print_hvp_detail("ell_hvp_mm", out["ell_hvp_mm"], "two_pass_ell_mm_ms")
     return out
 
 
@@ -2183,6 +2344,7 @@ def main() -> int:
     phase_dense_kernels(torch, glm_hvp, ref, errs)
     phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
     phase_ell_edges(torch, sparse_hvp, ref, errs)
+    phase_hvp_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)

@@ -42,7 +42,10 @@ from repro_torch.data.sparse import (CSRMatrix, EllPair,
                                      build_shard_ell_pairs, hvp_tile_dtype,
                                      shard_csrs_from_partition)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.sparse_hvp import default_ctas, ell_schedule
+from repro_torch.kernels.sparse_hvp import (default_ctas,
+                                            ell_hvp_schedule,
+                                            ell_schedule,
+                                            schedule_parts)
 from repro_torch.parallel.collectives import InProcessGroup
 from repro_torch.utils.padding import pad_to_multiple
 
@@ -307,9 +310,17 @@ class DiscoSolver:
         self.ell_schedT = torch.stack([
             ell_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas)
             for s in range(m)])
+        # the one-pass HVP's step schedule, from the transposed layout's
+        # live counts
+        nbT = self.ell_dataT.shape[1]
+        self.ell_hvp_sched = [
+            ell_hvp_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas,
+                             live=schedule_parts(self.ell_schedT[s], nbT)[0])
+            for s in range(m)]
         self._locs = [EllPair(self.ell_data[s], self.ell_cols[s],
                               self.ell_dataT[s], self.ell_colsT[s],
-                              self.ell_sched[s], self.ell_schedT[s])
+                              self.ell_sched[s], self.ell_schedT[s],
+                              self.ell_hvp_sched[s])
                       for s in range(m)]
         if self.cfg.partition == "features":
             self.smask = put(state["smask"])

@@ -282,7 +282,7 @@ class EllOperator(HvpOperator):
         """Full product; the one-pass fused ELL kernel when built fused."""
         if self.fused:
             return kops.ell_hvp(self.ell.dataT, self.ell.colsT, u,
-                                self.coeffs,
+                                self.coeffs, sched=self.ell.hvp_sched,
                                 fwd=(self.ell.data, self.ell.cols))
         return self.pass_b(self.pass_a(u))
 
@@ -291,7 +291,7 @@ class EllOperator(HvpOperator):
         built fused."""
         if self.fused:
             return kops.ell_hvp_mm(self.ell.dataT, self.ell.colsT, U,
-                                   self.coeffs,
+                                   self.coeffs, sched=self.ell.hvp_sched,
                                    fwd=(self.ell.data, self.ell.cols))
         return self.pass_b_multi(self.pass_a_multi(U))
 

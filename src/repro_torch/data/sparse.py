@@ -246,7 +246,9 @@ class EllPair(NamedTuple):
     ``X^T u``). Vector lengths are the *padded* dims: ``X @ v`` maps
     ``(ncb*bc,) -> (nrb*br,)`` and ``X^T u`` the reverse. ``sched`` and
     ``schedT`` are the two layouts' live-tile schedules
-    (``repro_torch.kernels.sparse_hvp.ell_schedule``), built once at
+    (``repro_torch.kernels.sparse_hvp.ell_schedule``) and ``hvp_sched``
+    the transposed layout's step schedule for the one-pass HVP
+    (``repro_torch.kernels.sparse_hvp.ell_hvp_schedule``), built once at
     set-up and passed with every product; None reads every slot.
     """
 
@@ -256,6 +258,7 @@ class EllPair(NamedTuple):
     colsT: torch.Tensor   # (ncb, WT) int32
     sched: torch.Tensor | None = None    # int32, of data / cols
     schedT: torch.Tensor | None = None   # int32, of dataT / colsT
+    hvp_sched: object | None = None      # HvpSchedule, of dataT / colsT
 
     @property
     def padded_shape(self) -> tuple[int, int]:

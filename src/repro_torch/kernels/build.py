@@ -108,10 +108,11 @@ _PI = ctypes.POINTER(ctypes.c_int)
 #  cols-per-tile, n_in_blocks, path out, stream)
 ELL_MV = CudaKernel("ell_mv", [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _PI, _P])
-# (tiles, cols, vector, c, y, n_blocks, W, rows, cols-per-tile,
-#  n_out_blocks, threads, stream)
-ELL_HVP = CudaKernel("ell_hvp", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _P])
+# (tiles, cols, step schedule, its state, ctas, steps, epoch, u, c, y,
+#  c .* z, scratch, n_blocks, W, rows, cols-per-tile, n_out_blocks,
+#  path out, stream)
+ELL_HVP = CudaKernel("ell_hvp", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _I, _PI, _P])
 # (X, ld, u, z, part, d, n, slices, threads, stream)
 XT_U = CudaKernel("xt_u", [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P])
 # (X, ld, c, z, y, d, n, threads, stream)
@@ -124,10 +125,12 @@ X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
 #  stream)
 ELL_MM = CudaKernel("ell_mm", [_P, _P, _P, _I, _P, _L, _L, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _PI, _P])
-# (tiles, cols, U, ldu, c, Y, n_blocks, W, rows, cols-per-tile,
-#  n_in_blocks, s, threads, stream)
-ELL_HVP_MM = CudaKernel("ell_hvp_mm", [_P, _P, _P, _L, _P, _P, _I, _I, _I,
-                                       _I, _I, _I, _I, _P])
+# (tiles, cols, step schedule, its state, ctas, steps, epoch, U, ldu,
+#  floats readable from U, c, Y, c .* Z, scratch, n_blocks, W, rows,
+#  cols-per-tile, n_out_blocks, s, path out, stream)
+ELL_HVP_MM = CudaKernel("ell_hvp_mm", [_P, _P, _P, _P, _I, _I, _I, _P, _L,
+                                       _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _PI, _P])
 # (X, ld, U, ldu, Z, part, d, n, s, slices, threads, stream)
 XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
                                    _I, _P])

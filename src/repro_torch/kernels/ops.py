@@ -177,35 +177,40 @@ def ell_matmat(data, cols, V, c=None, *, sched=None,
     return _ref.ref_ell_mm(data, cols, V, c, out_dtype=out_dtype)
 
 
-def ell_hvp(dataT, colsT, u, c=None, *, fwd=None, out_dtype=torch.float32):
+def ell_hvp(dataT, colsT, u, c=None, *, sched=None, fwd=None,
+            out_dtype=torch.float32):
     """One-pass blocked-ELL HVP: y = A (c .* (A^T u)).
 
     Reads only the *transposed* layout (``dataT``/``colsT``); ``u`` lives
     on A's padded row axis (nrb * br), ``c`` on its padded column axis.
-    On the card it is always the fused kernel. On the CPU, ``fwd=(data,
-    cols)`` (the forward layout) makes it replay the exact two-pass pair
-    of plain versions, so a fused CPU run equals a two-pass one bit for
-    bit; without ``fwd`` it runs the plain fused version.
+    On the card it is always the fused kernel, walking the layout's step
+    schedule ``sched``
+    (:func:`repro_torch.kernels.sparse_hvp.ell_hvp_schedule`; None reads
+    every slot). On the CPU, ``fwd=(data, cols)`` (the forward layout)
+    makes it replay the exact two-pass pair of plain versions, so a fused
+    CPU run equals a two-pass one bit for bit; without ``fwd`` it runs
+    the plain fused version. The plain versions read every slot.
     """
     if _on_cuda(dataT, colsT, u, c):
-        return _sparse.ell_hvp(dataT, colsT, u, c, out_dtype=out_dtype)
+        return _sparse.ell_hvp(dataT, colsT, u, c, sched=sched,
+                               out_dtype=out_dtype)
     if fwd is not None:
         z = _ref.ref_ell_mv(dataT, colsT, u)
         return _ref.ref_ell_mv(fwd[0], fwd[1], z, c, out_dtype=out_dtype)
     return _ref.ref_ell_hvp_t(dataT, colsT, u, c, out_dtype=out_dtype)
 
 
-def ell_hvp_mm(dataT, colsT, U, c=None, *, fwd=None,
+def ell_hvp_mm(dataT, colsT, U, c=None, *, sched=None, fwd=None,
                out_dtype=torch.float32):
     """One-pass blocked-ELL multi-vector HVP: Y = A (c .* (A^T U)).
 
-    U : (nrb * br, s) -> (nrb * br, s); the layout and ``fwd`` contract of
-    :func:`ell_hvp`: on the card always the fused kernel, on the CPU with
-    ``fwd`` the exact two-pass pair of plain versions.
+    U : (nrb * br, s) -> (nrb * br, s); the layout, ``sched`` and ``fwd``
+    contract of :func:`ell_hvp`: on the card always the fused kernel, on
+    the CPU with ``fwd`` the exact two-pass pair of plain versions.
     """
     if _on_cuda(dataT, colsT, U, c):
         return _by_columns(lambda G: _sparse.ell_hvp_mm(
-            dataT, colsT, G, c, out_dtype=out_dtype), U)
+            dataT, colsT, G, c, sched=sched, out_dtype=out_dtype), U)
     if fwd is not None:
         Z = _ref.ref_ell_mm(dataT, colsT, U)
         return _ref.ref_ell_mm(fwd[0], fwd[1], Z, c, out_dtype=out_dtype)

@@ -94,12 +94,14 @@ def ref_ell_mm(data, cols, V, c=None, out_dtype=torch.float32, *,
     return y.reshape(nb * br, s).to(out_dtype)
 
 
-def ref_ell_hvp_t(dataT, colsT, u, c=None, out_dtype=torch.float32):
+def ref_ell_hvp_t(dataT, colsT, u, c=None, out_dtype=torch.float32, *,
+                  sched=None):
     """One-pass ELL HVP  y = A (c .* (A^T u))  from the transposed layout.
 
     Pass A is :func:`ref_ell_mv` on the transposed layout; pass B
     contracts each tile against its scaled z block and scatter-adds into
     the output row-blocks. u : (nrb * br,), returns the same length.
+    ``sched`` (the kernel's step schedule) is ignored: every slot is read.
     """
     ncb, wt, bc, br = dataT.shape
     nrb = u.shape[0] // br
@@ -112,9 +114,11 @@ def ref_ell_hvp_t(dataT, colsT, u, c=None, out_dtype=torch.float32):
     return y.reshape(nrb * br).to(out_dtype)
 
 
-def ref_ell_hvp_mm_t(dataT, colsT, U, c=None, out_dtype=torch.float32):
+def ref_ell_hvp_mm_t(dataT, colsT, U, c=None, out_dtype=torch.float32, *,
+                     sched=None):
     """Multi-vector twin of :func:`ref_ell_hvp_t`: U (nrb * br, s) ->
-    Y = A (c .* (A^T U)) of the same shape."""
+    Y = A (c .* (A^T U)) of the same shape; ``sched`` is ignored, as
+    there."""
     ncb, wt, bc, br = dataT.shape
     s = U.shape[1]
     nrb = U.shape[0] // br

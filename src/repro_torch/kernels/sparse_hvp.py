@@ -23,6 +23,15 @@ once per layout (the solver keeps it in :class:`EllPair` ``sched`` /
 schedule that counts every slot live, which reads what the layout stores,
 padding included.
 
+``ell_hvp`` and ``ell_hvp_mm`` share another (``csrc/ell_hvp_stream.cuh``):
+one cooperative persistent grid that walks the transposed layout's live
+tiles in steps of :func:`ell_hvp_schedule` (runs of whole row-blocks
+whose tiles fit in ``step_bytes``, a share of the card's L2), pass A of
+the next step between pass A and pass B of each, so that pass B re-reads
+a step's tiles from L2. The solver keeps that schedule in
+:class:`EllPair` ``hvp_sched``; without one the wrapper takes the one
+that counts every slot live.
+
 The multi-vector kernels take the true ``s`` (1 to
 :data:`~repro_torch.kernels.build.MAX_COLS`) and a row-major block with
 any row stride; nothing is padded.
@@ -41,16 +50,22 @@ from repro_torch.kernels.build import (ELL_HVP, ELL_HVP_MM, ELL_MM, ELL_MV,
                                        check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 
-THREADS = 256          # threads per CTA of ell_hvp
-MM_THREADS = 512       # threads per CTA of ell_hvp_mm
-# CTAs of ell_mv and ell_mm per SM: their ring takes most of an SM's
+# CTAs of the four kernels per SM: their ring takes most of an SM's
 # shared memory (three 64 KB stages at 128 x 128 tiles)
 CTAS_PER_SM = 1
 H100_SMS = 132         # the SM count a schedule built on the CPU assumes
+H100_L2_BYTES = 50 * 2**20   # the L2 a step schedule built on the CPU assumes
+# step_bytes as a share of the L2: the step pass B re-reads and the step
+# pass A fetches meanwhile fit together, with a quarter of the L2 to spare
+STEP_L2_SHARE = (3, 8)
+# partial-sum sets of ell_hvp / ell_hvp_mm, one per step in flight
+# (kScratchSets in csrc/ell_hvp_stream.cuh)
+SCRATCH_SETS = 4
 _SCHEDULE_CHUNK = 1 << 26   # tile elements tested for nonzeros at a time
 PATHS = ("direct", "bulk")  # the kernels' copy paths, by the code they report
 # the copy path of each kernel's last launch
-last_path: dict[str, str | None] = {"ell_mv": None, "ell_mm": None}
+last_path: dict[str, str | None] = dict.fromkeys(
+    ("ell_mv", "ell_mm", "ell_hvp", "ell_hvp_mm"))
 
 
 def default_ctas(device) -> int:
@@ -85,14 +100,20 @@ def ell_schedule(data, cols, ctas: int) -> torch.Tensor:
     nb, w, br, bc = data.shape
     if w < 1 or ctas < 1:
         raise ValueError(f"W = {w} and ctas = {ctas} must be positive")
-    dev = data.device
+    return _schedule(_live_counts(data), ctas)
+
+
+def _live_counts(data):
+    """Each row-block's live count: its slots up to and including the
+    last one holding a nonzero tile."""
+    nb, w, br, bc = data.shape
     flat = data.reshape(nb, w, br * bc)
-    nonzero = torch.empty((nb, w), dtype=torch.bool, device=dev)
+    nonzero = torch.empty((nb, w), dtype=torch.bool, device=data.device)
     step = max(1, _SCHEDULE_CHUNK // max(1, flat[0].numel()))
     for i in range(0, nb, step):
         nonzero[i:i + step] = (flat[i:i + step] != 0).any(dim=2)
-    slot = torch.arange(1, w + 1, device=dev)
-    return _schedule((nonzero * slot).amax(dim=1), ctas)
+    slot = torch.arange(1, w + 1, device=data.device)
+    return (nonzero * slot).amax(dim=1)
 
 
 def _schedule(live, ctas):
@@ -135,6 +156,136 @@ def _check_schedule(sched, nb, w, dev) -> tuple[torch.Tensor, int]:
     return sched, ctas
 
 
+def default_step_bytes(device) -> int:
+    """The ``step_bytes`` of an ``ell_hvp`` schedule on ``device``:
+    :data:`STEP_L2_SHARE` of the card's L2; on the CPU, of an H100's
+    (50 MiB), so a schedule built there is the card's."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    else:
+        l2 = H100_L2_BYTES
+    num, den = STEP_L2_SHARE
+    return l2 * num // den
+
+
+class HvpSchedule:
+    """The step schedule of ``ell_hvp`` / ``ell_hvp_mm`` on one transposed
+    layout (:func:`ell_hvp_schedule`), and the state its kernels keep
+    between calls.
+
+    ``table`` (int32, on the layout's device): ``[live (nb), prefix
+    (nb + 1), first (steps + 1), bounds (steps * (ctas + 1))]``: each
+    row-block's live count and their prefix sums, the first row-block of
+    each step (``first[steps] = nb``), and per step the CTAs' ranges
+    ``[bounds[i, k], bounds[i, k + 1])`` of the live-tile sequence.
+    ``state`` (int32 ``(2 nb,)``): the row-blocks' arrival counters, zero
+    between calls, and their ready flags, each the ``epoch`` of the call
+    that last wrote the row-block's ``c .* z``. Each call takes the next
+    epoch (:meth:`next_epoch`), so calls with one schedule run one at a
+    time, in stream order (no CUDA graph replays a captured epoch).
+    """
+
+    def __init__(self, table, nb: int, ctas: int, steps: int,
+                 step_bytes: int):
+        self.table = table
+        self.nb, self.ctas, self.steps = nb, ctas, steps
+        self.step_bytes = step_bytes
+        self.state = torch.zeros(2 * nb, dtype=torch.int32,
+                                 device=table.device)
+        self.epoch = 0
+
+    def parts(self):
+        """``(live, prefix, first, bounds)`` views of the table, bounds as
+        ``(steps, ctas + 1)``."""
+        nb, s = self.nb, self.steps
+        t = self.table
+        return (t[:nb], t[nb:2 * nb + 1], t[2 * nb + 1:2 * nb + s + 2],
+                t[2 * nb + s + 2:].reshape(s, self.ctas + 1))
+
+    def next_epoch(self) -> int:
+        self.epoch = self.epoch % (2**31 - 2) + 1
+        return self.epoch
+
+
+def ell_hvp_schedule(dataT, colsT, ctas: int | None = None,
+                     step_bytes: int | None = None, *,
+                     live=None) -> HvpSchedule:
+    """The step schedule of a transposed blocked-ELL layout for
+    ``ell_hvp`` / ``ell_hvp_mm``, for ``ctas`` CTAs (default
+    :func:`default_ctas`).
+
+    Live counts as :func:`ell_schedule` takes them (``live``: those of
+    the layout's :func:`ell_schedule`, to skip the pass over the tiles).
+    A step is a run of consecutive row-blocks whose live tiles fit in
+    ``step_bytes`` (default :func:`default_step_bytes`); a row-block
+    larger than that is a step alone, and row-blocks without live tiles
+    join the step they fall in. Each step's live tiles are split over the
+    CTAs in contiguous ranges whose sizes differ by at most one. Plain
+    torch; one copy of the live counts to the host; built once per
+    layout.
+    """
+    if dataT.dim() != 4 or tuple(colsT.shape) != tuple(dataT.shape[:2]):
+        raise ValueError(f"dataT {tuple(dataT.shape)} / colsT "
+                         f"{tuple(colsT.shape)} is not a blocked-ELL layout")
+    nb, w, r, c = dataT.shape
+    dev = dataT.device
+    ctas = default_ctas(dev) if ctas is None else ctas
+    step_bytes = default_step_bytes(dev) if step_bytes is None else step_bytes
+    if w < 1 or ctas < 1 or step_bytes < 1:
+        raise ValueError(f"W = {w}, ctas = {ctas} and step_bytes = "
+                         f"{step_bytes} must be positive")
+    if live is None:
+        live = _live_counts(dataT)
+    return _hvp_schedule(live.to(torch.int64), r * c * 4, ctas,
+                         step_bytes)
+
+
+def _hvp_schedule(live, tile_bytes, ctas, step_bytes):
+    counts = live.tolist()
+    first, acc = [0], 0
+    for j, n in enumerate(counts):
+        b = n * tile_bytes
+        if n and acc and acc + b > step_bytes:
+            first.append(j)
+            acc = 0
+        acc += b
+    first.append(len(counts))
+    dev = live.device
+    prefix = torch.zeros(len(counts) + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(live, 0, out=prefix[1:])
+    first_t = torch.tensor(first, dtype=torch.int64, device=dev)
+    lo, hi = prefix[first_t[:-1]], prefix[first_t[1:]]
+    k = torch.arange(ctas + 1, device=dev)
+    bounds = lo[:, None] + k[None, :] * (hi - lo)[:, None] // ctas
+    table = torch.cat([live, prefix, first_t, bounds.reshape(-1)])
+    return HvpSchedule(table.to(torch.int32), len(counts), ctas,
+                       len(first) - 1, step_bytes)
+
+
+_EVERY_SLOT_HVP: dict = {}
+
+
+def _check_hvp_schedule(sched, dataT) -> HvpSchedule:
+    """The step schedule to launch with (every slot live for None, cached
+    per shape and device)."""
+    nb, w, r, c = dataT.shape
+    dev = dataT.device
+    if sched is None:
+        key = (nb, w, r, c, str(dev))
+        if key not in _EVERY_SLOT_HVP:
+            live = torch.full((nb,), w, dtype=torch.int64, device=dev)
+            _EVERY_SLOT_HVP[key] = _hvp_schedule(
+                live, r * c * 4, default_ctas(dev), default_step_bytes(dev))
+        return _EVERY_SLOT_HVP[key]
+    if not isinstance(sched, HvpSchedule):
+        raise TypeError("sched must be an HvpSchedule (ell_hvp_schedule)")
+    check_tensor("sched.table", sched.table, torch.int32, 1, dev)
+    if sched.nb != nb:
+        raise ValueError(f"sched has {sched.nb} row-blocks, the layout {nb}")
+    return sched
+
+
 def ell_mv(data, cols, v, c=None, *, sched=None, out_dtype=torch.float32):
     """y = A @ (c .* v) for a blocked-ELL operand, on the card.
 
@@ -169,22 +320,21 @@ def ell_mv(data, cols, v, c=None, *, sched=None, out_dtype=torch.float32):
     return y.to(out_dtype)
 
 
-def ell_hvp(dataT, colsT, u, c=None, *, out_dtype=torch.float32):
+def ell_hvp(dataT, colsT, u, c=None, *, sched=None,
+            out_dtype=torch.float32):
     """One-pass blocked-ELL HVP on the card: y = A (c .* (A^T u)).
 
     dataT/colsT : the *transposed* blocked-ELL layout of A, shapes
     (ncb, WT, bc, br) / (ncb, WT). u : (nrb * br,) over A's padded row
     axis; c : optional (ncb * bc,) scale over A's padded column axis.
-    Returns (nrb * br,) in ``out_dtype`` (f32 accumulation; the atomic
-    scatter makes the summation order vary between runs).
+    sched : the layout's :func:`ell_hvp_schedule`; None reads every slot.
+    Returns (nrb * br,) in ``out_dtype`` (f32 accumulation; z summed in a
+    fixed order, the scatter into y by f32 atomics, so y repeats to f32
+    rounding, not bit for bit).
     """
     dev = dataT.device
-    check_card(dev)
-    check_tensor("dataT", dataT, torch.float32, 4, dev)
+    _check_layout(dataT, colsT, dev)
     ncb, wt, bc, br = dataT.shape
-    check_tensor("colsT", colsT, torch.int32, 2, dev)
-    if tuple(colsT.shape) != (ncb, wt):
-        raise ValueError(f"colsT {tuple(colsT.shape)} != {(ncb, wt)}")
     check_tensor("u", u, torch.float32, 1, dev)
     if u.shape[0] % br or u.shape[0] == 0:
         raise ValueError(f"len(u) = {u.shape[0]} is not a positive "
@@ -196,10 +346,27 @@ def ell_hvp(dataT, colsT, u, c=None, *, out_dtype=torch.float32):
     y = torch.zeros(u.shape[0], dtype=torch.float32, device=dev)
     if ncb == 0:
         return y.to(out_dtype)
+    sched = _check_hvp_schedule(sched, dataT)
+    cz, scratch = _hvp_buffers(sched, bc, 1, dev)
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        ELL_HVP.launch(ptr(dataT), ptr(colsT), ptr(u), ptr(c), ptr(y), ncb,
-                       wt, bc, br, u.shape[0] // br, THREADS, stream_of(dev))
+        ELL_HVP.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
+                       ptr(sched.state), sched.ctas, sched.steps,
+                       sched.next_epoch(), ptr(u), ptr(c), ptr(y), ptr(cz),
+                       ptr(scratch), ncb, wt, bc, br, u.shape[0] // br,
+                       ctypes.byref(path), stream_of(dev))
+    last_path["ell_hvp"] = PATHS[path.value]
     return y.to(out_dtype)
+
+
+def _hvp_buffers(sched, bc, s, dev):
+    """The per-call buffers of ell_hvp / ell_hvp_mm: c .* z of every
+    row-block (nb, bc, s), and the partial z of the row-blocks cut by a
+    CTA range (SCRATCH_SETS, ctas, 2 slots, bc, s)."""
+    cz = torch.empty(sched.nb * bc * s, dtype=torch.float32, device=dev)
+    scratch = torch.empty(SCRATCH_SETS * 2 * sched.ctas * bc * s,
+                          dtype=torch.float32, device=dev)
+    return cz, scratch
 
 
 def _check_layout(data, cols, dev):
@@ -248,15 +415,16 @@ def ell_mm(data, cols, V, c=None, *, sched=None, out_dtype=torch.float32):
     return Y.to(out_dtype)
 
 
-def ell_hvp_mm(dataT, colsT, U, c=None, *, out_dtype=torch.float32):
+def ell_hvp_mm(dataT, colsT, U, c=None, *, sched=None,
+               out_dtype=torch.float32):
     """One-pass blocked-ELL multi-vector HVP on the card:
     Y = A (c .* (A^T U)).
 
     dataT/colsT : the transposed layout of A, (ncb, WT, bc, br) /
     (ncb, WT). U : (nrb * br, s) row-major with any row stride; c :
-    optional (ncb * bc,). Returns (nrb * br, s) in ``out_dtype`` (f32
-    accumulation; the atomic scatter makes the summation order vary
-    between runs).
+    optional (ncb * bc,); sched as for :func:`ell_hvp`. Returns
+    (nrb * br, s) in ``out_dtype`` (f32 accumulation; repeats to f32
+    rounding, as :func:`ell_hvp`).
     """
     dev = dataT.device
     _check_layout(dataT, colsT, dev)
@@ -271,8 +439,18 @@ def ell_hvp_mm(dataT, colsT, U, c=None, *, out_dtype=torch.float32):
     Y = torch.zeros((U.shape[0], s), dtype=torch.float32, device=dev)
     if ncb == 0:
         return Y.to(out_dtype)
+    sched = _check_hvp_schedule(sched, dataT)
+    cz, scratch = _hvp_buffers(sched, bc, s, dev)
+    # floats readable from U's first element on (the bulk copies take
+    # whole (br, ldu) spans of U)
+    u_len = U.untyped_storage().nbytes() // 4 - U.storage_offset()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        ELL_HVP_MM.launch(ptr(dataT), ptr(colsT), ptr(U), ldu, ptr(c),
-                          ptr(Y), ncb, wt, bc, br, U.shape[0] // br, s,
-                          MM_THREADS, stream_of(dev))
+        ELL_HVP_MM.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
+                          ptr(sched.state), sched.ctas, sched.steps,
+                          sched.next_epoch(), ptr(U), ldu, u_len, ptr(c),
+                          ptr(Y), ptr(cz), ptr(scratch), ncb, wt, bc, br,
+                          U.shape[0] // br, s, ctypes.byref(path),
+                          stream_of(dev))
+    last_path["ell_hvp_mm"] = PATHS[path.value]
     return Y.to(out_dtype)

@@ -7,7 +7,8 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: relative L2 error <= 1e-5 in f32 (sums in another order, and
-for ``ell_hvp`` and ``ell_hvp_mm`` atomics in a varying order).
+for ``ell_hvp`` and ``ell_hvp_mm`` reductions into the output in a
+varying order).
 """
 import numpy as np
 import pytest
@@ -379,6 +380,126 @@ def test_cuda_ell_hvp_mm_matches_plain(dev, block, s, with_c):
     two_pass = sparse_hvp.ell_mm(data, cols,
                                  sparse_hvp.ell_mm(dataT, colsT, U), c)
     assert _rel(got, two_pass) <= 1e-5
+
+
+def _forward_of(ell):
+    """The forward layout of A whose transposed layout is ``ell`` (tiles
+    of A^T), for the two-pass pair."""
+    nb, w, br, bc = ell.data.shape
+    M = np.zeros((nb * br, ell.n_col_blocks * bc), np.float32)
+    for i in range(nb):
+        for k in range(w):
+            j = ell.cols[i, k]
+            M[i * br:(i + 1) * br, j * bc:(j + 1) * bc] += ell.data[i, k]
+    return ell_from_csr(CSRMatrix.from_dense(np.ascontiguousarray(M.T)),
+                        bc, br)
+
+
+def _hvp_schedule(dataT, colsT, steps):
+    """The step schedule of a test: None (every slot live), the default
+    step_bytes, one below a row-block's tiles (every row-block a step
+    alone) or one above the whole layout (one step)."""
+    if steps == "none":
+        return None
+    step_bytes = {"default": None, "small": 1, "whole": 1 << 40}[steps]
+    return sparse_hvp.ell_hvp_schedule(dataT, colsT,
+                                       sparse_hvp.default_ctas(dataT.device),
+                                       step_bytes)
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS + ["6x12"])
+@pytest.mark.parametrize("steps", ["none", "default", "small", "whole"])
+def test_cuda_ell_hvp_edge_layouts(dev, name, steps):
+    """K2 and K7 on an edge layout taken as the transposed layout (6 x 12:
+    partial z of 6 s floats, summed as floats, not float4), with its step
+    schedule at three step sizes or without one, with and without c, K7
+    at every s on contiguous and strided U: against their plain versions
+    and against the two-pass pair (ell_mv / ell_mm on the transposed,
+    then the forward layout), on the copy path the shape calls for. With
+    a schedule, NaN in every padding slot changes nothing."""
+    ell, path = _edge_layout(name)
+    fwd = _forward_of(ell)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dataT, colsT, data, cols = T(ell.data), T(ell.cols), T(fwd.data), \
+        T(fwd.cols)
+    nb, w, R, C = dataT.shape
+    n_u, n_c = ell.n_col_blocks * C, nb * R
+    sched = _hvp_schedule(dataT, colsT, steps)
+    if sched is not None:
+        live = sched.parts()[0].long()
+        dataT[torch.arange(w, device=dev)[None, :] >= live[:, None]] = \
+            float("nan")
+        assert sched.steps == {"default": sched.steps, "small":
+                               int((live > 0).sum()), "whole": 1}[steps]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    u = torch.randn(n_u, generator=g, device=dev)
+    clean = T(ell.data)
+    for c in (None, torch.rand(n_c, generator=g, device=dev)):
+        got = sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=sched)
+        assert sparse_hvp.last_path["ell_hvp"] == path
+        two_pass = sparse_hvp.ell_mv(data, cols,
+                                     sparse_hvp.ell_mv(clean, colsT, u), c)
+        torch.cuda.synchronize()
+        assert got.shape == (n_u,) and bool(got.isfinite().all())
+        assert _rel(got, ref.ref_ell_hvp_t(clean, colsT, u, c)) <= 1e-5
+        assert _rel(got, two_pass) <= 1e-5
+        for s in MULTI_S:
+            for strided in (False, True):
+                U = _basis(dev, n_u, s, s, strided)
+                got = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c, sched=sched)
+                assert sparse_hvp.last_path["ell_hvp_mm"] == path
+                two_pass = sparse_hvp.ell_mm(
+                    data, cols, sparse_hvp.ell_mm(clean, colsT, U), c)
+                torch.cuda.synchronize()
+                assert got.shape == (n_u, s)
+                assert bool(got.isfinite().all())
+                assert _rel(got, ref.ref_ell_hvp_mm_t(clean, colsT, U,
+                                                      c)) <= 1e-5
+                assert _rel(got, two_pass) <= 1e-5
+    if sched is not None:      # the counters are back at zero
+        assert int(sched.state[:nb].abs().sum()) == 0
+
+
+def test_cuda_ell_hvp_ops_pass_the_schedule(dev):
+    """``ops.ell_hvp`` and ``ops.ell_hvp_mm`` hand ``sched`` to the
+    kernels (past 8 columns too): poisoned padding stays out."""
+    ell, _ = _edge_layout("16x16")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    clean, colsT = T(ell.data), T(ell.cols)
+    sched = _hvp_schedule(clean, colsT, "default")
+    nb, w = clean.shape[:2]
+    poisoned = clean.clone()
+    poisoned[torch.arange(w, device=dev)[None, :]
+             >= sched.parts()[0].long()[:, None]] = float("nan")
+    n_u = ell.n_col_blocks * 16
+    u, U = torch.randn(n_u, device=dev), torch.randn((n_u, 11), device=dev)
+    c = torch.rand(nb * 16, device=dev)
+    build.reset_launch_counts()
+    y = ops.ell_hvp(poisoned, colsT, u, c, sched=sched)
+    Y = ops.ell_hvp_mm(poisoned, colsT, U, c, sched=sched)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ell_hvp"] == 1
+    assert build.launch_counts()["ell_hvp_mm"] == 2
+    assert _rel(y, ref.ref_ell_hvp_t(clean, colsT, u, c)) <= 1e-5
+    assert _rel(Y, ref.ref_ell_hvp_mm_t(clean, colsT, U, c)) <= 1e-5
+
+
+def test_cuda_ell_hvp_refuses_a_grid_the_card_cannot_hold(dev):
+    """The grid is launched cooperative: a schedule for more CTAs than
+    the card holds at once is refused (raises), never left to spin."""
+    ell, _ = _edge_layout("128x128")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dataT, colsT = T(ell.data), T(ell.cols)
+    sched = sparse_hvp.ell_hvp_schedule(
+        dataT, colsT, 8 * sparse_hvp.default_ctas(dev))
+    u = torch.randn(ell.n_col_blocks * 128, device=dev)
+    with pytest.raises(RuntimeError, match="ell_hvp launch failed"):
+        sparse_hvp.ell_hvp(dataT, colsT, u, sched=sched)
+    torch.cuda.synchronize()
+    # the card is still usable
+    got = sparse_hvp.ell_hvp(dataT, colsT, u)
+    torch.cuda.synchronize()
+    assert _rel(got, ref.ref_ell_hvp_t(dataT, colsT, u)) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", DENSE_SHAPES,

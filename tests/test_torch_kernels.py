@@ -277,12 +277,16 @@ def test_kernel_sources_and_build_target():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     # each library is named by its source and the headers it includes
     names = lambda k: [p.name for p in build.local_includes(k.source)]
-    assert names(build.ELL_MV) == ["ell_stream.cuh", "common.cuh"]
-    assert names(build.ELL_MM) == ["ell_stream.cuh", "common.cuh"]
-    assert names(build.ELL_HVP) == ["ell_common.cuh", "common.cuh"]
+    assert names(build.ELL_MV) == ["ell_stream.cuh", "ell_tiles.cuh",
+                                   "common.cuh"]
+    assert names(build.ELL_MM) == ["ell_stream.cuh", "ell_tiles.cuh",
+                                   "common.cuh"]
+    assert names(build.ELL_HVP) == ["ell_hvp_stream.cuh", "ell_tiles.cuh",
+                                    "common.cuh"]
     assert names(build.X_CZ) == ["common.cuh"]
     assert names(build.XT_U) == ["partials.cuh", "common.cuh"]
-    assert names(build.ELL_HVP_MM) == ["ell_common.cuh", "common.cuh"]
+    assert names(build.ELL_HVP_MM) == ["ell_hvp_stream.cuh",
+                                       "ell_tiles.cuh", "common.cuh"]
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == ["common.cuh"]
     assert names(build.X_C_XT_MULTI) == ["partials.cuh", "common.cuh"]
