@@ -68,7 +68,10 @@ Eight phases; any failed check makes the exit code nonzero.
    problem, the full sample axis), data made on the card by the
    ``make_glm_data`` recipe from a seed; the same six runs. At full width
    ``xt_u``, ``x_cz`` and ``x_c_xt_u`` are held against their plain
-   versions and timed beside them and beside ``torch.mv``, and so are
+   versions and timed beside them and beside ``torch.mv`` (``xt_u`` and
+   ``x_cz`` also on the DiSCO-S m = 4 column view ``X[:, :n/4]`` and the
+   DiSCO-F m = 4 row block ``X[:d/4]``, each repeated bit for bit on the
+   bulk-copy path), and so are
    ``xt_multi``, ``x_cz_multi`` and ``x_c_xt_multi`` at s = 5 beside
    ``torch.matmul`` (``x_c_xt_multi`` also beside the kernel pair); a
    second fit of the first run is profiled. Every Newton step must
@@ -1400,8 +1403,9 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
     fused["panel"] = glm_hvp.fused_panel_width(d)
     fused["two_pass_kernels_ms"] = time_ms(
         lambda: glm_hvp.x_cz(X, c, glm_hvp.xt_u(X, u)))
-    out["xt_u"]["slices"] = glm_hvp.xt_u_slices(
-        d, n, torch.cuda.get_device_properties(X.device).multi_processor_count)
+    shards = measure_dense_shards(torch, X, u, z, c, glm_hvp, ref, errs)
+    for name in ("xt_u", "x_cz"):
+        out[name]["shapes"] = shards[name]
     out.update(measure_dense_multi(torch, X, c, glm_hvp, ref, errs))
     for name in DENSE_KERNELS:
         m = out[name]
@@ -1413,6 +1417,48 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
     print("x_c_xt_u detail " + json.dumps(
         {k: fused[k] for k in ("panel", "panel_ms", "two_pass_kernels_ms",
                                "library_pair_ms")}), flush=True)
+    return out
+
+
+def measure_dense_shards(torch, X, u, z, c, glm_hvp, ref, errs) -> dict:
+    """K3 and K4 at the dense slice's three shapes: the full width, the
+    DiSCO-S m = 4 column view X[:, :n/4] and the DiSCO-F m = 4 row block
+    X[:d/4], each held against its plain version, repeated bit for bit,
+    and timed beside torch.mv and its bound (X's bytes over the HBM
+    rate), with the copy path it took."""
+    d, n = X.shape
+    shapes = {"full": (X, u, z, c),
+              "S_m4_view": (X[:, :n // 4], u, z[:n // 4], c[:n // 4]),
+              "F_m4_rows": (X[:d // 4], u[:d // 4], z, c)}
+    out = {"xt_u": {}, "x_cz": {}}
+    for shape, (A, ua, za, ca) in shapes.items():
+        calls = {
+            "xt_u": (lambda: glm_hvp.xt_u(A, ua),
+                     lambda: ref.ref_xt_u(A, ua),
+                     lambda: torch.mv(A.t(), ua)),
+            "x_cz": (lambda: glm_hvp.x_cz(A, ca, za),
+                     lambda: ref.ref_x_cz(A, ca * za),
+                     lambda: torch.mv(A, ca * za))}
+        for name, (kernel, plain, library) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            path = glm_hvp.last_path[name]
+            e = record_err(errs, name, got, want)
+            same = bool(torch.equal(got, again))
+            check(e <= REL_TOL_KERNEL and same and path == "bulk",
+                  f"{name} {shape} {tuple(A.shape)}: rel err {e:.2e}, "
+                  f"repeatable {same}, path {path}")
+            del got, again, want
+            row = dict(dims=list(A.shape), path=path,
+                       us=time_ms(kernel) * 1e3,
+                       library_us=time_ms(library) * 1e3,
+                       bound_us=1e6 * A.numel() * 4 / HBM_BYTES_PER_S)
+            row["of_bound"] = row["bound_us"] / row["us"]
+            out[name][shape] = row
+            print(f"{name} {shape} {row['dims']}: {row['us']:.1f} us/call "
+                  f"({100 * row['of_bound']:.1f}% of bound "
+                  f"{row['bound_us']:.1f} us), torch.mv "
+                  f"{row['library_us']:.1f} us, path {path}", flush=True)
     return out
 
 

@@ -113,10 +113,14 @@ ELL_MV = CudaKernel("ell_mv", [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
 #  path out, stream)
 ELL_HVP = CudaKernel("ell_hvp", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                  _P, _P, _I, _I, _I, _I, _I, _PI, _P])
-# (X, ld, u, z, part, d, n, slices, threads, stream)
-XT_U = CudaKernel("xt_u", [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P])
-# (X, ld, c, z, y, d, n, threads, stream)
-X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _I, _I, _I, _P])
+# (X, ld, u, z, scratch, d, n, ctas, tile rows, tile cols, path out,
+#  stream)
+XT_U = CudaKernel("xt_u", [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _PI,
+                           _P])
+# (X, ld, c, z, y, scratch, d, n, ctas, tile rows, tile cols, path out,
+#  stream)
+X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _PI, _P])
 # (X, ld, c, u, y, part, d, n, bn, grid, threads, stream)
 X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P])

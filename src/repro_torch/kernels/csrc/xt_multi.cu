@@ -11,7 +11,7 @@
 // row-major with row stride ldu >= s; Z (n, s) f32 row-major. Element
 // offsets are 64-bit.
 //
-// Design: xt_u's, widened to s vectors. Each CTA owns a strip of
+// Design: column strips by row slices. Each CTA owns a strip of
 // 4 * blockDim.x columns and a slice of rows; each thread keeps 4 * s sums
 // (its 4 columns times the s vectors) in registers while it walks the
 // rows, one 16-byte load of X per row (a warp reads 512 contiguous bytes).

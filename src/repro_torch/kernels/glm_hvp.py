@@ -21,6 +21,15 @@ stream:
   ``Y = X (c .* (X^T U))`` over s vectors, from column panels held in
   shared memory; replaces ``repro/kernels/glm_hvp.py::x_c_xt_multi``.
 
+``xt_u`` and ``x_cz`` share one design (``csrc/dense_stream.cuh``): a
+persistent grid of :func:`~repro_torch.kernels.sparse_hvp.default_ctas`
+CTAs (one per SM) over pieces of :data:`TILE_ROWS` x :data:`TILE_COLS`
+of X, split evenly by :func:`dense_split`, fed by a ring of bulk copies,
+the units (row groups of ``x_cz``, column chunks of ``xt_u``) cut between
+CTAs summed in CTA order by a second kernel of the same launch call.
+:data:`last_path` says whether a call took the bulk copies or the direct
+path (shapes a bulk copy cannot take).
+
 ``X`` may be any row-major f32 view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
 stride and handle ragged edges, so nothing is padded or copied per call.
@@ -32,7 +41,9 @@ here falls back to the plain versions in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,12 +51,19 @@ from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_U, X_CZ,
                                        X_CZ_MULTI, XT_MULTI, XT_U,
                                        check_card, check_columns,
                                        check_tensor, ptr, stream_of)
+from repro_torch.kernels.sparse_hvp import default_ctas
 
-THREADS = 256            # threads per CTA of xt_u, x_cz, xt_multi, x_cz_multi
+THREADS = 256            # threads per CTA of xt_multi, x_cz_multi
 FUSED_THREADS = 1024     # threads per CTA of x_c_xt_u
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
 SMEM_PER_SM = 233_472    # shared memory of one SM for resident CTAs (228 KB)
 PANEL_WIDTHS = (32, 16, 8, 4)   # x_c_xt_u panel columns, widest first
+# the piece of xt_u and x_cz (kTileRows, kTileCols in csrc/dense_stream.cuh)
+TILE_ROWS = 16
+TILE_COLS = 1536
+PATHS = ("direct", "bulk")  # the copy paths, by the code the kernels report
+# the copy path of each streaming kernel's last launch
+last_path: dict[str, str | None] = dict.fromkeys(("xt_u", "x_cz"))
 
 
 def fused_smem_bytes(d: int, bn: int, threads: int = FUSED_THREADS) -> int:
@@ -96,7 +114,7 @@ def _grid(dev, n: int, bn: int, smem: int, threads: int) -> int:
 
 
 def xt_u_slices(d: int, n: int, sm_count: int) -> int:
-    """Row slices of ``xt_u``: 1 when the column strips alone fill the
+    """Row slices of ``xt_multi``: 1 when the column strips alone fill the
     card (8 resident CTAs of 256 threads per SM), else enough slices of at
     least 64 rows to do so."""
     strips = -(-n // (4 * THREADS))
@@ -104,6 +122,85 @@ def xt_u_slices(d: int, n: int, sm_count: int) -> int:
     if strips >= want:
         return 1
     return max(1, min(-(-want // strips), -(-d // 64), 65_535))
+
+
+class DenseSplit(NamedTuple):
+    """How ``xt_u`` or ``x_cz`` splits an X of ``groups`` row groups of
+    ``tile_rows`` rows by ``chunks`` column chunks of ``tile_cols`` over
+    ``ctas`` CTAs (``csrc/dense_stream.cuh``).
+
+    Pieces are numbered chunk-major for ``xt_u`` (``by_chunk``: a unit is a
+    column chunk, the run of pieces whose sums add to its z) and
+    row-group-major for ``x_cz`` (a unit is a row group). CTA ``k`` takes
+    pieces ``[bound(k), bound(k + 1))``; the kernel computes the same
+    bounds. A unit cut by range boundaries is summed from its CTAs'
+    partials in the order :meth:`fixup` gives.
+    """
+    by_chunk: bool
+    groups: int
+    chunks: int
+    ctas: int
+    tile_rows: int
+    tile_cols: int
+
+    @property
+    def pieces(self) -> int:
+        return self.groups * self.chunks
+
+    @property
+    def units(self) -> int:
+        return self.chunks if self.by_chunk else self.groups
+
+    @property
+    def per_unit(self) -> int:
+        return self.groups if self.by_chunk else self.chunks
+
+    @property
+    def unit_len(self) -> int:
+        """Outputs of a unit: a chunk's columns or a row group's rows."""
+        return self.tile_cols if self.by_chunk else self.tile_rows
+
+    def bound(self, k: int) -> int:
+        """The first piece of CTA ``k``'s range."""
+        return k * self.pieces // self.ctas
+
+    def piece(self, t: int) -> tuple[int, int]:
+        """(row group, column chunk) of piece ``t``."""
+        if self.by_chunk:
+            return t % self.groups, t // self.groups
+        return t // self.chunks, t % self.chunks
+
+    def owner(self, t: int) -> int:
+        """The CTA whose range holds piece ``t``: the largest ``k`` with
+        ``bound(k) <= t``, that is ``k * pieces < (t + 1) * ctas``."""
+        return ((t + 1) * self.ctas - 1) // self.pieces
+
+    def fixup(self, unit: int) -> list[tuple[int, int]]:
+        """The (CTA, scratch slot) partials that sum to a cut unit, in
+        the order the fix-up adds them; empty for a unit that lies wholly
+        in one CTA's range (written there). Slot 0 holds a CTA's first
+        unit, slot 1 its last."""
+        base = unit * self.per_unit
+        k0, k1 = self.owner(base), self.owner(base + self.per_unit - 1)
+        if k0 == k1:
+            return []
+        return [(k, 0 if self.bound(k) >= base else 1)
+                for k in range(k0, k1 + 1)
+                if self.bound(k) < self.bound(k + 1)]
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_split(kernel: str, d: int, n: int, ctas: int) -> DenseSplit:
+    """The split of ``kernel`` (``"xt_u"`` or ``"x_cz"``) over a (d, n) X
+    and ``ctas`` CTAs, in pieces of :data:`TILE_ROWS` x :data:`TILE_COLS`;
+    cached per shape."""
+    if kernel not in ("xt_u", "x_cz"):
+        raise ValueError(f"no dense split for {kernel!r}")
+    if d < 1 or n < 1 or ctas < 1:
+        raise ValueError(f"d = {d}, n = {n} and ctas = {ctas} must be "
+                         f"positive")
+    return DenseSplit(kernel == "xt_u", -(-d // TILE_ROWS),
+                      -(-n // TILE_COLS), ctas, TILE_ROWS, TILE_COLS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,8 +235,28 @@ def _check_vector(name, v, length, device):
         raise ValueError(f"len({name}) = {v.shape[0]}, expected {length}")
 
 
-def xt_u(X, u):
-    """z = X^T u on the card.  X (d, n) row-major f32, u (d,) -> z (n,)."""
+def _stream(kernel, name, X, ld, vecs, out, ctas):
+    """Launch ``xt_u`` or ``x_cz`` on its split; record the path."""
+    d, n = X.shape
+    dev = X.device
+    if ctas is None:
+        ctas = default_ctas(dev)
+    split = dense_split(name, d, n, ctas)
+    scratch = torch.empty(split.ctas * 2 * split.unit_len,
+                          dtype=torch.float32, device=dev)
+    path = ctypes.c_int(-1)
+    with torch.cuda.device(dev):
+        kernel.launch(ptr(X), ld, *map(ptr, vecs), ptr(out), ptr(scratch),
+                      d, n, split.ctas, split.tile_rows, split.tile_cols,
+                      ctypes.byref(path), stream_of(dev))
+    last_path[name] = PATHS[path.value]
+    return out
+
+
+def xt_u(X, u, *, _ctas: int | None = None):
+    """z = X^T u on the card.  X (d, n) row-major f32, u (d,) -> z (n,).
+    ``_ctas`` overrides the CTA count (one per SM) for the checks that
+    hold the split at other counts; no solver path sets it."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
@@ -148,18 +265,12 @@ def xt_u(X, u):
     z = torch.empty(n, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return z.zero_()
-    slices = xt_u_slices(d, n, _sm_count(dev.index or 0))
-    part = (torch.empty((slices, n), dtype=torch.float32, device=dev)
-            if slices > 1 else None)
-    with torch.cuda.device(dev):
-        XT_U.launch(ptr(X), ld, ptr(u), ptr(z), ptr(part), d, n, slices,
-                    THREADS, stream_of(dev))
-    return z
+    return _stream(XT_U, "xt_u", X, ld, (u,), z, _ctas)
 
 
-def x_cz(X, c, z):
+def x_cz(X, c, z, *, _ctas: int | None = None):
     """y = X (c .* z) on the card.  X (d, n) row-major f32, c (optional)
-    and z (n,) -> y (d,)."""
+    and z (n,) -> y (d,). ``_ctas`` as for :func:`xt_u`."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
@@ -169,10 +280,7 @@ def x_cz(X, c, z):
     y = torch.empty(d, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return y.zero_()
-    with torch.cuda.device(dev):
-        X_CZ.launch(ptr(X), ld, ptr(c), ptr(z), ptr(y), d, n, THREADS,
-                    stream_of(dev))
-    return y
+    return _stream(X_CZ, "x_cz", X, ld, (c, z), y, _ctas)
 
 
 def x_c_xt_u(X, c, u, *, _block_n: int | None = None):

@@ -167,6 +167,83 @@ def test_cuda_dense_kernels_take_column_slices(dev):
         assert _rel(kernel(view), plain(view.contiguous())) <= 1e-5
 
 
+def _dense_edge(dev, name):
+    """An X at an edge of the dense split (csrc/dense_stream.cuh), and the
+    copy path it calls for: bulk copies need n and ld multiples of 4 and
+    a 16-byte aligned X."""
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    mat = lambda d, n: torch.randn((d, n), generator=g, device=dev)
+    wide = mat(64, 3000)
+    solver = mat(256, 4096)     # the dense slice at d cut 16-fold
+    return {
+        "ragged_n": (mat(70, 1101), "direct"),
+        "d_below_ctas": (mat(5, 2048), "bulk"),
+        "n_below_tile": (mat(64, 100), "bulk"),
+        "n_below_tile_ragged": (mat(64, 99), "direct"),
+        "d1_n1": (mat(1, 1), "direct"),
+        "d1_n4": (mat(1, 4), "bulk"),
+        "view_at_0": (wide[:, 0:1024], "bulk"),
+        "view_at_1": (wide[:, 1:1025], "direct"),
+        "view_at_4": (wide[:, 4:1028], "bulk"),
+        "ld_not_4": (mat(40, 1027)[:, :1024], "direct"),
+        "full": (solver, "bulk"),
+        "S_m4_view": (solver[:, :1024], "bulk"),
+        "F_m4_rows": (solver[:64], "bulk"),
+    }[name]
+
+
+DENSE_EDGES = ["ragged_n", "d_below_ctas", "n_below_tile",
+               "n_below_tile_ragged", "d1_n1", "d1_n4", "view_at_0",
+               "view_at_1", "view_at_4", "ld_not_4", "full", "S_m4_view",
+               "F_m4_rows"]
+
+
+@pytest.mark.parametrize("name", DENSE_EDGES)
+@pytest.mark.parametrize("ctas", [None, 1, 7])
+def test_cuda_dense_stream_edge_shapes(dev, name, ctas):
+    """K3 and K4 at an edge of the split, on the card's CTA count and on
+    1 and 7 CTAs (every unit cut, or few CTAs over many units), with and
+    without c: on the copy path the shape calls for, within 1e-5 of the
+    plain versions, and repeated bit for bit."""
+    X, path = _dense_edge(dev, name)
+    d, n = X.shape
+    g = torch.Generator(device=dev).manual_seed(d * n)
+    u = torch.randn(d, generator=g, device=dev)
+    z = torch.randn(n, generator=g, device=dev)
+    c = torch.rand(n, generator=g, device=dev)
+    got = glm_hvp.xt_u(X, u, _ctas=ctas)
+    assert glm_hvp.last_path["xt_u"] == path
+    again = glm_hvp.xt_u(X, u, _ctas=ctas)
+    torch.cuda.synchronize()
+    assert got.shape == (n,)
+    assert _rel(got, ref.ref_xt_u(X.contiguous(), u)) <= 1e-5
+    assert torch.equal(got, again)
+    for cc in (None, c):
+        got = glm_hvp.x_cz(X, cc, z, _ctas=ctas)
+        assert glm_hvp.last_path["x_cz"] == path
+        again = glm_hvp.x_cz(X, cc, z, _ctas=ctas)
+        torch.cuda.synchronize()
+        assert got.shape == (d,)
+        want = ref.ref_x_cz(X.contiguous(), z if cc is None else cc * z)
+        assert _rel(got, want) <= 1e-5
+        assert torch.equal(got, again)
+
+
+def test_cuda_dense_stream_refuses_another_split(dev, monkeypatch):
+    """The entry points take the piece shape the wrapper's split assumes
+    and refuse one that is not their header's, before any launch."""
+    X, u, z, c = _dense(dev, 64, 1024, seed=5)
+    monkeypatch.setattr(glm_hvp, "TILE_ROWS", glm_hvp.TILE_ROWS // 2)
+    glm_hvp.dense_split.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="xt_u launch failed"):
+            glm_hvp.xt_u(X, u)
+        with pytest.raises(RuntimeError, match="x_cz launch failed"):
+            glm_hvp.x_cz(X, c, z)
+    finally:
+        glm_hvp.dense_split.cache_clear()
+
+
 def test_cuda_dense_ops_launch_the_kernels(dev):
     X, u, z, c = _dense(dev, 64, 256, seed=4)
     build.reset_launch_counts()

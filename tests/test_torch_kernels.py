@@ -283,8 +283,10 @@ def test_kernel_sources_and_build_target():
                                    "common.cuh"]
     assert names(build.ELL_HVP) == ["ell_hvp_stream.cuh", "ell_tiles.cuh",
                                     "common.cuh"]
-    assert names(build.X_CZ) == ["common.cuh"]
-    assert names(build.XT_U) == ["partials.cuh", "common.cuh"]
+    assert names(build.X_CZ) == ["dense_stream.cuh", "ell_tiles.cuh",
+                                 "common.cuh"]
+    assert names(build.XT_U) == ["dense_stream.cuh", "ell_tiles.cuh",
+                                 "common.cuh"]
     assert names(build.ELL_HVP_MM) == ["ell_hvp_stream.cuh",
                                        "ell_tiles.cuh", "common.cuh"]
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
