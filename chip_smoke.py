@@ -13,11 +13,12 @@ Eight phases; any failed check makes the exit code nonzero.
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card (relative L2 error <= 1e-5 in f32): ``ell_mv`` and ``ell_hvp`` at
    8x8, 16x16 and 128x128 tiles on layouts with padding slots; ``xt_u``,
-   ``x_cz`` and ``x_c_xt_u`` at ragged dense shapes and every panel width;
+   ``x_cz`` and ``x_c_xt_u`` at ragged dense shapes and every cluster
+   size its fit rule allows;
    each with and without the scale ``c``; the multi-vector ``ell_mm``,
    ``ell_hvp_mm`` (also against the two-pass ``ell_mm`` pair),
-   ``xt_multi``, ``x_cz_multi`` and the fused ``x_c_xt_multi`` (at every
-   panel width, also against ``x_c_xt_u`` column by column and against
+   ``xt_multi``, ``x_cz_multi`` and the fused ``x_c_xt_multi`` (on every
+   cluster size, also against ``x_c_xt_u`` column by column and against
    the ``xt_multi`` + ``x_cz_multi`` pair) at s = 1, 2, 4, 5 and 8
    columns, on contiguous and strided blocks; ``ell_mv`` and ``ell_mm``
    on layouts at the edges of their live-tile schedule (W = 300 on 3
@@ -73,7 +74,11 @@ Eight phases; any failed check makes the exit code nonzero.
    DiSCO-F m = 4 row block ``X[:d/4]``, each repeated bit for bit on the
    bulk-copy path), and so are
    ``xt_multi``, ``x_cz_multi`` and ``x_c_xt_multi`` at s = 5 beside
-   ``torch.matmul`` (``x_c_xt_multi`` also beside the kernel pair); a
+   ``torch.matmul`` (``x_c_xt_multi`` also beside the kernel pair);
+   ``x_c_xt_u`` at the three shapes and ``x_c_xt_multi`` at the first two
+   are timed beside the two-pass kernel pairs they fuse and the library
+   pairs, each repeated bit for bit on the TMA path, with its plan (Q,
+   bn, stages) and cluster count C; a
    second fit of the first run is profiled. Every Newton step must
    decrease f, and m = 4 and fused runs must end at the m = 1 two-pass
    ``w``. Then six s-step runs: DiSCO-S and DiSCO-F at m = 1 two-pass,
@@ -584,8 +589,9 @@ def phase_hvp_edges(torch, sparse_hvp, ref, errs) -> None:
 
 def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
     """The dense kernels at ragged shapes (scalar and 16-byte loads, a d
-    past the widest panel), with and without c, every panel width of
-    x_c_xt_u, and a column-slice view as a DiSCO-S shard passes it."""
+    past the widest panel), with and without c, x_c_xt_u on every cluster
+    size its fit rule allows, and a column-slice view as a DiSCO-S shard
+    passes it."""
     dev = torch.device("cuda")
     for d, n in DENSE_SHAPES:
         g = torch.Generator(device=dev).manual_seed(d + n)
@@ -606,14 +612,15 @@ def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
                 check(e <= REL_TOL_KERNEL, f"{name} {d}x{n} "
                       f"c={cc is not None}: rel err {e:.2e}")
         want = ref.ref_x_c_xt_u(X, c, u)
-        for bn in glm_hvp.PANEL_WIDTHS:
-            if glm_hvp.fused_smem_bytes(d, bn) > glm_hvp.SMEM_LIMIT:
+        for q in glm_hvp.CLUSTER_SIZES:
+            if glm_hvp.fused_plan(d, 1, q) is None:
                 continue
-            got = glm_hvp.x_c_xt_u(X, c, u, _block_n=bn)
-            again = glm_hvp.x_c_xt_u(X, c, u, _block_n=bn)
+            got = glm_hvp.x_c_xt_u(X, c, u, _cluster=q)
+            again = glm_hvp.x_c_xt_u(X, c, u, _cluster=q)
+            run = glm_hvp.last_fused["x_c_xt_u"]
             e = record_err(errs, "x_c_xt_u", got, want)
             check(e <= REL_TOL_KERNEL and bool(torch.equal(got, again)),
-                  f"x_c_xt_u {d}x{n} panel {bn}: rel err {e:.2e}, "
+                  f"x_c_xt_u {d}x{n} {fused_tag(run)}: rel err {e:.2e}, "
                   f"repeatable {bool(torch.equal(got, again))}")
     view, cs = X[:, 512:1536], c[512:1536]
     for name, got, want in (
@@ -624,6 +631,13 @@ def phase_dense_kernels(torch, glm_hvp, ref, errs) -> None:
         e = record_err(errs, name, got, want)
         check(e <= REL_TOL_KERNEL, f"{name} on a column slice: rel err "
                                    f"{e:.2e}")
+
+
+def fused_tag(run) -> str:
+    """A fused call's plan, clusters and path, as the check lines print
+    them."""
+    return (f"Q={run.plan.cluster} bn={run.plan.bn} stages="
+            f"{run.plan.stages} C={run.clusters} path {run.path}")
 
 
 def phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs) -> None:
@@ -704,8 +718,9 @@ def phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs) -> None:
 
 def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
     """x_c_xt_multi at DENSE_SHAPES, s in MULTI_S, with and without c, on
-    contiguous and strided (first s of s + 1 columns) U, at every panel
-    width that fits: against its plain version, repeatable bit for bit;
+    contiguous and strided (first s of s + 1 columns) U, on every cluster
+    size its fit rule allows: against its plain version, repeatable bit
+    for bit;
     then column k against x_c_xt_u on U[:, k], and the whole against the
     xt_multi + x_cz_multi pair. Relative L2 throughout (the sums cancel in
     places, so no elementwise tolerance). One check line per shape."""
@@ -721,13 +736,12 @@ def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
             for U in (B[:, :k].contiguous(), B[:, :k]):
                 for cc in (None, c):
                     want = ref.ref_x_c_xt_multi(X, cc, U)
-                    for bn in glm_hvp.PANEL_WIDTHS:
-                        if glm_hvp.fused_multi_smem_bytes(d, bn, k) > \
-                                glm_hvp.SMEM_LIMIT:
+                    for q in glm_hvp.CLUSTER_SIZES:
+                        if glm_hvp.fused_plan(d, k, q) is None:
                             continue
-                        widths.add(bn)
-                        got = glm_hvp.x_c_xt_multi(X, cc, U, _block_n=bn)
-                        again = glm_hvp.x_c_xt_multi(X, cc, U, _block_n=bn)
+                        widths.add(q)
+                        got = glm_hvp.x_c_xt_multi(X, cc, U, _cluster=q)
+                        again = glm_hvp.x_c_xt_multi(X, cc, U, _cluster=q)
                         torch.cuda.synchronize()
                         worst = max(worst, record_err(errs, "x_c_xt_multi",
                                                       got, want))
@@ -743,7 +757,7 @@ def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
         check(worst <= REL_TOL_KERNEL and same and worst_col <= REL_TOL_KERNEL
               and worst_pair <= REL_TOL_KERNEL,
               f"x_c_xt_multi {d}x{n} s in {list(MULTI_S)}, c and strided U, "
-              f"panels {sorted(widths)}: worst rel err {worst:.2e}, "
+              f"clusters of {sorted(widths)}: worst rel err {worst:.2e}, "
               f"repeatable {same}; columns vs x_c_xt_u {worst_col:.2e}; vs "
               f"the xt_multi + x_cz_multi pair {worst_pair:.2e}")
 
@@ -1396,17 +1410,20 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
         if name not in library:
             out[name]["library_pair_ms"] = lib_ms
     fused = out["x_c_xt_u"]
-    fused["panel_ms"] = {
-        bn: time_ms(lambda: glm_hvp.x_c_xt_u(X, c, u, _block_n=bn))
-        for bn in glm_hvp.PANEL_WIDTHS
-        if glm_hvp.fused_smem_bytes(d, bn) <= glm_hvp.SMEM_LIMIT}
-    fused["panel"] = glm_hvp.fused_panel_width(d)
+    # the fit rule's candidates: its plan on each cluster size it allows
+    fused["plan_ms"] = {
+        f"Q{q}": time_ms(lambda: glm_hvp.x_c_xt_u(X, c, u, _cluster=q))
+        for q in glm_hvp.CLUSTER_SIZES if glm_hvp.fused_plan(d, 1, q)}
     fused["two_pass_kernels_ms"] = time_ms(
         lambda: glm_hvp.x_cz(X, c, glm_hvp.xt_u(X, u)))
     shards = measure_dense_shards(torch, X, u, z, c, glm_hvp, ref, errs)
     for name in ("xt_u", "x_cz"):
         out[name]["shapes"] = shards[name]
     out.update(measure_dense_multi(torch, X, c, glm_hvp, ref, errs))
+    for name, shapes in measure_fused_shapes(torch, X, u, c, glm_hvp, ref,
+                                             errs).items():
+        out[name]["shapes"] = shapes
+        out[name]["plan"] = shapes["full"]["plan"]
     for name in DENSE_KERNELS:
         m = out[name]
         print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
@@ -1415,8 +1432,63 @@ def measure_dense_kernels(torch, X, glm_hvp, ref, errs) -> dict:
               f" plain {m['plain_ms'] * 1e3:.1f} us,"
               f" library {m['library_ms']}", flush=True)
     print("x_c_xt_u detail " + json.dumps(
-        {k: fused[k] for k in ("panel", "panel_ms", "two_pass_kernels_ms",
+        {k: fused[k] for k in ("plan", "plan_ms", "two_pass_kernels_ms",
                                "library_pair_ms")}), flush=True)
+    return out
+
+
+def measure_fused_shapes(torch, X, u, c, glm_hvp, ref, errs) -> dict:
+    """K5 at the dense slice's three shapes (the full width, the DiSCO-S
+    m = 4 column view X[:, :n/4] and the DiSCO-F m = 4 row block X[:d/4])
+    and K10 (s = TIMED_S) at the first two, where the solver passes them:
+    each held against its plain version, repeated bit for bit on the TMA
+    path, and timed beside the two-pass kernel pair it fuses (K3 + K4, K8
+    + K9), the two-call library pair and its bound (X's bytes over the HBM
+    rate), with its plan, clusters and path."""
+    d, n = X.shape
+    s = TIMED_S
+    g = torch.Generator(device=X.device).manual_seed(4)
+    U = torch.randn((d, s), generator=g, device=X.device)
+    shapes = {"full": (X, u, c, U),
+              "S_m4_view": (X[:, :n // 4], u, c[:n // 4], U),
+              "F_m4_rows": (X[:d // 4], u[:d // 4], c, U[:d // 4])}
+    out = {"x_c_xt_u": {}, "x_c_xt_multi": {}}
+    for shape, (A, ua, ca, Ua) in shapes.items():
+        calls = {
+            "x_c_xt_u": (lambda: glm_hvp.x_c_xt_u(A, ca, ua),
+                         lambda: ref.ref_x_c_xt_u(A, ca, ua),
+                         lambda: glm_hvp.x_cz(A, ca, glm_hvp.xt_u(A, ua)),
+                         lambda: torch.mv(A, ca * torch.mv(A.t(), ua)))}
+        if shape != "F_m4_rows":
+            calls["x_c_xt_multi"] = (
+                lambda: glm_hvp.x_c_xt_multi(A, ca, Ua),
+                lambda: ref.ref_x_c_xt_multi(A, ca, Ua),
+                lambda: glm_hvp.x_cz_multi(A, ca, glm_hvp.xt_multi(A, Ua)),
+                lambda: A @ (ca[:, None] * (A.t() @ Ua)))
+        for name, (kernel, plain, pair, library) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            run = glm_hvp.last_fused[name]
+            e = record_err(errs, name, got, want)
+            same = bool(torch.equal(got, again))
+            check(e <= REL_TOL_KERNEL and same and run.path == "bulk",
+                  f"{name} {shape} {tuple(A.shape)}: rel err {e:.2e}, "
+                  f"repeatable {same}, {fused_tag(run)}")
+            del got, again, want
+            row = dict(dims=list(A.shape), path=run.path,
+                       plan=dict(run.plan._asdict(), clusters=run.clusters),
+                       us=time_ms(kernel) * 1e3,
+                       kernel_pair_us=time_ms(pair) * 1e3,
+                       library_pair_us=time_ms(library) * 1e3,
+                       bound_us=1e6 * A.numel() * 4 / HBM_BYTES_PER_S)
+            row["of_bound"] = row["bound_us"] / row["us"]
+            out[name][shape] = row
+            print(f"{name} {shape} {row['dims']}: {row['us']:.1f} us/call "
+                  f"({100 * row['of_bound']:.1f}% of bound "
+                  f"{row['bound_us']:.1f} us), kernel pair "
+                  f"{row['kernel_pair_us']:.1f} us, library pair "
+                  f"{row['library_pair_us']:.1f} us, {fused_tag(run)}",
+                  flush=True)
     return out
 
 
@@ -1533,12 +1605,11 @@ def measure_dense_multi(torch, X, c, glm_hvp, ref, errs) -> dict:
             out[name]["library_pair_ms"] = lib_ms
     fused = out["x_c_xt_multi"]
     fused.update(
-        panel=glm_hvp.fused_multi_panel_width(d, s),
         kernel_pair_ms=time_ms(lambda: glm_hvp.x_cz_multi(
             X, c, glm_hvp.xt_multi(X, U))),
         x_c_xt_u_ms=time_ms(lambda: glm_hvp.x_c_xt_u(X, c, Uc[1][:, 0])))
     print("x_c_xt_multi detail " + json.dumps(
-        {k: fused[k] for k in ("panel", "ms_by_s", "ms_strided",
+        {k: fused[k] for k in ("ms_by_s", "ms_strided",
                                "kernel_pair_ms", "library_pair_ms",
                                "x_c_xt_u_ms")})
           + " x_cz_multi " + json.dumps(

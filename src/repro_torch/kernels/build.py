@@ -121,9 +121,10 @@ XT_U = CudaKernel("xt_u", [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _PI,
 #  stream)
 X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _PI, _P])
-# (X, ld, c, u, y, part, d, n, bn, grid, threads, stream)
+# (X, ld, c, u, y, scratch, d, n, cluster size, panel columns, stages,
+#  clusters (0: as many as fit), cap, path out, clusters out, stream)
 X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _P])
+                                   _I, _I, _I, _PI, _PI, _P])
 # (tiles, cols, schedule, ctas, V, ldv, floats readable from V, c, Y,
 #  scratch, n_blocks, W, rows, cols-per-tile, n_in_blocks, s, path out,
 #  stream)
@@ -141,9 +142,12 @@ XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
 # (X, ld, c, Z, ldz, Y, d, n, s, threads, stream)
 X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
                                        _I, _P])
-# (X, ld, c, U, ldu, Y, part, d, n, s, bn, grid, threads, stream)
+# (X, ld, c, U, ldu, Y, scratch, d, n, s, cluster size, panel columns,
+#  stages, clusters (0: as many as fit), cap, path out, clusters out,
+#  stream)
 X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
-                                           _I, _I, _I, _I, _I, _P])
+                                           _I, _I, _I, _I, _I, _I, _I, _PI,
+                                           _PI, _P])
 # (q, k, v, o, strides: 12 int64, the (batch, head, row) strides of q, k,
 #  v and o; B, Hq, Hkv, S, T, Dh, kv_len, causal, window, scale, bf16,
 #  stream)

@@ -11,15 +11,15 @@ stream:
 * ``x_cz``     (``csrc/x_cz.cu``) — pass B ``y = X (c .* z)``, the scale
   fused; replaces ``repro/kernels/glm_hvp.py::x_cz``.
 * ``x_c_xt_u`` (``csrc/x_c_xt_u.cu``) — the fused one-pass
-  ``y = X (c .* (X^T u))`` from column panels held in shared memory;
-  replaces ``repro/kernels/glm_hvp.py::x_c_xt_u``.
+  ``y = X (c .* (X^T u))``, a column panel shared by a thread-block
+  cluster; replaces ``repro/kernels/glm_hvp.py::x_c_xt_u``.
 * ``xt_multi``   (``csrc/xt_multi.cu``) — the s-step pass A ``Z = X^T U``
   over s vectors; replaces ``repro/kernels/glm_hvp.py::xt_multi``.
 * ``x_cz_multi`` (``csrc/x_cz_multi.cu``) — the s-step pass B
   ``Y = X (c .* Z)``; replaces ``repro/kernels/glm_hvp.py::x_cz_multi``.
 * ``x_c_xt_multi`` (``csrc/x_c_xt_multi.cu``) — the fused one-pass
-  ``Y = X (c .* (X^T U))`` over s vectors, from column panels held in
-  shared memory; replaces ``repro/kernels/glm_hvp.py::x_c_xt_multi``.
+  ``Y = X (c .* (X^T U))`` over s vectors, as ``x_c_xt_u``; replaces
+  ``repro/kernels/glm_hvp.py::x_c_xt_multi``.
 
 ``xt_u`` and ``x_cz`` share one design (``csrc/dense_stream.cuh``): a
 persistent grid of :func:`~repro_torch.kernels.sparse_hvp.default_ctas`
@@ -29,6 +29,15 @@ the units (row groups of ``x_cz``, column chunks of ``xt_u``) cut between
 CTAs summed in CTA order by a second kernel of the same launch call.
 :data:`last_path` says whether a call took the bulk copies or the direct
 path (shapes a bulk copy cannot take).
+
+``x_c_xt_u`` and ``x_c_xt_multi`` share another (``csrc/fused_stream.cuh``):
+a cluster of Q CTAs walks column panels of X, each CTA holding a slice of
+every panel's rows, brought in by TMA; only a panel's partial ``X^T U``
+crosses the cluster, through distributed shared memory, and the clusters'
+partial ``Y`` are added in cluster order. :func:`fused_plan` (the fit
+rule) picks Q, the panel width and the ring's stages from d and s;
+:func:`fused_split` is the panels' split over the clusters;
+:data:`last_path` and :data:`last_fused` say what a call ran.
 
 ``X`` may be any row-major f32 view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
@@ -54,63 +63,147 @@ from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_U, X_CZ,
 from repro_torch.kernels.sparse_hvp import default_ctas
 
 THREADS = 256            # threads per CTA of xt_multi, x_cz_multi
-FUSED_THREADS = 1024     # threads per CTA of x_c_xt_u
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
-SMEM_PER_SM = 233_472    # shared memory of one SM for resident CTAs (228 KB)
-PANEL_WIDTHS = (32, 16, 8, 4)   # x_c_xt_u panel columns, widest first
 # the piece of xt_u and x_cz (kTileRows, kTileCols in csrc/dense_stream.cuh)
 TILE_ROWS = 16
 TILE_COLS = 1536
+# the fused kernels' plan (csrc/fused_stream.cuh: kThreads, kRowQuantum,
+# kSlots, kMaxStages, kBarrierBytes)
+FUSED_THREADS = 256      # consumer threads of a CTA (and a producer warp)
+FUSED_ROW_QUANTUM = 256  # a CTA's rows of a panel are a multiple
+FUSED_SLOTS = 4          # exchange slots of a CTA
+FUSED_MAX_STAGES = 4
+FUSED_BARRIER_BYTES = 128
+CLUSTER_SIZES = (1, 2, 4, 8)
+FUSED_WIDTHS = (32, 16)  # panel columns, widest first
 PATHS = ("direct", "bulk")  # the copy paths, by the code the kernels report
-# the copy path of each streaming kernel's last launch
-last_path: dict[str, str | None] = dict.fromkeys(("xt_u", "x_cz"))
+# the copy path of each streaming kernel's last launch ("bulk": bulk or TMA
+# copies)
+last_path: dict[str, str | None] = dict.fromkeys(
+    ("xt_u", "x_cz", "x_c_xt_u", "x_c_xt_multi"))
 
 
-def fused_smem_bytes(d: int, bn: int, threads: int = FUSED_THREADS) -> int:
-    """Shared memory of one ``x_c_xt_u`` CTA: the (d, bn) panel, the
-    CTA's partial y (d,), the warps' column partials and c .* z."""
-    return 4 * (d * bn + d + (threads // 32 + 1) * bn)
+def fused_max_groups(s: int) -> int:
+    """Row groups (a CTA's rows over :data:`FUSED_ROW_QUANTUM`) a fused CTA
+    holds at s columns (``max_groups`` in ``csrc/fused_stream.cuh``): the
+    partial Y of a thread's rows is groups x s registers."""
+    return 6 if s == 1 else 5 if s <= 3 else 4 if s <= 5 else 3
 
 
-def fused_panel_width(d: int) -> int | None:
-    """The fit rule of the fused kernel: the widest panel whose working
-    set fits one CTA's shared memory, or None when even 4 columns do not
-    (d above about 11,000); then the HVP takes the two-pass route."""
-    for bn in PANEL_WIDTHS:
-        if fused_smem_bytes(d, bn) <= SMEM_LIMIT:
-            return bn
+def fused_padded(s: int) -> int:
+    """Floats a row of U's slice takes in shared memory (``padded``)."""
+    return s if s <= 2 else 4 if s <= 4 else 8
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def fused_rows(d: int, cluster: int) -> int:
+    """Rows of X a CTA of a cluster holds: ceil(d / cluster), rounded up to
+    :data:`FUSED_ROW_QUANTUM` (rows past d read as zeros)."""
+    return _round_up(max(1, -(-d // cluster)), FUSED_ROW_QUANTUM)
+
+
+def fused_smem_bytes(rows: int, bn: int, stages: int, s: int = 1) -> int:
+    """Shared memory of a fused CTA on the TMA path (``layout`` in
+    ``csrc/fused_stream.cuh``): barriers, exchange slots, the warps'
+    column partials and c .* z (bn x s each), U's slice, then the ring."""
+    e = 4 * bn * s
+    return (FUSED_BARRIER_BYTES + _round_up(FUSED_SLOTS * e, 128)
+            + _round_up(FUSED_THREADS // 32 * e, 128) + _round_up(e, 128)
+            + _round_up(4 * rows * fused_padded(s), 128)
+            + 4 * stages * rows * bn)
+
+
+class FusedPlan(NamedTuple):
+    """A fused call's shape on the card: ``cluster`` CTAs share each panel
+    of ``bn`` columns, each holding ``rows`` of its rows, with a ring of
+    ``stages`` stages."""
+    cluster: int
+    bn: int
+    stages: int
+    rows: int
+
+    @property
+    def groups(self) -> int:
+        return self.rows // FUSED_ROW_QUANTUM
+
+    @property
+    def lag(self) -> int:
+        """1: pass 2 of a panel runs after pass 1 of the next (three stages
+        or more), else 0."""
+        return 1 if self.stages >= 3 else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def fused_plan(d: int, s: int = 1, cluster: int | None = None
+               ) -> FusedPlan | None:
+    """The fit rule of the fused kernels at d rows and s columns: the
+    widest panel, on the smallest cluster, whose ring of three stages (the
+    pipelined exchange) fits one CTA's shared memory beside the rest; else
+    the same with two stages; None when nothing fits (d past 12,288 at one
+    column, 8,192 at five, 6,144 at eight: every shape the panels of
+    earlier versions took, and more), and then the product takes the
+    two-pass route. ``cluster`` restricts the choice to one
+    cluster size (checks only)."""
+    sizes = CLUSTER_SIZES if cluster is None else (cluster,)
+    for least in (3, 2):
+        for bn in FUSED_WIDTHS:
+            for q in sizes:
+                rows = fused_rows(d, q)
+                if rows // FUSED_ROW_QUANTUM > fused_max_groups(s):
+                    continue
+                free = SMEM_LIMIT - fused_smem_bytes(rows, bn, 0, s)
+                stages = min(FUSED_MAX_STAGES, free // (4 * rows * bn))
+                if stages >= least:
+                    return FusedPlan(q, bn, stages, rows)
     return None
 
 
-def fused_multi_threads(s: int) -> int:
-    """Threads per CTA of ``x_c_xt_multi`` at s columns (``threads_for``
-    in ``csrc/x_c_xt_multi.cu``): 1024 up to s = 5, 512 above, where the
-    per-thread sums would spill at 1024 threads' register budget."""
-    return 1024 if s <= 5 else 512
+class FusedSplit(NamedTuple):
+    """The panels of ``bn`` columns of an n-column X over ``clusters``
+    clusters: cluster ``k`` takes panels ``[bound(k), bound(k + 1))``
+    (``csrc/fused_stream.cuh`` computes the same bounds)."""
+    n: int
+    bn: int
+    clusters: int
+
+    @property
+    def panels(self) -> int:
+        return -(-self.n // self.bn)
+
+    def bound(self, k: int) -> int:
+        return k * self.panels // self.clusters
+
+    def owner(self, t: int) -> int:
+        """The cluster whose range holds panel ``t``."""
+        return ((t + 1) * self.clusters - 1) // self.panels
+
+    def columns(self, t: int) -> tuple[int, int]:
+        """The columns [lo, hi) of panel ``t`` (the last one ragged)."""
+        return t * self.bn, min(self.n, (t + 1) * self.bn)
 
 
-def fused_multi_smem_bytes(d: int, bn: int, s: int) -> int:
-    """Shared memory of one ``x_c_xt_multi`` CTA: the (d, bn) panel, the
-    CTA's partial Y (d, s), the warps' column partials and c .* Z."""
-    return 4 * (d * bn + d * s + (fused_multi_threads(s) // 32 + 1) * bn * s)
+@functools.lru_cache(maxsize=1024)
+def fused_split(n: int, bn: int, clusters: int) -> FusedSplit:
+    """The split of the fused kernels' panels; cached per shape."""
+    if n < 1 or bn < 1 or clusters < 1:
+        raise ValueError(f"n = {n}, bn = {bn} and clusters = {clusters} "
+                         f"must be positive")
+    return FusedSplit(n, bn, clusters)
 
 
-def fused_multi_panel_width(d: int, s: int) -> int | None:
-    """The fit rule of the fused multi-vector kernel at s columns: the
-    widest panel whose working set fits one CTA's shared memory (8 columns
-    at d = 4096 and s = 5, 4 at s = 8), or None when even 4 do not; then
-    the product takes the two-pass route."""
-    for bn in PANEL_WIDTHS:
-        if fused_multi_smem_bytes(d, bn, s) <= SMEM_LIMIT:
-            return bn
-    return None
+class FusedLaunch(NamedTuple):
+    """What a fused call ran: its plan, the clusters and the copy path."""
+    plan: FusedPlan
+    clusters: int
+    path: str
 
 
-def _grid(dev, n: int, bn: int, smem: int, threads: int) -> int:
-    """CTAs of a persistent panel kernel: as many as are resident at once
-    (by shared memory and threads), at most one per panel."""
-    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
-    return min(-(-n // bn), per_sm * _sm_count(dev.index or 0))
+# the last launch of each fused kernel
+last_fused: dict[str, FusedLaunch | None] = dict.fromkeys(
+    ("x_c_xt_u", "x_c_xt_multi"))
 
 
 def xt_u_slices(d: int, n: int, sm_count: int) -> int:
@@ -283,14 +376,48 @@ def x_cz(X, c, z, *, _ctas: int | None = None):
     return _stream(X_CZ, "x_cz", X, ld, (c, z), y, _ctas)
 
 
-def x_c_xt_u(X, c, u, *, _block_n: int | None = None):
+def _plan(name, d, s, cluster):
+    plan = fused_plan(d, s, cluster)
+    if plan is None:
+        raise ValueError(f"no {name} plan fits shared memory at d = {d}, "
+                         f"s = {s} (cluster = {cluster})")
+    return plan
+
+
+def _fused(name, X, ld, c, U, ldu, out, plan, clusters):
+    """Launch ``x_c_xt_u`` or ``x_c_xt_multi`` on ``plan``; record the path
+    and the clusters. ``clusters`` (None: as many as the card holds at
+    once) sizes the scratch of the clusters' partials."""
+    d, n = X.shape
+    s = out.shape[1] if out.dim() == 2 else 1
+    dev = X.device
+    cap = max(1, _sm_count(dev.index or 0) // plan.cluster)
+    scratch = torch.empty((max(cap, clusters or 0), d, s),
+                          dtype=torch.float32, device=dev)
+    path, used = ctypes.c_int(-1), ctypes.c_int(0)
+    tail = (plan.cluster, plan.bn, plan.stages, clusters or 0, cap,
+            ctypes.byref(path), ctypes.byref(used), stream_of(dev))
+    with torch.cuda.device(dev):
+        if name == "x_c_xt_u":
+            X_C_XT_U.launch(ptr(X), ld, ptr(c), ptr(U), ptr(out),
+                            ptr(scratch), d, n, *tail)
+        else:
+            X_C_XT_MULTI.launch(ptr(X), ld, ptr(c), ptr(U), ldu, ptr(out),
+                                ptr(scratch), d, n, s, *tail)
+    last_path[name] = PATHS[path.value]
+    last_fused[name] = FusedLaunch(plan, used.value, last_path[name])
+    return out
+
+
+def x_c_xt_u(X, c, u, *, _cluster: int | None = None,
+             _clusters: int | None = None):
     """y = X (c .* (X^T u)) on the card, in one pass over X.
 
-    X (d, n) row-major f32, c (optional, n,), u (d,) -> y (d,). The panel
-    is :func:`fused_panel_width` columns wide; raises ValueError when no
-    panel fits shared memory. ``_block_n`` (4, 8, 16 or 32) overrides the
-    width for the checks that hold every width at one ``d``; no solver
-    path sets it.
+    X (d, n) row-major f32, c (optional, n,), u (d,) -> y (d,). The plan is
+    :func:`fused_plan`'s; raises ValueError when none fits shared memory.
+    ``_cluster`` fixes the cluster size and ``_clusters`` the number of
+    clusters, for the checks that hold every plan and split; no solver
+    path sets them.
     """
     dev = X.device
     check_card(dev)
@@ -298,19 +425,11 @@ def x_c_xt_u(X, c, u, *, _block_n: int | None = None):
     d, n = X.shape
     _check_vector("u", u, d, dev)
     _check_vector("c", c, n, dev)
-    bn = fused_panel_width(d) if _block_n is None else _block_n
-    if bn not in PANEL_WIDTHS or fused_smem_bytes(d, bn) > SMEM_LIMIT:
-        raise ValueError(f"no x_c_xt_u panel fits shared memory at d = {d} "
-                         f"(block_n = {bn})")
+    plan = _plan("x_c_xt_u", d, 1, _cluster)
     y = torch.empty(d, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return y.zero_()
-    grid = _grid(dev, n, bn, fused_smem_bytes(d, bn), FUSED_THREADS)
-    part = torch.empty((grid, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        X_C_XT_U.launch(ptr(X), ld, ptr(c), ptr(u), ptr(y), ptr(part), d, n,
-                        bn, grid, FUSED_THREADS, stream_of(dev))
-    return y
+    return _fused("x_c_xt_u", X, ld, c, u, 1, y, plan, _clusters)
 
 
 def xt_multi(X, U):
@@ -351,15 +470,15 @@ def x_cz_multi(X, c, Z):
     return Y
 
 
-def x_c_xt_multi(X, c, U, *, _block_n: int | None = None):
+def x_c_xt_multi(X, c, U, *, _cluster: int | None = None,
+                 _clusters: int | None = None):
     """Y = X (c[:, None] .* (X^T U)) on the card, in one pass over X.
 
     X (d, n) row-major f32, c (optional, n,), U (d, s) row-major (any row
     stride, 1 to :data:`~repro_torch.kernels.build.MAX_COLS` columns) ->
-    Y (d, s). The panel is :func:`fused_multi_panel_width` columns wide;
-    raises ValueError when no panel fits shared memory. ``_block_n`` (4,
-    8, 16 or 32) overrides the width for the checks that hold every width
-    at one ``d``; no solver path sets it.
+    Y (d, s). The plan is :func:`fused_plan`'s at s columns; raises
+    ValueError when none fits shared memory. ``_cluster`` and
+    ``_clusters`` as for :func:`x_c_xt_u`.
     """
     dev = X.device
     check_card(dev)
@@ -367,18 +486,8 @@ def x_c_xt_multi(X, c, U, *, _block_n: int | None = None):
     d, n = X.shape
     s, ldu = check_columns("U", U, d, dev)
     _check_vector("c", c, n, dev)
-    bn = fused_multi_panel_width(d, s) if _block_n is None else _block_n
-    if bn not in PANEL_WIDTHS or fused_multi_smem_bytes(d, bn, s) > SMEM_LIMIT:
-        raise ValueError(f"no x_c_xt_multi panel fits shared memory at "
-                         f"d = {d}, s = {s} (block_n = {bn})")
+    plan = _plan("x_c_xt_multi", d, s, _cluster)
     Y = torch.empty((d, s), dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return Y.zero_()
-    threads = fused_multi_threads(s)
-    grid = _grid(dev, n, bn, fused_multi_smem_bytes(d, bn, s), threads)
-    part = torch.empty((grid, d, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        X_C_XT_MULTI.launch(ptr(X), ld, ptr(c), ptr(U), ldu, ptr(Y),
-                            ptr(part), d, n, s, bn, grid, threads,
-                            stream_of(dev))
-    return Y
+    return _fused("x_c_xt_multi", X, ld, c, U, ldu, Y, plan, _clusters)

@@ -106,13 +106,13 @@ def x_c_xt_multi(X, c, U):
 
     X (d, n), c (optional, n,), U (d, s) row-major (any row stride) ->
     Y (d, s) f32. Legal where :func:`x_c_xt_u` is. On the card each group
-    of at most MAX_COLS columns is the fused kernel when its panel fits
-    shared memory (:func:`repro_torch.kernels.glm_hvp.fused_multi_panel_width`),
-    else the two-pass route: the ``xt_multi`` kernel, then ``x_cz_multi``.
+    of at most MAX_COLS columns is the fused kernel when a plan fits
+    shared memory (:func:`repro_torch.kernels.glm_hvp.fused_plan`), else
+    the two-pass route: the ``xt_multi`` kernel, then ``x_cz_multi``.
     """
     if _on_cuda(X, c, U):
         def launch(G):
-            if _dense.fused_multi_panel_width(X.shape[0], G.shape[1]):
+            if _dense.fused_plan(X.shape[0], G.shape[1]) is not None:
                 return _dense.x_c_xt_multi(X, c, G)
             return _dense.x_cz_multi(X, c, _dense.xt_multi(X, G))
         return _by_columns(launch, U)
@@ -124,12 +124,12 @@ def x_c_xt_u(X, c, u):
 
     Legal wherever no collective separates the two passes (every DiSCO-S
     local product, single-shard DiSCO-F). On the card it is the fused
-    kernel when its panel fits shared memory
-    (:func:`repro_torch.kernels.glm_hvp.fused_panel_width`), else the
-    two-pass route: the ``xt_u`` kernel, then ``x_cz``.
+    kernel when a plan fits shared memory
+    (:func:`repro_torch.kernels.glm_hvp.fused_plan`), else the two-pass
+    route: the ``xt_u`` kernel, then ``x_cz``.
     """
     if _on_cuda(X, c, u):
-        if _dense.fused_panel_width(X.shape[0]) is not None:
+        if _dense.fused_plan(X.shape[0]) is not None:
             return _dense.x_c_xt_u(X, c, u)
         return _dense.x_cz(X, c, _dense.xt_u(X, u))
     if c is None:

@@ -144,12 +144,16 @@ def test_cuda_dense_kernels_match_plain(dev, shape, with_c):
         assert _rel(got, want) <= 1e-5
 
 
-@pytest.mark.parametrize("block_n", glm_hvp.PANEL_WIDTHS)
-def test_cuda_fused_every_panel_width(dev, block_n):
-    X, u, _, c = _dense(dev, 300, 1001, seed=block_n)
-    got = glm_hvp.x_c_xt_u(X, c, u, _block_n=block_n)
+@pytest.mark.parametrize("cluster", glm_hvp.CLUSTER_SIZES)
+def test_cuda_fused_every_panel_width(dev, cluster):
+    """x_c_xt_u on the fit rule's plan for each cluster size (ranks past d
+    at 4 and 8): within 1e-5 of the plain version, repeatable."""
+    X, u, _, c = _dense(dev, 300, 1001, seed=cluster)
+    got = glm_hvp.x_c_xt_u(X, c, u, _cluster=cluster)
+    assert glm_hvp.last_fused["x_c_xt_u"].plan == \
+        glm_hvp.fused_plan(300, 1, cluster)
     assert _rel(got, ref.ref_x_c_xt_u(X, c, u)) <= 1e-5
-    again = glm_hvp.x_c_xt_u(X, c, u, _block_n=block_n)
+    again = glm_hvp.x_c_xt_u(X, c, u, _cluster=cluster)
     assert torch.equal(got, again)          # no atomics: repeatable
 
 
@@ -229,6 +233,89 @@ def test_cuda_dense_stream_edge_shapes(dev, name, ctas):
         assert torch.equal(got, again)
 
 
+def _fused_edge(dev, name):
+    """An X at an edge of the fused kernels' plan and split
+    (csrc/fused_stream.cuh), and the copy path it calls for: a tensor map
+    needs ld a multiple of 4 and a 16-byte aligned X."""
+    g = torch.Generator(device=dev).manual_seed(7 + len(name))
+    mat = lambda d, n: torch.randn((d, n), generator=g, device=dev)
+    wide = mat(64, 3000)
+    solver = mat(512, 4096)     # the dense slice at d cut 8-fold
+    return {
+        "ragged_n": (mat(70, 1101), "direct"),
+        "ragged_panel": (mat(70, 1100), "bulk"),
+        "d_below_q": (mat(5, 2048), "bulk"),
+        "d_not_multiple_of_q": (mat(1001, 700), "bulk"),
+        "n_below_bn": (mat(64, 20), "bulk"),
+        "n_below_bn_direct": (mat(64, 7), "direct"),
+        "d1_n1": (mat(1, 1), "direct"),
+        "d1_n4": (mat(1, 4), "bulk"),
+        "view_at_0": (wide[:, 0:1024], "bulk"),
+        "view_at_1": (wide[:, 1:1025], "direct"),
+        "view_at_4": (wide[:, 4:1028], "bulk"),
+        "ld_above_n": (mat(40, 1028)[:, :1000], "bulk"),
+        "ld_not_4": (mat(40, 1027)[:, :1024], "direct"),
+        "S_m4_view": (solver[:, :1024], "bulk"),
+        "F_m4_rows": (solver[:128], "bulk"),
+    }[name]
+
+
+FUSED_EDGES = ["ragged_n", "ragged_panel", "d_below_q",
+               "d_not_multiple_of_q", "n_below_bn", "n_below_bn_direct",
+               "d1_n1", "d1_n4", "view_at_0", "view_at_1", "view_at_4",
+               "ld_above_n", "ld_not_4", "S_m4_view", "F_m4_rows"]
+
+
+@pytest.mark.parametrize("name", FUSED_EDGES)
+@pytest.mark.parametrize("cluster", glm_hvp.CLUSTER_SIZES)
+def test_cuda_fused_edge_shapes(dev, name, cluster):
+    """K5 and K10 (s = 1..8, U the first s of s + 1 columns) at an edge of
+    the plan and split, on each cluster size the fit rule allows there, on
+    as many clusters as fit and on 3: on the copy path the shape calls
+    for, within 1e-5 of the plain versions, repeated bit for bit."""
+    X, path = _fused_edge(dev, name)
+    d, n = X.shape
+    g = torch.Generator(device=dev).manual_seed(d * n + cluster)
+    u = torch.randn(d, generator=g, device=dev)
+    c = torch.rand(n, generator=g, device=dev)
+    ran = 0
+    for clusters in (None, 3):
+        if glm_hvp.fused_plan(d, 1, cluster) is not None:
+            for cc in (None, c):
+                kw = dict(_cluster=cluster, _clusters=clusters)
+                got = glm_hvp.x_c_xt_u(X, cc, u, **kw)
+                run = glm_hvp.last_fused["x_c_xt_u"]
+                again = glm_hvp.x_c_xt_u(X, cc, u, **kw)
+                torch.cuda.synchronize()
+                assert run.path == glm_hvp.last_path["x_c_xt_u"] == path
+                assert run.plan.cluster == cluster
+                assert run.clusters == (clusters or run.clusters) >= 1
+                A = X.contiguous()
+                zu = ref.ref_xt_u(A, u)
+                want = ref.ref_x_cz(A, zu if cc is None else cc * zu)
+                assert _rel(got, want) <= 1e-5 or float(
+                    torch.linalg.norm(want)) == 0.0
+                assert torch.equal(got, again)
+                ran += 1
+        for s in range(1, build.MAX_COLS + 1):
+            if glm_hvp.fused_plan(d, s, cluster) is None:
+                continue
+            U = _basis(dev, d, s, s + cluster, strided=True)
+            got = glm_hvp.x_c_xt_multi(X, c, U, _cluster=cluster,
+                                       _clusters=clusters)
+            again = glm_hvp.x_c_xt_multi(X, c, U, _cluster=cluster,
+                                         _clusters=clusters)
+            torch.cuda.synchronize()
+            assert glm_hvp.last_path["x_c_xt_multi"] == path
+            assert got.shape == (d, s)
+            assert _rel(got, ref.ref_x_c_xt_multi(X.contiguous(), c, U)) \
+                <= 1e-5
+            assert torch.equal(got, again)
+            ran += 1
+    if not ran:
+        pytest.skip(f"no plan of {cluster} CTAs a cluster at d = {d}")
+
+
 def test_cuda_dense_stream_refuses_another_split(dev, monkeypatch):
     """The entry points take the piece shape the wrapper's split assumes
     and refuse one that is not their header's, before any launch."""
@@ -250,8 +337,8 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
     ops.xt_u(X, u)
     ops.x_cz_local(X, c, z)
     ops.x_c_xt_u(X, c, u)
-    big = torch.zeros((12_000, 8), device=dev)   # past the fit rule
-    ops.x_c_xt_u(big, None, torch.zeros(12_000, device=dev))
+    big = torch.zeros((13_000, 8), device=dev)   # past the fit rule
+    ops.x_c_xt_u(big, None, torch.zeros(13_000, device=dev))
     ops.x_c_xt_multi(X, c, torch.ones((64, 5), device=dev))
     ops.x_c_xt_multi(X, c, torch.ones((64, 20), device=dev))   # 8 + 8 + 4
     bigger = torch.zeros((20_000, 8), device=dev)   # past the multi fit rule
@@ -659,26 +746,25 @@ def test_cuda_sstep_disco_fit_matches_cpu(dev, case):
 @pytest.mark.parametrize("s", MULTI_S)
 @pytest.mark.parametrize("with_c", [False, True])
 def test_cuda_x_c_xt_multi_matches_plain(dev, shape, s, with_c):
-    """At every panel width that fits, on contiguous and strided U: the
-    plain version (relative L2 <= 1e-5), repeatable bit for bit; and the
-    kernel against the xt_multi + x_cz_multi pair and, column by column,
-    against x_c_xt_u."""
+    """On every cluster size the fit rule allows, on contiguous and
+    strided U: the plain version (relative L2 <= 1e-5), repeatable bit for
+    bit; and the kernel against the xt_multi + x_cz_multi pair and, column
+    by column, against x_c_xt_u."""
     d, n = shape
     X, _, _, c = _dense(dev, d, n, seed=d + n + s)
     c = c if with_c else None
     for strided in (False, True):
         U = _basis(dev, d, s, 7 * s, strided=strided)
         want = ref.ref_x_c_xt_multi(X, c, U)
-        widths = [bn for bn in glm_hvp.PANEL_WIDTHS
-                  if glm_hvp.fused_multi_smem_bytes(d, bn, s)
-                  <= glm_hvp.SMEM_LIMIT]
-        assert widths
-        for bn in widths:
-            got = glm_hvp.x_c_xt_multi(X, c, U, _block_n=bn)
+        sizes = [q for q in glm_hvp.CLUSTER_SIZES
+                 if glm_hvp.fused_plan(d, s, q) is not None]
+        assert sizes
+        for q in sizes:
+            got = glm_hvp.x_c_xt_multi(X, c, U, _cluster=q)
             torch.cuda.synchronize()
-            assert _rel(got, want) <= 1e-5, (bn, strided)
+            assert _rel(got, want) <= 1e-5, (q, strided)
             assert torch.equal(got, glm_hvp.x_c_xt_multi(X, c, U,
-                                                         _block_n=bn))
+                                                         _cluster=q))
     got = glm_hvp.x_c_xt_multi(X, c, U)
     pair = glm_hvp.x_cz_multi(X, c, glm_hvp.xt_multi(X, U))
     assert _rel(got, pair) <= 1e-5

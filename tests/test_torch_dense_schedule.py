@@ -191,7 +191,8 @@ def test_header_and_wrapper_agree_on_the_piece():
                                                    glm_hvp.TILE_COLS)
     assert default_ctas("cpu") == 132
     assert glm_hvp.PATHS == ("direct", "bulk")
-    assert set(glm_hvp.last_path) == {"xt_u", "x_cz"}
+    assert set(glm_hvp.last_path) == {"xt_u", "x_cz", "x_c_xt_u",
+                                      "x_c_xt_multi"}
     for src in ("xt_u.cu", "x_cz.cu"):
         assert '#include "dense_stream.cuh"' in (build.CSRC / src).read_text()
 

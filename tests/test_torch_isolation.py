@@ -103,7 +103,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
 def test_no_jax_or_repro_imports_in_port_sources():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "chip_k11_variants.py",
-         ROOT / "chip_hvp_variants.py", ROOT / "chip_dense_variants.py"]
+         ROOT / "chip_hvp_variants.py", ROOT / "chip_dense_variants.py",
+         ROOT / "chip_fused_variants.py"]
     assert len(files) > 10
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())

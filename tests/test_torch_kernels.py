@@ -291,7 +291,9 @@ def test_kernel_sources_and_build_target():
                                        "ell_tiles.cuh", "common.cuh"]
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == ["common.cuh"]
-    assert names(build.X_C_XT_MULTI) == ["partials.cuh", "common.cuh"]
+    assert names(build.X_C_XT_MULTI) == ["fused_stream.cuh", "ell_tiles.cuh",
+                                         "partials.cuh", "common.cuh"]
+    assert names(build.X_C_XT_U) == names(build.X_C_XT_MULTI)
     assert names(build.FLASH_ATTENTION) == ["common.cuh"]
     # the C header's column cap is the one the wrappers check
     assert f"kMaxCols = {build.MAX_COLS};" in (
@@ -398,16 +400,22 @@ def test_dense_ops_take_strided_views():
 
 
 def test_fused_fit_rule():
-    """The fused kernel's panel fits one CTA's shared memory: 8 columns
-    at d = 4096, none past d of about 11,000."""
-    assert glm_hvp.fused_panel_width(4096) == 8
-    assert glm_hvp.fused_panel_width(1024) == 32
-    assert glm_hvp.fused_panel_width(11_000) == 4
-    assert glm_hvp.fused_panel_width(12_000) is None
-    for d in (1, 200, 4096, 11_000):
-        bn = glm_hvp.fused_panel_width(d)
-        assert glm_hvp.fused_smem_bytes(d, bn) <= glm_hvp.SMEM_LIMIT
-    assert glm_hvp.fused_smem_bytes(4096, 8) == 4 * (4096 * 9 + 33 * 8)
+    """The fused kernel's plan fits one CTA's shared memory: clusters of 8
+    CTAs of 512 rows sharing panels of 32 columns at d = 4096, a cluster of
+    2 at 1024, one CTA at 200, panels of 16 on two stages at 11,000, none
+    past 12,288."""
+    assert glm_hvp.fused_plan(4096) == glm_hvp.FusedPlan(8, 32, 3, 512)
+    assert glm_hvp.fused_plan(1024) == glm_hvp.FusedPlan(2, 32, 3, 512)
+    assert glm_hvp.fused_plan(200) == glm_hvp.FusedPlan(1, 32, 4, 256)
+    assert glm_hvp.fused_plan(11_000) == glm_hvp.FusedPlan(8, 16, 2, 1536)
+    assert glm_hvp.fused_plan(12_288) is not None
+    assert glm_hvp.fused_plan(12_289) is None
+    for d in (1, 200, 4096, 11_000, 12_288):
+        plan = glm_hvp.fused_plan(d)
+        assert glm_hvp.fused_smem_bytes(plan.rows, plan.bn, plan.stages) <= \
+            glm_hvp.SMEM_LIMIT
+    assert glm_hvp.fused_smem_bytes(512, 32, 3) == \
+        128 + 4 * 128 + 8 * 128 + 128 + 512 * 4 + 3 * 512 * 32 * 4
 
 
 def test_fused_op_routes_past_the_fit_rule(monkeypatch):
@@ -421,7 +429,7 @@ def test_fused_op_routes_past_the_fit_rule(monkeypatch):
                         lambda X, c, z: calls.append("x_cz") or X @ (c * z))
     monkeypatch.setattr(glm_hvp, "x_c_xt_u",
                         lambda X, c, u: calls.append("x_c_xt_u"))
-    for d in (4096, 12_000):
+    for d in (4096, 13_000):
         X = torch.zeros((d, 3))
         tops.x_c_xt_u(X, torch.ones(3), torch.ones(d))
     assert calls == ["x_c_xt_u", "xt_u", "x_cz"]
@@ -530,25 +538,29 @@ def test_multi_ops_split_columns(monkeypatch):
 
 
 def test_fused_multi_fit_rule():
-    """The fused multi-vector kernel's panel fits one CTA's shared memory
-    beside the partial Y (d, s): 8 columns at d = 4096 up to s = 5 (about
-    218 KB at s = 5, 1024 threads), 4 at s = 6 to 8 (512 threads), none
-    once even 4 do not fit."""
-    assert glm_hvp.fused_multi_smem_bytes(4096, 8, 5) == \
-        4 * (4096 * 13 + 33 * 8 * 5)
-    assert glm_hvp.fused_multi_smem_bytes(4096, 4, 8) == \
-        4 * (4096 * 12 + 17 * 4 * 8)
-    assert [glm_hvp.fused_multi_panel_width(4096, s)
-            for s in range(1, 9)] == [8, 8, 8, 8, 8, 4, 4, 4]
-    assert [glm_hvp.fused_multi_threads(s) for s in (1, 5, 6, 8)] == \
-        [1024, 1024, 512, 512]
-    assert glm_hvp.fused_multi_panel_width(1024, 1) == 32
-    assert glm_hvp.fused_multi_panel_width(20_000, 8) is None
+    """The fused multi-vector kernel's plan fits one CTA's shared memory
+    beside U's slice (rows x s, padded to 1, 2, 4 or 8) and the partial Y
+    of its rows in registers (at most 6, 5, 5, 4, 4, 3, 3, 3 row groups of
+    256 at s = 1..8): at d = 4096 the same plan at every s (about 221 KB
+    at s = 8), none past 8,192 rows at s = 5 and 6,144 at s = 8."""
+    assert glm_hvp.fused_smem_bytes(512, 32, 3, 5) == \
+        128 + 4 * 640 + 8 * 640 + 640 + 512 * 8 * 4 + 3 * 65_536
+    assert glm_hvp.fused_smem_bytes(512, 32, 3, 8) == 226_432
+    assert [glm_hvp.fused_plan(4096, s) for s in range(1, 9)] == \
+        [glm_hvp.FusedPlan(8, 32, 3, 512)] * 8
+    assert [glm_hvp.fused_max_groups(s) for s in (1, 2, 4, 5, 6, 8)] == \
+        [6, 5, 4, 4, 3, 3]
+    assert glm_hvp.fused_plan(1024, 1) == glm_hvp.FusedPlan(2, 32, 3, 512)
+    assert glm_hvp.fused_plan(8192, 5) is not None
+    assert glm_hvp.fused_plan(8193, 5) is None
+    assert glm_hvp.fused_plan(6144, 8) is not None
+    assert glm_hvp.fused_plan(20_000, 8) is None
     for d in (1, 200, 4096, 9000):
         for s in range(1, build.MAX_COLS + 1):
-            bn = glm_hvp.fused_multi_panel_width(d, s)
-            if bn is not None:
-                assert glm_hvp.fused_multi_smem_bytes(d, bn, s) <= \
+            plan = glm_hvp.fused_plan(d, s)
+            if plan is not None:
+                assert glm_hvp.fused_smem_bytes(plan.rows, plan.bn,
+                                                plan.stages, s) <= \
                     glm_hvp.SMEM_LIMIT
 
 
