@@ -42,7 +42,12 @@ Eight phases; any failed check makes the exit code nonzero.
    bit. The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
-   dense s-step included), a λ-path and softmax.
+   dense s-step included), a λ-path and softmax; and the paper's
+   comparisons: the original DiSCO (``precond='sag'``, DiSCO-S) sparse
+   and dense at m = 1 and 4 and one s-step solve, Hessian subsampling
+   (frac 0.5, the same masks on both) on both partitions, sparse and
+   dense, at m = 1 and 4, and GD, DANE and CoCoA+ (logistic and
+   quadratic) at m = 1 and 4.
 3. Sparse slice: ``disco_fit`` at the shape of LIBSVM rcv1.binary's
    training split (d = 47,236 features, n = 20,242 samples, about 1.5 M
    nonzeros, synthetic power-law data from a seed): DiSCO-S and DiSCO-F
@@ -63,7 +68,13 @@ Eight phases; any failed check makes the exit code nonzero.
    Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
    held to the launches the code predicts, the classic convergence check
-   and the classic m = 1 ``w``; the first is profiled.
+   and the classic m = 1 ``w``; the first is profiled. Then the original
+   DiSCO (SAG, sag_epochs = 5, tau = 100) on DiSCO-S at m = 1 and 4, 3
+   Newton steps (f falling every step, the gradient norm falling, the
+   predicted launches; one SAG application timed: ms, launches, device
+   time), and DiSCO-F with ``hessian_subsample`` 0.5 and 0.0625 at
+   m = 1 and 4, 3 steps (finite, one mask a step of the right shape and
+   mean, the predicted launches; f printed; the first profiled).
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
@@ -90,7 +101,13 @@ Eight phases; any failed check makes the exit code nonzero.
    same model), multinomial softmax with K = 10 classes (DiSCO-S m = 1
    and DiSCO-F m = 4, classic and s-step), and Poisson and Huber
    regression (fused DiSCO-S); each held to its predicted launches or
-   its convergence, and the λ-path's last point to the classic ``w``.
+   its convergence, and the λ-path's last point to the classic ``w``;
+   GD and DANE at m = 1 and 4 (ms per outer iteration, rounds, the
+   gradient norm falling). Then Figure 3 on ``make_regime('rcv1_like')``
+   (m = 4, logistic): DiSCO-F, DiSCO-S and the original DiSCO on the
+   dense kernels, DANE, and CoCoA+ (2 outer iterations), each's
+   gradient norm and rounds per iteration, and CoCoA+'s launches per
+   outer step.
 6. Flash attention timed: K11 at olmo-1b's call in a 4 x 4,096-token
    prefill, ``(4, 16, 4096, 128)`` causal in bf16 (contiguous, and on the
    head-major views the model passes) and in f32, at
@@ -173,6 +190,17 @@ SOFTMAX_K = 10
 SOFTMAX_SOLVE = dict(lam=1e-3, max_outer=8, grad_tol=0.0, use_kernel=True)
 SOFTMAX_RUNS = [("samples", 1, 1), ("samples", 1, 2), ("features", 4, 1),
                 ("features", 4, 2)]
+# the paper's comparisons: the original DiSCO (SAG preconditioner,
+# Figure 3) on DiSCO-S, Hessian subsampling (Figure 5's ends below 1) on
+# DiSCO-F, both on the sparse slice; GD and DANE on the dense slice's X;
+# Figure 3's five methods on make_regime('rcv1_like')
+SAG_SOLVE = dict(SOLVE, precond="sag", sag_epochs=5, max_outer=3)
+SUBSAMPLE_FRACS = (0.5, 0.0625)
+SUBSAMPLE_SOLVE = dict(SOLVE, max_outer=3)
+COMPARISON_SHARDS = (1, 4)
+BASELINE_OUTER = 3
+FIG3 = dict(regime="rcv1_like", lam=1e-4, m=4, outer=3, cocoa_outer=2)
+COCOA_PROBE_STEPS = (16, 32)     # local steps of the two profiled passes
 
 # flash attention (K11) and the dense decoder serving slice
 BF16_FLOPS_PER_S = 989.4e12      # bf16 dense tensor-core rate
@@ -1252,6 +1280,9 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
     sstep_phase(torch, rt, build, X, y, SOLVE, SSTEP_RUNS,
                 {p: results[(p, 1, False)] for p in ("samples", "features")},
                 True, launches)
+    sag_slice_runs(torch, rt, build, X, y, results[("samples", 1, False)][1],
+                   launches)
+    subsample_slice_runs(torch, rt, build, X, y, launches)
     return timings, launches
 
 
@@ -1700,6 +1731,7 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
                       results[("samples", 1, False)], launches)
     softmax_phase(torch, rt, build, X, launches)
     glm_losses_phase(torch, rt, build, X, model, launches)
+    baselines_dense_phase(torch, rt, X, y)
     del X, y, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2045,6 +2077,383 @@ def small_reference(torch, rt) -> None:
                            for dev in ("cuda", "cpu"))
         same_solve(f"small softmax K={SOFTMAX_K} s={s} {partition} m={m}",
                    on_card, on_cpu, w="W")
+
+
+# ---------------------------------------------------------------------------
+# the paper's comparisons: original DiSCO (SAG), Hessian subsampling, and
+# the GD / DANE / CoCoA+ baselines
+# ---------------------------------------------------------------------------
+
+def same_baseline(tag, on_card, on_cpu) -> None:
+    """A baseline's fit on the card equals the CPU's: ``w`` within rtol
+    1e-4 / atol 1e-6, the per-iteration gradient norms within rtol 1e-4
+    and the same ledger."""
+    import numpy as np
+    (wa, ha, la), (wb, hb, lb) = on_card, on_cpu
+    close = bool(np.allclose(wa, wb, rtol=1e-4, atol=1e-6))
+    ga = np.array([h["grad_norm"] for h in ha])
+    gb = np.array([h["grad_norm"] for h in hb])
+    grads = ga.shape == gb.shape and bool(np.allclose(ga, gb, rtol=1e-4))
+    check(close and grads and la == lb,
+          f"{tag} on the card vs the CPU: w within rtol 1e-4 / atol 1e-6 "
+          f"{close} (max abs diff {float(np.max(np.abs(wa - wb))):.2e}), "
+          f"grad norms {grads}, ledger {la == lb}")
+
+
+def small_comparisons(torch, rt) -> None:
+    """The comparisons on small problems, card against CPU: the original
+    DiSCO (``precond='sag'``, DiSCO-S) sparse and dense at m = 1 and 4
+    and one sparse s-step solve (s = 3); Hessian subsampling (frac 0.5,
+    lam 1e-2, the same seed and so the same masks on both) on both
+    partitions, sparse and dense, at m = 1 and 4; GD, DANE and CoCoA+,
+    logistic and quadratic, at m = 1 and 4."""
+    base = dict(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                grad_tol=0.0)
+    Xs, ys, _ = rt.make_sparse_glm_data(d=96, n=200, density=0.2,
+                                        alpha=0.8, beta=0.5, seed=1)
+    Xd, yd, _ = rt.make_glm_data(d=98, n=202, seed=1)
+    problems = (("sparse", Xs, ys, dict(ell_block_d=16, ell_block_n=16)),
+                ("dense", Xd, yd, dict(use_kernel=True)))
+    for kind, X, y, kw in problems:
+        runs = ((1, 1), (4, 1)) + (((1, 3),) if kind == "sparse" else ())
+        for m, s in runs:
+            cfg = rt.DiscoConfig(partition="samples", precond="sag",
+                                 sag_epochs=5, pcg_block_s=s, **base, **kw)
+            group = rt.InProcessGroup(m)
+            same_solve(f"small {kind} SAG DiSCO-S m={m}"
+                       + ("" if s == 1 else f" s-step s={s}"),
+                       rt.disco_fit(X, y, cfg, group=group, device="cuda"),
+                       rt.disco_fit(X, y, cfg, group=group, device="cpu"))
+        for partition in ("samples", "features"):
+            for m in COMPARISON_SHARDS:
+                cfg = rt.DiscoConfig(partition=partition,
+                                     hessian_subsample=0.5,
+                                     **dict(base, lam=1e-2), **kw)
+                group = rt.InProcessGroup(m)
+                same_solve(f"small {kind} subsampled 0.5 "
+                           f"{run_tag(partition, m, False)}",
+                           rt.disco_fit(X, y, cfg, group=group,
+                                        device="cuda"),
+                           rt.disco_fit(X, y, cfg, group=group,
+                                        device="cpu"))
+    X, y, _ = rt.make_glm_data(d=40, n=202, seed=2)
+    for loss in ("logistic", "quadratic"):
+        for name, fit, cfg in (
+                ("GD", rt.gd_fit, rt.GDConfig(loss=loss, lam=1e-3,
+                                              max_outer=8)),
+                ("DANE", rt.dane_fit, rt.DaneConfig(loss=loss, lam=1e-3,
+                                                    max_outer=3)),
+                ("CoCoA+", rt.cocoa_fit, rt.CocoaConfig(loss=loss, lam=1e-3,
+                                                        max_outer=3))):
+            for m in COMPARISON_SHARDS:
+                group = rt.InProcessGroup(m)
+                same_baseline(f"small {name} {loss} m={m}",
+                              fit(X, y, cfg, group=group, device="cuda"),
+                              fit(X, y, cfg, group=group, device="cpu"))
+
+
+def launches_and_busy(torch, fn) -> dict:
+    """``fn()`` once under the profiler: its device launches (every
+    device-side event: kernels, copies, fills), device busy time, wall
+    time and busy share."""
+    wall, rows = device_profile(torch, fn)
+    busy = sum(r[0] for r in rows) * 1e-6
+    return dict(launches=sum(r[1] for r in rows), device_ms=busy * 1e3,
+                profiled_wall_ms=wall * 1e3,
+                busy_share=busy / wall if wall > 0 else None)
+
+
+def time_sag_application(torch, solver) -> dict:
+    """One SAG application (``sag_epochs`` x tau serial steps) on the
+    solver's replicated X_tau slab, with the first step's phi'' = 1/4:
+    ms between CUDA events (mean of 3, after a warm-up: the launches' host
+    time included, as the solve pays it) and one more under the profiler
+    (launches, device time, busy share)."""
+    from repro_torch.core.preconditioner import sag_solve
+    cfg = solver.cfg
+    X_tau = solver.X_tau
+    coeffs = torch.full((X_tau.shape[1],), 0.25, device=X_tau.device)
+    g = torch.Generator(device=X_tau.device).manual_seed(0)
+    r = torch.randn(X_tau.shape[0], generator=g, device=X_tau.device)
+
+    def apply():
+        return sag_solve(X_tau, coeffs, cfg.lam, cfg.mu, r,
+                         epochs=cfg.sag_epochs)
+    apply()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        apply()
+    stop.record()
+    torch.cuda.synchronize()
+    row = dict(ms=start.elapsed_time(stop) / 3,
+               steps=cfg.sag_epochs * X_tau.shape[1],
+               slab_bytes=X_tau.numel() * 4)
+    row.update(launches_and_busy(torch, apply))
+    return row
+
+
+def classic_ell_launches(m, steps, iters) -> dict:
+    """ell_mv launches of a classic two-pass sparse fit: margins and
+    gradient, one per shard a Newton step, and two per shard a PCG
+    iteration (the HVP's two passes); no other sparse kernel."""
+    n = dict.fromkeys(SPARSE_KERNELS, 0)
+    n["ell_mv"] = 2 * m * (steps + iters)
+    return n
+
+
+def f_decreases(hist) -> bool:
+    return all(b["f"] < a["f"] for a, b in zip(hist, hist[1:]))
+
+
+def sag_slice_runs(torch, rt, build, X, y, woodbury, launches) -> None:
+    """The original DiSCO at the sparse slice's shape: DiSCO-S with
+    ``precond='sag'`` (sag_epochs = 5, tau = 100) at m = 1 and 4, 3 Newton
+    steps, two-pass. Each: the launches the code predicts, f decreasing
+    at every step and the gradient norm falling; one SAG application
+    timed (ms, launches, busy share) on the first; the steps' PCG
+    iterations and time per SAG application against the classic
+    Woodbury run (``woodbury``: its PCG iterations per step)."""
+    ws = {}
+    for m in COMPARISON_SHARDS:
+        tag = f"SAG {run_tag('samples', m, False)}"
+        cfg = rt.DiscoConfig(partition="samples", **SAG_SOLVE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        sag = time_sag_application(torch, solver) if m == 1 else None
+        res, counts = fit_counted(torch, build, solver)
+        for k in SPARSE_KERNELS:
+            launches[k] += counts[k]
+        hist = res.history
+        iters = [int(h["pcg_iters"]) for h in hist]
+        # one application before PCG's loop and one an iteration
+        apps = sum(iters) + len(hist)
+        fit_s = sum(h["iter_s"] for h in hist)
+        row = run_row(torch, tag, res, counts, setup_s,
+                      f=[h["f"] for h in hist],
+                      woodbury_pcg_iters=woodbury[:len(hist)],
+                      sag_applications=apps,
+                      ms_per_application_in_fit=fit_s / apps * 1e3,
+                      sag_application=sag)
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and res.w.shape == (X.shape[0],),
+              f"{tag}: finite w of shape (d,)")
+        check_f_decreases(tag, hist)
+        check(row["grad_norm_last"] < row["grad_norm_first"],
+              f"{tag}: grad_norm {row['grad_norm_first']:.3e} -> "
+              f"{row['grad_norm_last']:.3e}")
+        want = classic_ell_launches(m, len(hist), sum(iters))
+        got = {k: counts[k] for k in want}
+        check(got == want, f"{tag}: launches as predicted "
+                           f"{json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        if sag is not None:
+            print(f"{tag}: one SAG application {sag['ms']:.2f} ms, "
+                  f"{sag['launches']} launches, device {sag['device_ms']:.2f}"
+                  f" ms, busy {sag['busy_share']}", flush=True)
+        ws[m] = res.w
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"SAG DiSCO-S m=4 vs m=1: rel diff of w "
+          f"{rel_w(ws[4], ws[1]):.2e}", flush=True)
+
+
+def subsample_slice_runs(torch, rt, build, X, y, launches) -> None:
+    """Hessian subsampling at the sparse slice's shape: DiSCO-F two-pass
+    with ``hessian_subsample`` in SUBSAMPLE_FRACS at m = 1 and 4, 3
+    Newton steps. Each: one mask a step over the padded sample axis,
+    its mean within 5 sigma of frac; finite f and w; the launches the code
+    predicts. f and the gradient norm are printed, not held to a
+    decrease: at lam = 1e-4 with d > n a Newton step on a 6.25% Hessian
+    raises f (the JAX package's solve does the same, PERF.md). The m = 1
+    frac 0.5 fit is profiled."""
+    import numpy as np
+    from repro_torch.core import disco as disco_mod
+    draw = disco_mod.subsample_mask
+    for frac in SUBSAMPLE_FRACS:
+        for m in COMPARISON_SHARDS:
+            tag = f"subsampled {frac:g} {run_tag('features', m, False)}"
+            cfg = rt.DiscoConfig(partition="features",
+                                 hessian_subsample=frac, **SUBSAMPLE_SOLVE)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                    device="cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            masks = []
+
+            def spy(seed, outer_iter, shard, frac_, shape):
+                mask = draw(seed, outer_iter, shard, frac_, shape)
+                masks.append((shard, tuple(shape), float(mask.float()
+                                                         .mean())))
+                return mask
+            disco_mod.subsample_mask = spy
+            try:
+                res, counts = fit_counted(torch, build, solver)
+            finally:
+                disco_mod.subsample_mask = draw
+            for k in SPARSE_KERNELS:
+                launches[k] += counts[k]
+            hist = res.history
+            iters = [int(h["pcg_iters"]) for h in hist]
+            n_pad = int(solver.smask.shape[0])
+            run_row(torch, tag, res, counts, setup_s,
+                    f=[h["f"] for h in hist],
+                    f_decreases=f_decreases(hist),
+                    grad_norms=[h["grad_norm"] for h in hist],
+                    mask_means=[k[2] for k in masks])
+            check(bool(np.isfinite(res.w).all())
+                  and all(np.isfinite(h["f"]) for h in hist),
+                  f"{tag}: finite w and f")
+            spread = 5 * (frac * (1 - frac) / n_pad) ** 0.5
+            check(len(masks) == len(hist)
+                  and all(sh is None and shape == (n_pad,)
+                          and abs(mean - frac) <= spread
+                          for sh, shape, mean in masks),
+                  f"{tag}: one shared mask a step over the padded n "
+                  f"({n_pad}), means {[round(k[2], 4) for k in masks]} "
+                  f"within 5 sigma ({spread:.4f}) of {frac:g}")
+            want = classic_ell_launches(m, len(hist), sum(iters))
+            got = {k: counts[k] for k in want}
+            check(got == want, f"{tag}: launches as predicted "
+                               f"{json.dumps(want)}"
+                  + ("" if got == want else f", got {json.dumps(got)}"))
+            if (frac, m) == (SUBSAMPLE_FRACS[0], 1):
+                try:
+                    profile_fit(torch, solver)
+                except RuntimeError as exc:   # a measurement only
+                    print(f"profile unavailable: {exc}", flush=True)
+            del solver, res
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def timed_fit(torch, rt, fit, X, y, cfg, m):
+    """A baseline's fit on the card on ``m`` shards, and its wall time."""
+    t0 = time.perf_counter()
+    out = fit(X, y, cfg, group=rt.InProcessGroup(m), device="cuda")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def baselines_dense_phase(torch, rt, X, y) -> None:
+    """GD and DANE on the dense slice's X (4 GiB), logistic at the slice's
+    lam, m = 1 and 4, BASELINE_OUTER outer iterations: ms per outer
+    iteration (a 1-iteration fit's time subtracted, so set-up and GD's
+    power iteration drop out), rounds, gradient norms; the gradient norm
+    must fall and w be finite."""
+    import numpy as np
+    lam = DENSE_SOLVE["lam"]
+    for name, fit, cls in (("GD", rt.gd_fit, rt.GDConfig),
+                           ("DANE", rt.dane_fit, rt.DaneConfig)):
+        for m in COMPARISON_SHARDS:
+            tag = f"dense {name} m={m}"
+            torch.cuda.reset_peak_memory_stats()
+            _, t1 = timed_fit(torch, rt, fit, X, y,
+                              cls(loss="logistic", lam=lam, max_outer=1), m)
+            (w, hist, ledger), tk = timed_fit(
+                torch, rt, fit, X, y,
+                cls(loss="logistic", lam=lam, max_outer=BASELINE_OUTER), m)
+            g = [h["grad_norm"] for h in hist]
+            print("baseline " + json.dumps(dict(
+                run=tag, outer=len(hist), grad_norms=g,
+                f=[h["f"] for h in hist],
+                rounds=[h["comm_rounds_cum"] for h in hist],
+                ms_per_outer=(tk - t1) / (len(hist) - 1) * 1e3,
+                fit_s=tk, one_outer_fit_s=t1,
+                max_memory_allocated=torch.cuda.max_memory_allocated())),
+                flush=True)
+            check(bool(np.isfinite(w).all()) and g[-1] < g[0]
+                  and ledger.rounds == hist[-1]["comm_rounds_cum"],
+                  f"{tag}: finite w, grad_norm {g[0]:.3e} -> {g[-1]:.3e}")
+            del w, hist
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def cocoa_pass_launches(torch, rt, X, y, lam, m) -> dict:
+    """Launches of one CoCoA+ outer step at the full local pass, from two
+    profiled outer steps of COCOA_PROBE_STEPS local steps: every local
+    step issues the same operations, so the launches are linear in the
+    step count."""
+    counts = []
+    for steps in COCOA_PROBE_STEPS:
+        cfg = rt.CocoaConfig(loss="logistic", lam=lam, max_outer=1,
+                             local_steps=steps)
+        counts.append(launches_and_busy(torch, lambda: rt.cocoa_fit(
+            X, y, cfg, group=rt.InProcessGroup(m), device="cuda")))
+    (a, b), (ca, cb) = COCOA_PROBE_STEPS, counts
+    per_step = (cb["launches"] - ca["launches"]) / (b - a)
+    fixed = ca["launches"] - a * per_step
+    n_loc = -(-X.shape[1] // m)
+    return dict(per_local_step=per_step, fixed=fixed,
+                per_outer=fixed + n_loc * per_step, local_steps=n_loc,
+                probe_busy_share=cb["busy_share"])
+
+
+def figure3_phase(torch, rt, build) -> None:
+    """Figure 3 on the card: DiSCO-F, DiSCO-S, the original DiSCO (SAG),
+    DANE and CoCoA+ on ``make_regime('rcv1_like')`` (256 x 4096 dense),
+    logistic, lam 1e-4, m = 4, FIG3['outer'] outer iterations each
+    (CoCoA+ FIG3['cocoa_outer']), the DiSCO runs on the dense kernels:
+    gradient norm and cumulative rounds per iteration, wall time per
+    iteration, and CoCoA+'s launches per outer step. Every gradient norm
+    finite; the Newton-type methods' and DANE's falling."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_regime
+    X, y, _ = make_regime(FIG3["regime"])
+    lam, m, outer = FIG3["lam"], FIG3["m"], FIG3["outer"]
+    group = rt.InProcessGroup(m)
+    rows = []
+    for name, partition, precond in (("DiSCO-F", "features", "woodbury"),
+                                     ("DiSCO-S", "samples", "woodbury"),
+                                     ("DiSCO(SAG)", "samples", "sag")):
+        cfg = rt.DiscoConfig(loss="logistic", lam=lam, tau=100,
+                             partition=partition, precond=precond,
+                             sag_epochs=5, max_outer=outer, grad_tol=0.0,
+                             use_kernel=True)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = rt.disco_fit(X, y, cfg, group=group, device="cuda")
+        torch.cuda.synchronize()
+        rows.append(dict(algorithm=name, grad_norms=res.grad_norms.tolist(),
+                         rounds=res.comm_rounds.tolist(),
+                         pcg_iters=[int(h["pcg_iters"])
+                                    for h in res.history],
+                         s_per_outer=(time.perf_counter() - t0) / outer,
+                         launches=build.launch_counts()))
+    for name, fit, cfg in (
+            ("DANE", rt.dane_fit, rt.DaneConfig(loss="logistic", lam=lam,
+                                                max_outer=outer)),
+            ("CoCoA+", rt.cocoa_fit,
+             rt.CocoaConfig(loss="logistic", lam=lam,
+                            max_outer=FIG3["cocoa_outer"]))):
+        (w, hist, ledger), wall = timed_fit(torch, rt, fit, X, y, cfg, m)
+        rows.append(dict(algorithm=name,
+                         grad_norms=[h["grad_norm"] for h in hist],
+                         rounds=[h["comm_rounds_cum"] for h in hist],
+                         s_per_outer=wall / len(hist)))
+    cocoa = cocoa_pass_launches(torch, rt, X, y, lam, m)
+    for row in rows:
+        print("figure3 " + json.dumps(dict(row, regime=FIG3["regime"],
+                                           m=m, lam=lam)), flush=True)
+        g = row["grad_norms"]
+        falls = row["algorithm"] == "CoCoA+" or g[-1] < g[0]
+        check(bool(np.isfinite(g).all()) and falls,
+              f"figure 3 {row['algorithm']}: grad norms "
+              f"{[float(f'{v:.3e}') for v in g]} at rounds {row['rounds']}")
+    print("cocoa launches " + json.dumps(cocoa), flush=True)
+    check(cocoa["per_local_step"] > 0 and cocoa["fixed"] >= 0,
+          f"CoCoA+ launches linear in the local steps: "
+          f"{cocoa['per_local_step']:g} a step, {cocoa['fixed']:g} fixed")
 
 
 # ---------------------------------------------------------------------------
@@ -2467,12 +2876,14 @@ def main() -> int:
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
+    small_comparisons(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
     t_sparse = time.perf_counter() - t_start
     dense_timings, dense_launches = phase_dense(torch, rt, build, glm_hvp,
                                                 ref, errs)
     timings.update(dense_timings)
     launches.update(dense_launches)
+    figure3_phase(torch, rt, build)
     t_model = time.perf_counter()
     flash_rows = phase_flash_timing(torch, flash, ref, errs, bf16_errs)
     launches["flash_attention"] = phase_model(torch, rt, build)

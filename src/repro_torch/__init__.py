@@ -3,12 +3,14 @@ decoders (the JAX package ``repro`` is the reference it is held against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
 entry points (:func:`disco_fit`, :class:`DiscoSolver`,
-:func:`lambda_path_fit`, :func:`softmax_fit`, :class:`SoftmaxSolver`) run
-on the card unless the caller passes ``device='cpu'``. Input is a sparse
+:func:`lambda_path_fit`, :func:`softmax_fit`, :class:`SoftmaxSolver`, and
+the paper's baselines :func:`gd_fit`, :func:`dane_fit`, :func:`cocoa_fit`)
+run on the card unless the caller passes ``device='cpu'``. Input is a sparse
 :class:`CSRMatrix` or a dense ``(d, n)`` array or tensor; on the card
 every HVP of PCG, classic or s-step (``pcg_block_s > 1``), goes through
 the hand-written Hopper kernels of :mod:`repro_torch.kernels` (for dense
-input with ``use_kernel=True``).
+input with ``use_kernel=True``). :func:`load_libsvm_sparse` and
+:func:`load_libsvm` read the paper's libsvm files.
 
 The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b:
 :func:`get_config`) are served by :func:`init_params`, :func:`forward`
@@ -18,13 +20,17 @@ The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b:
 they too run on the card unless given ``device='cpu'``.
 """
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+from repro_torch.core.baselines import (CocoaConfig, DaneConfig, GDConfig,
+                                        cocoa_fit, dane_fit, gd_fit)
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit)
 from repro_torch.core.glm import GLMProblem
 from repro_torch.core.lambda_path import LambdaPathResult, lambda_path_fit
 from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxResult,
                                       SoftmaxSolver, softmax_fit)
-from repro_torch.data.sparse import CSRMatrix, make_sparse_glm_data
+from repro_torch.data.libsvm import load_libsvm, save_libsvm
+from repro_torch.data.sparse import (CSRMatrix, load_libsvm_sparse,
+                                     make_sparse_glm_data)
 from repro_torch.data.synthetic import make_glm_data
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.parallel.collectives import InProcessGroup
@@ -33,7 +39,9 @@ from repro_torch.serve import ContinuousEngine, Engine, Request
 __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
            "GLMProblem", "LambdaPathResult", "lambda_path_fit",
            "SoftmaxConfig", "SoftmaxResult", "SoftmaxSolver", "softmax_fit",
-           "CSRMatrix", "make_sparse_glm_data", "make_glm_data",
+           "GDConfig", "gd_fit", "DaneConfig", "dane_fit", "CocoaConfig",
+           "cocoa_fit", "CSRMatrix", "load_libsvm", "load_libsvm_sparse",
+           "save_libsvm", "make_sparse_glm_data", "make_glm_data",
            "InProcessGroup", "ModelConfig", "get_config", "get_smoke_config",
            "init_params", "forward", "init_cache", "decode_step", "Engine",
            "ContinuousEngine", "Request"]

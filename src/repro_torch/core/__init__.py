@@ -1,5 +1,6 @@
-"""Paper core: DiSCO-S / DiSCO-F distributed inexact damped Newton, and
-the workloads on it: λ-path sweeps and multinomial softmax."""
+"""Paper core: DiSCO-S / DiSCO-F distributed inexact damped Newton, the
+workloads on it (λ-path sweeps, multinomial softmax) and the paper's
+baselines (:mod:`repro_torch.core.baselines`)."""
 from repro_torch.core import comm
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
                                     disco_fit, resolve_device)
@@ -17,14 +18,15 @@ from repro_torch.core.lambda_path import (LambdaPathResult, lambda_path_fit,
                                           validation_loss, x_passes)
 from repro_torch.core.pcg import PCGResult, pcg_features, pcg_samples
 from repro_torch.core.preconditioner import (IdentityPreconditioner,
-                                             WoodburyPreconditioner)
+                                             WoodburyPreconditioner,
+                                             sag_solve)
 from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxProblem,
                                       SoftmaxResult, SoftmaxSolver,
                                       softmax_fit)
 
 __all__ = [
-    "comm", "DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
-    "resolve_device", "GLMProblem",
+    "comm", "DiscoConfig", "DiscoResult", "DiscoSolver",
+    "disco_fit", "resolve_device", "GLMProblem",
     "DenseKernelOperator", "DenseOperator", "EllOperator", "HvpOperator",
     "OperatorCell", "SoftmaxHvpOperator", "UnsupportedHvpError",
     "cell_id", "make_local_operator", "operator_cells", "resolve_cell",
@@ -33,7 +35,7 @@ __all__ = [
     "get_loss", "make_huber",
     "LambdaPathResult", "lambda_path_fit", "validation_loss", "x_passes",
     "PCGResult", "pcg_features", "pcg_samples",
-    "IdentityPreconditioner", "WoodburyPreconditioner",
+    "IdentityPreconditioner", "WoodburyPreconditioner", "sag_solve",
     "SoftmaxConfig", "SoftmaxProblem", "SoftmaxResult", "SoftmaxSolver",
     "softmax_fit",
 ]

@@ -8,6 +8,10 @@ Counts the collectives the way the paper does:
   DiSCO-F, per outer iteration : reduceAll margins (n) + final reduce v (d_j)
   DiSCO-F, per PCG iteration   : reduceAll (n) + 2 scalar reduceAlls
 
+  DANE  : 2 reduceAll (d) per iteration (gradient, then the averaged
+          local solution)
+  CoCoA+: 1 reduceAll (d) per outer iteration
+
 ``rounds`` is the paper's MPI view; ``spmd_collectives`` counts the
 all-reduces an SPMD program runs (a broadcast+reduceAll pair of a
 replicated vector is one all-reduce).
@@ -85,3 +89,15 @@ def disco_f_sstep_cost(n: int, s: int, rounds: int) -> tuple[int, int, int]:
     not as a vector round, as the classic path's scalar reduceAlls."""
     k = s + 1
     return 1 * rounds, (n * s + 2 * k * k + k) * rounds, 2 * rounds
+
+
+def dane_iter_cost(d: int) -> tuple[int, int, int]:
+    """(rounds, floats, spmd) for one DANE iteration: two d-vector
+    reduceAlls (gradient, then the averaged local solution)."""
+    return 2, 2 * d, 2
+
+
+def cocoa_iter_cost(d: int) -> tuple[int, int, int]:
+    """(rounds, floats, spmd) for one CoCoA+ outer iteration: a single
+    d-vector reduceAll of the aggregated local updates."""
+    return 1, d, 1

@@ -17,9 +17,10 @@ The port runs the in-memory paths: a sparse :class:`CSRMatrix` input
 f32 array or tensor (margins and gradient in ``torch.matmul``, as the JAX
 package leaves them to XLA; every HVP of PCG through the dense kernels
 with ``use_kernel=True``, else ``torch.matmul``), classic or s-step PCG
-(``pcg_block_s > 1``), f32. On the card the ops are the CUDA kernels.
-Hessian subsampling, the SAG preconditioner, bf16 tiles, checkpointing
-and tracing are not yet ported and raise. :meth:`DiscoSolver.with_lam`
+(``pcg_block_s > 1``), f32, with the Woodbury, SAG (the original DiSCO's)
+or no preconditioner and optional Hessian subsampling. On the card the
+ops are the CUDA kernels. bf16 tiles, checkpointing and tracing are not
+yet ported and raise. :meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
@@ -56,13 +57,14 @@ class DiscoConfig:
     as the JAX package's ``repro.core.DiscoConfig``.
 
     Ported here: loss, lam, mu, tau, partition, precond ('woodbury' |
-    'none'), max_outer, max_pcg, pcg_rel_tol, grad_tol, use_kernel (dense
-    input), hvp_fused, pcg_block_s (s-step PCG; ``max_pcg`` then caps
-    rounds), partition_strategy, partition_block, ell_block_d,
-    ell_block_n (sparse input). The fields for the paths not yet ported
-    must keep their defaults (``hessian_subsample=1``,
-    ``hvp_dtype='float32'``, ``trace=False``, ``precond != 'sag'``); the
-    out-of-core fields are unused.
+    'sag' (DiSCO-S only, ``sag_epochs`` inner epochs) | 'none'),
+    max_outer, max_pcg, pcg_rel_tol, grad_tol, hessian_subsample (each
+    outer step draws fresh masks from ``seed``: :func:`subsample_mask`),
+    use_kernel (dense input), hvp_fused, pcg_block_s (s-step PCG;
+    ``max_pcg`` then caps rounds), partition_strategy, partition_block,
+    ell_block_d, ell_block_n (sparse input). The fields for the paths not
+    yet ported must keep their defaults (``hvp_dtype='float32'``,
+    ``trace=False``); the out-of-core fields are unused.
     """
 
     loss: str = "logistic"
@@ -144,6 +146,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def subsample_mask(seed: int, outer_iter: int, shard: int | None,
+                   frac: float, shape: tuple[int, ...]) -> torch.Tensor:
+    """Bernoulli(``frac``) mask of the samples entering the Hessian at
+    outer step ``outer_iter`` (paper §5.4), a bool CPU tensor of
+    ``shape``.
+
+    Drawn from a ``torch.Generator`` seeded from ``(seed, outer_iter,
+    shard)``: a fresh draw every step, and an independent one per shard
+    (DiSCO-S, ``shard`` its index); DiSCO-F draws one mask that every
+    shard shares (``shard=None``). Drawn on the CPU, so the card and the
+    CPU use the same masks.
+    """
+    entropy = (seed, outer_iter, 0 if shard is None else shard + 1)
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
+    gen = torch.Generator().manual_seed(int(state[0]) >> 1)
+    return torch.rand(shape, generator=gen) < frac
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
@@ -195,10 +215,6 @@ class DiscoSolver:
 
     def _setup(self, cfg: DiscoConfig, shape, group, device, *,
                sparse: bool) -> None:
-        if cfg.hessian_subsample < 1.0:
-            raise _not_ported("hessian_subsample < 1")
-        if cfg.precond == "sag":
-            raise _not_ported("precond='sag'")
         if cfg.trace:
             raise _not_ported("tracing (trace=True)")
         hvp_tile_dtype(cfg.hvp_dtype)
@@ -371,8 +387,9 @@ class DiscoSolver:
         """The Newton step over the shards ``self._locs``. Margins and
         gradient go through the blocked-ELL ops (sparse) or
         ``torch.matmul`` (dense); PCG's HVPs through the local operator
-        of :func:`repro_torch.core.hvp.make_local_operator`. Returns
-        ``step(w) -> (w_new, stats)``."""
+        of :func:`repro_torch.core.hvp.make_local_operator`, with the
+        step's subsampled coefficients when ``hessian_subsample < 1``.
+        Returns ``step(w, outer_iter=0) -> (w_new, stats)``."""
         cfg, loss, group = self.cfg, self.loss, self.group
         n, tau, m = self.n, self.tau, self.m
         locs = self._locs
@@ -394,7 +411,7 @@ class DiscoSolver:
         if cfg.partition == "features":
             smask = self.smask
 
-            def step(w):                                   # w: (m, d_j)
+            def step(w, outer_iter=0):                     # w: (m, d_j)
                 margins = group.all_reduce([xt(s, w[s]) for s in range(m)])
                 d1 = loss.d1(margins, self.y)
                 c = loss.d2(margins, self.y)
@@ -412,7 +429,8 @@ class DiscoSolver:
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_features(
-                    locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
+                    locs, self._subsample(c, outer_iter), n, cfg.lam, g,
+                    eps, cfg.max_pcg,
                     coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
                     precond=cfg.precond, block_s=cfg.pcg_block_s,
                     X_tau_loc=self.X_tau, hvp_fused=cfg.hvp_fused,
@@ -423,7 +441,7 @@ class DiscoSolver:
                                    pcg_r_norm=res.r_norm)
 
         else:  # samples
-            def step(w):                                   # w: (d_padded,)
+            def step(w, outer_iter=0):                     # w: (d_padded,)
                 margins = torch.stack([xt(s, w) for s in range(m)])
                 d1 = loss.d1(margins, self.y) * self.weights   # (m, n_loc)
                 c = loss.d2(margins, self.y) * self.weights
@@ -438,9 +456,10 @@ class DiscoSolver:
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_samples(
-                    locs, c, n, cfg.lam, g, eps, cfg.max_pcg,
-                    X_tau=self.X_tau, coeffs_tau=coeffs_tau, mu=cfg.mu,
-                    group=group, precond=cfg.precond,
+                    locs, self._subsample(c, outer_iter), n, cfg.lam, g,
+                    eps, cfg.max_pcg, X_tau=self.X_tau,
+                    coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
+                    precond=cfg.precond, sag_epochs=cfg.sag_epochs,
                     block_s=cfg.pcg_block_s, hvp_fused=cfg.hvp_fused,
                     use_kernel=cfg.use_kernel)
                 w_new = w - res.v / (1.0 + res.delta)
@@ -449,6 +468,25 @@ class DiscoSolver:
                                    pcg_r_norm=res.r_norm)
 
         return step
+
+    def _subsample(self, c: torch.Tensor, outer_iter: int) -> torch.Tensor:
+        """The Hessian's coefficients at step ``outer_iter``: ``c`` itself,
+        or ``c * mask / frac`` when ``hessian_subsample = frac < 1``.
+        DiSCO-F's ``c`` is the (n,) vector every shard shares (the padded
+        n on sparse input), so one mask; DiSCO-S's is (m, n_loc), one
+        mask per shard over its padded local width."""
+        frac = self.cfg.hessian_subsample
+        if frac >= 1.0:
+            return c
+        seed = self.cfg.seed
+        if self.cfg.partition == "features":
+            mask = subsample_mask(seed, outer_iter, None, frac,
+                                  tuple(c.shape))
+        else:
+            mask = torch.stack([
+                subsample_mask(seed, outer_iter, s, frac, tuple(c.shape[1:]))
+                for s in range(self.m)])
+        return c * mask.to(c.device) / frac
 
     # ------------------------------------------------------------------
     def with_lam(self, lam: float) -> "DiscoSolver":
@@ -527,7 +565,7 @@ class DiscoSolver:
         converged = False
         for k in range(cfg.max_outer):
             t_it = time.perf_counter()
-            w, stats = self._step(w)
+            w, stats = self._step(w, k)
             # the float() reads wait for the step's device work, so
             # iter_s covers the whole step
             stats = {name: float(v) for name, v in stats.items()}

@@ -39,7 +39,8 @@ from typing import NamedTuple, Sequence, Union
 import torch
 
 from repro_torch.core.hvp import make_local_operator
-from repro_torch.core.preconditioner import WoodburyPreconditioner
+from repro_torch.core.preconditioner import (WoodburyPreconditioner,
+                                             sag_solve)
 from repro_torch.data.sparse import EllPair
 from repro_torch.parallel.collectives import InProcessGroup
 
@@ -226,15 +227,17 @@ def _sharded_gram(group, U, W, r):
 # preconditioner factories
 # ---------------------------------------------------------------------------
 
-def _samples_precond(precond, X_tau, coeffs_tau, lam, mu):
+def _samples_precond(precond, X_tau, coeffs_tau, lam, mu, sag_epochs):
     if precond == "woodbury":
         return WoodburyPreconditioner.build(X_tau, coeffs_tau, lam,
                                             mu).apply_inv
+    if precond == "sag":
+        # original DiSCO: the iterative inner solve, replicated (the
+        # master bottleneck)
+        return lambda r: sag_solve(X_tau, coeffs_tau, lam, mu, r,
+                                   epochs=sag_epochs)
     if precond == "none":
         return lambda r: r
-    if precond == "sag":
-        raise NotImplementedError("precond='sag' is not yet ported to "
-                                  "repro_torch")
     raise ValueError(f"unknown precond {precond!r}")
 
 
@@ -261,7 +264,7 @@ def _features_precond(precond, X_tau_loc, coeffs_tau, lam, mu):
 def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
                 eps, max_iter, X_tau=None, coeffs_tau=None, mu=0.0,
                 group: InProcessGroup | None = None, precond="woodbury",
-                block_s=1, hvp_fused=False, use_kernel=False):
+                sag_epochs=5, block_s=1, hvp_fused=False, use_kernel=False):
     """Classic PCG of DiSCO-S over the shards of ``group``.
 
     X_locs     : per shard, its sample columns: an :class:`EllPair`, or a
@@ -269,7 +272,8 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
     coeffs_loc : (m, n_loc) phi'' at w_k, one row per shard
     g          : (d,) replicated gradient
     X_tau      : (d, tau) replicated preconditioner samples
-    precond    : 'woodbury' | 'none'
+    precond    : 'woodbury' (DiSCO-S), 'sag' (original DiSCO, ``sag_epochs``
+                 inner epochs per application) or 'none' (CG)
     hvp_fused  : every local product runs the one-pass kernel
                  (``ell_hvp`` or ``x_c_xt_u``: the sample-partitioned
                  product completes both directions before the all-reduce)
@@ -289,7 +293,8 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
         return group.all_reduce([op.apply(u) for op in ops]) / n_global \
             + lam * u
 
-    apply_precond = _samples_precond(precond, X_tau, coeffs_tau, lam, mu)
+    apply_precond = _samples_precond(precond, X_tau, coeffs_tau, lam, mu,
+                                     sag_epochs)
     if block_s <= 1:
         return _pcg_loop(hvp, apply_precond, torch.dot, g, eps, max_iter)
 

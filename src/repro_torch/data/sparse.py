@@ -11,6 +11,8 @@ so one seed gives identical arrays in both packages:
   dense tiles, empty tiles dropped, each row-block keeping a fixed-width
   (padded) list of its surviving tiles. The CUDA kernels of
   :mod:`repro_torch.kernels.sparse_hvp` walk this layout.
+* :func:`load_libsvm_sparse` / :func:`iter_libsvm_chunks` — the chunked
+  libsvm reader (O(nnz + chunk) peak memory), the paper's data format.
 * :func:`make_sparse_glm_data` — synthetic power-law-sparsity GLM data.
 
 On the device a shard's pair of layouts (forward for ``X @ v``, transposed
@@ -19,7 +21,7 @@ for ``X^T u``) travels as the :class:`EllPair` of four tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -317,6 +319,113 @@ def build_shard_ell_pairs(shard_csrs: list[CSRMatrix], block_rows: int,
           for c in shard_csrs]
     dataT, colsT = stack_shard_ells(tr)
     return data, cols, dataT, colsT
+
+
+# ---------------------------------------------------------------------------
+# streaming libsvm reader (bounded memory)
+# ---------------------------------------------------------------------------
+
+def truncate_features(fi: np.ndarray, si: np.ndarray, vs: np.ndarray,
+                      n_features: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Drop COO triplets whose 0-based feature index is ``>= n_features``.
+
+    The single source of the explicit-``n_features`` *truncation*
+    semantics every libsvm reader of the port shares
+    (:func:`repro_torch.data.libsvm.load_libsvm`, :func:`load_libsvm_sparse`,
+    :func:`iter_libsvm_chunks`): a requested feature dimension smaller
+    than the max index seen drops the out-of-range features — the
+    standard libsvm-reader convention — rather than writing out of the
+    intended range. No-op (same arrays back) when nothing is out of
+    range.
+    """
+    keep = fi < n_features
+    if bool(keep.all()):
+        return fi, si, vs
+    return fi[keep], si[keep], vs[keep]
+
+
+def iter_libsvm_chunks(path: str, chunk_samples: int = 8192,
+                       dtype=np.float32, n_features: int | None = None
+                       ) -> Iterator[tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, np.ndarray]]:
+    """Yield ``(feat_idx, sample_idx, vals, labels)`` COO chunks.
+
+    Feature indices are converted to 0-based. ``sample_idx`` is global
+    (monotone across chunks). Peak memory is O(chunk nnz), independent of
+    the file size — the building block of :func:`load_libsvm_sparse`.
+
+    An explicit ``n_features`` applies the shared
+    :func:`truncate_features` clamp to every chunk (features at index
+    ``>= n_features`` are dropped), matching the
+    ``load_libsvm`` / ``load_libsvm_sparse`` truncation semantics.
+    """
+    fi: list[int] = []
+    si: list[int] = []
+    vs: list[float] = []
+    ys: list[float] = []
+    base = 0
+
+    def flush():
+        f, s, v = (np.asarray(fi, np.int64), np.asarray(si, np.int64),
+                   np.asarray(vs, dtype))
+        if n_features is not None:
+            f, s, v = truncate_features(f, s, v, n_features)
+        return f, s, v, np.asarray(ys, dtype)
+
+    n_in_chunk = 0
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            j = base + n_in_chunk
+            ys.append(float(parts[0]))
+            for tok in parts[1:]:
+                idx, val = tok.split(":")
+                fi.append(int(idx) - 1)   # libsvm indices are 1-based
+                si.append(j)
+                vs.append(float(val))
+            n_in_chunk += 1
+            if n_in_chunk >= chunk_samples:
+                yield flush()
+                base += n_in_chunk
+                n_in_chunk = 0
+                fi, si, vs, ys = [], [], [], []
+    if n_in_chunk or base == 0:
+        yield flush()
+
+
+def load_libsvm_sparse(path: str, n_features: int | None = None,
+                       dtype=np.float32, chunk_samples: int = 8192
+                       ) -> tuple[CSRMatrix, np.ndarray]:
+    """Streaming libsvm -> (CSRMatrix ``(d, n)``, labels ``(n,)``).
+
+    Reads the file in ``chunk_samples``-sized chunks, accumulating COO
+    triplets — peak memory O(nnz + chunk), never the dense ``d * n``.
+    Matches :func:`repro_torch.data.libsvm.load_libsvm` semantics via the
+    shared :func:`truncate_features` clamp: an explicit ``n_features``
+    smaller than the max seen index *truncates* (features beyond the
+    range are dropped, per chunk), larger pads with empty features.
+    """
+    fparts, sparts, vparts, yparts = [], [], [], []
+    max_feat = -1
+    n = 0
+    for fi, si, vs, ys in iter_libsvm_chunks(path, chunk_samples, dtype,
+                                             n_features=n_features):
+        if len(fi):
+            max_feat = max(max_feat, int(fi.max()))
+        fparts.append(fi)
+        sparts.append(si)
+        vparts.append(vs)
+        yparts.append(ys)
+        n += len(ys)
+    fi = np.concatenate(fparts) if fparts else np.zeros(0, np.int64)
+    si = np.concatenate(sparts) if sparts else np.zeros(0, np.int64)
+    vs = np.concatenate(vparts) if vparts else np.zeros(0, dtype)
+    y = np.concatenate(yparts) if yparts else np.zeros(0, dtype)
+    d = n_features if n_features is not None else max_feat + 1
+    return CSRMatrix.from_coo(fi, si, vs, (d, n), dtype=dtype), y
 
 
 # ---------------------------------------------------------------------------

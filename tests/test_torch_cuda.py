@@ -736,6 +736,93 @@ def test_cuda_sstep_disco_fit_matches_cpu(dev, case):
         assert counts[k] > 0, (k, counts)
 
 
+def _small_problem(kind):
+    if kind == "sparse":
+        X, y, _ = make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
+                                       beta=0.5, seed=1)
+        return X, y, dict(ell_block_d=16, ell_block_n=16), "ell_mv"
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    return X, y, dict(use_kernel=True), "xt_u"
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+@pytest.mark.parametrize("m,s", [(1, 1), (4, 1), (1, 3)])
+def test_cuda_sag_disco_fit_matches_cpu(dev, kind, m, s):
+    """The original DiSCO (``precond='sag'``, DiSCO-S) on the card equals
+    the same solve on the CPU (w within rtol 1e-4 / atol 1e-6, the same
+    PCG iterations), its HVPs on the kernels."""
+    X, y, kw, kernel = _small_problem(kind)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                      grad_tol=0.0, partition="samples", precond="sag",
+                      sag_epochs=5, pcg_block_s=s, **kw)
+    build.reset_launch_counts()
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    np.testing.assert_allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6)
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    assert counts[kernel] > 0, counts
+
+
+def test_cuda_sag_solve_matches_cpu(dev):
+    """``sag_solve`` at the rcv1 slab's width (d = 47,236, tau = 100):
+    card against CPU within relative L2 1e-5."""
+    from repro_torch.core.preconditioner import sag_solve
+    rng = np.random.default_rng(0)
+    X_tau = (rng.standard_normal((47236, 100)) * (rng.random((47236, 100))
+                                                  < 0.004)).astype(np.float32)
+    coeffs = rng.uniform(0.05, 0.25, 100).astype(np.float32)
+    r = rng.standard_normal(47236).astype(np.float32) * 1e-3
+    T = torch.from_numpy
+    want = sag_solve(T(X_tau), T(coeffs), 1e-4, 1e-2, T(r))
+    got = sag_solve(T(X_tau).to(dev), T(coeffs).to(dev), 1e-4, 1e-2,
+                    T(r).to(dev))
+    assert _rel(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+@pytest.mark.parametrize("partition", ["samples", "features"])
+@pytest.mark.parametrize("m", [1, 4])
+def test_cuda_subsampled_disco_fit_matches_cpu(dev, kind, partition, m):
+    """Hessian subsampling with the same seed on the card and the CPU: the
+    same masks (drawn on the CPU), so the same solve (w within rtol 1e-4
+    / atol 1e-6, the same PCG iterations)."""
+    X, y, kw, _ = _small_problem(kind)
+    cfg = DiscoConfig(loss="logistic", lam=1e-2, tau=100, max_outer=4,
+                      grad_tol=0.0, partition=partition,
+                      hessian_subsample=0.5, seed=3, **kw)
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    np.testing.assert_allclose(on_card.w, on_cpu.w, rtol=1e-4, atol=1e-6)
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+
+
+@pytest.mark.parametrize("loss", ["logistic", "quadratic"])
+def test_cuda_baselines_match_cpu(dev, loss):
+    """GD, DANE and CoCoA+ on the card equal the same fits on the CPU
+    (per-iteration gradient norms within rtol 1e-4, w within rtol 1e-4 /
+    atol 1e-6, equal ledgers)."""
+    from repro_torch.core.baselines import (CocoaConfig, DaneConfig,
+                                            GDConfig, cocoa_fit, dane_fit,
+                                            gd_fit)
+    X, y, _ = make_glm_data(d=40, n=202, seed=2)
+    for fit, cfg in ((gd_fit, GDConfig(loss=loss, lam=1e-3, max_outer=8)),
+                     (dane_fit, DaneConfig(loss=loss, lam=1e-3,
+                                           max_outer=3)),
+                     (cocoa_fit, CocoaConfig(loss=loss, lam=1e-3,
+                                             max_outer=3))):
+        for m in (1, 4):
+            a = fit(X, y, cfg, group=InProcessGroup(m))
+            b = fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+            np.testing.assert_allclose(a[0], b[0], rtol=1e-4, atol=1e-6)
+            np.testing.assert_allclose([h["grad_norm"] for h in a[1]],
+                                       [h["grad_norm"] for h in b[1]],
+                                       rtol=1e-4)
+            assert a[2] == b[2]
+
+
 # ---------------------------------------------------------------------------
 # the fused multi-vector kernel (x_c_xt_multi), the column split, and the
 # entry points on it

@@ -208,3 +208,48 @@ def test_converted_dense_state_one_step_matches_jax(case):
     for k in ("grad_norm", "f", "delta", "pcg_r_norm"):
         np.testing.assert_allclose(float(pstats[k]), float(jstats[k]),
                                    rtol=1e-5)
+
+
+QUADRATIC_REL_L2 = 2e-5
+QUADRATIC_CASES = [("samples", True, False), ("features", True, True)]
+
+
+@pytest.fixture(scope="module")
+def jax_4device_quadratic():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               REPRO_KERNEL_MODE="interpret")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", SCRIPT_4,
+                        json.dumps([dict(KW, loss="quadratic"), DATA,
+                                    QUADRATIC_CASES])],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    return dict(zip(QUADRATIC_CASES, json.loads(line[len("RESULT "):])))
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("case", QUADRATIC_CASES, ids=_id)
+def test_dense_quadratic_matches_jax(case, m, jax_4device_quadratic):
+    """``loss='quadratic'`` with Woodbury on the dense kernels (two-pass
+    DiSCO-S, fused DiSCO-F): the same PCG iterations and ledger, ``w``
+    within relative L2 2e-5 of the reference (its near-zero entries move
+    by about atol in another f32 summation order, as in
+    ``tests/test_torch_disco.py``'s quadratic cases)."""
+    X, y = _data()
+    partition, use_kernel, fused = case
+    kw = dict(KW, loss="quadratic", partition=partition,
+              use_kernel=use_kernel, hvp_fused=fused)
+    if m == 1:
+        ref = _summary(j_disco_fit(X, y, JDiscoConfig(**kw)))
+    else:
+        ref = jax_4device_quadratic[case]
+    got = disco_fit(X, y, DiscoConfig(**kw), group=InProcessGroup(m),
+                    device="cpu")
+    s = _summary(got)
+    assert s["pcg_iters"] == ref["pcg_iters"]
+    assert s["ledger"] == ref["ledger"]
+    w_ref = np.asarray(ref["w"], np.float32)
+    assert np.linalg.norm(got.w - w_ref) <= \
+        QUADRATIC_REL_L2 * np.linalg.norm(w_ref)
+    assert got.grad_norms[-1] < 0.5 * got.grad_norms[0]

@@ -42,6 +42,36 @@ SCRIPT = textwrap.dedent("""
                                         ell_block_n=8, pcg_block_s=3),
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.grad_norms[-1] < r.grad_norms[0]
+    for kw in (dict(precond="sag", sag_epochs=2),
+               dict(hessian_subsample=0.5), dict(hessian_subsample=0.5,
+                                                 pcg_block_s=2)):
+        r = disco_fit(X, y, DiscoConfig(partition="samples", tau=16,
+                                        max_outer=2, ell_block_d=8,
+                                        ell_block_n=8, **kw),
+                      group=InProcessGroup(2), device="cpu")
+        assert np.isfinite(r.w).all() and r.grad_norms[-1] < r.grad_norms[0]
+    r = disco_fit(Xd, yd, DiscoConfig(partition="features", tau=16,
+                                      max_outer=2, hessian_subsample=0.5),
+                  group=InProcessGroup(2), device="cpu")
+    assert np.isfinite(r.w).all()
+    import os, tempfile
+    import repro_torch.core.baselines, repro_torch.data.libsvm
+    from repro_torch import (CocoaConfig, DaneConfig, GDConfig, cocoa_fit,
+                             dane_fit, gd_fit, load_libsvm,
+                             load_libsvm_sparse, save_libsvm)
+    for fit, cfg in ((gd_fit, GDConfig(max_outer=3)),
+                     (dane_fit, DaneConfig(max_outer=2)),
+                     (cocoa_fit, CocoaConfig(max_outer=2, local_steps=8))):
+        w, hist, ledger = fit(Xd, yd, cfg, group=InProcessGroup(2),
+                              device="cpu")
+        assert np.isfinite(w).all() and ledger.rounds > 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "d.svm")
+        save_libsvm(path, Xd[:, :10], yd[:10])
+        Xs, ys = load_libsvm_sparse(path, n_features=30)
+        assert Xs.shape == (30, 10)
+        assert np.allclose(load_libsvm(path, n_features=30)[0], Xd[:, :10],
+                           rtol=1e-5, atol=1e-6)
     import repro_torch.core.lambda_path, repro_torch.core.softmax
     from repro_torch import SoftmaxConfig, lambda_path_fit, softmax_fit
     labels = np.argmax(Xd[:3].T, axis=1)
