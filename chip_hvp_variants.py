@@ -45,8 +45,8 @@ HEADER = "ell_hvp_stream.cuh"
 # the set run when no variant is named: ablations of the hand-off (each
 # wrong on purpose), a deeper pass-A lead, and two other step sizes
 DEFAULT_VARIANTS = [
-    "abl_nofixup@@    fixup<float4, S>(p, red, part, bnd_s, k0, k1, base, "
-    "i);@@    (void)0;",
+    "abl_nofixup@@    fixup<T, float4, S>(p, red, part, bnd_s, k0, k1, "
+    "base, i);@@    (void)0;",
     "abl_nowait@@    while (flag.load(cuda::memory_order_acquire) != "
     "p.epoch) {@@    while (false) {",
     "abl_pass_a_only@@    if (w.b0 < w.b1) {@@    if (w.b0 < w.b1 && "

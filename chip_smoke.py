@@ -7,9 +7,10 @@ Usage, from the repository root on a machine with one Hopper card:
 
 Eight phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the eleven hand-written CUDA kernels from
+1. Build: compiles the fifteen hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
-   all at once) and prints the card's name and power limit.
+   all at once: the eleven, and the bf16-tile instances of K1, K2, K6 and
+   K7) and prints the card's name and power limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card (relative L2 error <= 1e-5 in f32): ``ell_mv`` and ``ell_hvp`` at
    8x8, 16x16 and 128x128 tiles on layouts with padding slots; ``xt_u``,
@@ -31,7 +32,14 @@ Eight phases; any failed check makes the exit code nonzero.
    row-block and at one above the whole layout, and without one, at s in
    1, 2, 4, 5 and 8 on contiguous and strided U, with and without c,
    against their plain versions and the two-pass ``ell_mv`` / ``ell_mm``
-   pair, with NaN in the padding; ``flash_attention`` (K11)
+   pair, with NaN in the padding; the same for the bf16 instances
+   (``ell_mv_bf16``, ``ell_mm_bf16``, ``ell_hvp_bf16``,
+   ``ell_hvp_mm_bf16``) on bf16 copies of those layouts against the
+   plain versions at bf16 tiles (<= 1e-5: the products are exact in
+   f32), the fused ones in two halves (their hand-off ``c .* z`` rounded
+   to bf16, ties within the f32 summation error bound aside, F11; the
+   output against the plain pass B of the kernel's own hand-off and
+   against the two-pass bf16 pair's); ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -42,7 +50,10 @@ Eight phases; any failed check makes the exit code nonzero.
    bit. The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
-   dense s-step included), a λ-path and softmax; and the paper's
+   dense s-step included), a λ-path and softmax; small bf16 sparse
+   solves (``hvp_dtype='bfloat16'``: DiSCO-S m = 1 two-pass and fused,
+   DiSCO-F m = 2 and a fused s-step, card against CPU within relative L2
+   3e-4, F11); and the paper's
    comparisons: the original DiSCO (``precond='sag'``, DiSCO-S) sparse
    and dense at m = 1 and 4 and one s-step solve, Hessian subsampling
    (frac 0.5, the same masks on both) on both partitions, sparse and
@@ -64,7 +75,16 @@ Eight phases; any failed check makes the exit code nonzero.
    and two variants of the schedule: one step over the whole layout and
    half the step_bytes), and held against the plain versions (the fused
    kernels also against the two-pass pair) at full width; a second fit
-   of the first run is profiled.
+   of the first run is profiled. Then five bf16 runs
+   (``hvp_dtype='bfloat16'``): DiSCO-S and DiSCO-F m = 1 two-pass,
+   DiSCO-S m = 1 fused, and DiSCO-S m = 1 s-step (s = 4) two-pass and
+   fused, each held to the launches the code predicts (the f32 ``ell_mv``
+   only for the margins and the gradient), f falling every step and the
+   f32 m = 1 two-pass ``w`` of its partition (<= 1e-4); on the first
+   run's bf16 copies the four bf16 instances are held to their plain
+   versions and timed beside them, the f32 kernels of the same call, a
+   bf16 BSR product where the card's torch has one and the bound at
+   2-byte tiles.
    Then four s-step runs (``pcg_block_s = 4``): DiSCO-S and DiSCO-F at
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
    held to the launches the code predicts, the classic convergence check
@@ -283,6 +303,19 @@ REPLACES = {"ell_mv": "src/repro/kernels/sparse_hvp.py:82",
             "x_c_xt_multi": "src/repro/kernels/glm_hvp.py:302",
             "flash_attention": "src/repro/kernels/flash_attention.py:85"}
 SPARSE_KERNELS = ("ell_mv", "ell_hvp", "ell_mm", "ell_hvp_mm")
+# their instances on bf16 tiles (DiscoConfig.hvp_dtype='bfloat16'): the
+# same TPU kernels at bf16 tile storage
+SPARSE_BF16 = tuple(f"{k}_bf16" for k in SPARSE_KERNELS)
+REPLACES.update({f"{k}_bf16": REPLACES[k] for k in SPARSE_KERNELS})
+# the bf16 runs of the sparse slice: partition, m, fused, pcg_block_s;
+# each held to the f32 m = 1 two-pass w of its partition at REL_TOL_W
+BF16_RUNS = [("samples", 1, False, 1), ("features", 1, False, 1),
+             ("samples", 1, True, 1), ("samples", 1, False, SSTEP_S),
+             ("samples", 1, True, SSTEP_S)]
+# card against CPU on a small bf16 solve: another f32 summation order
+# moves a bf16 solve by up to 1.2e-4 relative L2 (ROADMAP F11)
+BF16_REL_W_SMALL = 3e-4
+BYTES_BF16 = 2
 DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi",
                  "x_c_xt_multi")
 DENSE_SINGLE = ("xt_u", "x_cz", "x_c_xt_u")
@@ -612,6 +645,167 @@ def phase_hvp_edges(torch, sparse_hvp, ref, errs) -> None:
               f"{list(MULTI_S)} contiguous and strided: worst rel err "
               f"(plain and two-pass pair) {worst['ell_hvp']:.2e} / "
               f"{worst['ell_hvp_mm']:.2e}, NaN padding not read {finite}, "
+              f"path {sorted(paths)} (want {path})")
+
+
+def check_fused_bf16(torch, sparse_hvp, ref, dataT, colsT, U, c, got, cz,
+                     pair_z=None, fwd=None) -> dict:
+    """A bf16 fused kernel's call held in its two halves: its hand-off
+    ``cz`` (rounded c .* Z) against the plain hand-off (and against the
+    two-pass pair's, ``pair_z`` = the pair's pass A), ties within f32
+    summation error aside (``ref.ell_handoff_flips``); its
+    output against the plain pass B of its own hand-off (and the pair's
+    pass B, bf16 K6 on the forward layout ``fwd``). Returns the worst
+    rel errors, the tie flips and the end-to-end rel err against the
+    whole plain version."""
+    n_u = U.shape[0]
+    t = ref.ref_ell_handoff_t(dataT, colsT, U, c)
+    slack = ref.ell_handoff_slack(dataT, colsT, U, c, t)
+    cz = cz.reshape(t.shape)
+    flips, ties = ref.ell_handoff_flips(cz, t, slack)
+    want = ref.ref_ell_scatter_t(dataT, colsT, cz, n_u)
+    out = dict(rel=rel_err(got, want), abs=float((got - want).abs().max()),
+               flips=flips, ties=ties,
+               end_to_end=rel_err(got, ref.ref_ell_scatter_t(
+                   dataT, colsT, t.to(torch.bfloat16).float(), n_u)))
+    if pair_z is not None:
+        tp = pair_z if c is None else c[:, None] * pair_z
+        pflips, pties = ref.ell_handoff_flips(cz, tp, slack)
+        out.update(pair_flips=pflips, ties=ties and pties,
+                   pair_rel=rel_err(got, sparse_hvp.ell_mm(fwd[0], fwd[1],
+                                                           cz)))
+    return out
+
+
+def phase_bf16_edges(torch, sparse_hvp, ref, errs) -> None:
+    """The bf16 instances on :func:`edge_layouts` (bulk where a tile row
+    is a multiple of 16 bytes, so 12 x 6 takes the direct path): K1 and
+    K6 with and without the schedule and c, K6 at s in MULTI_S on a
+    strided V, repeated bit for bit, NaN padding not read; K2 and K7 with
+    every HVP_STEPS schedule (NaN in the padding where there is one),
+    with and without c, at s in MULTI_S on contiguous and strided U, each
+    held in its two halves (:func:`check_fused_bf16`) against the plain
+    version and the two-pass bf16 pair. One check line per layout and
+    pair of kernels."""
+    import numpy as np
+    dev = torch.device("cuda")
+    ctas = sparse_hvp.default_ctas(dev)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for tag, ell, _ in edge_layouts():
+        data, cols = T(ell.data).to(torch.bfloat16), T(ell.cols)
+        nb, w, br, bc = data.shape
+        path = "bulk" if bc % 8 == 0 else "direct"
+        sched = sparse_hvp.ell_schedule(data, cols, ctas)
+        n_in = ell.n_col_blocks * bc
+        g = torch.Generator(device=dev).manual_seed(nb + 7)
+        v = torch.randn(n_in, generator=g, device=dev)
+        c = torch.rand(n_in, generator=g, device=dev)
+        worst, same, paths = {"ell_mv_bf16": 0.0, "ell_mm_bf16": 0.0}, \
+            True, set()
+        for sc in (None, sched):
+            for cc in (None, c):
+                got = sparse_hvp.ell_mv(data, cols, v, cc, sched=sc)
+                paths.add(sparse_hvp.last_path["ell_mv_bf16"])
+                again = sparse_hvp.ell_mv(data, cols, v, cc, sched=sc)
+                want = ref.ref_ell_mv(data, cols, v, cc)
+                torch.cuda.synchronize()
+                worst["ell_mv_bf16"] = max(worst["ell_mv_bf16"], record_err(
+                    errs, "ell_mv_bf16", got, want))
+                same &= bool(torch.equal(got, again))
+                for k in MULTI_S:
+                    V = torch.randn((n_in, k + 1), generator=g,
+                                    device=dev)[:, :k]
+                    got = sparse_hvp.ell_mm(data, cols, V, cc, sched=sc)
+                    paths.add(sparse_hvp.last_path["ell_mm_bf16"])
+                    again = sparse_hvp.ell_mm(data, cols, V, cc, sched=sc)
+                    want = ref.ref_ell_mm(data, cols, V, cc)
+                    torch.cuda.synchronize()
+                    worst["ell_mm_bf16"] = max(worst["ell_mm_bf16"],
+                                               record_err(errs, "ell_mm_bf16",
+                                                          got, want))
+                    same &= bool(torch.equal(got, again))
+        live = sparse_hvp.schedule_parts(sched, nb)[0].long()
+        poisoned = data.clone()
+        poisoned[torch.arange(w, device=dev)[None, :] >= live[:, None]] = \
+            float("nan")
+        V = torch.randn((n_in, TIMED_S + 1), generator=g,
+                        device=dev)[:, :TIMED_S]
+        y = sparse_hvp.ell_mv(poisoned, cols, v, c, sched=sched)
+        Y = sparse_hvp.ell_mm(poisoned, cols, V, c, sched=sched)
+        torch.cuda.synchronize()
+        skipped = (bool(torch.equal(y, sparse_hvp.ell_mv(
+            data, cols, v, c, sched=sched))) and bool(torch.equal(
+                Y, sparse_hvp.ell_mm(data, cols, V, c, sched=sched))))
+        check(max(worst.values()) <= REL_TOL_KERNEL and same and skipped
+              and paths == {path},
+              f"bf16 ell_mv / ell_mm {tag} {tuple(data.shape)}, with and "
+              f"without the schedule, c, s in {list(MULTI_S)}: worst rel "
+              f"err {worst['ell_mv_bf16']:.2e} / {worst['ell_mm_bf16']:.2e},"
+              f" repeatable {same}, path {sorted(paths)} (want {path}), "
+              f"NaN padding not read {skipped}")
+
+        fwd = forward_of(ell)
+        clean, colsT = data, cols
+        fdata, fcols = T(fwd.data).to(torch.bfloat16), T(fwd.cols)
+        nb, w, R, C = clean.shape
+        path = "bulk" if C % 8 == 0 else "direct"
+        n_u = ell.n_col_blocks * C
+        u = torch.randn(n_u, generator=g, device=dev)
+        cT = torch.rand(nb * R, generator=g, device=dev)
+        worst = dict(rel=0.0, pair_rel=0.0, end_to_end=0.0)
+        flips, ties, finite, paths, steps = 0, True, True, set(), {}
+        for name, step_bytes in HVP_STEPS.items():
+            sc, dataT = None, clean
+            if step_bytes is not None:
+                sc = sparse_hvp.ell_hvp_schedule(clean, colsT, ctas,
+                                                 step_bytes or None)
+                steps[name] = sc.steps
+                lv = sc.parts()[0].long()
+                dataT = clean.clone()
+                dataT[torch.arange(w, device=dev)[None, :]
+                      >= lv[:, None]] = float("nan")
+            for cc in (None, cT):
+                for k in MULTI_S:
+                    for strided in (False, True):
+                        if k == 1 and strided:
+                            continue
+                        U = torch.randn((n_u, k + 1), generator=g,
+                                        device=dev)[:, :k]
+                        if not strided:
+                            U = U.contiguous()
+                        cz = torch.zeros(nb * R * k, device=dev)
+                        if k == 1:
+                            kname = "ell_hvp_bf16"
+                            got = sparse_hvp.ell_hvp(dataT, colsT, U[:, 0],
+                                                     cc, sched=sc,
+                                                     cz_out=cz)[:, None]
+                        else:
+                            kname = "ell_hvp_mm_bf16"
+                            got = sparse_hvp.ell_hvp_mm(dataT, colsT, U, cc,
+                                                        sched=sc, cz_out=cz)
+                        paths.add(sparse_hvp.last_path[kname])
+                        pair_z = sparse_hvp.ell_mm(clean, colsT, U)
+                        torch.cuda.synchronize()
+                        finite &= bool(got.isfinite().all())
+                        r = check_fused_bf16(torch, sparse_hvp, ref, clean,
+                                             colsT, U, cc, got, cz, pair_z,
+                                             (fdata, fcols))
+                        rec = errs[kname]
+                        rec["rel"] = max(rec["rel"], r["rel"], r["pair_rel"])
+                        rec["abs"] = max(rec["abs"], r["abs"])
+                        for key in worst:
+                            worst[key] = max(worst[key], r[key])
+                        flips += r["flips"]
+                        ties &= r["ties"]
+        check(max(worst["rel"], worst["pair_rel"]) <= REL_TOL_KERNEL and ties
+              and finite and paths == {path},
+              f"bf16 ell_hvp / ell_hvp_mm {tag} {tuple(clean.shape)}, steps "
+              f"{json.dumps(steps)} and every slot, c, s in {list(MULTI_S)}"
+              f" contiguous and strided: rel err of y against the plain and "
+              f"the pair's pass B on the kernel's hand-off {worst['rel']:.2e}"
+              f" / {worst['pair_rel']:.2e}, hand-off elements off the plain "
+              f"rounding {flips} (all ties {ties}), end-to-end rel err "
+              f"{worst['end_to_end']:.2e}, NaN padding not read {finite}, "
               f"path {sorted(paths)} (want {path})")
 
 
@@ -980,8 +1174,10 @@ def print_schedule_detail(name, m) -> None:
 def library_bsr_ms(torch, data, cols, v):
     """Time of PyTorch's block-sparse (BSR) matrix product for the same
     A v (v of shape (n,) or (n, s)), from the layout's nonempty tiles;
-    None if the card's PyTorch cannot run it. A yardstick only: the port
-    never calls it."""
+    None if the card's PyTorch cannot run it. On bf16 tiles v is rounded
+    to bf16 as the kernels round it and the product is bf16, so it is
+    held to the f32-sum version at 1e-2, not 1e-4. A yardstick only: the
+    port never calls it."""
     nrb, W, br, bc = data.shape
     keep = (data.reshape(nrb, W, -1) != 0).any(dim=2)
     counts = keep.sum(dim=1)
@@ -991,17 +1187,19 @@ def library_bsr_ms(torch, data, cols, v):
         bsr = torch.sparse_bsr_tensor(
             crow, cols[keep].to(torch.int64), data[keep],
             size=(nrb * br, v.shape[0]))
-        vv = v.reshape(v.shape[0], -1)
-        got = bsr @ vv
-        want = torch.einsum("iwab,iwbs->ias", data,
-                            vv.reshape(-1, bc, vv.shape[1])[cols.long()]
-                            ).reshape(got.shape)
-        if rel_err(got, want) > 1e-4:
+        vv = v.reshape(v.shape[0], -1).to(data.dtype)
+        got = (bsr @ vv).float()
+        want = torch.einsum("iwab,iwbs->ias", data.float(),
+                            vv.float().reshape(-1, bc, vv.shape[1])[
+                                cols.long()]).reshape(got.shape)
+        tol = 1e-4 if data.dtype == torch.float32 else 1e-2
+        if rel_err(got, want) > tol:
             print("library BSR product disagrees; not timed")
             return None
         return time_ms(lambda: bsr @ vv)
-    except (RuntimeError, NotImplementedError) as exc:
-        print(f"library BSR product unavailable: {exc}")
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        print(f"library BSR product unavailable on this card's torch: "
+              f"{str(exc).splitlines()[0][:200]}")
         return None
 
 
@@ -1114,6 +1312,245 @@ def measure_sparse_multi(torch, solver, sparse_hvp, ref, errs) -> dict:
     print_schedule_detail("ell_mm", out["ell_mm"])
     print_hvp_detail("ell_hvp_mm", out["ell_hvp_mm"], "two_pass_ell_mm_ms")
     return out
+
+
+def measure_bf16_kernels(torch, solver, sparse_hvp, ref, errs,
+                         f32) -> dict:
+    """The bf16 instances at full width on a bf16 DiSCO-S m = 1 solver's
+    copies of the first run's layouts (the f32 layouts cast on the card),
+    with the solver's schedules as the main path passes them: held to
+    their plain versions (K2 and K7 in their two halves, also against the
+    two-pass bf16 pair), then timed beside the plain versions, a bf16 BSR
+    product where the card's torch has one, and the f32 kernels' times of
+    the same call (``f32``: the f32 timings); bound at 2-byte tiles, GB/s
+    over the live bytes."""
+    from repro_torch.core import comm
+    dev = solver.device
+    data, cols = solver.ell_data_h[0], solver.ell_cols[0]
+    dataT, colsT = solver.ell_dataT_h[0], solver.ell_colsT[0]
+    sched, schedT = solver.ell_sched[0], solver.ell_schedT[0]
+    hs = solver.ell_hvp_sched[0]
+    nrb, W, br, bc = data.shape
+    ncb, WT = dataT.shape[:2]
+    s = TIMED_S
+    g = torch.Generator(device=dev).manual_seed(1)
+    wts, yv = solver.weights[0], solver.y[0]
+    c = 0.25 * wts
+    d1 = -0.5 * yv * wts
+    u = torch.randn(nrb * br, generator=g, device=dev)
+    V = torch.randn((ncb * bc, s + 1), generator=g, device=dev)[:, :s]
+    U = torch.randn((nrb * br, s + 1), generator=g, device=dev)[:, :s]
+    variants = hvp_variants(sparse_hvp, dataT, colsT, schedT, hs)
+
+    cases = [("gradient", "ell_mv_bf16",
+              sparse_hvp.ell_mv(data, cols, d1, sched=sched),
+              ref.ref_ell_mv(data, cols, d1)),
+             ("two-pass HVP", "ell_mv_bf16",
+              sparse_hvp.ell_mv(data, cols, sparse_hvp.ell_mv(
+                  dataT, colsT, u, sched=schedT), c, sched=sched),
+              ref.ref_ell_mv(data, cols, ref.ref_ell_mv(dataT, colsT, u), c)),
+             (f"forward s={s}", "ell_mm_bf16",
+              sparse_hvp.ell_mm(data, cols, V, sched=sched),
+              ref.ref_ell_mm(data, cols, V)),
+             (f"two-pass HVP s={s}", "ell_mm_bf16",
+              sparse_hvp.ell_mm(data, cols, sparse_hvp.ell_mm(
+                  dataT, colsT, U, sched=schedT), c, sched=sched),
+              ref.ref_ell_mm(data, cols, ref.ref_ell_mm(dataT, colsT, U), c))]
+    torch.cuda.synchronize()
+    for what, kname, got, want in cases:
+        e = record_err(errs, kname, got, want)
+        check(e <= REL_TOL_KERNEL, f"bf16 {kname} full width {what}: rel err "
+                                   f"{e:.2e}")
+    del cases
+    check(bool(torch.equal(sparse_hvp.ell_mv(data, cols, d1, sched=sched),
+                           sparse_hvp.ell_mv(data, cols, d1, sched=sched)))
+          and bool(torch.equal(sparse_hvp.ell_mm(data, cols, V, sched=sched),
+                               sparse_hvp.ell_mm(data, cols, V,
+                                                 sched=sched))),
+          "bf16 ell_mv / ell_mm full width: repeatable bit for bit")
+    pair_u = sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT)[:, None]
+    pair_U = sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT)
+    for name, sc in [("the solver's step schedule", hs)] + list(
+            variants.items()):
+        for kname, X in (("ell_hvp_bf16", u[:, None]), ("ell_hvp_mm_bf16",
+                                                        U)):
+            cz = torch.zeros(ncb * bc * X.shape[1], device=dev)
+            if kname == "ell_hvp_bf16":
+                got = sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=sc,
+                                         cz_out=cz)[:, None]
+            else:
+                got = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c, sched=sc,
+                                            cz_out=cz)
+            torch.cuda.synchronize()
+            r = check_fused_bf16(torch, sparse_hvp, ref, dataT, colsT, X, c,
+                                 got, cz, pair_u if X.shape[1] == 1
+                                 else pair_U, (data, cols))
+            rec = errs[kname]
+            rec["rel"] = max(rec["rel"], r["rel"], r["pair_rel"])
+            rec["abs"] = max(rec["abs"], r["abs"])
+            rec["end_to_end"] = max(rec.get("end_to_end", 0.0),
+                                    r["end_to_end"])
+            rec["flips"] = rec.get("flips", 0) + r["flips"]
+            check(max(r["rel"], r["pair_rel"]) <= REL_TOL_KERNEL
+                  and r["ties"],
+                  f"bf16 {kname} full width s={X.shape[1]}, {name}: rel err "
+                  f"of y against the plain and the pair's pass B on the "
+                  f"kernel's hand-off {r['rel']:.2e} / {r['pair_rel']:.2e};"
+                  f" hand-off elements off the plain / pair rounding "
+                  f"{r['flips']} / {r['pair_flips']} of {cz.numel()}, all "
+                  f"ties {r['ties']}; end-to-end rel err "
+                  f"{r['end_to_end']:.2e}")
+    del pair_u, pair_U
+
+    tiles_f, tiles_t = nonempty_tiles(data), nonempty_tiles(dataT)
+    live = schedule_tiles(sparse_hvp, sched, nrb)
+    live_t = schedule_tiles(sparse_hvp, schedT, ncb)
+    tb = br * bc * BYTES_BF16
+    v = torch.randn(ncb * bc, generator=g, device=dev)
+    out = {}
+
+    def row(kname, ms, plain, lib, tiles, live_tiles, other, flops, **kw):
+        # bound: the nonempty tiles at 2 bytes an element (the byte model's
+        # one pass over one layout), the vectors once, or the f32 flops
+        tile_bytes = comm.ell_hvp_bytes(0, tiles, br, bc, fused=True,
+                                        dtype_bytes=BYTES_BF16)
+        t_bytes = (tile_bytes + other) / HBM_BYTES_PER_S
+        t_ops = tiles * br * bc * flops / F32_FLOPS_PER_S
+        bms = 1e3 * max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        nbytes = live_tiles * tb + other
+        f32_ms = f32[kname[:-len("_bf16")]]["ms"]
+        out[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                          library_ms=lib, bytes=nbytes,
+                          gbps=nbytes / ms / 1e6, share_of_bound=bms / ms,
+                          f32_ms=f32_ms, bf16_over_f32=ms / f32_ms, **kw)
+
+    other = 4 * (cols.numel() + v.numel() + nrb * br)
+    row("ell_mv_bf16",
+        time_ms(lambda: sparse_hvp.ell_mv(data, cols, v, sched=sched)),
+        time_ms(lambda: ref.ref_ell_mv(data, cols, v)),
+        library_bsr_ms(torch, data, cols, v), tiles_f, live, other, 2,
+        ms_transposed=time_ms(lambda: sparse_hvp.ell_mv(dataT, colsT, u,
+                                                        sched=schedT)),
+        ms_forward_with_c=time_ms(lambda: sparse_hvp.ell_mv(
+            data, cols, v, c, sched=sched)),
+        path=sparse_hvp.last_path["ell_mv_bf16"], shape=[nrb, W, br, bc])
+    other = 4 * (colsT.numel() + u.numel() + c.numel() + nrb * br)
+    row("ell_hvp_bf16",
+        time_ms(lambda: sparse_hvp.ell_hvp(dataT, colsT, u, c, sched=hs)),
+        time_ms(lambda: ref.ref_ell_hvp_t(dataT, colsT, u, c)), None,
+        tiles_t, live_t, other, 4,
+        two_pass_ell_mv_ms=time_ms(lambda: sparse_hvp.ell_mv(
+            data, cols, sparse_hvp.ell_mv(dataT, colsT, u, sched=schedT), c,
+            sched=sched)),
+        **{f"ms_{k}": time_ms(lambda: sparse_hvp.ell_hvp(
+            dataT, colsT, u, c, sched=sc)) for k, sc in variants.items()},
+        **hvp_schedule_detail(torch, hs, variants),
+        path=sparse_hvp.last_path["ell_hvp_bf16"], shape=[ncb, WT, bc, br])
+    other = 4 * (cols.numel() + V.numel() + nrb * br * s)
+    row("ell_mm_bf16",
+        time_ms(lambda: sparse_hvp.ell_mm(data, cols, V, sched=sched)),
+        time_ms(lambda: ref.ref_ell_mm(data, cols, V)),
+        library_bsr_ms(torch, data, cols, V.contiguous()), tiles_f,
+        live, other, 2 * s,
+        ms_transposed=time_ms(lambda: sparse_hvp.ell_mm(dataT, colsT, U,
+                                                        sched=schedT)),
+        path=sparse_hvp.last_path["ell_mm_bf16"], shape=[nrb, W, br, bc, s])
+    other = 4 * (colsT.numel() + U.numel() + c.numel() + nrb * br * s)
+    row("ell_hvp_mm_bf16",
+        time_ms(lambda: sparse_hvp.ell_hvp_mm(dataT, colsT, U, c, sched=hs)),
+        time_ms(lambda: ref.ref_ell_hvp_mm_t(dataT, colsT, U, c)), None,
+        tiles_t, live_t, other, 4 * s,
+        two_pass_ell_mm_ms=time_ms(lambda: sparse_hvp.ell_mm(
+            data, cols, sparse_hvp.ell_mm(dataT, colsT, U, sched=schedT), c,
+            sched=sched)),
+        **{f"ms_{k}": time_ms(lambda: sparse_hvp.ell_hvp_mm(
+            dataT, colsT, U, c, sched=sc)) for k, sc in variants.items()},
+        path=sparse_hvp.last_path["ell_hvp_mm_bf16"],
+        shape=[ncb, WT, bc, br, s])
+    for name, m in out.items():
+        print(f"{name} full width {m['shape']} ({m['path']}): "
+              f"{m['ms'] * 1e3:.1f} us/call, {m['gbps']:.0f} GB/s over "
+              f"{m['bytes'] / 1e9:.3f} GB read, bound "
+              f"{m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}, "
+              f"{100 * m['share_of_bound']:.1f}%), plain "
+              f"{m['plain_ms'] * 1e3:.1f} us, library {m['library_ms']}, "
+              f"f32 {m['f32_ms'] * 1e3:.1f} us ({m['bf16_over_f32']:.3f}x)",
+              flush=True)
+    print("bf16 detail " + json.dumps({k: {
+        key: val for key, val in m.items() if key.startswith(
+            ("ms_", "two_pass", "steps", "step_bytes"))}
+        for k, m in out.items()}), flush=True)
+    return out
+
+
+def bf16_launches(partition, m, fused, s, steps, iters) -> dict:
+    """The sparse kernel launches of a bf16 fit: the margins and the
+    gradient on the f32 layouts (one f32 ell_mv each a shard a Newton
+    step); PCG's products on the bf16 instances: classic, one HVP an
+    iteration (two ell_mv a shard two-pass, one ell_hvp fused, on m = 1
+    or DiSCO-S); s-step as :func:`predicted_launches` counts them."""
+    if s > 1:
+        hvp = predicted_launches(True, partition, m, fused, s, 0, iters)
+    else:
+        hvp = dict.fromkeys(SPARSE_KERNELS, 0)
+        hvp["ell_hvp" if fused else "ell_mv"] = (1 if fused else 2) * m * iters
+    n = {f"{k}_bf16": hvp[k] for k in SPARSE_KERNELS}
+    n.update(dict.fromkeys(SPARSE_KERNELS, 0), ell_mv=2 * m * steps)
+    return n
+
+
+def bf16_slice_runs(torch, rt, build, sparse_hvp, ref, X, y, f32_w,
+                    launches, errs, f32_timings) -> dict:
+    """The bf16 runs of the sparse slice (BF16_RUNS), full width: each held
+    to the launches the code predicts, f falling every Newton step and the
+    f32 m = 1 two-pass w of its partition (``f32_w``) at REL_TOL_W. The
+    first run's copies are held and timed first
+    (:func:`measure_bf16_kernels`)."""
+    timings = None
+    for partition, m, fused, s in BF16_RUNS:
+        kind = f"s-step s={s} " if s > 1 else ""
+        tag = f"bf16 {kind}" + run_tag(partition, m, fused)
+        cfg = rt.DiscoConfig(partition=partition, hvp_fused=fused,
+                             pcg_block_s=s, hvp_dtype="bfloat16", **SOLVE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if timings is None:
+            timings = measure_bf16_kernels(torch, solver, sparse_hvp, ref,
+                                           errs, f32_timings)
+            torch.cuda.reset_peak_memory_stats()
+        res, counts = fit_counted(torch, build, solver)
+        for k in launches:
+            launches[k] += counts[k]
+        hist = res.history
+        iters = sum(int(h["pcg_iters"]) for h in hist)
+        row = run_row(torch, tag, res, counts, setup_s,
+                      f=[h["f"] for h in hist],
+                      hvp_bytes=2 * (solver.ell_data_h.numel()
+                                     + solver.ell_dataT_h.numel()))
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and res.w.shape == (X.shape[0],),
+              f"{tag}: finite w of shape (d,)")
+        want = bf16_launches(partition, m, fused, s, len(hist), iters)
+        got = {k: counts[k] for k in want}
+        check(got == want and iters > 0,
+              f"{tag}: launches as predicted {json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        check_f_decreases(tag, hist)
+        e = rel_w(res.w, f32_w[partition])
+        check(e <= REL_TOL_W, f"{tag} vs f32 m=1 two-pass: rel diff of w "
+                              f"{e:.2e} (<= {REL_TOL_W:g})")
+        print(f"{tag}: PCG {'rounds' if s > 1 else 'iterations'} per step "
+              f"{row['pcg_iters']}, median iter_s "
+              f"{row['iter_s_median']:.4f}", flush=True)
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return timings
 
 
 def time_gram_solve(torch) -> None:
@@ -1229,7 +1666,7 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
     X, y, _ = make_sparse_glm_data(**SLICE)
     print(f"data: d={X.shape[0]} n={X.shape[1]} nnz={X.nnz} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    launches = dict.fromkeys(SPARSE_KERNELS, 0)
+    launches = dict.fromkeys(SPARSE_KERNELS + SPARSE_BF16, 0)
     timings, results = None, {}
     for partition, m, fused in RUNS:
         tag = run_tag(partition, m, fused)
@@ -1277,6 +1714,10 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
     for p in ("samples", "features"):
         e = rel_w(w[(p, 1, True)], w[(p, 1, False)])
         check(e <= 1e-4, f"{p} fused vs two-pass: rel diff of w {e:.2e}")
+    timings.update(bf16_slice_runs(
+        torch, rt, build, sparse_hvp, ref, X, y,
+        {p: w[(p, 1, False)] for p in ("samples", "features")}, launches,
+        errs, timings))
     sstep_phase(torch, rt, build, X, y, SOLVE, SSTEP_RUNS,
                 {p: results[(p, 1, False)] for p in ("samples", "features")},
                 True, launches)
@@ -2079,6 +2520,49 @@ def small_reference(torch, rt) -> None:
                    on_card, on_cpu, w="W")
 
 
+def small_bf16_reference(torch, rt) -> None:
+    """Small bf16 sparse solves (``hvp_dtype='bfloat16'``) on the card
+    against the same solves on the CPU: DiSCO-S m = 1 two-pass and fused,
+    DiSCO-F m = 2 two-pass and m = 1 fused s-step (s = 2). The same PCG
+    iterations (or rounds) every step and w within relative L2
+    BF16_REL_W_SMALL (F11: at bf16 another f32 summation order moves the
+    solve that far, the reference's own solve included), the bf16
+    instances launched and the f32 kernels only for the margins and the
+    gradient."""
+    import numpy as np
+    from repro_torch.kernels import build
+    X, y, _ = rt.make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
+                                      beta=0.5, seed=1)
+    for partition, m, fused, s in (("samples", 1, False, 1),
+                                   ("samples", 1, True, 1),
+                                   ("features", 2, False, 1),
+                                   ("features", 1, True, 2)):
+        cfg = rt.DiscoConfig(loss="logistic", lam=1e-2, tau=100,
+                             max_outer=4, grad_tol=0.0, ell_block_d=16,
+                             ell_block_n=16, partition=partition,
+                             hvp_fused=fused, pcg_block_s=s,
+                             hvp_dtype="bfloat16")
+        group = rt.InProcessGroup(m)
+        build.reset_launch_counts()
+        on_card = rt.disco_fit(X, y, cfg, group=group, device="cuda")
+        counts = build.launch_counts()
+        on_cpu = rt.disco_fit(X, y, cfg, group=group, device="cpu")
+        e = rel_w(on_card.w, on_cpu.w)
+        same_iters = [h["pcg_iters"] for h in on_card.history] == \
+            [h["pcg_iters"] for h in on_cpu.history]
+        bf16 = sum(counts[k] for k in SPARSE_BF16)
+        f32_only_margins = (counts["ell_mv"] == 2 * m * len(on_card.history)
+                            and not any(counts[k] for k in SPARSE_KERNELS[1:]))
+        kind = "" if s == 1 else f" s-step s={s}"
+        check(e <= BF16_REL_W_SMALL and same_iters and bf16 > 0
+              and f32_only_margins and bool(np.isfinite(on_card.w).all()),
+              f"small bf16 sparse{kind} {run_tag(partition, m, fused)} on "
+              f"the card vs the CPU: rel diff of w {e:.2e} (<= "
+              f"{BF16_REL_W_SMALL:g}), same PCG iterations {same_iters}, "
+              f"bf16 launches {bf16}, f32 kernels for the margins and the "
+              f"gradient only {f32_only_margins}")
+
+
 # ---------------------------------------------------------------------------
 # the paper's comparisons: original DiSCO (SAG), Hessian subsampling, and
 # the GD / DANE / CoCoA+ baselines
@@ -2841,6 +3325,8 @@ def report_row(name, t, launches, err) -> dict:
         bound_ms=t["bound_ms"], bound_us=t["bound_ms"] * 1e3,
         bound_by=t["bound_by"], library_ms=t["library_ms"],
         gbps=t["gbps"], bytes=t["bytes"],
+        **{f"handoff_{k}": err[k] for k in ("flips", "end_to_end")
+           if k in err},
         **{k: v for k, v in t.items() if k not in keys})
 
 
@@ -2871,11 +3357,13 @@ def main() -> int:
     phase_multi_kernels(torch, sparse_hvp, glm_hvp, ref, errs)
     phase_ell_edges(torch, sparse_hvp, ref, errs)
     phase_hvp_edges(torch, sparse_hvp, ref, errs)
+    phase_bf16_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
+    small_bf16_reference(torch, rt)
     small_comparisons(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
     t_sparse = time.perf_counter() - t_start

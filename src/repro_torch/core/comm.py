@@ -1,5 +1,5 @@
 """Analytic communication accounting (paper Tables 2-4), classic and
-s-step PCG.
+s-step PCG, and the HVP's device-memory byte model.
 
 Counts the collectives the way the paper does:
 
@@ -19,6 +19,8 @@ replicated vector is one all-reduce).
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 BYTES_PER_FLOAT = 4  # f32 throughout
 
@@ -101,3 +103,111 @@ def cocoa_iter_cost(d: int) -> tuple[int, int, int]:
     """(rounds, floats, spmd) for one CoCoA+ outer iteration: a single
     d-vector reduceAll of the aggregated local updates."""
     return 1, d, 1
+
+
+# ---------------------------------------------------------------------------
+# load balance and the HVP's device-memory traffic (the reference's
+# repro/core/comm.py, numpy only)
+#
+# Every collective above is a barrier, so a sparse partition moves at the
+# pace of its heaviest shard (max shard nnz, not the mean). The HVP is
+# memory-bound, so the bytes the data tiles move bound PCG's inner loop:
+# the fused one-pass kernels read the tiles once per application instead
+# of twice, and bf16 tiles (DiscoConfig.hvp_dtype) halve the bytes of
+# each element.
+# ---------------------------------------------------------------------------
+
+BYTES_BF16 = 2
+
+
+def sparse_hvp_flops(nnz: int) -> int:
+    """Flops of one sparse HVP application: two passes over the nonzeros
+    (X^T u then X (c.*z)), one multiply-add each -> 4 flops/nnz."""
+    return 4 * nnz
+
+
+def hvp_dtype_bytes(hvp_dtype: str) -> int:
+    """Bytes per stored tile element for a ``DiscoConfig.hvp_dtype``,
+    through :func:`repro_torch.data.sparse.hvp_tile_dtype`, so the model
+    and the tile builders accept the same spellings."""
+    from repro_torch.data.sparse import hvp_tile_dtype
+    return int(hvp_tile_dtype(hvp_dtype).itemsize)
+
+
+def dense_hvp_bytes(d: int, n: int, s: int = 1, *, fused: bool = False,
+                    dtype_bytes: int = BYTES_PER_FLOAT) -> int:
+    """X bytes of ONE dense (multi-)HVP application: the two-pass kernels
+    read the (d, n) X twice, the fused one once; the s probe vectors share
+    each read, so ``s`` does not appear."""
+    del s
+    passes = 1 if fused else 2
+    return passes * d * n * dtype_bytes
+
+
+def ell_hvp_bytes(tiles_fwd: int, tiles_tr: int, block_rows: int,
+                  block_cols: int, *, fused: bool = False,
+                  dtype_bytes: int = BYTES_PER_FLOAT) -> int:
+    """Blocked-ELL tile bytes of ONE sparse (multi-)HVP application, from
+    the tile counts of the forward and transposed layouts: the two-pass
+    pair reads both layouts once, the fused kernel only the transposed
+    one."""
+    tile = block_rows * block_cols * dtype_bytes
+    return (tiles_tr if fused else tiles_fwd + tiles_tr) * tile
+
+
+def straggler_factor(shard_nnz) -> float:
+    """max_shard_nnz / mean_shard_nnz: how far barrier collectives stretch
+    the compute phase of a skewed partition (1.0 is a perfect balance)."""
+    shard_nnz = np.asarray(shard_nnz, np.float64)
+    mean = shard_nnz.mean()
+    return float(shard_nnz.max() / mean) if mean > 0 else 1.0
+
+
+def disco_sparse_iter_time(shard_nnz, pcg_iters: int, partition: str,
+                           n: int, d: int, m: int, s: int = 1, *,
+                           flops_per_sec: float = 5e11,
+                           bytes_per_sec: float = 1e10,
+                           latency_s: float = 5e-6,
+                           hvp_fused: bool = False,
+                           hvp_dtype_bytes: int = BYTES_PER_FLOAT,
+                           hbm_bytes_per_sec: float = 8e11) -> dict:
+    """Modeled seconds for ONE Newton iteration on a sparse partition.
+
+    compute: (pcg_iters * s + 1) HVP applications, each the heavier of
+    its flops (:func:`sparse_hvp_flops`) and the value bytes its tile
+    stream moves on the heaviest shard (one pass over the nonzeros when
+    ``hvp_fused``, two otherwise, at ``hvp_dtype_bytes`` an element);
+    comm: the (rounds, floats) of the matching cost function above,
+    ``latency_s`` a round plus wire time. The default rates are the
+    reference's model constants, not measured ones. Returns
+    ``compute_s``, ``hvp_bytes`` (per application), ``comm_s``,
+    ``total_s`` and ``straggler``.
+    """
+    shard_nnz = np.asarray(shard_nnz, np.float64)
+    max_nnz = float(shard_nnz.max()) if len(shard_nnz) else 0.0
+
+    if partition == "features":
+        r1, f1, _ = disco_f_outer_cost(n, d, m)
+        if s > 1:
+            r2, f2, _ = disco_f_sstep_cost(n, s, pcg_iters)
+        else:
+            r2, f2, _ = disco_f_pcg_cost(n, pcg_iters)
+    elif partition == "samples":
+        r1, f1, _ = disco_s_outer_cost(d)
+        if s > 1:
+            r2, f2, _ = disco_s_sstep_cost(d, s, pcg_iters)
+        else:
+            r2, f2, _ = disco_s_pcg_cost(d, pcg_iters)
+    else:
+        raise ValueError(f"unknown partition {partition!r}")
+
+    hvp_apps = pcg_iters * max(s, 1) + 1
+    hvp_bytes = (1 if hvp_fused else 2) * max_nnz * hvp_dtype_bytes
+    per_app = max(sparse_hvp_flops(int(max_nnz)) / flops_per_sec,
+                  hvp_bytes / hbm_bytes_per_sec)
+    compute_s = hvp_apps * per_app
+    comm_s = (r1 + r2) * latency_s \
+        + (f1 + f2) * BYTES_PER_FLOAT / bytes_per_sec
+    return dict(compute_s=compute_s, hvp_bytes=hvp_bytes, comm_s=comm_s,
+                total_s=compute_s + comm_s,
+                straggler=straggler_factor(shard_nnz))

@@ -17,10 +17,13 @@ The port runs the in-memory paths: a sparse :class:`CSRMatrix` input
 f32 array or tensor (margins and gradient in ``torch.matmul``, as the JAX
 package leaves them to XLA; every HVP of PCG through the dense kernels
 with ``use_kernel=True``, else ``torch.matmul``), classic or s-step PCG
-(``pcg_block_s > 1``), f32, with the Woodbury, SAG (the original DiSCO's)
-or no preconditioner and optional Hessian subsampling. On the card the
-ops are the CUDA kernels. bf16 tiles, checkpointing and tracing are not
-yet ported and raise. :meth:`DiscoSolver.with_lam`
+(``pcg_block_s > 1``), with the Woodbury, SAG (the original DiSCO's) or
+no preconditioner and optional Hessian subsampling. On the card the ops
+are the CUDA kernels. PCG's HVP tiles are f32 or, on sparse input,
+bf16 (``hvp_dtype='bfloat16'``: bf16 copies of the two layouts for PCG,
+the f32 layouts kept for the margins and the gradient, as in the
+reference). bf16 on dense input, checkpointing and tracing are not yet
+ported and raise. :meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
@@ -60,10 +63,11 @@ class DiscoConfig:
     'sag' (DiSCO-S only, ``sag_epochs`` inner epochs) | 'none'),
     max_outer, max_pcg, pcg_rel_tol, grad_tol, hessian_subsample (each
     outer step draws fresh masks from ``seed``: :func:`subsample_mask`),
-    use_kernel (dense input), hvp_fused, pcg_block_s (s-step PCG;
-    ``max_pcg`` then caps rounds), partition_strategy, partition_block,
-    ell_block_d, ell_block_n (sparse input). The fields for the paths not
-    yet ported must keep their defaults (``hvp_dtype='float32'``,
+    use_kernel (dense input), hvp_fused, hvp_dtype ('float32', or
+    'bfloat16' on sparse input), pcg_block_s (s-step PCG; ``max_pcg``
+    then caps rounds), partition_strategy, partition_block, ell_block_d,
+    ell_block_n (sparse input). The fields for the paths not yet ported
+    must keep their defaults (``hvp_dtype='float32'`` on dense input,
     ``trace=False``); the out-of-core fields are unused.
     """
 
@@ -217,10 +221,16 @@ class DiscoSolver:
                sparse: bool) -> None:
         if cfg.trace:
             raise _not_ported("tracing (trace=True)")
-        hvp_tile_dtype(cfg.hvp_dtype)
+        self.hvp_dtype = hvp_tile_dtype(cfg.hvp_dtype)
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
                              sparse=sparse, use_kernel=cfg.use_kernel)
+        if not sparse and self.hvp_dtype != torch.float32:
+            raise _not_ported(
+                "hvp_dtype='bfloat16' on dense input (bf16 X tiles for the "
+                "dense kernels K3 xt_u, K4 x_cz, K5 x_c_xt_u, K8 xt_multi, "
+                "K9 x_cz_multi and K10 x_c_xt_multi, and for the plain "
+                "dense layout)")
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg
@@ -305,7 +315,15 @@ class DiscoSolver:
         Samples state: ``y``/``weights`` (n_padded,) in partition order,
         ``X_tau`` (d_padded, tau) replicated. Features state: ``y``/
         ``smask`` (n_padded,) replicated, ``X_tau`` (d_padded, tau) in
-        partition order. Both: the stacked ``(m, ...)`` ELL arrays.
+        partition order. Both: the stacked ``(m, ...)`` f32 ELL arrays.
+
+        PCG's HVP tiles (``ell_data_h`` / ``ell_dataT_h``) are the f32
+        layouts themselves at ``hvp_dtype='float32'`` (no copy), else
+        copies in that dtype cast on the device; the margins and the
+        gradient keep the f32 layouts, as in the reference. The live-tile
+        schedules are the f32 layouts' (a tile nonzero at bf16 is nonzero
+        at f32, so their live tiles cover the copies'); the one-pass
+        HVP's step schedule is built at the HVP tiles' element size.
         """
         m = self.m
         put = lambda a: _to_device(a, self.device)
@@ -326,18 +344,27 @@ class DiscoSolver:
         self.ell_schedT = torch.stack([
             ell_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas)
             for s in range(m)])
-        # the one-pass HVP's step schedule, from the transposed layout's
-        # live counts
+        if self.ell_data.dtype == self.hvp_dtype:
+            self.ell_data_h, self.ell_dataT_h = self.ell_data, self.ell_dataT
+        else:
+            self.ell_data_h = self.ell_data.to(self.hvp_dtype)
+            self.ell_dataT_h = self.ell_dataT.to(self.hvp_dtype)
+        # the one-pass HVP's step schedule over the HVP tiles, from the
+        # transposed layout's live counts
         nbT = self.ell_dataT.shape[1]
         self.ell_hvp_sched = [
-            ell_hvp_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas,
+            ell_hvp_schedule(self.ell_dataT_h[s], self.ell_colsT[s], ctas,
                              live=schedule_parts(self.ell_schedT[s], nbT)[0])
             for s in range(m)]
-        self._locs = [EllPair(self.ell_data[s], self.ell_cols[s],
-                              self.ell_dataT[s], self.ell_colsT[s],
-                              self.ell_sched[s], self.ell_schedT[s],
-                              self.ell_hvp_sched[s])
-                      for s in range(m)]
+        pairs = lambda data, dataT, hvp_sched: [
+            EllPair(data[s], self.ell_cols[s], dataT[s], self.ell_colsT[s],
+                    self.ell_sched[s], self.ell_schedT[s], hvp_sched[s])
+            for s in range(m)]
+        # the margins' and the gradient's shards (f32), and PCG's
+        self._hvp_locs = pairs(self.ell_data_h, self.ell_dataT_h,
+                               self.ell_hvp_sched)
+        self._locs = (self._hvp_locs if self.ell_data_h is self.ell_data
+                      else pairs(self.ell_data, self.ell_dataT, [None] * m))
         if self.cfg.partition == "features":
             self.smask = put(state["smask"])
         self._load_vectors(state)
@@ -362,6 +389,7 @@ class DiscoSolver:
         if rem:
             raise ValueError(f"X {tuple(self.X.shape)} does not split into "
                              f"{m} equal shards")
+        self._hvp_locs = self._locs
         self._load_vectors(state)
 
     def _load_vectors(self, state: dict) -> None:
@@ -387,12 +415,14 @@ class DiscoSolver:
         """The Newton step over the shards ``self._locs``. Margins and
         gradient go through the blocked-ELL ops (sparse) or
         ``torch.matmul`` (dense); PCG's HVPs through the local operator
-        of :func:`repro_torch.core.hvp.make_local_operator`, with the
-        step's subsampled coefficients when ``hessian_subsample < 1``.
-        Returns ``step(w, outer_iter=0) -> (w_new, stats)``."""
+        of :func:`repro_torch.core.hvp.make_local_operator` on the HVP
+        shards ``self._hvp_locs`` (the bf16 copies at
+        ``hvp_dtype='bfloat16'``), with the step's subsampled
+        coefficients when ``hessian_subsample < 1``. Returns
+        ``step(w, outer_iter=0) -> (w_new, stats)``."""
         cfg, loss, group = self.cfg, self.loss, self.group
         n, tau, m = self.n, self.tau, self.m
-        locs = self._locs
+        locs, hvp_locs = self._locs, self._hvp_locs
         if self._sparse:
             def xt(s, v):                  # X_s^T v
                 return kops.ell_matvec(locs[s].dataT, locs[s].colsT, v,
@@ -429,7 +459,7 @@ class DiscoSolver:
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_features(
-                    locs, self._subsample(c, outer_iter), n, cfg.lam, g,
+                    hvp_locs, self._subsample(c, outer_iter), n, cfg.lam, g,
                     eps, cfg.max_pcg,
                     coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
                     precond=cfg.precond, block_s=cfg.pcg_block_s,
@@ -456,7 +486,7 @@ class DiscoSolver:
 
                 eps = cfg.pcg_rel_tol * gnorm
                 res = pcg_samples(
-                    locs, self._subsample(c, outer_iter), n, cfg.lam, g,
+                    hvp_locs, self._subsample(c, outer_iter), n, cfg.lam, g,
                     eps, cfg.max_pcg, X_tau=self.X_tau,
                     coeffs_tau=coeffs_tau, mu=cfg.mu, group=group,
                     precond=cfg.precond, sag_epochs=cfg.sag_epochs,
@@ -493,8 +523,9 @@ class DiscoSolver:
         """A shallow copy at another regularization weight, the λ-path's
         primitive (:mod:`repro_torch.core.lambda_path`).
 
-        Shares every device tensor (X or its ELL layouts, the shard
-        views, labels, weights, the tau slab) with ``self`` and rebuilds
+        Shares every device tensor (X or its ELL layouts and their HVP
+        copies, the shard views, labels, weights, the tau slab) with
+        ``self`` and rebuilds
         only the Newton step, whose closure reads ``lam`` from the
         config; the step holds no state of its own between fits.
         """

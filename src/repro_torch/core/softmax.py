@@ -184,9 +184,11 @@ class SoftmaxSolver:
         validate_solver_cell(family="softmax", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
                              use_kernel=cfg.use_kernel)
-        if hvp_tile_dtype(cfg.hvp_dtype) != np.float32:
-            raise NotImplementedError("hvp_dtype='bfloat16' is not yet "
-                                      "ported to repro_torch")
+        if hvp_tile_dtype(cfg.hvp_dtype) != torch.float32:
+            raise NotImplementedError(
+                "hvp_dtype='bfloat16' is not yet ported to repro_torch for "
+                "softmax (dense X only, whose bf16 kernels are still to "
+                "port)")
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg

@@ -225,17 +225,20 @@ def ell_from_csr(csr: CSRMatrix, block_rows: int, block_cols: int,
     return BlockedEll(data=data, cols=cols, shape=(d, n), block=(br, bc))
 
 
-def hvp_tile_dtype(name: str) -> np.dtype:
-    """Resolve ``DiscoConfig.hvp_dtype`` to the tile dtype.
+def hvp_tile_dtype(name: str) -> torch.dtype:
+    """Resolve ``DiscoConfig.hvp_dtype`` to the HVP tiles' torch dtype.
 
-    Only 'float32' is ported; 'bfloat16' tiles raise until their kernels
-    land."""
+    'float32' / 'f32' -> ``torch.float32``; 'bfloat16' / 'bf16' ->
+    ``torch.bfloat16`` (the reference's spellings; it returns numpy
+    dtypes, ml_dtypes' bfloat16 for bf16, which the port does not use).
+    The mixed-precision contract: only the stored HVP tiles carry this
+    dtype; PCG state, coefficients, gradients and margins stay f32, and
+    every kernel accumulates and returns f32.
+    """
     if name in ("float32", "f32"):
-        return np.dtype(np.float32)
+        return torch.float32
     if name in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "bfloat16 HVP tiles are not yet ported to repro_torch "
-            "(use hvp_dtype='float32')")
+        return torch.bfloat16
     raise ValueError(f"unknown hvp_dtype {name!r} "
                      "(expected 'float32' or 'bfloat16')")
 
@@ -307,17 +310,28 @@ def shard_csrs_from_partition(X: CSRMatrix, part, axis: str
 
 
 def build_shard_ell_pairs(shard_csrs: list[CSRMatrix], block_rows: int,
-                          block_cols: int
-                          ) -> tuple[np.ndarray, np.ndarray,
-                                     np.ndarray, np.ndarray]:
+                          block_cols: int, dtype=None):
     """Per-shard forward + transposed ELLs, stacked with a leading shard
-    axis ``m``: returns ``(data, cols, dataT, colsT)``."""
+    axis ``m``: returns ``(data, cols, dataT, colsT)``.
+
+    dtype : optional tile dtype (a torch dtype, e.g.
+    ``hvp_tile_dtype('bfloat16')``). numpy holds no bf16, so with a
+    2-byte dtype ``data`` / ``dataT`` come back as CPU tensors of it
+    (rounded to nearest even); with ``torch.float32`` (or None) as numpy
+    arrays. ``cols`` / ``colsT`` stay int32 numpy arrays.
+    """
     fwd = [ell_from_csr(c, block_rows, block_cols) for c in shard_csrs]
     data, cols = stack_shard_ells(fwd)
     del fwd
     tr = [ell_from_csr(c.transpose(), block_cols, block_rows)
           for c in shard_csrs]
     dataT, colsT = stack_shard_ells(tr)
+    if dtype is not None and dtype != torch.float32:
+        data = torch.from_numpy(data).to(dtype)
+        dataT = torch.from_numpy(dataT).to(dtype)
+    elif dtype is not None:
+        data = data.astype(np.float32, copy=False)
+        dataT = dataT.astype(np.float32, copy=False)
     return data, cols, dataT, colsT
 
 

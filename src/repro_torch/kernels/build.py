@@ -12,7 +12,9 @@ raises; nothing here falls back to the plain versions in
 
 The kernels, and the modules whose wrappers launch them:
 
-  ell_mv, ell_hvp, ell_mm, ell_hvp_mm      :mod:`repro_torch.kernels.sparse_hvp`
+  ell_mv, ell_hvp, ell_mm, ell_hvp_mm, and their bf16-tile instances
+  ell_mv_bf16, ell_hvp_bf16, ell_mm_bf16, ell_hvp_mm_bf16
+                                           :mod:`repro_torch.kernels.sparse_hvp`
   xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi
                                            :mod:`repro_torch.kernels.glm_hvp`
   flash_attention                          :mod:`repro_torch.kernels.flash_attention`
@@ -154,8 +156,15 @@ X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
 FLASH_ATTENTION = CudaKernel("flash_attention", [
     _P, _P, _P, _P, ctypes.POINTER(_L), _I, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.c_float, _I, _P])
+# the blocked-ELL kernels on bf16 tiles: the same designs and arguments,
+# each its own source and entry point (csrc/<name>.cu, <name>_launch)
+ELL_MV_BF16 = CudaKernel("ell_mv_bf16", ELL_MV.argtypes)
+ELL_HVP_BF16 = CudaKernel("ell_hvp_bf16", ELL_HVP.argtypes)
+ELL_MM_BF16 = CudaKernel("ell_mm_bf16", ELL_MM.argtypes)
+ELL_HVP_MM_BF16 = CudaKernel("ell_hvp_mm_bf16", ELL_HVP_MM.argtypes)
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
-           XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION)
+           XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION, ELL_MV_BF16,
+           ELL_HVP_BF16, ELL_MM_BF16, ELL_HVP_MM_BF16)
 
 
 def _nvcc() -> str:
@@ -216,12 +225,16 @@ def reset_launch_counts() -> None:
 
 
 def check_tensor(name, t, dtype, ndim, device):
+    """Check a contiguous ``ndim``-D tensor on ``device`` of ``dtype``
+    (one dtype, or a tuple of the allowed ones)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(map(str, allowed))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():

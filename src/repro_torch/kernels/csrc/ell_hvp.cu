@@ -29,22 +29,15 @@
 // device memory and used in two multiply-adds (4 flops per 4 bytes).
 #include "ell_hvp_stream.cuh"
 
-// C entry point, called through ctypes. Launches the kernel, writes the
-// path taken to *path (0 direct, 1 bulk copies), and returns a cudaError_t
-// (0 = launched).
+// C entry point, called through ctypes (the body: ellh::hvp in the header).
+// Launches the kernel, writes the path taken to *path (0 direct, 1 bulk
+// copies), and returns a cudaError_t (0 = launched).
 extern "C" int ell_hvp_launch(const float* dataT, const int* colsT,
                               const int* sched, int* state, int ctas,
                               int steps, int epoch, const float* u,
                               const float* c, float* y, float* cz,
                               float* scratch, int ncb, int WT, int bc,
                               int br, int nrb, int* path, void* stream) {
-  if (!ellh::valid_args(dataT, colsT, sched, state, ctas, steps, u, y, cz,
-                        scratch, ncb, WT, bc, br, nrb))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const ellh::Params p =
-      ellh::make_params(dataT, colsT, sched, state, ctas, steps, epoch, u, 1,
-                        c, y, cz, scratch, ncb, WT, bc, br, nrb);
-  return static_cast<int>(ellh::run<1>(p, static_cast<long long>(nrb) * br,
-                                       path,
-                                       static_cast<cudaStream_t>(stream)));
+  return ellh::hvp(dataT, colsT, sched, state, ctas, steps, epoch, u, c, y,
+                   cz, scratch, ncb, WT, bc, br, nrb, path, stream);
 }

@@ -29,9 +29,9 @@
 // bounds are close; at the main path's s = 5, bytes).
 #include "ell_hvp_stream.cuh"
 
-// C entry point, called through ctypes. Launches the kernel, writes the
-// path taken to *path (0 direct, 1 bulk copies), and returns a cudaError_t
-// (0 = launched).
+// C entry point, called through ctypes (the body: ellh::hvp_mm in the
+// header). Launches the kernel, writes the path taken to *path (0 direct,
+// 1 bulk copies), and returns a cudaError_t (0 = launched).
 extern "C" int ell_hvp_mm_launch(const float* dataT, const int* colsT,
                                  const int* sched, int* state, int ctas,
                                  int steps, int epoch, const float* U,
@@ -40,24 +40,7 @@ extern "C" int ell_hvp_mm_launch(const float* dataT, const int* colsT,
                                  float* scratch, int ncb, int WT, int bc,
                                  int br, int nrb, int s, int* path,
                                  void* stream) {
-  if (s <= 0 || s > kern::kMaxCols || ldu < s ||
-      !ellh::valid_args(dataT, colsT, sched, state, ctas, steps, U, Y, cz,
-                        scratch, ncb, WT, bc, br, nrb))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const ellh::Params p =
-      ellh::make_params(dataT, colsT, sched, state, ctas, steps, epoch, U,
-                        ldu, c, Y, cz, scratch, ncb, WT, bc, br, nrb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (s) {
-    case 1: err = ellh::run<1>(p, u_len, path, st); break;
-    case 2: err = ellh::run<2>(p, u_len, path, st); break;
-    case 3: err = ellh::run<3>(p, u_len, path, st); break;
-    case 4: err = ellh::run<4>(p, u_len, path, st); break;
-    case 5: err = ellh::run<5>(p, u_len, path, st); break;
-    case 6: err = ellh::run<6>(p, u_len, path, st); break;
-    case 7: err = ellh::run<7>(p, u_len, path, st); break;
-    default: err = ellh::run<8>(p, u_len, path, st); break;
-  }
-  return static_cast<int>(err);
+  return ellh::hvp_mm(dataT, colsT, sched, state, ctas, steps, epoch, U, ldu,
+                      u_len, c, Y, cz, scratch, ncb, WT, bc, br, nrb, s,
+                      path, stream);
 }

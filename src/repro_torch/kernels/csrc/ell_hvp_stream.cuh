@@ -3,10 +3,12 @@
 // cooperative persistent grid that walks the layout in steps: pass A of a
 // step reads the step's tiles from device memory, pass B reads them again
 // while they sit in L2. ell_hvp.cu (K2, S = 1) and ell_hvp_mm.cu (K7) are
-// its two entry points; nothing else in them differs.
+// its entry points for f32 tiles, ell_hvp_bf16.cu and ell_hvp_mm_bf16.cu
+// for bf16 tiles; nothing else in them differs.
 //
-// Layout, named by its own axes: data (nb, W, R, C) f32 tiles of A^T (R is
-// A's column-block width, C its row-block height), cols (nb, W) int32
+// Layout, named by its own axes: data (nb, W, R, C) tiles of A^T of type T
+// (float or __nv_bfloat16; R is A's column-block width, C its row-block
+// height), cols (nb, W) int32
 // row-block ids of A, U (ncb * C, S) f32 row-major with row stride
 // ldu >= S, c (nb * R,) f32 or null, Y (ncb * C, S) f32 row-major, zeroed
 // by the caller. Live slots as in ell_stream.cuh: a row-block's slots up
@@ -20,6 +22,12 @@
 // counters, zero between calls, and ready (nb,), the ready flags, each the
 // epoch of the call that last wrote the row-block's c .* z.
 //
+// Rounding with bf16 tiles, where the TPU kernel rounds: U is rounded to
+// bf16 where pass A stages it (`u.astype(dataT.dtype)`), and c .* z where
+// it is written to cz (`(c * z).astype(xT.dtype)`), in pass A or by the sum
+// of the partials; every product is then of two bf16 values, exact in f32,
+// summed in f32. At f32 tiles both roundings are the identity.
+//
 // Design.
 // - Phases: CTA k walks A(0), A(1), B(0), A(2), B(1), ..., A(n-1),
 //   B(n-2), B(n-1), where A(i) and B(i) are the two passes over its range
@@ -30,8 +38,8 @@
 // - Pass A: per row-block j of the range, z_j = sum_k tile_k U[cols[j,k]]
 //   (R x S), the walk of ell_stream.cuh: chunks of 128 rows, 16 warps x 8
 //   rows, lanes over C with 16-byte reads, 8 S sums a lane, the U block
-//   staged s-major (at S = 1 on a contiguous u it is read where it
-//   landed). A row-block wholly in the range: c_j .* z_j goes to cz, and
+//   staged s-major (at S = 1 on a contiguous u and f32 tiles it is read
+//   where it landed). A row-block wholly in the range: c_j .* z_j goes to cz, and
 //   its ready flag is released. A row-block cut by the range: its partial
 //   z goes to scratch (4 sets by step, ctas, 2 slots, R, S; slot 0 if it
 //   holds the range's first tile, else 1), and the CTA adds its tile count
@@ -59,10 +67,11 @@
 //   issues past pass B's waits: while thread 0 waits for a flag, the next
 //   pieces are in flight. Piece n lives in stage n % stages, parity
 //   (n / stages) & 1, across both passes.
-// - Direct path, for tiles a bulk copy cannot take (C % 4 != 0, pointers
-//   not 16-byte aligned, a U span past its storage, fewer than two stages
-//   fitting): the same schedule, walk and hand-off, the tiles and U read
-//   from device memory.
+// - Direct path, for tiles a bulk copy cannot take (rows not a multiple of
+//   16 bytes: C % 4 != 0 at f32, C % 8 != 0 at bf16; pointers not 16-byte
+//   aligned, a U span past its storage, fewer than two stages fitting):
+//   the same schedule, walk and hand-off, the tiles and U read from device
+//   memory.
 //
 // Where trouble was likely, and how it is resolved.
 // - Spinning on a flag deadlocks unless every CTA is resident: the grid
@@ -86,9 +95,9 @@
 // - Counters reset by the CTA that summed; flags carry the call's epoch,
 //   so one launch a call and no memset.
 //
-// Bound: device-memory bytes. Each live tile element is read once from
-// device memory and used in 4 S flops (at S <= 8, below the card's
-// flops-per-byte balance); the second read is meant to hit L2.
+// Bound: device-memory bytes. Each live tile element (4 or 2 bytes) is
+// read once from device memory and used in 4 S flops (at S <= 8, below the
+// card's flops-per-byte balance); the second read is meant to hit L2.
 #pragma once
 
 #include <cuda/atomic>
@@ -113,7 +122,7 @@ constexpr int kScratchSets = 4;
 static_assert(kLag + 1 <= kScratchSets, "scratch reused too early");
 
 struct Params {
-  const float* data;
+  const void* data;      // tiles of the entry point's type T
   const int* cols;
   const int* prefix;     // (nb + 1,) live-tile prefix sums
   const int* bounds;     // (steps, ctas + 1) CTA ranges of each step
@@ -171,10 +180,12 @@ __device__ __forceinline__ int col_of(const Params& p, int i, int slot) {
   return cb;
 }
 
-__device__ __forceinline__ const float* tile_rows(const Params& p, int i,
-                                                  int slot, int chunk) {
-  return p.data + ((static_cast<size_t>(i) * p.W + slot) * p.R +
-                   static_cast<size_t>(chunk) * kRows) * p.C;
+template <class T>
+__device__ __forceinline__ const T* tile_rows(const Params& p, int i,
+                                              int slot, int chunk) {
+  return static_cast<const T*>(p.data) +
+         ((static_cast<size_t>(i) * p.W + slot) * p.R +
+          static_cast<size_t>(chunk) * kRows) * p.C;
 }
 
 // Thread 0's position in the CTA's walk: phase, its pass, step and range;
@@ -236,13 +247,14 @@ __device__ __forceinline__ void advance(Walker& w, const Params& p,
 
 // Thread 0: the bulk copies of the walker's piece into `stage`: the tile
 // chunk, and in pass A the U span it multiplies.
+template <class T>
 __device__ __forceinline__ void issue(const Walker& w, const Params& p,
                                       unsigned char* stage, uint64_t* bar) {
   const int slot = w.t - w.base;
   const int cb = col_of(p, w.i, slot);
   const uint32_t tile_bytes = static_cast<uint32_t>(
-      min(kRows, p.R - w.chunk * kRows)) * p.C * sizeof(float);
-  const float* tile = tile_rows(p, w.i, slot, w.chunk);
+      min(kRows, p.R - w.chunk * kRows)) * p.C * sizeof(T);
+  const T* tile = tile_rows<T>(p, w.i, slot, w.chunk);
   if (w.pass_a) {
     ells::mbar_expect_tx(bar, tile_bytes + p.u_bytes);
     ells::bulk_copy(stage, tile, tile_bytes, bar);
@@ -265,24 +277,24 @@ struct Ring {
 
   // Piece n's tile rows: waited for in its stage (bulk), or in device
   // memory.
-  template <bool BULK>
-  __device__ __forceinline__ const float* take(const Params& p, int n, int i,
-                                               int slot, int chunk) {
-    if (!BULK) return tile_rows(p, i, slot, chunk);
+  template <class T, bool BULK>
+  __device__ __forceinline__ const T* take(const Params& p, int n, int i,
+                                           int slot, int chunk) {
+    if (!BULK) return tile_rows<T>(p, i, slot, chunk);
     const int stage = n % p.stages;
     ells::mbar_wait(&full[stage], (n / p.stages) & 1);
-    return reinterpret_cast<const float*>(
+    return reinterpret_cast<const T*>(
         base + static_cast<size_t>(stage) * p.stage_bytes);
   }
 
   // After a barrier that follows every thread's use of piece n: thread 0
   // refills its stage with the next piece of the walk.
-  template <bool BULK>
+  template <class T, bool BULK>
   __device__ __forceinline__ void refill(const Params& p, int n) {
     if (!BULK || threadIdx.x != 0 || !prod.valid) return;
     const int stage = n % p.stages;
-    issue(prod, p, base + static_cast<size_t>(stage) * p.stage_bytes,
-          &full[stage]);
+    issue<T>(prod, p, base + static_cast<size_t>(stage) * p.stage_bytes,
+             &full[stage]);
     advance(prod, p, sc, nchunks);
   }
 };
@@ -298,13 +310,14 @@ __device__ __forceinline__ Vec zero_vec() {
 }
 
 // cz_i = c_i .* (sum of the partials of CTAs k0..k1, empty ranges
-// skipped; bnd: the step's CTA ranges, in shared memory). The partials
+// skipped; bnd: the step's CTA ranges, in shared memory), rounded to the
+// tile type T. The partials
 // (R x S floats each, in `part`) are read as Vec vectors through L2 by Q
 // groups of threads, group q summing a run of contributors in CTA order
 // with its loads issued together; the groups' sums are then added in
 // group order in `buf` (4 kThreads floats). The order is fixed by the
 // schedule, so cz repeats bit for bit.
-template <class Vec, int S>
+template <class T, class Vec, int S>
 __device__ __forceinline__ void fixup(const Params& p, float* buf,
                                       const float* part, const int* bnd,
                                       int k0, int k1, int base, int i) {
@@ -334,7 +347,7 @@ __device__ __forceinline__ void fixup(const Params& p, float* buf,
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
         const int f = e * kV + j;
-        cz[f] = c ? c[f / S] * v[j] : v[j];
+        cz[f] = ells::round_to<T>(c ? c[f / S] * v[j] : v[j]);
       }
     }
   }
@@ -347,16 +360,16 @@ __device__ __forceinline__ void fixup(const Params& p, float* buf,
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
       const int f = e * kV + j;
-      cz[f] = c ? c[f / S] * v[j] : v[j];
+      cz[f] = ells::round_to<T>(c ? c[f / S] * v[j] : v[j]);
     }
   }
 }
 
 // Pass A of one row-block segment [ts, te) of the range [b0, b1): z over
-// the segment's tiles, to cz (scaled; the row-block lies wholly in the
-// range, and its flag is released) or to the CTA's scratch slot (and its
-// tile count added to the row-block's counter).
-template <int S, bool BULK>
+// the segment's tiles, to cz (scaled and rounded to T; the row-block lies
+// wholly in the range, and its flag is released) or to the CTA's scratch
+// slot (and its tile count added to the row-block's counter).
+template <class T, int S, bool BULK>
 __device__ __forceinline__ void pass_a(const Params& p, Ring& ring,
                                        float* vecT, int& n,
                                        int step, int b0, int b1, int i,
@@ -377,26 +390,27 @@ __device__ __forceinline__ void pass_a(const Params& p, Ring& ring,
       for (int j = 0; j < S; ++j) acc[k][j] = 0.f;
     for (int t = ts; t < te; ++t, ++n) {
       const int slot = t - base;
-      const float* tile = ring.take<BULK>(p, n, i, slot, ch);
+      const T* tile = ring.take<T, BULK>(p, n, i, slot, ch);
       const float* vec = vecT;
       if (BULK) {
         const float* us = reinterpret_cast<const float*>(
             reinterpret_cast<const unsigned char*>(tile) + p.u_off);
-        if (S == 1 && p.ldu == 1) {
+        if (S == 1 && p.ldu == 1 && std::is_same_v<T, float>) {
           vec = us;                       // a contiguous u block, in place
         } else {
-          ells::stage_vec<S>(vecT, us, p.ldu, nullptr, p.C);
+          ells::stage_vec<T, S>(vecT, us, p.ldu, nullptr, p.C);
           __syncthreads();                // vecT staged
         }
       } else {
         const int cb = col_of(p, i, slot);
-        ells::stage_vec<S>(vecT, p.U + static_cast<size_t>(cb) * p.C * p.ldu,
-                           p.ldu, nullptr, p.C);
+        ells::stage_vec<T, S>(vecT,
+                              p.U + static_cast<size_t>(cb) * p.C * p.ldu,
+                              p.ldu, nullptr, p.C);
         __syncthreads();
       }
-      ells::dot_rows<S, BULK>(tile, vec, acc, rows, p.C, lane, warp);
+      ells::dot_rows<T, S, BULK>(tile, vec, acc, rows, p.C, lane, warp);
       __syncthreads();                    // the stage and vecT are free
-      ring.refill<BULK>(p, n);
+      ring.refill<T, BULK>(p, n);
     }
 #pragma unroll
     for (int k = 0; k < kRowsPerWarp; ++k) {
@@ -408,8 +422,10 @@ __device__ __forceinline__ void pass_a(const Params& p, Ring& ring,
           const float sum = kern::warp_sum(acc[k][j]);
           if (lane == 0)
             out[static_cast<size_t>(row) * S + j] =
-                whole && p.c ? p.c[static_cast<size_t>(i) * p.R + row] * sum
-                             : sum;
+                !whole ? sum
+                       : ells::round_to<T>(
+                             p.c ? p.c[static_cast<size_t>(i) * p.R + row] * sum
+                                 : sum);
         }
       }
     }
@@ -426,8 +442,8 @@ __device__ __forceinline__ void pass_a(const Params& p, Ring& ring,
 // red[(g * C + b) * S + j] = sum over the rows a = g, g + G, ... < rows of
 // tile[a, b] * z[a, j]: row group g's column sums of one piece (tile in
 // shared memory, or in device memory on the direct path).
-template <int S, bool SMEM>
-__device__ __forceinline__ void column_sums(const float* __restrict__ tile,
+template <class T, int S, bool SMEM>
+__device__ __forceinline__ void column_sums(const T* __restrict__ tile,
                                             const float* __restrict__ z,
                                             float* __restrict__ red, int rows,
                                             int C, int G) {
@@ -441,8 +457,8 @@ __device__ __forceinline__ void column_sums(const float* __restrict__ tile,
     for (int j = 0; j < S; ++j) acc[j] = 0.f;
 #pragma unroll 4
     for (int a = g; a < rows; a += G) {
-      const float x = SMEM ? tile[a * C + b]
-                           : __ldg(tile + static_cast<size_t>(a) * C + b);
+      const float x = SMEM ? ells::widen(tile[a * C + b])
+                           : ells::ldg_elem(tile + static_cast<size_t>(a) * C + b);
       const float* za = z + a * S;
 #pragma unroll
       for (int j = 0; j < S; ++j) acc[j] += x * za[j];
@@ -483,9 +499,9 @@ __device__ __forceinline__ void scatter(const float* __restrict__ red,
 // The sum of row-block i's partials (its CTAs' ranges of step `step` cut
 // it): the step's CTA ranges, once, into shared memory; then the partials
 // of CTAs k0..k1 (the ranges holding the row-block's first and last live
-// tile), in CTA order, scaled into cz_i; then the counter is reset and
-// the flag released.
-template <int S>
+// tile), in CTA order, scaled and rounded into cz_i; then the counter is
+// reset and the flag released.
+template <class T, int S>
 __device__ __forceinline__ void sum_partials(const Params& p, float* red,
                                              int* bnd_s, int step, int i,
                                              int base, int end) {
@@ -497,9 +513,9 @@ __device__ __forceinline__ void sum_partials(const Params& p, float* red,
   const int k1 = ells::last_at_most(bnd_s, p.ctas, end - 1);
   const float* part = p.scratch + static_cast<size_t>(step % kScratchSets) * p.ctas * 2 * rs;
   if (rs % 4 == 0)
-    fixup<float4, S>(p, red, part, bnd_s, k0, k1, base, i);
+    fixup<T, float4, S>(p, red, part, bnd_s, k0, k1, base, i);
   else
-    fixup<float, S>(p, red, part, bnd_s, k0, k1, base, i);
+    fixup<T, float, S>(p, red, part, bnd_s, k0, k1, base, i);
   __syncthreads();                        // cz_i is written
   if (threadIdx.x == 0) {
     DeviceInt(p.count[i]).store(0, cuda::memory_order_relaxed);
@@ -510,7 +526,7 @@ __device__ __forceinline__ void sum_partials(const Params& p, float* red,
 // Pass B of one row-block segment: wait for cz_i, or sum the partials
 // into it if every partial has arrived and no CTA has claimed the sum yet;
 // then per piece the column sums and their scatter into Y.
-template <int S, bool BULK>
+template <class T, int S, bool BULK>
 __device__ __forceinline__ void pass_b(const Params& p, Ring& ring,
                                        float* czs, float* red, int* bnd_s,
                                        int* claim, int& n, int step, int i,
@@ -535,7 +551,7 @@ __device__ __forceinline__ void pass_b(const Params& p, Ring& ring,
     }
   }
   __syncthreads();
-  if (*claim) sum_partials<S>(p, red, bnd_s, step, i, base, end);
+  if (*claim) sum_partials<T, S>(p, red, bnd_s, step, i, base, end);
   for (int e = threadIdx.x; e < static_cast<int>(rs); e += kThreads)
     czs[e] = __ldcg(p.cz + i * rs + e);
   __syncthreads();                        // cz_i staged
@@ -544,11 +560,12 @@ __device__ __forceinline__ void pass_b(const Params& p, Ring& ring,
     for (int t = ts; t < te; ++t, ++n) {
       const int slot = t - base;
       const int cb = col_of(p, i, slot);
-      const float* tile = ring.take<BULK>(p, n, i, slot, ch);
-      column_sums<S, BULK>(tile, czs + static_cast<size_t>(ch) * kRows * S,
-                           red, rows, p.C, p.groups);
+      const T* tile = ring.take<T, BULK>(p, n, i, slot, ch);
+      column_sums<T, S, BULK>(tile,
+                              czs + static_cast<size_t>(ch) * kRows * S, red,
+                              rows, p.C, p.groups);
       __syncthreads();                    // red written; the stage is free
-      ring.refill<BULK>(p, n);
+      ring.refill<T, BULK>(p, n);
       scatter(red, p.Y + static_cast<size_t>(cb) * p.C * S, p.C * S,
               p.groups);
       __syncthreads();                    // red is free
@@ -556,7 +573,7 @@ __device__ __forceinline__ void pass_b(const Params& p, Ring& ring,
   }
 }
 
-template <int S, bool BULK>
+template <class T, int S, bool BULK>
 __global__ void __launch_bounds__(kThreads, 1) hvp_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   int* claim = reinterpret_cast<int*>(smem + kClaimOff);
@@ -591,8 +608,9 @@ __global__ void __launch_bounds__(kThreads, 1) hvp_kernel(const Params p) {
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       first_piece(ring.prod, p, ring.sc);
       for (int st = 0; st < p.stages && ring.prod.valid; ++st) {
-        issue(ring.prod, p, ring.base + static_cast<size_t>(st) * p.stage_bytes,
-              &ring.full[st]);
+        issue<T>(ring.prod, p,
+                 ring.base + static_cast<size_t>(st) * p.stage_bytes,
+                 &ring.full[st]);
         advance(ring.prod, p, ring.sc, ring.nchunks);
       }
     }
@@ -613,19 +631,20 @@ __global__ void __launch_bounds__(kThreads, 1) hvp_kernel(const Params p) {
       if (end == base) continue;          // no live tile
       const int ts = max(base, b0), te = min(end, b1);
       if (a)
-        pass_a<S, BULK>(p, ring, vecT, n, step, b0, b1, i, base, end, ts,
-                        te, lane, warp);
+        pass_a<T, S, BULK>(p, ring, vecT, n, step, b0, b1, i, base, end, ts,
+                           te, lane, warp);
       else
-        pass_b<S, BULK>(p, ring, czs, red, bnd_s, claim, n, step, i, base,
-                        end, ts, te);
+        pass_b<T, S, BULK>(p, ring, czs, red, bnd_s, claim, n, step, i, base,
+                           end, ts, te);
     }
   }
 }
 
 // Plan the call (bulk path and ring, or direct path), launch the kernel
 // cooperatively, and report the path. u_len: the floats readable from U on
-// (the bulk path copies whole (C, ldu) spans of U).
-template <int S>
+// (the bulk path copies whole (C, ldu) spans of U). The stage count is the
+// most stages of the tile type's piece that fit, up to kMaxStages.
+template <class T, int S>
 cudaError_t run(Params p, long long u_len, int* path, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -634,7 +653,7 @@ cudaError_t run(Params p, long long u_len, int* path, cudaStream_t stream) {
                                dev);
   if (err != cudaSuccess) return err;
   const size_t chunk_rows = min(kRows, p.R);
-  const size_t tile_bytes = chunk_rows * p.C * sizeof(float);
+  const size_t tile_bytes = chunk_rows * p.C * sizeof(T);
   const size_t u_bytes = static_cast<size_t>(p.C) * p.ldu * sizeof(float);
   p.groups = max(1, kThreads / p.C);
   p.vec_off = kBarrierBytes;
@@ -649,7 +668,7 @@ cudaError_t run(Params p, long long u_len, int* path, cudaStream_t stream) {
   const size_t stage_bytes = ells::round_up(tile_bytes + u_bytes, 128);
   const long long fit = (static_cast<long long>(optin) - p.ring_off) /
                         static_cast<long long>(stage_bytes);
-  const bool bulk = p.C % 4 == 0 && ells::aligned16(p.data) &&
+  const bool bulk = ells::bulk_rows<T>(p.C) && ells::aligned16(p.data) &&
                     ells::aligned16(p.U) &&
                     static_cast<long long>(p.ncb) * p.C * p.ldu <= u_len &&
                     fit >= 2;
@@ -667,7 +686,7 @@ cudaError_t run(Params p, long long u_len, int* path, cudaStream_t stream) {
     p.sched_off = static_cast<int>(smem);
     smem += sched_bytes;
   }
-  auto kernel = bulk ? hvp_kernel<S, true> : hvp_kernel<S, false>;
+  auto kernel = bulk ? hvp_kernel<T, S, true> : hvp_kernel<T, S, false>;
   err = kern::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
@@ -681,7 +700,7 @@ cudaError_t run(Params p, long long u_len, int* path, cudaStream_t stream) {
 }
 
 // The arguments both entry points check.
-inline bool valid_args(const float* data, const int* cols, const int* sched,
+inline bool valid_args(const void* data, const int* cols, const int* sched,
                        int* state, int ctas, int steps, const float* U,
                        float* Y, float* cz, float* scratch, int nb, int W,
                        int R, int C, int ncb) {
@@ -692,7 +711,7 @@ inline bool valid_args(const float* data, const int* cols, const int* sched,
 
 // sched: [live (nb), prefix (nb + 1), first (steps + 1), bounds (steps *
 // (ctas + 1))]; state: [count (nb), ready (nb)].
-inline Params make_params(const float* data, const int* cols, const int* sched,
+inline Params make_params(const void* data, const int* cols, const int* sched,
                           int* state, int ctas, int steps, int epoch,
                           const float* U, long long ldu, const float* c,
                           float* Y, float* cz, float* scratch, int nb, int W,
@@ -721,4 +740,52 @@ inline Params make_params(const float* data, const int* cols, const int* sched,
   return p;
 }
 
+// The body of the K2 entry points (ell_hvp.cu, ell_hvp_bf16.cu): launches
+// the kernel, writes the path taken to *path (0 direct, 1 bulk copies),
+// and returns a cudaError_t (0 = launched).
+template <class T>
+int hvp(const T* dataT, const int* colsT, const int* sched, int* state,
+        int ctas, int steps, int epoch, const float* u, const float* c,
+        float* y, float* cz, float* scratch, int ncb, int WT, int bc, int br,
+        int nrb, int* path, void* stream) {
+  if (!valid_args(dataT, colsT, sched, state, ctas, steps, u, y, cz, scratch,
+                  ncb, WT, bc, br, nrb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(dataT, colsT, sched, state, ctas, steps, epoch,
+                               u, 1, c, y, cz, scratch, ncb, WT, bc, br, nrb);
+  return static_cast<int>(run<T, 1>(p, static_cast<long long>(nrb) * br,
+                                    path, static_cast<cudaStream_t>(stream)));
+}
+
+// The body of the K7 entry points (ell_hvp_mm.cu, ell_hvp_mm_bf16.cu), one
+// instance per s.
+template <class T>
+int hvp_mm(const T* dataT, const int* colsT, const int* sched, int* state,
+           int ctas, int steps, int epoch, const float* U, long long ldu,
+           long long u_len, const float* c, float* Y, float* cz,
+           float* scratch, int ncb, int WT, int bc, int br, int nrb, int s,
+           int* path, void* stream) {
+  if (s <= 0 || s > kern::kMaxCols || ldu < s ||
+      !valid_args(dataT, colsT, sched, state, ctas, steps, U, Y, cz, scratch,
+                  ncb, WT, bc, br, nrb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(dataT, colsT, sched, state, ctas, steps, epoch,
+                               U, ldu, c, Y, cz, scratch, ncb, WT, bc, br,
+                               nrb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (s) {
+    case 1: err = run<T, 1>(p, u_len, path, st); break;
+    case 2: err = run<T, 2>(p, u_len, path, st); break;
+    case 3: err = run<T, 3>(p, u_len, path, st); break;
+    case 4: err = run<T, 4>(p, u_len, path, st); break;
+    case 5: err = run<T, 5>(p, u_len, path, st); break;
+    case 6: err = run<T, 6>(p, u_len, path, st); break;
+    case 7: err = run<T, 7>(p, u_len, path, st); break;
+    default: err = run<T, 8>(p, u_len, path, st); break;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace ellh
+

@@ -27,31 +27,15 @@
 // ell_mv, for all s vectors at once.
 #include "ell_stream.cuh"
 
-// C entry point, called through ctypes. Launches the stream kernel and its
-// fix-up, writes the path taken to *path (0 direct, 1 bulk copies), and
-// returns a cudaError_t (0 = launched).
+// C entry point, called through ctypes (the body: ells::mm in the header).
+// Launches the stream kernel and its fix-up, writes the path taken to
+// *path (0 direct, 1 bulk copies), and returns a cudaError_t (0 =
+// launched).
 extern "C" int ell_mm_launch(const float* data, const int* cols,
                              const int* sched, int ctas, const float* V,
                              long long ldv, long long v_len, const float* c,
                              float* Y, float* scratch, int nb, int W, int br,
                              int bc, int ncb, int s, int* path, void* stream) {
-  if (!V || s <= 0 || s > kern::kMaxCols || ldv < s ||
-      !ells::valid_args(data, cols, sched, ctas, Y, scratch, nb, W, br, bc,
-                        ncb))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const ells::Params p = ells::make_params(data, cols, sched, ctas, V, ldv, c,
-                                           Y, scratch, nb, W, br, bc, ncb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (s) {
-    case 1: err = ells::run<1>(p, v_len, path, st); break;
-    case 2: err = ells::run<2>(p, v_len, path, st); break;
-    case 3: err = ells::run<3>(p, v_len, path, st); break;
-    case 4: err = ells::run<4>(p, v_len, path, st); break;
-    case 5: err = ells::run<5>(p, v_len, path, st); break;
-    case 6: err = ells::run<6>(p, v_len, path, st); break;
-    case 7: err = ells::run<7>(p, v_len, path, st); break;
-    default: err = ells::run<8>(p, v_len, path, st); break;
-  }
-  return static_cast<int>(err);
+  return ells::mm(data, cols, sched, ctas, V, ldv, v_len, c, Y, scratch, nb,
+                  W, br, bc, ncb, s, path, stream);
 }

@@ -21,19 +21,15 @@
 // flops-per-byte balance.
 #include "ell_stream.cuh"
 
-// C entry point, called through ctypes. Launches the stream kernel and its
-// fix-up, writes the path taken to *path (0 direct, 1 bulk copies), and
-// returns a cudaError_t (0 = launched).
+// C entry point, called through ctypes (the body: ells::mv in the header).
+// Launches the stream kernel and its fix-up, writes the path taken to
+// *path (0 direct, 1 bulk copies), and returns a cudaError_t (0 =
+// launched).
 extern "C" int ell_mv_launch(const float* data, const int* cols,
                              const int* sched, int ctas, const float* v,
                              const float* c, float* y, float* scratch, int nb,
                              int W, int br, int bc, int ncb, int* path,
                              void* stream) {
-  if (!v || !ells::valid_args(data, cols, sched, ctas, y, scratch, nb, W, br,
-                              bc, ncb))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const ells::Params p = ells::make_params(data, cols, sched, ctas, v, 1, c,
-                                           y, scratch, nb, W, br, bc, ncb);
-  return static_cast<int>(ells::run<1>(p, static_cast<long long>(ncb) * bc,
-                                       path, static_cast<cudaStream_t>(stream)));
+  return ells::mv(data, cols, sched, ctas, v, c, y, scratch, nb, W, br, bc,
+                  ncb, path, stream);
 }

@@ -1,11 +1,14 @@
 // The blocked-ELL product Y = A (c .* V) over S = 1..kern::kMaxCols columns
 // as one persistent, balanced grid over the live tiles of a layout, fed by
 // a ring of bulk copies. ell_mv.cu (K1, S = 1) and ell_mm.cu (K6) are its
-// two entry points; nothing else in them differs.
+// entry points for f32 tiles, ell_mv_bf16.cu and ell_mm_bf16.cu for bf16
+// tiles; nothing else in them differs.
 //
-// Layout: data (nb, W, br, bc) f32 tiles, cols (nb, W) int32 column-block
-// ids, V (ncb * bc, S) f32 row-major with row stride ldv >= S, c (ncb * bc,)
-// f32 or null, Y (nb * br, S) f32 row-major. A row-block's live slots are
+// Layout: data (nb, W, br, bc) tiles of type T (float or __nv_bfloat16),
+// cols (nb, W) int32 column-block ids, V (ncb * bc, S) f32 row-major with
+// row stride ldv >= S, c (ncb * bc,) f32 or null, Y (nb * br, S) f32
+// row-major. With bf16 tiles, c .* V is rounded to bf16 before the
+// products (the TPU kernel's `(c * v).astype(x.dtype)`); the sums are f32. A row-block's live slots are
 // its slots up to and including the last one that holds a nonzero tile
 // (for ell_from_csr layouts, exactly its real tiles); the slots past them
 // are padding and are never read.
@@ -44,9 +47,10 @@
 //   entry point, sums each cut row-block's partials in CTA order and writes
 //   zeros for row-blocks with no live tile. The order of every sum is fixed
 //   by the schedule, so the result repeats bit for bit; no atomics.
-// - Direct path, for tiles a bulk copy cannot take (bc % 4 != 0, pointers
-//   not 16-byte aligned, a V span past its storage, or fewer than two
-//   stages fitting in shared memory): the same schedule, walk, vecT and
+// - Direct path, for tiles a bulk copy cannot take (rows not a multiple of
+//   16 bytes: bc % 4 != 0 at f32, bc % 8 != 0 at bf16; pointers not
+//   16-byte aligned, a V span past its storage, or fewer than two stages
+//   fitting in shared memory): the same schedule, walk, vecT and
 //   write-out, with the tile rows read from device memory by every thread.
 //
 // Where trouble was likely, and how it is resolved.
@@ -72,7 +76,8 @@
 // in 2 S flops (at S <= 8, below the card's flops-per-byte balance), so
 // the kernel can at best stream the live tiles at the HBM rate. The ring
 // keeps (stages - 1) pieces in flight on every SM (128 KB at 128 x 128
-// tiles and three stages), well above the bandwidth-latency product.
+// f32 tiles and three stages; 96 KB at bf16, whose 32 KB stages fit four
+// deep), well above the bandwidth-latency product.
 #pragma once
 
 #include "ell_tiles.cuh"
@@ -82,7 +87,7 @@ namespace ells {
 constexpr int kFixupThreads = 128;
 
 struct Params {
-  const float* data;
+  const void* data;      // tiles of the entry point's type T
   const int* cols;
   const int* prefix;     // (nb + 1,) live-tile prefix sums
   const int* bounds;     // (ctas + 1,) CTA ranges of the live-tile sequence
@@ -140,14 +145,16 @@ __device__ __forceinline__ void advance(Cursor& cur, const Params& p,
 
 // The piece's tile rows in device memory and its column-block id; traps on
 // a slot past W or a column id out of range (a corrupt layout or schedule).
-__device__ __forceinline__ const float* piece_tile(const Cursor& cur,
-                                                  const Params& p, int* cb) {
+template <class T>
+__device__ __forceinline__ const T* piece_tile(const Cursor& cur,
+                                              const Params& p, int* cb) {
   const int slot = cur.t - cur.base;
   if (slot >= p.W) __trap();
   const size_t k = static_cast<size_t>(cur.i) * p.W + slot;
   *cb = p.cols[k];
   if (*cb < 0 || *cb >= p.ncb) __trap();
-  return p.data + (k * p.br + static_cast<size_t>(cur.chunk) * kRows) * p.bc;
+  return static_cast<const T*>(p.data) +
+         (k * p.br + static_cast<size_t>(cur.chunk) * kRows) * p.bc;
 }
 
 __device__ __forceinline__ int piece_rows(const Cursor& cur, const Params& p) {
@@ -155,12 +162,13 @@ __device__ __forceinline__ int piece_rows(const Cursor& cur, const Params& p) {
 }
 
 // Thread 0: the bulk copies of one piece into `stage`.
+template <class T>
 __device__ __forceinline__ void issue(const Cursor& cur, const Params& p,
                                       unsigned char* stage, uint64_t* bar) {
   int cb;
-  const float* tile = piece_tile(cur, p, &cb);
+  const T* tile = piece_tile<T>(cur, p, &cb);
   const uint32_t tile_bytes =
-      static_cast<uint32_t>(piece_rows(cur, p)) * p.bc * sizeof(float);
+      static_cast<uint32_t>(piece_rows(cur, p)) * p.bc * sizeof(T);
   const size_t base = static_cast<size_t>(cb) * p.bc;
   mbar_expect_tx(bar, tile_bytes + p.v_bytes +
                           (p.c ? p.bc * sizeof(float) : 0));
@@ -200,7 +208,7 @@ __device__ __forceinline__ void write_rows(float (&acc)[kRowsPerWarp][S],
   }
 }
 
-template <int S, bool BULK>
+template <class T, int S, bool BULK>
 __global__ void __launch_bounds__(kThreads, 1) stream_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -221,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, 1) stream_kernel(const Params p) {
       for (int st = 0; st < p.stages; ++st) mbar_init(&full[st], 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       for (int st = 0; st < p.stages && prod.valid; ++st) {
-        issue(prod, p, ring + static_cast<size_t>(st) * p.stage_bytes,
-              &full[st]);
+        issue<T>(prod, p, ring + static_cast<size_t>(st) * p.stage_bytes,
+                 &full[st]);
         advance(prod, p, nchunks, b0, b1);
       }
     }
@@ -238,30 +246,31 @@ __global__ void __launch_bounds__(kThreads, 1) stream_kernel(const Params p) {
   for (int n = 0; cur.valid; ++n) {
     const int stage = n % p.stages;
     const int rows = piece_rows(cur, p);
-    const float* tile;
+    const T* tile;
     if (BULK) {
       mbar_wait(&full[stage], (n / p.stages) & 1);
       const unsigned char* st = ring + static_cast<size_t>(stage) * p.stage_bytes;
-      tile = reinterpret_cast<const float*>(st);
-      stage_vec<S>(vecT, reinterpret_cast<const float*>(st + p.v_off), p.ldv,
-                   p.c ? reinterpret_cast<const float*>(st + p.c_off)
-                       : nullptr,
-                   p.bc);
+      tile = reinterpret_cast<const T*>(st);
+      stage_vec<T, S>(vecT, reinterpret_cast<const float*>(st + p.v_off),
+                      p.ldv,
+                      p.c ? reinterpret_cast<const float*>(st + p.c_off)
+                          : nullptr,
+                      p.bc);
     } else {
       int cb;
-      tile = piece_tile(cur, p, &cb);
+      tile = piece_tile<T>(cur, p, &cb);
       const size_t base = static_cast<size_t>(cb) * p.bc;
-      stage_vec<S>(vecT, p.V + base * p.ldv, p.ldv, p.c ? p.c + base : nullptr,
-                   p.bc);
+      stage_vec<T, S>(vecT, p.V + base * p.ldv, p.ldv,
+                      p.c ? p.c + base : nullptr, p.bc);
     }
     __syncthreads();                    // vecT staged
-    dot_rows<S, BULK>(tile, vecT, acc, rows, p.bc, lane, warp);
+    dot_rows<T, S, BULK>(tile, vecT, acc, rows, p.bc, lane, warp);
     if (cur.t + 1 == cur.te)            // the segment's last tile
       write_rows<S>(acc, cur, p, b0, b1, rows, lane, warp);
     __syncthreads();                    // the stage and vecT are free
     if (BULK && threadIdx.x == 0 && prod.valid) {
-      issue(prod, p, ring + static_cast<size_t>(stage) * p.stage_bytes,
-            &full[stage]);
+      issue<T>(prod, p, ring + static_cast<size_t>(stage) * p.stage_bytes,
+               &full[stage]);
       advance(prod, p, nchunks, b0, b1);
     }
     advance(cur, p, nchunks, b0, b1);
@@ -298,8 +307,10 @@ __global__ void __launch_bounds__(kFixupThreads) fixup_kernel(const Params p) {
 
 // Plan the call (bulk path and ring, or direct path), launch the stream
 // kernel and the fix-up, and report the path. v_len: the floats readable
-// from V on (the bulk path copies whole (bc, ldv) spans of V).
-template <int S>
+// from V on (the bulk path copies whole (bc, ldv) spans of V). The stage
+// count is the most stages of the tile type's piece that fit, up to
+// kMaxStages.
+template <class T, int S>
 cudaError_t run(Params p, long long v_len, int* path, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -308,14 +319,14 @@ cudaError_t run(Params p, long long v_len, int* path, cudaStream_t stream) {
                                dev);
   if (err != cudaSuccess) return err;
   const int chunk_rows = min(kRows, p.br);
-  const size_t tile_bytes = static_cast<size_t>(chunk_rows) * p.bc * sizeof(float);
+  const size_t tile_bytes = static_cast<size_t>(chunk_rows) * p.bc * sizeof(T);
   const size_t v_bytes = static_cast<size_t>(p.bc) * p.ldv * sizeof(float);
   const size_t c_bytes = p.c ? static_cast<size_t>(p.bc) * sizeof(float) : 0;
   p.ring_off = kBarrierBytes + round_up(static_cast<size_t>(S) * p.bc * sizeof(float), 128);
   const size_t stage_bytes = round_up(tile_bytes + v_bytes + c_bytes, 128);
   const long long fit = (static_cast<long long>(optin) - p.ring_off) /
                         static_cast<long long>(stage_bytes);
-  const bool bulk = p.bc % 4 == 0 && aligned16(p.data) && aligned16(p.V) &&
+  const bool bulk = bulk_rows<T>(p.bc) && aligned16(p.data) && aligned16(p.V) &&
                     (!p.c || aligned16(p.c)) &&
                     static_cast<long long>(p.ncb) * p.bc * p.ldv <= v_len &&
                     fit >= 2;
@@ -326,7 +337,7 @@ cudaError_t run(Params p, long long v_len, int* path, cudaStream_t stream) {
   p.c_off = static_cast<int>(tile_bytes + v_bytes);
   const size_t smem = bulk ? p.ring_off + p.stages * stage_bytes
                            : static_cast<size_t>(p.ring_off);
-  auto kernel = bulk ? stream_kernel<S, true> : stream_kernel<S, false>;
+  auto kernel = bulk ? stream_kernel<T, S, true> : stream_kernel<T, S, false>;
   err = kern::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<p.ctas, kThreads, smem, stream>>>(p);
@@ -339,14 +350,14 @@ cudaError_t run(Params p, long long v_len, int* path, cudaStream_t stream) {
 }
 
 // The arguments both entry points check.
-inline bool valid_args(const float* data, const int* cols, const int* sched,
+inline bool valid_args(const void* data, const int* cols, const int* sched,
                        int ctas, float* Y, float* scratch, int nb, int W,
                        int br, int bc, int ncb) {
   return data && cols && sched && Y && scratch && nb > 0 && W > 0 &&
          br > 0 && bc > 0 && ncb > 0 && ctas > 0;
 }
 
-inline Params make_params(const float* data, const int* cols, const int* sched,
+inline Params make_params(const void* data, const int* cols, const int* sched,
                           int ctas, const float* V, long long ldv,
                           const float* c, float* Y, float* scratch, int nb,
                           int W, int br, int bc, int ncb) {
@@ -367,6 +378,49 @@ inline Params make_params(const float* data, const int* cols, const int* sched,
   p.ncb = ncb;
   p.ctas = ctas;
   return p;
+}
+
+// The body of the K1 entry points (ell_mv.cu, ell_mv_bf16.cu): launches the
+// stream kernel and its fix-up, writes the path taken to *path (0 direct,
+// 1 bulk copies), and returns a cudaError_t (0 = launched).
+template <class T>
+int mv(const T* data, const int* cols, const int* sched, int ctas,
+       const float* v, const float* c, float* y, float* scratch, int nb,
+       int W, int br, int bc, int ncb, int* path, void* stream) {
+  if (!v || !valid_args(data, cols, sched, ctas, y, scratch, nb, W, br, bc,
+                        ncb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(data, cols, sched, ctas, v, 1, c, y, scratch,
+                               nb, W, br, bc, ncb);
+  return static_cast<int>(run<T, 1>(p, static_cast<long long>(ncb) * bc,
+                                    path, static_cast<cudaStream_t>(stream)));
+}
+
+// The body of the K6 entry points (ell_mm.cu, ell_mm_bf16.cu), one
+// instance per s.
+template <class T>
+int mm(const T* data, const int* cols, const int* sched, int ctas,
+       const float* V, long long ldv, long long v_len, const float* c,
+       float* Y, float* scratch, int nb, int W, int br, int bc, int ncb,
+       int s, int* path, void* stream) {
+  if (!V || s <= 0 || s > kern::kMaxCols || ldv < s ||
+      !valid_args(data, cols, sched, ctas, Y, scratch, nb, W, br, bc, ncb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(data, cols, sched, ctas, V, ldv, c, Y, scratch,
+                               nb, W, br, bc, ncb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (s) {
+    case 1: err = run<T, 1>(p, v_len, path, st); break;
+    case 2: err = run<T, 2>(p, v_len, path, st); break;
+    case 3: err = run<T, 3>(p, v_len, path, st); break;
+    case 4: err = run<T, 4>(p, v_len, path, st); break;
+    case 5: err = run<T, 5>(p, v_len, path, st); break;
+    case 6: err = run<T, 6>(p, v_len, path, st); break;
+    case 7: err = run<T, 7>(p, v_len, path, st); break;
+    default: err = run<T, 8>(p, v_len, path, st); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace ells

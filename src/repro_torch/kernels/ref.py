@@ -9,7 +9,9 @@ package's oracle contract (``repro/kernels/ref.py``):
 * blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
   (``cols = 0``, zero tile) gather the real vector block 0 and multiply
   it by zeros, products accumulate in f32, and the result is
-  ``out_dtype`` (f32 by default);
+  ``out_dtype`` (f32 by default); f32 or bf16 tiles, the vector operand
+  of each tile product rounded to the tile dtype where the TPU kernel
+  rounds it (ROADMAP F10: the JAX oracle does not);
 * attention (:mod:`repro_torch.kernels.flash_attention`):
   ``flash_attention_ref`` is the flash kernel's own function, and
   ``ref_attention`` ports the JAX package's attention oracle. The two
@@ -62,6 +64,13 @@ def ref_x_c_xt_multi(X, c, U):
     return ref_x_cz_multi(X, c, ref_xt_multi(X, U))
 
 
+def _round_to(x, dtype):
+    """``x`` rounded to the tile dtype and back to f32: the identity for
+    f32 tiles, round to nearest even for bf16 (as the TPU kernels'
+    ``astype``)."""
+    return x.to(dtype).float()
+
+
 def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32, *,
                sched=None):
     """Blocked-ELL generalized matvec  y = A (c .* v).
@@ -70,9 +79,17 @@ def ref_ell_mv(data, cols, v, c=None, out_dtype=torch.float32, *,
     v/c  : (ncb * bc,) padded vectors -> (nb * br,) in ``out_dtype``.
     ``sched`` (the kernel's live-tile schedule) is ignored: every slot is
     read, and the slots past a row-block's live ones hold zero tiles.
+
+    ``c .* v`` is rounded to the tile dtype before the products, where the
+    TPU kernel rounds it (``cv = (c * v).astype(x.dtype)``,
+    ``repro/kernels/sparse_hvp.py::_ell_mv_kernel``): at bf16 tiles every
+    product is then exact in f32, and the sums are f32; at f32 nothing
+    changes. The JAX oracle ``repro.kernels.ref.ref_ell_mv`` multiplies by
+    the unrounded vector, so at bf16 it misses the TPU kernel (ROADMAP
+    F10); this follows the kernel.
     """
     nb, w, br, bc = data.shape
-    vv = v if c is None else c * v
+    vv = _round_to(v if c is None else c * v, data.dtype)
     g = vv.reshape(-1, bc)[cols.long()]                # (nb, W, bc)
     y = torch.einsum("iwab,iwb->ia", data.float(), g.float())
     return y.reshape(nb * br).to(out_dtype)
@@ -83,12 +100,13 @@ def ref_ell_mm(data, cols, V, c=None, out_dtype=torch.float32, *,
     """Blocked-ELL generalized matmat  Y = A (c[:, None] .* V).
 
     V : (ncb * bc, s) -> (nb * br, s) in ``out_dtype``; the multi-vector
-    version of :func:`ref_ell_mv` (the s-step sparse HVP round);
-    ``sched`` is ignored, as there.
+    version of :func:`ref_ell_mv` (the s-step sparse HVP round), rounding
+    ``c .* V`` to the tile dtype as it does (the TPU kernel's
+    ``_ell_mm_kernel``); ``sched`` is ignored, as there.
     """
     nb, w, br, bc = data.shape
     s = V.shape[1]
-    VV = V if c is None else c[:, None] * V
+    VV = _round_to(V if c is None else c[:, None] * V, data.dtype)
     g = VV.reshape(-1, bc, s)[cols.long()]             # (nb, W, bc, s)
     y = torch.einsum("iwab,iwbs->ias", data.float(), g.float())
     return y.reshape(nb * br, s).to(out_dtype)
@@ -102,12 +120,17 @@ def ref_ell_hvp_t(dataT, colsT, u, c=None, out_dtype=torch.float32, *,
     contracts each tile against its scaled z block and scatter-adds into
     the output row-blocks. u : (nrb * br,), returns the same length.
     ``sched`` (the kernel's step schedule) is ignored: every slot is read.
+
+    Rounding as the TPU kernel's (``_ell_hvp_kernel``): ``u`` goes to the
+    tile dtype at entry (pass A is :func:`ref_ell_mv`, which rounds it),
+    and ``c .* z`` between the passes; the JAX oracle rounds neither
+    (ROADMAP F10).
     """
     ncb, wt, bc, br = dataT.shape
     nrb = u.shape[0] // br
     z = ref_ell_mv(dataT, colsT, u)                    # (ncb * bc,)
-    cz = z if c is None else c * z
-    g = cz.reshape(ncb, bc).float()
+    cz = _round_to(z if c is None else c * z, dataT.dtype)
+    g = cz.reshape(ncb, bc)
     contrib = torch.einsum("jwab,ja->jwb", dataT.float(), g)
     y = torch.zeros((nrb, br), dtype=torch.float32, device=u.device)
     y.index_add_(0, colsT.reshape(-1).long(), contrib.reshape(-1, br))
@@ -117,18 +140,73 @@ def ref_ell_hvp_t(dataT, colsT, u, c=None, out_dtype=torch.float32, *,
 def ref_ell_hvp_mm_t(dataT, colsT, U, c=None, out_dtype=torch.float32, *,
                      sched=None):
     """Multi-vector twin of :func:`ref_ell_hvp_t`: U (nrb * br, s) ->
-    Y = A (c .* (A^T U)) of the same shape; ``sched`` is ignored, as
-    there."""
-    ncb, wt, bc, br = dataT.shape
-    s = U.shape[1]
-    nrb = U.shape[0] // br
+    Y = A (c .* (A^T U)) of the same shape, ``U`` and ``c .* Z`` rounded
+    to the tile dtype as there (``_ell_hvp_mm_kernel``); ``sched`` is
+    ignored, as there."""
+    CZ = _round_to(ref_ell_handoff_t(dataT, colsT, U, c), dataT.dtype)
+    return ref_ell_scatter_t(dataT, colsT, CZ, U.shape[0]).to(out_dtype)
+
+
+def ref_ell_handoff_t(dataT, colsT, U, c=None):
+    """The one-pass HVP's hand-off before its rounding: ``c .* (A^T U)``
+    in f32, (ncb * bc, s) for U (nrb * br, s), pass A rounding ``U`` as
+    :func:`ref_ell_mm` does. The kernels round it to the tile dtype into
+    their ``cz`` buffer (``sparse_hvp.ell_hvp(cz_out=)``); at bf16 an
+    element within f32 rounding of a bf16 tie may round either way in two
+    summation orders (ROADMAP F11), so checks compare the two halves."""
     Z = ref_ell_mm(dataT, colsT, U)                    # (ncb * bc, s)
-    CZ = Z if c is None else c[:, None] * Z
-    g = CZ.reshape(ncb, bc, s).float()
+    return Z if c is None else c[:, None] * Z
+
+
+def ell_handoff_slack(dataT, colsT, U, c, t):
+    """Per element of an unrounded hand-off ``t`` (:func:`ref_ell_handoff_t`
+    of these operands), the most that two f32 summation orders of its
+    n = W * C products can put between their results: 2 gamma_n (the
+    standard bound n u / (1 - n u), u = 2^-24) times the products'
+    magnitudes (times |c|), plus the rounding of the product by c in
+    each."""
+    n = dataT.shape[1] * dataT.shape[3]
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    mag = ref_ell_handoff_t(dataT.abs(), colsT, U.abs(),
+                            None if c is None else c.abs())
+    return 2 * gamma * mag + 2.0 ** -23 * t.abs()
+
+
+def ell_handoff_flips(cz, t, slack) -> tuple[int, bool]:
+    """A bf16 fused kernel's rounded hand-off ``cz`` against an unrounded
+    one ``t`` (the plain version's, or the two-pass pair's): the number of
+    elements where ``cz`` is not ``t``'s bf16 rounding, and whether the
+    hand-off agrees: ``cz`` holds bf16 values, and each element that
+    differs is the other bf16 neighbour of a tie that ``t`` lies within
+    ``slack`` (:func:`ell_handoff_slack`) of, at most one element in a
+    thousand (a wrong rounding would miss about half). Two f32 summation
+    orders may round such an element either way (ROADMAP F11)."""
+    cz = cz.reshape(t.shape)
+    plain = t.to(torch.bfloat16).float()
+    diff = cz != plain
+    a, b = cz[diff], plain[diff]
+    bits = lambda x: x.to(torch.bfloat16).view(torch.int16).int()
+    adjacent = ((bits(a) - bits(b)).abs() == 1) & ((a > 0) == (b > 0))
+    near = (t[diff] - (a + b) / 2).abs() <= slack.reshape(t.shape)[diff]
+    flips = int(diff.sum())
+    return flips, (bool(torch.equal(cz.to(torch.bfloat16).float(), cz))
+                   and bool((adjacent & near).all())
+                   and flips <= 1 + t.numel() // 1000)
+
+
+def ref_ell_scatter_t(dataT, colsT, CZ, n_rows):
+    """The one-pass HVP's pass B from the transposed layout on a given
+    hand-off: Y = A CZ, CZ (ncb * bc, s) -> (n_rows, s) f32, each tile
+    contracted against its block of CZ and scatter-added into the output
+    row-blocks."""
+    ncb, wt, bc, br = dataT.shape
+    s = CZ.shape[1]
+    g = CZ.reshape(ncb, bc, s)
     contrib = torch.einsum("jwab,jas->jwbs", dataT.float(), g)
-    y = torch.zeros((nrb, br, s), dtype=torch.float32, device=U.device)
+    y = torch.zeros((n_rows // br, br, s), dtype=torch.float32,
+                    device=CZ.device)
     y.index_add_(0, colsT.reshape(-1).long(), contrib.reshape(-1, br, s))
-    return y.reshape(nrb * br, s).to(out_dtype)
+    return y.reshape(n_rows, s)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ once per layout (the solver keeps it in :class:`EllPair` ``sched`` /
 schedule that counts every slot live, which reads what the layout stores,
 padding included.
 
+Each takes f32 or bf16 tiles (``DiscoConfig.hvp_dtype``): the tile type is
+a template parameter of its design, instantiated for both, and a bf16
+layout launches the bf16 instance (``ell_mv_bf16`` and so on, each
+counted on its own). Vectors, sums and outputs are f32 either way. At bf16
+the kernels round where the TPU kernels round (ROADMAP F10): the vector a
+tile multiplies (``c .* v``; ``u`` and ``c .* z`` in the fused HVP) goes
+to bf16 first, so every product is exact in f32 and the sums are f32, as
+the plain versions in :mod:`repro_torch.kernels.ref` compute.
+
 ``ell_hvp`` and ``ell_hvp_mm`` share another (``csrc/ell_hvp_stream.cuh``):
 one cooperative persistent grid that walks the transposed layout's live
 tiles in steps of :func:`ell_hvp_schedule` (runs of whole row-blocks
@@ -46,9 +55,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import (ELL_HVP, ELL_HVP_MM, ELL_MM, ELL_MV,
-                                       check_card, check_columns,
-                                       check_tensor, ptr, stream_of)
+from repro_torch.kernels.build import (ELL_HVP, ELL_HVP_BF16, ELL_HVP_MM,
+                                       ELL_HVP_MM_BF16, ELL_MM, ELL_MM_BF16,
+                                       ELL_MV, ELL_MV_BF16, check_card,
+                                       check_columns, check_tensor, ptr,
+                                       stream_of)
 
 # CTAs of the four kernels per SM: their ring takes most of an SM's
 # shared memory (three 64 KB stages at 128 x 128 tiles)
@@ -63,9 +74,18 @@ STEP_L2_SHARE = (3, 8)
 SCRATCH_SETS = 4
 _SCHEDULE_CHUNK = 1 << 26   # tile elements tested for nonzeros at a time
 PATHS = ("direct", "bulk")  # the kernels' copy paths, by the code they report
-# the copy path of each kernel's last launch
+TILE_DTYPES = (torch.float32, torch.bfloat16)   # the tiles the kernels take
+# each kernel by tile dtype
+_BY_DTYPE = {
+    "ell_mv": {torch.float32: ELL_MV, torch.bfloat16: ELL_MV_BF16},
+    "ell_mm": {torch.float32: ELL_MM, torch.bfloat16: ELL_MM_BF16},
+    "ell_hvp": {torch.float32: ELL_HVP, torch.bfloat16: ELL_HVP_BF16},
+    "ell_hvp_mm": {torch.float32: ELL_HVP_MM,
+                   torch.bfloat16: ELL_HVP_MM_BF16},
+}
+# the copy path of each kernel's last launch, by kernel name
 last_path: dict[str, str | None] = dict.fromkeys(
-    ("ell_mv", "ell_mm", "ell_hvp", "ell_hvp_mm"))
+    k.name for kernels in _BY_DTYPE.values() for k in kernels.values())
 
 
 def default_ctas(device) -> int:
@@ -217,7 +237,8 @@ def ell_hvp_schedule(dataT, colsT, ctas: int | None = None,
 
     Live counts as :func:`ell_schedule` takes them (``live``: those of
     the layout's :func:`ell_schedule`, to skip the pass over the tiles).
-    A step is a run of consecutive row-blocks whose live tiles fit in
+    A step is a run of consecutive row-blocks whose live tiles (at the
+    layout's element size: a step holds up to twice as many bf16 tiles) fit in
     ``step_bytes`` (default :func:`default_step_bytes`); a row-block
     larger than that is a step alone, and row-blocks without live tiles
     join the step they fall in. Each step's live tiles are split over the
@@ -237,8 +258,8 @@ def ell_hvp_schedule(dataT, colsT, ctas: int | None = None,
                          f"{step_bytes} must be positive")
     if live is None:
         live = _live_counts(dataT)
-    return _hvp_schedule(live.to(torch.int64), r * c * 4, ctas,
-                         step_bytes)
+    return _hvp_schedule(live.to(torch.int64), r * c * dataT.element_size(),
+                         ctas, step_bytes)
 
 
 def _hvp_schedule(live, tile_bytes, ctas, step_bytes):
@@ -272,11 +293,12 @@ def _check_hvp_schedule(sched, dataT) -> HvpSchedule:
     nb, w, r, c = dataT.shape
     dev = dataT.device
     if sched is None:
-        key = (nb, w, r, c, str(dev))
+        tile_bytes = r * c * dataT.element_size()
+        key = (nb, w, tile_bytes, str(dev))
         if key not in _EVERY_SLOT_HVP:
             live = torch.full((nb,), w, dtype=torch.int64, device=dev)
             _EVERY_SLOT_HVP[key] = _hvp_schedule(
-                live, r * c * 4, default_ctas(dev), default_step_bytes(dev))
+                live, tile_bytes, default_ctas(dev), default_step_bytes(dev))
         return _EVERY_SLOT_HVP[key]
     if not isinstance(sched, HvpSchedule):
         raise TypeError("sched must be an HvpSchedule (ell_hvp_schedule)")
@@ -289,7 +311,7 @@ def _check_hvp_schedule(sched, dataT) -> HvpSchedule:
 def ell_mv(data, cols, v, c=None, *, sched=None, out_dtype=torch.float32):
     """y = A @ (c .* v) for a blocked-ELL operand, on the card.
 
-    data : (nb, W, br, bc) f32 tiles;  cols : (nb, W) int32
+    data : (nb, W, br, bc) f32 or bf16 tiles;  cols : (nb, W) int32
     v    : (ncb * bc,) f32 input vector (padded length)
     c    : optional (ncb * bc,) f32 per-element scale (fused in-kernel)
     sched: the layout's :func:`ell_schedule`; None reads every slot
@@ -312,25 +334,29 @@ def ell_mv(data, cols, v, c=None, *, sched=None, out_dtype=torch.float32):
     sched, ctas = _check_schedule(sched, nb, w, dev)
     scratch = torch.empty(ctas * 2 * br, dtype=torch.float32, device=dev)
     path = ctypes.c_int(-1)
+    kernel = _BY_DTYPE["ell_mv"][data.dtype]
     with torch.cuda.device(dev):
-        ELL_MV.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(v), ptr(c),
+        kernel.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(v), ptr(c),
                       ptr(y), ptr(scratch), nb, w, br, bc, v.shape[0] // bc,
                       ctypes.byref(path), stream_of(dev))
-    last_path["ell_mv"] = PATHS[path.value]
+    last_path[kernel.name] = PATHS[path.value]
     return y.to(out_dtype)
 
 
 def ell_hvp(dataT, colsT, u, c=None, *, sched=None,
-            out_dtype=torch.float32):
+            out_dtype=torch.float32, cz_out=None):
     """One-pass blocked-ELL HVP on the card: y = A (c .* (A^T u)).
 
     dataT/colsT : the *transposed* blocked-ELL layout of A, shapes
-    (ncb, WT, bc, br) / (ncb, WT). u : (nrb * br,) over A's padded row
-    axis; c : optional (ncb * bc,) scale over A's padded column axis.
-    sched : the layout's :func:`ell_hvp_schedule`; None reads every slot.
-    Returns (nrb * br,) in ``out_dtype`` (f32 accumulation; z summed in a
-    fixed order, the scatter into y by f32 atomics, so y repeats to f32
-    rounding, not bit for bit).
+    (ncb, WT, bc, br) / (ncb, WT), f32 or bf16 tiles. u : (nrb * br,)
+    over A's padded row axis; c : optional (ncb * bc,) scale over A's
+    padded column axis. sched : the layout's :func:`ell_hvp_schedule`;
+    None reads every slot. cz_out : optional zeroed (ncb * bc,) f32
+    tensor that receives the hand-off ``c .* z`` between the passes
+    (rounded to the tile dtype; row-blocks without live tiles keep
+    their zeros), for checks. Returns (nrb * br,) in ``out_dtype`` (f32
+    accumulation; z summed in a fixed order, the scatter into y by f32
+    atomics, so y repeats to f32 rounding, not bit for bit).
     """
     dev = dataT.device
     _check_layout(dataT, colsT, dev)
@@ -347,23 +373,32 @@ def ell_hvp(dataT, colsT, u, c=None, *, sched=None,
     if ncb == 0:
         return y.to(out_dtype)
     sched = _check_hvp_schedule(sched, dataT)
-    cz, scratch = _hvp_buffers(sched, bc, 1, dev)
+    cz, scratch = _hvp_buffers(sched, bc, 1, dev, cz_out)
     path = ctypes.c_int(-1)
+    kernel = _BY_DTYPE["ell_hvp"][dataT.dtype]
     with torch.cuda.device(dev):
-        ELL_HVP.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
-                       ptr(sched.state), sched.ctas, sched.steps,
-                       sched.next_epoch(), ptr(u), ptr(c), ptr(y), ptr(cz),
-                       ptr(scratch), ncb, wt, bc, br, u.shape[0] // br,
-                       ctypes.byref(path), stream_of(dev))
-    last_path["ell_hvp"] = PATHS[path.value]
+        kernel.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
+                      ptr(sched.state), sched.ctas, sched.steps,
+                      sched.next_epoch(), ptr(u), ptr(c), ptr(y), ptr(cz),
+                      ptr(scratch), ncb, wt, bc, br, u.shape[0] // br,
+                      ctypes.byref(path), stream_of(dev))
+    last_path[kernel.name] = PATHS[path.value]
     return y.to(out_dtype)
 
 
-def _hvp_buffers(sched, bc, s, dev):
+def _hvp_buffers(sched, bc, s, dev, cz_out=None):
     """The per-call buffers of ell_hvp / ell_hvp_mm: c .* z of every
-    row-block (nb, bc, s), and the partial z of the row-blocks cut by a
-    CTA range (SCRATCH_SETS, ctas, 2 slots, bc, s)."""
-    cz = torch.empty(sched.nb * bc * s, dtype=torch.float32, device=dev)
+    row-block (nb, bc, s) (``cz_out`` when given), and the partial z of
+    the row-blocks cut by a CTA range (SCRATCH_SETS, ctas, 2 slots, bc,
+    s)."""
+    if cz_out is None:
+        cz = torch.empty(sched.nb * bc * s, dtype=torch.float32, device=dev)
+    else:
+        check_tensor("cz_out", cz_out, torch.float32, 1, dev)
+        if cz_out.shape[0] != sched.nb * bc * s:
+            raise ValueError(f"len(cz_out) = {cz_out.shape[0]} != "
+                             f"{sched.nb * bc * s}")
+        cz = cz_out
     scratch = torch.empty(SCRATCH_SETS * 2 * sched.ctas * bc * s,
                           dtype=torch.float32, device=dev)
     return cz, scratch
@@ -371,7 +406,7 @@ def _hvp_buffers(sched, bc, s, dev):
 
 def _check_layout(data, cols, dev):
     check_card(dev)
-    check_tensor("data", data, torch.float32, 4, dev)
+    check_tensor("data", data, TILE_DTYPES, 4, dev)
     check_tensor("cols", cols, torch.int32, 2, dev)
     if tuple(cols.shape) != tuple(data.shape[:2]):
         raise ValueError(f"cols {tuple(cols.shape)} != "
@@ -381,7 +416,7 @@ def _check_layout(data, cols, dev):
 def ell_mm(data, cols, V, c=None, *, sched=None, out_dtype=torch.float32):
     """Y = A @ (c[:, None] .* V) over s vectors, on the card.
 
-    data : (nb, W, br, bc) f32 tiles;  cols : (nb, W) int32
+    data : (nb, W, br, bc) f32 or bf16 tiles;  cols : (nb, W) int32
     V    : (ncb * bc, s) f32, row-major with any row stride
     c    : optional (ncb * bc,) f32 scale (fused in-kernel)
     sched: the layout's :func:`ell_schedule`; None reads every slot
@@ -406,25 +441,28 @@ def ell_mm(data, cols, V, c=None, *, sched=None, out_dtype=torch.float32):
     # whole (bc, ldv) spans of V)
     v_len = V.untyped_storage().nbytes() // 4 - V.storage_offset()
     path = ctypes.c_int(-1)
+    kernel = _BY_DTYPE["ell_mm"][data.dtype]
     with torch.cuda.device(dev):
-        ELL_MM.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(V), ldv,
+        kernel.launch(ptr(data), ptr(cols), ptr(sched), ctas, ptr(V), ldv,
                       v_len, ptr(c), ptr(Y), ptr(scratch), nb, w, br, bc,
                       V.shape[0] // bc, s, ctypes.byref(path),
                       stream_of(dev))
-    last_path["ell_mm"] = PATHS[path.value]
+    last_path[kernel.name] = PATHS[path.value]
     return Y.to(out_dtype)
 
 
 def ell_hvp_mm(dataT, colsT, U, c=None, *, sched=None,
-               out_dtype=torch.float32):
+               out_dtype=torch.float32, cz_out=None):
     """One-pass blocked-ELL multi-vector HVP on the card:
     Y = A (c .* (A^T U)).
 
     dataT/colsT : the transposed layout of A, (ncb, WT, bc, br) /
-    (ncb, WT). U : (nrb * br, s) row-major with any row stride; c :
-    optional (ncb * bc,); sched as for :func:`ell_hvp`. Returns
-    (nrb * br, s) in ``out_dtype`` (f32 accumulation; repeats to f32
-    rounding, as :func:`ell_hvp`).
+    (ncb, WT), f32 or bf16 tiles. U : (nrb * br, s) row-major with any
+    row stride; c : optional (ncb * bc,); sched as for :func:`ell_hvp`;
+    cz_out : optional zeroed (ncb * bc * s,) f32 tensor that receives
+    the hand-off ``c .* Z``, row-major (ncb * bc, s), as for
+    :func:`ell_hvp`. Returns (nrb * br, s) in ``out_dtype`` (f32
+    accumulation; repeats to f32 rounding, as :func:`ell_hvp`).
     """
     dev = dataT.device
     _check_layout(dataT, colsT, dev)
@@ -440,17 +478,18 @@ def ell_hvp_mm(dataT, colsT, U, c=None, *, sched=None,
     if ncb == 0:
         return Y.to(out_dtype)
     sched = _check_hvp_schedule(sched, dataT)
-    cz, scratch = _hvp_buffers(sched, bc, s, dev)
+    cz, scratch = _hvp_buffers(sched, bc, s, dev, cz_out)
     # floats readable from U's first element on (the bulk copies take
     # whole (br, ldu) spans of U)
     u_len = U.untyped_storage().nbytes() // 4 - U.storage_offset()
     path = ctypes.c_int(-1)
+    kernel = _BY_DTYPE["ell_hvp_mm"][dataT.dtype]
     with torch.cuda.device(dev):
-        ELL_HVP_MM.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
-                          ptr(sched.state), sched.ctas, sched.steps,
-                          sched.next_epoch(), ptr(U), ldu, u_len, ptr(c),
-                          ptr(Y), ptr(cz), ptr(scratch), ncb, wt, bc, br,
-                          U.shape[0] // br, s, ctypes.byref(path),
-                          stream_of(dev))
-    last_path["ell_hvp_mm"] = PATHS[path.value]
+        kernel.launch(ptr(dataT), ptr(colsT), ptr(sched.table),
+                      ptr(sched.state), sched.ctas, sched.steps,
+                      sched.next_epoch(), ptr(U), ldu, u_len, ptr(c),
+                      ptr(Y), ptr(cz), ptr(scratch), ncb, wt, bc, br,
+                      U.shape[0] // br, s, ctypes.byref(path),
+                      stream_of(dev))
+    last_path[kernel.name] = PATHS[path.value]
     return Y.to(out_dtype)

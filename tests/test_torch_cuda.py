@@ -8,7 +8,12 @@ that has only PyTorch:
 
 Tolerance: relative L2 error <= 1e-5 in f32 (sums in another order, and
 for ``ell_hvp`` and ``ell_hvp_mm`` reductions into the output in a
-varying order).
+varying order). The bf16 instances of the blocked-ELL kernels are held to
+the plain versions at bf16 tiles at the same 1e-5 (their products are
+exact in f32); the fused ones in two halves, since their hand-off
+``c .* z`` rounds to bf16 (ROADMAP F11): the kernel's hand-off equals the
+plain one's rounding except at ties within the f32 summation error bound,
+and the output equals the plain pass B of the kernel's hand-off.
 """
 import numpy as np
 import pytest
@@ -90,7 +95,8 @@ def test_cuda_ops_launch_the_kernels(dev):
     assert build.launch_counts() == {
         "ell_mv": 1, "ell_hvp": 1, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
-        "x_c_xt_multi": 0, "flash_attention": 0}
+        "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -346,7 +352,8 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 2, "x_cz": 2, "x_c_xt_u": 1,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 1, "x_cz_multi": 1,
-        "x_c_xt_multi": 4, "flash_attention": 0}
+        "x_c_xt_multi": 4, "flash_attention": 0, "ell_mv_bf16": 0,
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -1092,3 +1099,156 @@ def test_cuda_dense_decoder_matches_cpu(dev):
     assert Engine(cfg, model, batch_size=2, max_len=32).generate(reqs)[0] \
         .tokens == Engine(cfg, on_cpu, batch_size=2,
                           max_len=32).generate(reqs)[0].tokens
+
+
+# ---------------------------------------------------------------------------
+# bf16 tiles: the bf16 instances of K1, K2, K6 and K7
+# ---------------------------------------------------------------------------
+
+def _bf16_path(bc):
+    """The copy path a bf16 layout takes: bulk when a tile row is a
+    multiple of 16 bytes."""
+    return "bulk" if bc % 8 == 0 else "direct"
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS)
+def test_cuda_bf16_ell_mv_mm_match_plain(dev, name):
+    """K1 and K6 on bf16 tiles against their plain versions on the same
+    tiles, with and without the schedule and c, K6 at every s on a
+    strided V; repeated bit for bit, on the path the shape calls for; the
+    bf16 instances counted, not the f32 ones."""
+    ell, _ = _edge_layout(name)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    data, cols = T(ell.data).to(torch.bfloat16), T(ell.cols)
+    nb, _, br, bc = data.shape
+    n_in = ell.n_col_blocks * bc
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    v = torch.randn(n_in, generator=g, device=dev)
+    build.reset_launch_counts()
+    for sched in (None, sparse_hvp.ell_schedule(
+            data, cols, sparse_hvp.default_ctas(dev))):
+        for c in (None, torch.rand(n_in, generator=g, device=dev)):
+            got = sparse_hvp.ell_mv(data, cols, v, c, sched=sched)
+            assert sparse_hvp.last_path["ell_mv_bf16"] == _bf16_path(bc)
+            again = sparse_hvp.ell_mv(data, cols, v, c, sched=sched)
+            torch.cuda.synchronize()
+            assert _rel(got, ref.ref_ell_mv(data, cols, v, c)) <= 1e-5
+            assert torch.equal(got, again)
+            for s in MULTI_S:
+                V = _basis(dev, n_in, s, s, strided=True)
+                got = sparse_hvp.ell_mm(data, cols, V, c, sched=sched)
+                assert sparse_hvp.last_path["ell_mm_bf16"] == _bf16_path(bc)
+                again = sparse_hvp.ell_mm(data, cols, V, c, sched=sched)
+                torch.cuda.synchronize()
+                assert _rel(got, ref.ref_ell_mm(data, cols, V, c)) <= 1e-5
+                assert torch.equal(got, again)
+    counts = build.launch_counts()
+    assert counts["ell_mv_bf16"] == 8 and counts["ell_mm_bf16"] == 40
+    assert counts["ell_mv"] == counts["ell_mm"] == 0
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS + ["6x12"])
+def test_cuda_bf16_ell_hvp_match_plain(dev, name):
+    """K2 and K7 on bf16 tiles (an edge layout taken as the transposed
+    layout), with the default step schedule (NaN in the padding) and
+    without, with and without c, K7 at every s on contiguous and strided
+    U: the hand-off against the plain one's rounding (ties aside) and the
+    output against the plain pass B of the kernel's hand-off; then
+    against the two-pass pair of bf16 K1 / K6 the same way."""
+    ell, _ = _edge_layout(name)
+    fwd = _forward_of(ell)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    clean = T(ell.data).to(torch.bfloat16)
+    colsT = T(ell.cols)
+    data, cols = T(fwd.data).to(torch.bfloat16), T(fwd.cols)
+    nb, w, R, C = clean.shape
+    n_u, n_c = ell.n_col_blocks * C, nb * R
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    u = torch.randn(n_u, generator=g, device=dev)
+    sched = sparse_hvp.ell_hvp_schedule(clean, colsT)
+    poisoned = clean.clone()
+    live = sched.parts()[0].long()
+    poisoned[torch.arange(w, device=dev)[None, :] >= live[:, None]] = \
+        float("nan")
+    for dataT, sc in ((clean, None), (poisoned, sched)):
+        for c in (None, torch.rand(n_c, generator=g, device=dev)):
+            for s in MULTI_S:
+                for strided in (False, True):
+                    U = _basis(dev, n_u, s, s, strided)
+                    cz = torch.zeros(n_c * s, device=dev)
+                    if s == 1 and not strided:
+                        got = sparse_hvp.ell_hvp(dataT, colsT, U[:, 0], c,
+                                                 sched=sc, cz_out=cz)
+                        assert sparse_hvp.last_path["ell_hvp_bf16"] == \
+                            _bf16_path(C)
+                        got = got[:, None]
+                    else:
+                        got = sparse_hvp.ell_hvp_mm(dataT, colsT, U, c,
+                                                    sched=sc, cz_out=cz)
+                        assert sparse_hvp.last_path["ell_hvp_mm_bf16"] == \
+                            _bf16_path(C)
+                    z_pair = sparse_hvp.ell_mm(clean, colsT, U)
+                    torch.cuda.synchronize()
+                    assert bool(got.isfinite().all())
+                    cz = cz.reshape(n_c, s)
+                    t = ref.ref_ell_handoff_t(clean, colsT, U, c)
+                    slack = ref.ell_handoff_slack(clean, colsT, U, c, t)
+                    assert ref.ell_handoff_flips(cz, t, slack)[1]
+                    assert _rel(got, ref.ref_ell_scatter_t(
+                        clean, colsT, cz, n_u)) <= 1e-5
+                    t_pair = z_pair if c is None else c[:, None] * z_pair
+                    assert ref.ell_handoff_flips(cz, t_pair, slack)[1]
+                    assert _rel(got, sparse_hvp.ell_mm(data, cols, cz)) \
+                        <= 1e-5
+    assert int(sched.state[:nb].abs().sum()) == 0
+
+
+def test_cuda_bf16_ops_launch_the_bf16_kernels(dev):
+    fwd, tr = _layouts(16)
+    T = lambda a: torch.from_numpy(a).to(dev)
+    bf = lambda a: T(a).to(torch.bfloat16)
+    build.reset_launch_counts()
+    ops.ell_matvec(bf(fwd.data), T(fwd.cols),
+                   torch.ones(fwd.n_col_blocks * 16, device=dev))
+    ops.ell_hvp(bf(tr.data), T(tr.cols),
+                torch.ones(fwd.n_row_blocks * 16, device=dev),
+                fwd=(bf(fwd.data), T(fwd.cols)))
+    ops.ell_matmat(bf(fwd.data), T(fwd.cols),
+                   torch.ones((fwd.n_col_blocks * 16, 10), device=dev))
+    ops.ell_hvp_mm(bf(tr.data), T(tr.cols),
+                   torch.ones((fwd.n_row_blocks * 16, 3), device=dev))
+    counts = build.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "ell_mv_bf16": 1, "ell_hvp_bf16": 1, "ell_mm_bf16": 2,
+        "ell_hvp_mm_bf16": 1}
+
+
+@pytest.mark.parametrize("partition", ["samples", "features"])
+@pytest.mark.parametrize("m,fused,s", [(1, False, 1), (1, True, 1),
+                                       (2, False, 1), (1, True, 2),
+                                       (2, True, 2)])
+def test_cuda_bf16_disco_fit_matches_cpu(dev, partition, m, fused, s):
+    """A small bf16 solve on the card against the same solve on the CPU:
+    the same PCG iterations (or rounds) every step, and w within relative
+    L2 3e-4 (another f32 summation order moves a bf16 solve that far:
+    ROADMAP F11, ``tests/test_torch_bf16.py``); the bf16 kernels ran."""
+    X, y, _ = make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
+                                   beta=0.5, seed=1)
+    cfg = DiscoConfig(loss="logistic", lam=1e-2, tau=100, max_outer=4,
+                      grad_tol=0.0, ell_block_d=16, ell_block_n=16,
+                      partition=partition, hvp_fused=fused, pcg_block_s=s,
+                      hvp_dtype="bfloat16")
+    build.reset_launch_counts()
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    assert np.linalg.norm(on_card.w - on_cpu.w) <= \
+        3e-4 * np.linalg.norm(on_cpu.w)
+    # f32 layouts: the margins and the gradient only, one each a shard a
+    # step; PCG's products all on the bf16 instances
+    assert counts["ell_mv"] == 2 * m * len(on_card.history)
+    assert counts["ell_hvp"] == counts["ell_mm"] == counts["ell_hvp_mm"] == 0
+    assert sum(counts[k + "_bf16"] for k in ("ell_mv", "ell_hvp", "ell_mm",
+                                            "ell_hvp_mm")) > 0

@@ -110,9 +110,11 @@ def test_csr_ops_identical():
 
 
 def test_hvp_tile_dtype_f32_only():
-    assert tsparse.hvp_tile_dtype("float32") == np.float32
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsparse.hvp_tile_dtype("bfloat16")
+    """The tile dtypes: f32 and, since bf16 tiles are ported, bf16, as
+    torch dtypes (bf16 raised "not yet ported" before); anything else
+    raises ValueError, as in the reference."""
+    assert tsparse.hvp_tile_dtype("float32") is torch.float32
+    assert tsparse.hvp_tile_dtype("bfloat16") is torch.bfloat16
     with pytest.raises(ValueError):
         tsparse.hvp_tile_dtype("float16")
 

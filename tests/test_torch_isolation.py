@@ -16,6 +16,7 @@ SRC = ROOT / "src"
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any import of jax now fails
+    sys.modules["ml_dtypes"] = None    # nor of ml_dtypes (bf16 is torch's)
     import numpy as np
     import repro_torch
     from repro_torch import (CSRMatrix, DiscoConfig, GLMProblem,
@@ -42,6 +43,20 @@ SCRIPT = textwrap.dedent("""
                                         ell_block_n=8, pcg_block_s=3),
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.grad_norms[-1] < r.grad_norms[0]
+        for fused, s in ((False, 1), (True, 1), (True, 2)):
+            r = disco_fit(X, y, DiscoConfig(partition=partition, tau=16,
+                                            max_outer=2, ell_block_d=8,
+                                            ell_block_n=8, hvp_fused=fused,
+                                            pcg_block_s=s,
+                                            hvp_dtype="bfloat16"),
+                          group=InProcessGroup(2), device="cpu")
+            assert np.isfinite(r.w).all()
+            assert r.grad_norms[-1] < r.grad_norms[0]
+    from repro_torch.data.sparse import build_shard_ell_pairs, hvp_tile_dtype
+    from repro_torch.core import comm
+    tiles = build_shard_ell_pairs([X], 8, 8, dtype=hvp_tile_dtype("bf16"))
+    assert str(tiles[0].dtype) == "torch.bfloat16"
+    assert comm.hvp_dtype_bytes("bfloat16") == 2
     for kw in (dict(precond="sag", sag_epochs=2),
                dict(hessian_subsample=0.5), dict(hessian_subsample=0.5,
                                                  pcg_block_s=2)):
@@ -112,7 +127,9 @@ SCRIPT = textwrap.dedent("""
     eng.submit(Request(prompt=[3], max_new_tokens=2))
     assert len(eng.run_until_done()[0].tokens) == 2
     leaked = sorted(m for m in sys.modules
-                    if m == "repro" or m.startswith("repro."))
+                    if m == "repro" or m.startswith("repro.")
+                    or (m.split(".")[0] in ("jax", "ml_dtypes")
+                        and sys.modules[m] is not None))
     assert not leaked, leaked
     print("ISOLATED")
 """)
@@ -126,11 +143,14 @@ def test_port_runs_without_jax_or_repro():
     assert "ISOLATED" in r.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro|ml_dtypes)\b|from\s+(jax|repro|ml_dtypes)[\s.])",
+    re.MULTILINE)
 
 
 def test_no_jax_or_repro_imports_in_port_sources():
+    """No port source and no root chip script imports jax, the JAX
+    package or ml_dtypes (JAX's bf16 dtype; the port's bf16 is torch's)."""
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "chip_k11_variants.py",
          ROOT / "chip_hvp_variants.py", ROOT / "chip_dense_variants.py",

@@ -221,10 +221,16 @@ def test_cpu_calls_launch_no_kernel():
     tops.x_c_xt_multi(X, torch.ones(10), torch.ones((6, 20)))
     tops.flash_attention(torch.ones((1, 2, 5, 32)), torch.ones((1, 1, 7, 32)),
                          torch.ones((1, 1, 7, 32)))
+    bf = lambda t: torch.from_numpy(t).to(torch.bfloat16)
+    tops.ell_matvec(bf(fwd.data), T(fwd.cols),
+                    torch.ones(fwd.n_col_blocks * 8))
+    tops.ell_hvp_mm(bf(tr.data), T(tr.cols),
+                    torch.ones((fwd.n_row_blocks * 8, 3)))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
-        "x_c_xt_multi": 0, "flash_attention": 0}
+        "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -270,7 +276,8 @@ def test_kernel_sources_and_build_target():
     assert [k.name for k in build.KERNELS] == [
         "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u", "ell_mm",
         "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi",
-        "flash_attention"]
+        "flash_attention", "ell_mv_bf16", "ell_hvp_bf16", "ell_mm_bf16",
+        "ell_hvp_mm_bf16"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -289,6 +296,15 @@ def test_kernel_sources_and_build_target():
                                  "common.cuh"]
     assert names(build.ELL_HVP_MM) == ["ell_hvp_stream.cuh",
                                        "ell_tiles.cuh", "common.cuh"]
+    # the bf16 instances: their own sources on the same designs
+    for f32, bf16 in ((build.ELL_MV, build.ELL_MV_BF16),
+                      (build.ELL_MM, build.ELL_MM_BF16),
+                      (build.ELL_HVP, build.ELL_HVP_BF16),
+                      (build.ELL_HVP_MM, build.ELL_HVP_MM_BF16)):
+        assert names(bf16) == names(f32)
+        assert bf16.argtypes == f32.argtypes
+        assert f"{bf16.name}_launch(const __nv_bfloat16*" in \
+            bf16.source.read_text()
     assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == ["common.cuh"]
     assert names(build.X_C_XT_MULTI) == ["fused_stream.cuh", "ell_tiles.cuh",
