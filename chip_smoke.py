@@ -7,10 +7,10 @@ Usage, from the repository root on a machine with one Hopper card:
 
 Eight phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the fifteen hand-written CUDA kernels from
+1. Build: compiles the nineteen hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
-   all at once: the eleven, and the bf16-tile instances of K1, K2, K6 and
-   K7) and prints the card's name and power limit.
+   all at once: the eleven, and the bf16-tile instances of K1, K2, K6,
+   K7, K3, K4, K8 and K9) and prints the card's name and power limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card (relative L2 error <= 1e-5 in f32): ``ell_mv`` and ``ell_hvp`` at
    8x8, 16x16 and 128x128 tiles on layouts with padding slots; ``xt_u``,
@@ -39,7 +39,12 @@ Eight phases; any failed check makes the exit code nonzero.
    f32), the fused ones in two halves (their hand-off ``c .* z`` rounded
    to bf16, ties within the f32 summation error bound aside, F11; the
    output against the plain pass B of the kernel's own hand-off and
-   against the two-pass bf16 pair's); ``flash_attention`` (K11)
+   against the two-pass bf16 pair's); the bf16 dense instances
+   (``xt_u_bf16``, ``x_cz_bf16``, ``xt_multi_bf16``, ``x_cz_multi_bf16``)
+   at the dense shapes on bf16 X as whole rows, column views at offsets
+   1 and 8 and rows of a stride not a multiple of 8 (both copy paths),
+   against their plain versions at bf16 (<= 1e-5), each repeated bit for
+   bit, K8 and K9 at s = 1, 2, 4, 5, 8 and 13; ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -53,7 +58,8 @@ Eight phases; any failed check makes the exit code nonzero.
    dense s-step included), a λ-path and softmax; small bf16 sparse
    solves (``hvp_dtype='bfloat16'``: DiSCO-S m = 1 two-pass and fused,
    DiSCO-F m = 2 and a fused s-step, card against CPU within relative L2
-   3e-4, F11); and the paper's
+   3e-4, F11); small bf16 dense solves (DiSCO-S m = 1, DiSCO-F m = 2, an
+   s-step and the plain layout, the same limit); and the paper's
    comparisons: the original DiSCO (``precond='sag'``, DiSCO-S) sparse
    and dense at m = 1 and 4 and one s-step solve, Hessian subsampling
    (frac 0.5, the same masks on both) on both partitions, sparse and
@@ -115,7 +121,11 @@ Eight phases; any failed check makes the exit code nonzero.
    ``w``. Then six s-step runs: DiSCO-S and DiSCO-F at m = 1 two-pass,
    DiSCO-F m = 4 fused (its basis operator on ``x_c_xt_u``), and the
    fused rounds on ``x_c_xt_multi``: DiSCO-S at m = 1 and m = 4, DiSCO-F
-   at m = 1; with the same checks.
+   at m = 1; with the same checks. On a bf16 copy of X the four bf16
+   dense instances are held to their plain versions and timed at the full
+   width and both m = 4 shard shapes (K8 and K9 at s = 5, and 8 and 13 at
+   the full width) beside the plain versions, ``torch.mv`` / ``@`` on the
+   bf16 X and the f32 kernels of the same call.
 5. Workloads on the dense slice's X: a warm λ-path (λ = 1e-2, 1e-3,
    1e-4; fused s-step DiSCO-S, scored on 32,768 held-out samples of the
    same model), multinomial softmax with K = 10 classes (DiSCO-S m = 1
@@ -123,7 +133,12 @@ Eight phases; any failed check makes the exit code nonzero.
    regression (fused DiSCO-S); each held to its predicted launches or
    its convergence, and the λ-path's last point to the classic ``w``;
    GD and DANE at m = 1 and 4 (ms per outer iteration, rounds, the
-   gradient norm falling). Then Figure 3 on ``make_regime('rcv1_like')``
+   gradient norm falling). Then at ``hvp_dtype='bfloat16'``: softmax K = 10
+   (DiSCO-S m = 1), DiSCO-S and DiSCO-F m = 1, DiSCO-S m = 4, an s-step
+   (s = 4) and a ``use_kernel=False`` run, and a warm two-pass λ-path,
+   each held to the launches the code predicts (PCG on the bf16
+   instances, no f32 dense kernel), f falling and the f32 run's w or W
+   (<= 1e-4). Then Figure 3 on ``make_regime('rcv1_like')``
    (m = 4, logistic): DiSCO-F, DiSCO-S and the original DiSCO on the
    dense kernels, DANE, and CoCoA+ (2 outer iterations), each's
    gradient norm and rounds per iteration, and CoCoA+'s launches per
@@ -319,6 +334,18 @@ BYTES_BF16 = 2
 DENSE_KERNELS = ("xt_u", "x_cz", "x_c_xt_u", "xt_multi", "x_cz_multi",
                  "x_c_xt_multi")
 DENSE_SINGLE = ("xt_u", "x_cz", "x_c_xt_u")
+# the two-pass dense kernels' instances on bf16 tiles (hvp_dtype =
+# 'bfloat16' on dense input): the same TPU kernels at bf16 tile storage
+DENSE_TWO_PASS = ("xt_u", "x_cz", "xt_multi", "x_cz_multi")
+DENSE_BF16 = tuple(f"{k}_bf16" for k in DENSE_TWO_PASS)
+REPLACES.update({f"{k}_bf16": REPLACES[k] for k in DENSE_TWO_PASS})
+# the multi-vector checks at bf16 add 13 columns (two launches: 8 + 5)
+BF16_MULTI_S = MULTI_S + (13,)
+# the bf16 runs on the dense slice's X: partition, m, pcg_block_s,
+# use_kernel; each held to the f32 m = 1 two-pass w of its partition
+BF16_DENSE_RUNS = [("samples", 1, 1, True), ("features", 1, 1, True),
+                   ("samples", 4, 1, True), ("samples", 1, SSTEP_S, True),
+                   ("samples", 1, 1, False)]
 
 FAILURES: list[str] = []
 
@@ -982,6 +1009,72 @@ def phase_fused_multi_kernel(torch, glm_hvp, ref, errs) -> None:
               f"clusters of {sorted(widths)}: worst rel err {worst:.2e}, "
               f"repeatable {same}; columns vs x_c_xt_u {worst_col:.2e}; vs "
               f"the xt_multi + x_cz_multi pair {worst_pair:.2e}")
+
+
+def bf16_dense_views(torch, dev, d, n, seed) -> dict:
+    """bf16 X of (d, n) as the checks take it, on both copy paths: whole
+    rows (bulk when n % 8 == 0), a column view at offset 1 (not 16-byte
+    aligned: direct) and one at offset 8 of rows of n + 8 (bulk when
+    n % 8 == 0), and rows of n + 4 (a row stride not a multiple of 8:
+    direct)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wide = (torch.randn((d, n + 8), generator=g, device=dev)
+            / d ** 0.5).to(torch.bfloat16)
+    odd = (torch.randn((d, n + 4), generator=g, device=dev)
+           / d ** 0.5).to(torch.bfloat16)
+    return {"rows": wide[:, :n].contiguous(), "view_at_1": wide[:, 1:n + 1],
+            "view_at_8": wide[:, 8:], "ld_n+4": odd[:, :n]}
+
+
+def phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs) -> None:
+    """The four bf16 dense instances at DENSE_SHAPES on bf16 X, each shape
+    as whole rows, column views at offsets 1 and 8 and rows of a stride
+    not a multiple of 8, against their plain versions at bf16 (relative L2
+    <= 1e-5: the products are exact in f32), each call repeated bit for
+    bit; K3 and K4 with and without c on the copy path the shape calls for
+    (``glm_hvp.dense_path``); K8 and K9 through the ops at s in
+    BF16_MULTI_S (13: two launches) on strided blocks, K9 with and
+    without c. One check line per shape and view."""
+    dev = torch.device("cuda")
+    for d, n in DENSE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(7 * d + n)
+        u = torch.randn(d, generator=g, device=dev)
+        z = torch.randn(n, generator=g, device=dev)
+        c = torch.rand(n, generator=g, device=dev)
+        Ub = torch.randn((d, 14), generator=g, device=dev)
+        Zb = torch.randn((n, 14), generator=g, device=dev)
+        for view, X in bf16_dense_views(torch, dev, d, n, d + n).items():
+            worst = dict.fromkeys(DENSE_BF16, 0.0)
+            same, paths = True, set()
+
+            def held(name, fn, want):
+                nonlocal same
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name],
+                                  record_err(errs, name, got, want))
+                same &= bool(torch.equal(got, again))
+
+            held("xt_u_bf16", lambda: glm_hvp.xt_u(X, u), ref.ref_xt_u(X, u))
+            paths.add(glm_hvp.last_path["xt_u_bf16"])
+            for cc in (None, c):
+                held("x_cz_bf16", lambda: glm_hvp.x_cz(X, cc, z),
+                     ref.ref_x_cz(X, z if cc is None else cc * z))
+                paths.add(glm_hvp.last_path["x_cz_bf16"])
+            for k in BF16_MULTI_S:
+                U, Z = Ub[:, :k], Zb[:, :k]
+                held("xt_multi_bf16", lambda: ops.xt_multi(X, U),
+                     ref.ref_xt_multi(X, U))
+                for cc in (None, c):
+                    held("x_cz_multi_bf16", lambda: ops.x_cz_multi(X, cc, Z),
+                         ref.ref_x_cz_multi(X, cc, Z))
+            want_path = glm_hvp.dense_path(X, c, z)
+            check(max(worst.values()) <= REL_TOL_KERNEL and same
+                  and paths == {want_path},
+                  f"bf16 dense {d}x{n} {view}: worst rel err "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
+                  + f"; repeatable {same}; K3/K4 path {sorted(paths)} (want "
+                  f"{want_path})")
 
 
 # ---------------------------------------------------------------------------
@@ -2090,6 +2183,129 @@ def measure_dense_multi(torch, X, c, glm_hvp, ref, errs) -> dict:
     return out
 
 
+def measure_dense_bf16(torch, X, glm_hvp, ref, errs, f32) -> dict:
+    """The four bf16 instances on a bf16 copy of the dense slice's X (2
+    GiB), at the full width and the m = 4 shard shapes (the DiSCO-S column
+    view X[:, :n/4], the DiSCO-F row block X[:d/4]), K8 and K9 at s =
+    TIMED_S on the main path's layouts (a strided U as DiSCO-F passes it,
+    a contiguous Z) and at the full width also at s = 8 and 13 (two
+    launches): each held to its plain version at bf16 (<= 1e-5), repeated
+    bit for bit (K3 and K4 on the bulk path), and timed beside the plain
+    version and one PyTorch call on the same bf16 X with the vector
+    rounded to bf16 (``torch.mv`` / ``@``, cuBLAS: the library time; its
+    output is bf16, so it is held to the kernel at 1e-2 only to show it
+    computes the same function), with the f32 kernel's time of the same
+    call (``f32``). Bound: X's 2-byte elements and the f32 vectors once
+    over the HBM rate (the f32 FMAs over the f32 peak are 20x less)."""
+    from repro_torch.kernels import ops
+    d, n = X.shape
+    dev = X.device
+    Xh = X.to(torch.bfloat16)
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    u = torch.randn(d, generator=g, device=dev)
+    z = torch.randn(n, generator=g, device=dev)
+    c = 0.25 * torch.rand(n, generator=g, device=dev)
+    s = TIMED_S
+    U13 = torch.randn((d, 13), generator=g, device=dev)
+    Z13 = torch.randn((n, 13), generator=g, device=dev)
+    Z = Z13[:, :s].contiguous()
+    shapes = {"full": (Xh, u, z, c, U13[:, :s], Z),
+              "S_m4_view": (Xh[:, :n // 4], u, z[:n // 4], c[:n // 4],
+                            U13[:, :s], Z[:n // 4]),
+              "F_m4_rows": (Xh[:d // 4], u[:d // 4], z, c,
+                            U13[:d // 4, :s], Z)}
+    out = {}
+    for shape, (A, ua, za, ca, Ua, Za) in shapes.items():
+        calls = {
+            "xt_u_bf16": (lambda: glm_hvp.xt_u(A, ua),
+                          lambda: ref.ref_xt_u(A, ua),
+                          lambda: torch.mv(A.t(), ua.to(bf))),
+            "x_cz_bf16": (lambda: glm_hvp.x_cz(A, ca, za),
+                          lambda: ref.ref_x_cz(A, ca * za),
+                          lambda: torch.mv(A, (ca * za).to(bf))),
+            "xt_multi_bf16": (lambda: glm_hvp.xt_multi(A, Ua),
+                              lambda: ref.ref_xt_multi(A, Ua),
+                              lambda: A.t() @ Ua.to(bf)),
+            "x_cz_multi_bf16": (lambda: glm_hvp.x_cz_multi(A, ca, Za),
+                                lambda: ref.ref_x_cz_multi(A, ca, Za),
+                                lambda: A @ (ca[:, None] * Za).to(bf))}
+        for name, (kernel, plain, library) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            lib = library()
+            torch.cuda.synchronize()
+            e = record_err(errs, name, got, want)
+            same = bool(torch.equal(got, again))
+            lib_rel = rel_err(lib.float(), got)
+            path = glm_hvp.last_path.get(name)   # None: K8 / K9 copy nothing
+            check(e <= REL_TOL_KERNEL and same and path in (None, "bulk"),
+                  f"{name} {shape} {tuple(A.shape)}: rel err {e:.2e}, "
+                  f"repeatable {same}, path {path}; the library call "
+                  f"(bf16 output) {lib_rel:.2e} from it")
+            del got, again, want, lib
+            k = Ua.shape[1] if "multi" in name else 1
+            rows, cols = A.shape
+            # f32 floats read once and written once beside X
+            vec = {"xt_u_bf16": rows + cols, "x_cz_bf16": 2 * cols + rows,
+                   "xt_multi_bf16": (rows + cols) * k,
+                   "x_cz_multi_bf16": cols * k + cols + rows * k}[name]
+            nbytes = 2 * A.numel() + 4 * vec
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * A.numel() * k / F32_FLOPS_PER_S
+            ms = time_ms(kernel)
+            row = dict(ms=ms, library_ms=time_ms(library) if lib_rel <= 1e-2
+                       else None,
+                       bound_ms=1e3 * max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, gbps=nbytes / ms / 1e6,
+                       share_of_bound=1e3 * max(t_bytes, t_ops) / ms,
+                       dims=list(A.shape), path=path)
+            if shape == "full":
+                f32_ms = f32[name[:-len("_bf16")]]["ms"]
+                out[name] = dict(row, plain_ms=time_ms(plain), f32_ms=f32_ms,
+                                 bf16_over_f32=ms / f32_ms, shape=[d, n] + (
+                                     [k] if "multi" in name else []),
+                                 shapes={})
+            else:
+                out[name]["shapes"][shape] = row
+            print(f"{name} {shape} {row['dims']}: {ms * 1e3:.1f} us/call, "
+                  f"{row['gbps']:.0f} GB/s, bound {row['bound_ms'] * 1e3:.1f}"
+                  f" us ({100 * row['share_of_bound']:.1f}%), library "
+                  f"{row['library_ms']}, path {path}", flush=True)
+    # K8 and K9 at 8 and 13 columns at the full width (13: two launches)
+    for k in (8, 13):
+        U, Zk = U13[:, :k], Z13[:, :k].contiguous()
+        for name, kernel, plain in (
+                ("xt_multi_bf16", lambda: ops.xt_multi(Xh, U),
+                 lambda: ref.ref_xt_multi(Xh, U)),
+                ("x_cz_multi_bf16", lambda: ops.x_cz_multi(Xh, c, Zk),
+                 lambda: ref.ref_x_cz_multi(Xh, c, Zk))):
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            e = record_err(errs, name, got, want)
+            same = bool(torch.equal(got, again))
+            check(e <= REL_TOL_KERNEL and same,
+                  f"{name} full width s={k} ({groups(k)} launches): rel err "
+                  f"{e:.2e}, repeatable {same}")
+            del got, again, want
+            out[name][f"ms_s{k}"] = time_ms(kernel)
+    for name in DENSE_BF16:
+        m = out[name]
+        print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call, "
+              f"{m['gbps']:.0f} GB/s over {m['bytes'] / 1e9:.3f} GB, bound "
+              f"{m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}, "
+              f"{100 * m['share_of_bound']:.1f}%), plain "
+              f"{m['plain_ms'] * 1e3:.1f} us, library {m['library_ms']}, "
+              f"f32 {m['f32_ms'] * 1e3:.1f} us ({m['bf16_over_f32']:.3f}x)",
+              flush=True)
+    print("dense bf16 detail " + json.dumps(
+        {k: {key: v for key, v in m.items() if key.startswith(("ms_s",
+                                                               "shapes"))}
+         for k, m in out.items()}), flush=True)
+    del Xh
+    return out
+
+
 def check_f_decreases(tag, hist) -> None:
     """Every Newton step lowers f. A damped Newton step from w_k lowers f
     by about omega(delta_k) = delta_k - log(1 + delta_k); where that is
@@ -2119,7 +2335,8 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
           f"({X.numel() * 4 / 2**30:.2f} GiB, "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     timings = measure_dense_kernels(torch, X, glm_hvp, ref, errs)
-    launches = dict.fromkeys(DENSE_KERNELS, 0)
+    timings.update(measure_dense_bf16(torch, X, glm_hvp, ref, errs, timings))
+    launches = dict.fromkeys(DENSE_KERNELS + DENSE_BF16, 0)
     results, iters = {}, {}
     for partition, m, fused in RUNS:
         tag = "dense " + run_tag(partition, m, fused)
@@ -2172,6 +2389,9 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
                       results[("samples", 1, False)], launches)
     softmax_phase(torch, rt, build, X, launches)
     glm_losses_phase(torch, rt, build, X, model, launches)
+    dense_bf16_phase(torch, rt, build, X, y, model,
+                     {p: results[(p, 1, False)]
+                      for p in ("samples", "features")}, launches)
     baselines_dense_phase(torch, rt, X, y)
     del X, y, model
     gc.collect()
@@ -2182,6 +2402,137 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
 # ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
+
+def as_bf16(n: dict) -> dict:
+    """A prediction of the dense kernels' launches (keyed by the f32
+    kernels) moved to the bf16 instances: on bf16 tiles the f32 kernels
+    launch none."""
+    out = dict.fromkeys(DENSE_KERNELS, 0)
+    out.update({f"{k}_bf16": n.get(k, 0) for k in DENSE_TWO_PASS})
+    return out
+
+
+def dense_bf16_launches(partition, m, s, use_kernel, steps, units) -> dict:
+    """The dense kernel launches of a bf16 fit: the margins and the
+    gradient are cuBLAS on the f32 X, so no f32 kernel launches; PCG's
+    products go to the bf16 instances: classic, one two-pass HVP an
+    iteration on each shard; s-step as :func:`predicted_launches` counts
+    them; the plain layout (``use_kernel=False``) launches none."""
+    if not use_kernel:
+        return as_bf16({})
+    if s > 1:
+        return as_bf16(predicted_launches(False, partition, m, False, s,
+                                          steps, units))
+    return as_bf16({"xt_u": m * units, "x_cz": m * units})
+
+
+def dense_bf16_phase(torch, rt, build, X, y, model, f32_w, launches):
+    """The bf16 runs on the dense slice's X (``hvp_dtype='bfloat16'``):
+    BF16_DENSE_RUNS, each with X shared and PCG's shards views of one
+    bf16 copy, held to the launches the code predicts (the bf16 instances
+    for PCG, no f32 dense kernel at all), f falling every Newton step and
+    the f32 m = 1 two-pass w of its partition (``f32_w``) at REL_TOL_W;
+    then a warm two-pass λ-path (classic DiSCO-S m = 1 at LAMBDAS, scored
+    on N_VAL held-out samples), the same checks, its λ = 1e-4 endpoint at
+    the f32 w. Each prints iter_s, PCG iterations, gradient norms and peak
+    memory."""
+    from repro_torch.core import comm
+    bf = torch.bfloat16
+    for partition, m, s, use_kernel in BF16_DENSE_RUNS:
+        kind = f"s-step s={s} " if s > 1 else ""
+        layout = "" if use_kernel else " plain layout"
+        tag = f"dense bf16 {kind}{run_tag(partition, m, False)}{layout}"
+        cfg = rt.DiscoConfig(partition=partition, pcg_block_s=s,
+                             hvp_dtype="bfloat16",
+                             **dict(DENSE_SOLVE, use_kernel=use_kernel))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        base = solver.X_h.untyped_storage().data_ptr()
+        check(solver.X.data_ptr() == X.data_ptr()
+              and solver.X_h.dtype == bf
+              and all(h.dtype == bf and h.untyped_storage().data_ptr() == base
+                      for h in solver._hvp_locs),
+              f"{tag}: X shared, PCG's shards views of one bf16 copy")
+        res, counts = fit_counted(torch, build, solver)
+        for k in launches:
+            launches[k] += counts[k]
+        hist = res.history
+        units = sum(int(h["pcg_iters"]) for h in hist)
+        # X bytes of one HVP, the byte model's (core/comm.py)
+        row = run_row(torch, tag, res, counts, setup_s,
+                      f=[h["f"] for h in hist],
+                      hvp_bytes=comm.dense_hvp_bytes(
+                          *X.shape, dtype_bytes=BYTES_BF16))
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and res.w.shape == (X.shape[0],),
+              f"{tag}: finite w of shape (d,)")
+        want = dense_bf16_launches(partition, m, s, use_kernel, len(hist),
+                                   units)
+        got = {k: counts[k] for k in want}
+        check(got == want and units > 0,
+              f"{tag}: launches as predicted {json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        check_f_decreases(tag, hist)
+        e = rel_w(res.w, f32_w[partition])
+        check(e <= REL_TOL_W, f"{tag} vs f32 m=1 two-pass: rel diff of w "
+                              f"{e:.2e} (<= {REL_TOL_W:g})")
+        print(f"{tag}: PCG {'rounds' if s > 1 else 'iterations'} per step "
+              f"{row['pcg_iters']}, median iter_s "
+              f"{row['iter_s_median']:.4f}, peak "
+              f"{row['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    X_val, y_val = held_out(torch, model, N_VAL, seed=1)
+    cfg = rt.DiscoConfig(partition="samples", hvp_dtype="bfloat16",
+                         **dict(DENSE_SOLVE, grad_tol=1e-8))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = rt.lambda_path_fit(X, y, LAMBDAS, cfg, device="cuda",
+                              X_val=X_val, y_val=y_val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    want = as_bf16({})
+    points = []
+    for lam, res, passes, vloss in zip(path.lambdas, path.results,
+                                       path.x_passes, path.val_losses):
+        hist = res.history
+        iters = [int(h["pcg_iters"]) for h in hist]
+        for k, v in dense_bf16_launches("samples", 1, 1, True, len(hist),
+                                        sum(iters)).items():
+            want[k] += v
+        check_f_decreases(f"bf16 lambda path point {lam:g}", hist)
+        points.append(dict(
+            lam=lam, newton_iters=len(hist), pcg_iters=iters,
+            iter_s_median=statistics.median(h["iter_s"] for h in hist),
+            x_passes=passes, val_loss=vloss,
+            grad_norm_first=hist[0]["grad_norm"],
+            grad_norm_last=hist[-1]["grad_norm"]))
+    print("lambda path bf16 " + json.dumps(dict(
+        points=points, best_lambda=path.best_lambda, wall_s=wall,
+        total_x_passes=path.total_x_passes, n_val=N_VAL,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: counts[k] for k in want})), flush=True)
+    got = {k: counts[k] for k in want}
+    check(got == want and counts["xt_u_bf16"] > 0,
+          f"bf16 lambda path: launches as predicted {json.dumps(want)}"
+          + ("" if got == want else f", got {json.dumps(got)}"))
+    e = rel_w(path.results[-1].w, f32_w["samples"])
+    check(path.lambdas[-1] == DENSE_SOLVE["lam"] and e <= REL_TOL_W,
+          f"bf16 lambda path: the lambda={path.lambdas[-1]:g} endpoint vs "
+          f"the f32 classic m=1 w: rel diff {e:.2e}")
+    del X_val, y_val, path
+
+
 
 def lambda_path_phase(torch, rt, build, X, y, model, classic_w,
                       launches) -> None:
@@ -2334,7 +2685,59 @@ def softmax_phase(torch, rt, build, X, launches) -> None:
         e = rel_w(out[(p, m, 2)], out[(p, m, 1)])
         check(e <= REL_TOL_W, f"softmax {p} m={m} s-step vs classic: rel "
                               f"diff of W {e:.2e}")
+    softmax_bf16_run(torch, rt, build, X, labels, out[("samples", 1, 1)],
+                     launches)
     del labels
+
+
+def softmax_bf16_run(torch, rt, build, X, labels, f32_W, launches) -> None:
+    """Softmax with SOFTMAX_K classes on bf16 tiles (DiSCO-S m = 1
+    classic): the K-class products on the bf16 K8 / K9 instances only
+    (the predicted launches, no f32 dense kernel), f decreasing, and W at
+    the f32 run's (``f32_W``) within REL_TOL_W."""
+    tag = f"softmax K={SOFTMAX_K} DiSCO-S m=1 classic bf16"
+    cfg = rt.SoftmaxConfig(partition="samples", pcg_block_s=1,
+                           n_classes=SOFTMAX_K, hvp_dtype="bfloat16",
+                           **SOFTMAX_SOLVE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = rt.SoftmaxSolver(X, labels, cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(solver.X.data_ptr() == X.data_ptr()
+          and solver._hvp_locs[0].dtype == torch.bfloat16,
+          f"{tag}: X shared, PCG's shard a view of the bf16 copy")
+    build.reset_launch_counts()
+    res = solver.fit()
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    hist = res.history
+    units = [int(h["pcg_iters"]) for h in hist]
+    print("run " + json.dumps(dict(
+        run=tag, newton_iters=len(hist), pcg_iters=units,
+        grad_norm_first=hist[0]["grad_norm"],
+        grad_norm_last=hist[-1]["grad_norm"],
+        iter_s_median=statistics.median(h["iter_s"] for h in hist),
+        setup_s=setup_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts, f=[h["f"] for h in hist])), flush=True)
+    check(bool(torch.from_numpy(res.W).isfinite().all())
+          and res.W.shape == (X.shape[0], SOFTMAX_K),
+          f"{tag}: finite W of shape (d, K)")
+    want = as_bf16(softmax_launches("samples", 1, 1, sum(units)))
+    got = {k: counts[k] for k in want}
+    check(got == want and sum(units) > 0,
+          f"{tag}: launches as predicted {json.dumps(want)}"
+          + ("" if got == want else f", got {json.dumps(got)}"))
+    check_f_decreases(tag, hist)
+    e = rel_w(res.W, f32_W)
+    check(e <= REL_TOL_W, f"{tag} vs f32: rel diff of W {e:.2e} (<= "
+                          f"{REL_TOL_W:g})")
+    del solver, res
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def glm_losses_phase(torch, rt, build, X, model, launches) -> None:
@@ -2561,6 +2964,45 @@ def small_bf16_reference(torch, rt) -> None:
               f"{BF16_REL_W_SMALL:g}), same PCG iterations {same_iters}, "
               f"bf16 launches {bf16}, f32 kernels for the margins and the "
               f"gradient only {f32_only_margins}")
+
+
+def small_bf16_dense_reference(torch, rt) -> None:
+    """Small bf16 dense solves (``hvp_dtype='bfloat16'``) on the card
+    against the same solves on the CPU: DiSCO-S m = 1 and DiSCO-F m = 2
+    on the kernels' layout, DiSCO-S m = 1 s-step (s = 2), and DiSCO-S m = 1
+    on the plain layout. The same PCG iterations (or rounds) every step
+    and w within relative L2 BF16_REL_W_SMALL (F11), the bf16 instances
+    launched on the kernels' layout and no f32 dense kernel at all."""
+    import numpy as np
+    from repro_torch.kernels import build
+    X, y, _ = rt.make_glm_data(d=98, n=202, seed=1)
+    for partition, m, s, use_kernel in (("samples", 1, 1, True),
+                                        ("features", 2, 1, True),
+                                        ("samples", 1, 2, True),
+                                        ("samples", 1, 1, False)):
+        cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100,
+                             max_outer=4, grad_tol=0.0, partition=partition,
+                             pcg_block_s=s, use_kernel=use_kernel,
+                             hvp_dtype="bfloat16")
+        group = rt.InProcessGroup(m)
+        build.reset_launch_counts()
+        on_card = rt.disco_fit(X, y, cfg, group=group, device="cuda")
+        counts = build.launch_counts()
+        on_cpu = rt.disco_fit(X, y, cfg, group=group, device="cpu")
+        e = rel_w(on_card.w, on_cpu.w)
+        same_iters = [h["pcg_iters"] for h in on_card.history] == \
+            [h["pcg_iters"] for h in on_cpu.history]
+        bf16 = sum(counts[k] for k in DENSE_BF16)
+        f32 = sum(counts[k] for k in DENSE_KERNELS)
+        kind = "" if s == 1 else f" s-step s={s}"
+        layout = "" if use_kernel else " plain layout"
+        check(e <= BF16_REL_W_SMALL and same_iters and f32 == 0
+              and (bf16 > 0) == use_kernel
+              and bool(np.isfinite(on_card.w).all()),
+              f"small bf16 dense{kind} {run_tag(partition, m, False)}"
+              f"{layout} on the card vs the CPU: rel diff of w {e:.2e} (<= "
+              f"{BF16_REL_W_SMALL:g}), same PCG iterations {same_iters}, "
+              f"bf16 launches {bf16}, f32 dense launches {f32}")
 
 
 # ---------------------------------------------------------------------------
@@ -3341,7 +3783,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch as rt
-    from repro_torch.kernels import build, glm_hvp, ref, sparse_hvp
+    from repro_torch.kernels import build, glm_hvp, ops, ref, sparse_hvp
     from repro_torch.kernels import flash_attention as flash
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -3359,11 +3801,13 @@ def main() -> int:
     phase_hvp_edges(torch, sparse_hvp, ref, errs)
     phase_bf16_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
+    phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
     small_bf16_reference(torch, rt)
+    small_bf16_dense_reference(torch, rt)
     small_comparisons(torch, rt)
     timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
     t_sparse = time.perf_counter() - t_start

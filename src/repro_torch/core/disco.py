@@ -19,11 +19,12 @@ package leaves them to XLA; every HVP of PCG through the dense kernels
 with ``use_kernel=True``, else ``torch.matmul``), classic or s-step PCG
 (``pcg_block_s > 1``), with the Woodbury, SAG (the original DiSCO's) or
 no preconditioner and optional Hessian subsampling. On the card the ops
-are the CUDA kernels. PCG's HVP tiles are f32 or, on sparse input,
-bf16 (``hvp_dtype='bfloat16'``: bf16 copies of the two layouts for PCG,
-the f32 layouts kept for the margins and the gradient, as in the
-reference). bf16 on dense input, checkpointing and tracing are not yet
-ported and raise. :meth:`DiscoSolver.with_lam`
+are the CUDA kernels. PCG's HVP tiles are f32 or bf16
+(``hvp_dtype='bfloat16'``: bf16 copies of the two sparse layouts, or of
+the dense X, for PCG, the f32 data kept for the margins and the
+gradient, as in the reference). bf16 with the one-pass dense kernels
+(``hvp_fused=True`` on dense input), checkpointing and tracing are not
+yet ported and raise. :meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
@@ -64,11 +65,13 @@ class DiscoConfig:
     max_outer, max_pcg, pcg_rel_tol, grad_tol, hessian_subsample (each
     outer step draws fresh masks from ``seed``: :func:`subsample_mask`),
     use_kernel (dense input), hvp_fused, hvp_dtype ('float32', or
-    'bfloat16' on sparse input), pcg_block_s (s-step PCG; ``max_pcg``
-    then caps rounds), partition_strategy, partition_block, ell_block_d,
-    ell_block_n (sparse input). The fields for the paths not yet ported
-    must keep their defaults (``hvp_dtype='float32'`` on dense input,
-    ``trace=False``); the out-of-core fields are unused.
+    'bfloat16': on dense input with the two-pass HVP only),
+    pcg_block_s (s-step PCG; ``max_pcg`` then caps rounds),
+    partition_strategy, partition_block, ell_block_d, ell_block_n (sparse
+    input). The fields for the paths not yet ported must keep their
+    defaults (``hvp_dtype='float32'`` on dense input with
+    ``hvp_fused=True``, ``trace=False``); the out-of-core fields are
+    unused.
     """
 
     loss: str = "logistic"
@@ -168,6 +171,17 @@ def subsample_mask(seed: int, outer_iter: int, shard: int | None,
     return torch.rand(shape, generator=gen) < frac
 
 
+def shard_views(X, partition: str, m: int):
+    """The m shards of a dense ``X`` as views: blocks of rows (DiSCO-F,
+    ``partition='features'``) or of columns (DiSCO-S); and the remainder
+    of the split axis over m (nonzero: X does not split evenly)."""
+    if partition == "features":
+        size, rem = divmod(X.shape[0], m)
+        return [X[s * size:(s + 1) * size] for s in range(m)], rem
+    size, rem = divmod(X.shape[1], m)
+    return [X[:, s * size:(s + 1) * size] for s in range(m)], rem
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
@@ -225,12 +239,12 @@ class DiscoSolver:
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
                              sparse=sparse, use_kernel=cfg.use_kernel)
-        if not sparse and self.hvp_dtype != torch.float32:
+        if (not sparse and self.hvp_dtype != torch.float32
+                and cfg.hvp_fused):
             raise _not_ported(
-                "hvp_dtype='bfloat16' on dense input (bf16 X tiles for the "
-                "dense kernels K3 xt_u, K4 x_cz, K5 x_c_xt_u, K8 xt_multi, "
-                "K9 x_cz_multi and K10 x_c_xt_multi, and for the plain "
-                "dense layout)")
+                "hvp_dtype='bfloat16' with hvp_fused=True on dense input "
+                "(bf16 X tiles for the one-pass dense kernels K5 x_c_xt_u "
+                "and K10 x_c_xt_multi)")
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg
@@ -374,22 +388,26 @@ class DiscoSolver:
         DiSCO-F, (d, n_padded) for DiSCO-S, and the vectors as for the
         sparse state (without ``smask``: DiSCO-F pads only d). Each shard
         is a view of ``X``: a block of rows (DiSCO-F) or of columns
-        (DiSCO-S)."""
+        (DiSCO-S).
+
+        PCG's shards (``_hvp_locs``) are the same views at
+        ``hvp_dtype='float32'`` (no copy), else the same views of one copy
+        of ``X`` in that dtype (``X_h``, cast on the device), as the
+        reference's ``X_hvp``; the margins, the gradient and the tau slab
+        stay on the f32 ``X``."""
         m = self.m
         self.X = _to_device(state["X"], self.device)
+        self.X_h = (self.X if self.X.dtype == self.hvp_dtype
+                    else self.X.to(self.hvp_dtype))
+        self._locs, rem = shard_views(self.X, self.cfg.partition, m)
+        self._hvp_locs = (self._locs if self.X_h is self.X
+                          else shard_views(self.X_h, self.cfg.partition,
+                                           m)[0])
         if self.cfg.partition == "features":
-            d_loc, rem = divmod(self.X.shape[0], m)
-            self._locs = [self.X[s * d_loc:(s + 1) * d_loc]
-                          for s in range(m)]
             self._perm = np.arange(self.X.shape[0])
-        else:
-            n_loc, rem = divmod(self.X.shape[1], m)
-            self._locs = [self.X[:, s * n_loc:(s + 1) * n_loc]
-                          for s in range(m)]
         if rem:
             raise ValueError(f"X {tuple(self.X.shape)} does not split into "
                              f"{m} equal shards")
-        self._hvp_locs = self._locs
         self._load_vectors(state)
 
     def _load_vectors(self, state: dict) -> None:

@@ -21,6 +21,25 @@ from repro_torch.core.losses import Loss, get_loss
 from repro_torch.kernels import ops as kops
 
 
+def glm_margins(X, w) -> np.ndarray:
+    """Margins ``X^T w`` of a feature-major ``(d, n)`` matrix, dense or
+    sparse, as a host ``(n,)`` array (``repro.core.glm.glm_margins``).
+
+    A :class:`repro_torch.data.sparse.CSRMatrix` stays sparse (one O(nnz)
+    pass, :meth:`~repro_torch.data.sparse.CSRMatrix.xt_dot`); a numpy
+    array is multiplied on the host; a tensor where it lies (``w`` moved
+    there in its dtype), the result brought to the host.
+    """
+    from repro_torch.data.sparse import CSRMatrix
+
+    if isinstance(X, CSRMatrix):
+        return X.xt_dot(w)
+    if isinstance(X, torch.Tensor):
+        w = torch.as_tensor(np.asarray(w), dtype=X.dtype, device=X.device)
+        return (X.T @ w).cpu().numpy()
+    return np.asarray(X).T @ np.asarray(w)
+
+
 def _tensor(a, device=None) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.array(a, dtype=np.float32))

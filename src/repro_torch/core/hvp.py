@@ -173,8 +173,48 @@ class HvpOperator:
         return self.pass_b_multi(self.pass_a_multi(U))
 
 
+# elements of X upcast at a time by the plain dense layout at bf16 (a
+# block of rows: 64 MiB of f32)
+UPCAST_ELEMS = 1 << 24
+
+
+def _upcast_rows(X):
+    """Row blocks ``(rows, X[rows] as f32)`` of a bf16 X, at most
+    :data:`UPCAST_ELEMS` elements each, so that no f32 copy of the whole
+    shard is made."""
+    d, n = X.shape
+    step = max(1, UPCAST_ELEMS // max(n, 1))
+    for i in range(0, max(d, 1), step):
+        yield slice(i, i + step), X[i:i + step].float()
+
+
+def _xt_dot(X, v):
+    """``X^T v`` in f32 for f32 or bf16 X (bf16 upcast by row blocks; v
+    not rounded)."""
+    if X.dtype == torch.float32:
+        return X.T @ v
+    out = None
+    for rows, Xf in _upcast_rows(X):
+        part = Xf.T @ v[rows]
+        out = part if out is None else out.add_(part)
+    return out
+
+
+def _x_dot(X, v):
+    """``X v`` in f32 for f32 or bf16 X (bf16 upcast by row blocks; v not
+    rounded)."""
+    if X.dtype == torch.float32:
+        return X @ v
+    return torch.cat([Xf @ v for _, Xf in _upcast_rows(X)])
+
+
 class DenseOperator(HvpOperator):
-    """Dense layout in plain ``torch.matmul`` (two-pass only; no kernel)."""
+    """Dense layout in plain ``torch.matmul`` (two-pass only; no kernel).
+
+    On bf16 X (``hvp_dtype='bfloat16'``) it follows its reference
+    counterpart, whose ``X_bf16 @ u`` promotes: X is upcast and the
+    vector is not rounded (the kernels' layout rounds it, F10). The upcast
+    runs over blocks of rows, so no f32 copy of the shard is made."""
 
     layout = "dense"
 
@@ -184,30 +224,31 @@ class DenseOperator(HvpOperator):
 
     def pass_a(self, u):
         """``X^T u`` via a dense matvec."""
-        return self.X.T @ u
+        return _xt_dot(self.X, u)
 
     def pass_b(self, z):
         """``X (c .* z)``; with no coefficients, plain ``X z``."""
         if self.coeffs is None:
-            return self.X @ z
-        return self.X @ (self.coeffs * z)
+            return _x_dot(self.X, z)
+        return _x_dot(self.X, self.coeffs * z)
 
     def pass_a_multi(self, U):
         """``X^T U`` via one dense matmul."""
-        return self.X.T @ U
+        return _xt_dot(self.X, U)
 
     def pass_b_multi(self, Z):
         """``X (c[:, None] .* Z)`` via one dense matmul."""
         if self.coeffs is None:
-            return self.X @ Z
-        return self.X @ (self.coeffs[:, None] * Z)
+            return _x_dot(self.X, Z)
+        return _x_dot(self.X, self.coeffs[:, None] * Z)
 
 
 class DenseKernelOperator(HvpOperator):
     """Dense layout through the dense GLM kernels (``xt_u``, ``x_cz`` and
-    their multi-vector ``xt_multi``, ``x_cz_multi``); ``fused=True``
-    selects the one-pass ``x_c_xt_u`` and ``x_c_xt_multi`` for the full
-    products."""
+    their multi-vector ``xt_multi``, ``x_cz_multi``; on bf16 X their bf16
+    instances, which round the vector operand as the TPU kernels do);
+    ``fused=True`` selects the one-pass ``x_c_xt_u`` and ``x_c_xt_multi``
+    for the full products (f32 X only)."""
 
     layout = "dense_kernel"
 

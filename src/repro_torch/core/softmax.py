@@ -23,7 +23,10 @@ streamed layout is not implemented: both are registry-unsupported cells
 that raise :class:`repro_torch.core.hvp.UnsupportedHvpError` at set-up.
 The port of ``repro.core.softmax``, dense input only, with the same
 padding: DiSCO-F pads d to a multiple of the shard count with zero rows,
-DiSCO-S pads n with zero-weight samples.
+DiSCO-S pads n with zero-weight samples. At ``hvp_dtype='bfloat16'`` the
+Hessian products run on one bf16 copy of X (with ``use_kernel=True`` the
+bf16 instances of the multi-vector kernels); the margins, the gradient
+and the s-step tau operator keep the f32 X, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.disco import _to_device, resolve_device
+from repro_torch.core.disco import _to_device, resolve_device, shard_views
 from repro_torch.core.hvp import (SoftmaxHvpOperator, make_local_operator,
                                   validate_solver_cell)
 from repro_torch.core.pcg import (_feature_scales_update, _krylov_columns,
@@ -184,11 +187,7 @@ class SoftmaxSolver:
         validate_solver_cell(family="softmax", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
                              use_kernel=cfg.use_kernel)
-        if hvp_tile_dtype(cfg.hvp_dtype) != torch.float32:
-            raise NotImplementedError(
-                "hvp_dtype='bfloat16' is not yet ported to repro_torch for "
-                "softmax (dense X only, whose bf16 kernels are still to "
-                "port)")
+        self.hvp_dtype = hvp_tile_dtype(cfg.hvp_dtype)
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg
@@ -210,19 +209,22 @@ class SoftmaxSolver:
         self.Y1 = put(state["Y1"])
         self.X_tau = put(state["X_tau"])
         self.Y1_tau = put(state["Y1_tau"])
+        # PCG's shards: views of X at f32 (no copy), else of one copy of X
+        # in hvp_dtype, as the reference's X_hvp; the margins, gradient and
+        # tau operator stay on the f32 X
+        self.X_h = (self.X if self.X.dtype == self.hvp_dtype
+                    else self.X.to(self.hvp_dtype))
+        self._locs, rem = shard_views(self.X, self.cfg.partition, m)
+        self._hvp_locs = (self._locs if self.X_h is self.X
+                          else shard_views(self.X_h, self.cfg.partition,
+                                           m)[0])
         if self.cfg.partition == "features":
             self.d_padded = self.X.shape[0]
-            d_loc, rem = divmod(self.d_padded, m)
-            self._locs = [self.X[s * d_loc:(s + 1) * d_loc]
-                          for s in range(m)]
             self.wts = None
         else:
             self.d_padded = self.d
-            n_loc, rem = divmod(self.X.shape[1], m)
-            self._locs = [self.X[:, s * n_loc:(s + 1) * n_loc]
-                          for s in range(m)]
             self.wts = put(state["wts"]).reshape(m, -1)
-            self.Y1 = self.Y1.reshape(m, n_loc, -1)
+            self.Y1 = self.Y1.reshape(m, self.X.shape[1] // m, -1)
         if rem:
             raise ValueError(f"X {tuple(self.X.shape)} does not split into "
                              f"{m} equal shards")
@@ -249,7 +251,7 @@ class SoftmaxSolver:
         locs = self._locs
         bases = [make_local_operator(X_loc, None, use_kernel=cfg.use_kernel,
                                      partition=cfg.partition)
-                 for X_loc in locs]
+                 for X_loc in self._hvp_locs]
 
         if cfg.partition == "samples":
             dp = self.d_padded

@@ -53,6 +53,18 @@ class CSRMatrix:
     def dtype(self):
         return self.data.dtype
 
+    def xt_dot(self, w: np.ndarray) -> np.ndarray:
+        """Host-side margins ``X^T w`` of the feature-major ``(d, n)``
+        matrix: one O(nnz) scatter-add pass in float64, cast back to the
+        value dtype (``repro.data.sparse.CSRMatrix.xt_dot``)."""
+        w = np.asarray(w)
+        d, n = self.shape
+        rows = np.repeat(np.arange(d), np.diff(self.indptr))
+        out = np.zeros(n, np.float64)
+        np.add.at(out, self.indices,
+                  self.data.astype(np.float64) * w.astype(np.float64)[rows])
+        return out.astype(self.data.dtype)
+
     @classmethod
     def from_dense(cls, X: np.ndarray, dtype=np.float32) -> "CSRMatrix":
         """Build from a dense ``(d, n)`` array, dropping exact zeros."""

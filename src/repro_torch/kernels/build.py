@@ -15,8 +15,9 @@ The kernels, and the modules whose wrappers launch them:
   ell_mv, ell_hvp, ell_mm, ell_hvp_mm, and their bf16-tile instances
   ell_mv_bf16, ell_hvp_bf16, ell_mm_bf16, ell_hvp_mm_bf16
                                            :mod:`repro_torch.kernels.sparse_hvp`
-  xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi
-                                           :mod:`repro_torch.kernels.glm_hvp`
+  xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi, and the
+  bf16-tile instances xt_u_bf16, x_cz_bf16, xt_multi_bf16,
+  x_cz_multi_bf16                          :mod:`repro_torch.kernels.glm_hvp`
   flash_attention                          :mod:`repro_torch.kernels.flash_attention`
 
 The multi-vector kernels (``ell_mm``, ``ell_hvp_mm``, ``xt_multi``,
@@ -162,9 +163,15 @@ ELL_MV_BF16 = CudaKernel("ell_mv_bf16", ELL_MV.argtypes)
 ELL_HVP_BF16 = CudaKernel("ell_hvp_bf16", ELL_HVP.argtypes)
 ELL_MM_BF16 = CudaKernel("ell_mm_bf16", ELL_MM.argtypes)
 ELL_HVP_MM_BF16 = CudaKernel("ell_hvp_mm_bf16", ELL_HVP_MM.argtypes)
+# the two-pass dense kernels on bf16 tiles, likewise
+XT_U_BF16 = CudaKernel("xt_u_bf16", XT_U.argtypes)
+X_CZ_BF16 = CudaKernel("x_cz_bf16", X_CZ.argtypes)
+XT_MULTI_BF16 = CudaKernel("xt_multi_bf16", XT_MULTI.argtypes)
+X_CZ_MULTI_BF16 = CudaKernel("x_cz_multi_bf16", X_CZ_MULTI.argtypes)
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
            XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION, ELL_MV_BF16,
-           ELL_HVP_BF16, ELL_MM_BF16, ELL_HVP_MM_BF16)
+           ELL_HVP_BF16, ELL_MM_BF16, ELL_HVP_MM_BF16, XT_U_BF16, X_CZ_BF16,
+           XT_MULTI_BF16, X_CZ_MULTI_BF16)
 
 
 def _nvcc() -> str:

@@ -1,12 +1,21 @@
 // The dense one-vector products of the two-pass HVP as one persistent,
 // balanced grid over tiles of a row-major X, fed by a ring of bulk copies.
 // xt_u.cu (K3, z = X^T u) and x_cz.cu (K4, y = X (c .* z)) are its two
-// entry points.
+// entry points for f32 tiles, xt_u_bf16.cu and x_cz_bf16.cu for bf16 tiles
+// (DiscoConfig.hvp_dtype = 'bfloat16').
 //
-// Layout: X (d, n) f32, row-major with row stride ld >= n elements (a
-// column slice or a row block of a wider matrix is passed as a view, never
-// copied); u (d,), c (optional) and z (n,), y (d,) f32. Element offsets
-// are 64-bit: d * ld is 2^30 at the full width.
+// Layout: X (d, n) of tile type T (float or __nv_bfloat16), row-major with
+// row stride ld >= n elements (a column slice or a row block of a wider
+// matrix is passed as a view, never copied); u (d,), c (optional) and z
+// (n,), y (d,) f32 either way. Element offsets are 64-bit: d * ld is 2^30
+// at the full width.
+//
+// bf16 tiles round where the TPU kernels round (repro/kernels/glm_hvp.py:
+// xt_u's u.astype(X.dtype), x_cz's (c * z).astype(x.dtype)): xt_u rounds u
+// to bf16 where a warp loads its rows' u, x_cz rounds c .* z (z alone
+// without c) where it forms it from the stage. Every product is then of
+// two bf16 values, exact in f32; the sums are f32, so only their order
+// differs from the TPU kernel's, and the result repeats bit for bit.
 //
 // The split (kernels/glm_hvp.py dense_split mirrors it on the host).
 // - X is cut into pieces of kTileRows rows by kTileCols columns: row groups
@@ -34,11 +43,20 @@
 //   by every CTA, stay in L2.
 // - Producer and consumers walk the CTA's pieces with a cursor that steps
 //   by one piece (no division on the way).
-// - The piece, 16 rows by 1536 columns (6 KB a row copy) on 384 consumer
-//   threads, measured fastest on the card beside 32 x 512, 32 x 768 and
-//   24 x 1024 (chip_dense_variants.py): a larger piece means fewer
-//   barrier waits per byte, and two stages of it keep enough in flight.
-// - Thread t takes float4 column q = t % kColThreads of a piece and its
+// - The piece, 16 rows by 1536 columns (6 KB a row copy at f32) on 384
+//   consumer threads, measured fastest on the card beside 32 x 512,
+//   32 x 768 and 24 x 1024 (chip_dense_variants.py): a larger piece means
+//   fewer barrier waits per byte, and two stages of it keep enough in
+//   flight.
+// - bf16 keeps the piece in elements (16 x 1536, 3 KB a row copy): a
+//   stage holds half the bytes, and the ring doubles its depth for the
+//   same bytes in flight (4 stages for xt_u, 3 for x_cz, whose stage also
+//   holds the f32 z and c). Keeping the bytes instead (16 x 3072) would
+//   double those f32 vectors too: an x_cz stage of 120 KB, two of which do
+//   not fit 227 KB. The thread mapping, the split and the fix-up are
+//   then the same at both types.
+// - Thread t takes the four columns 4q .. 4q + 3 of a piece (q = t %
+//   kColThreads: one 16-byte read of f32, one 8-byte read of bf16) and its
 //   rows rt + j kRowThreads (rt = t / kColThreads).
 //   x_cz: each thread forms c .* z for its 4 columns once per piece, from
 //   the stage, and uses it for its kRowsPerThread rows, keeping one partial
@@ -58,9 +76,11 @@
 //   entry point, sums each cut unit's partials in CTA order. Every sum's
 //   order is fixed by the shape and the CTA count, so the result repeats
 //   bit for bit; no atomics.
-// - Direct path, for shapes a bulk copy cannot take (n or ld not a
-//   multiple of 4, X, c or z not 16-byte aligned, or fewer than two stages
-//   fitting in shared memory): the same split, walk and write-out, X read
+// - Direct path, for shapes a bulk copy cannot take (a row of n or ld
+//   elements not a multiple of 16 bytes: n or ld not a multiple of 4 at
+//   f32, of 8 at bf16, so a DiSCO-S column view at an offset not a
+//   multiple of 8 takes it at bf16; X, c or z not 16-byte aligned; or
+//   fewer than two stages fitting in shared memory): the same split, walk and write-out, X read
 //   from device memory by every thread, thread t taking columns
 //   q + e kColThreads (e < 4) so that a warp's loads stay coalesced.
 //
@@ -87,9 +107,11 @@
 //   the column, so every lane of a warp takes part.
 //
 // Bound: device-memory bytes. Each element of X is read once for one
-// multiply-add (2 flops per 4 bytes), far below the card's flops-per-byte
-// balance; the vectors stay in L2. The ring keeps one to two pieces (96 to
-// 192 KB) in flight on every SM, above the bandwidth-latency product.
+// multiply-add (2 flops per 4 bytes at f32, per 2 at bf16), far below the
+// card's flops-per-byte balance; the vectors stay in L2. The ring keeps
+// one to two pieces (96 to 192 KB) in flight on every SM at f32, and
+// three or four half-size pieces at bf16, above the bandwidth-latency
+// product.
 #pragma once
 
 #include "ell_tiles.cuh"
@@ -109,7 +131,7 @@ constexpr int kThreads = 384;      // consumer threads of a CTA (bulk path:
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = 16;                          // rows of a piece
 constexpr int kTileCols = 1536;                        // columns of a piece
-constexpr int kColThreads = kTileCols / 4;             // a float4 each
+constexpr int kColThreads = kTileCols / 4;             // 4 columns each
 constexpr int kRowThreads = kThreads / kColThreads;
 constexpr int kRowsPerThread = kTileRows / kRowThreads;
 constexpr int kMaxStages = 4;
@@ -123,7 +145,7 @@ static_assert(kTileRows <= 32, "a warp holds a piece's u, a float a lane");
 enum Path : int { kDirect = 0, kBulk = 1 };
 
 struct Params {
-  const float* X;
+  const void* X;         // T (d, ld), T the tile type of the instance
   long long ld;
   const float* u;        // xt_u
   const float* c;        // x_cz, or null
@@ -134,12 +156,21 @@ struct Params {
   int groups, chunks;    // row groups of kTileRows, column chunks
   long long pieces;
   int stages;            // ring stages (bulk path)
-  int stage_bytes;       // bytes of one stage: the tile, then z and c
+  int stage_bytes;       // bytes of one stage: the tile, then z and c (f32)
   int ring_off;          // offset of the ring in shared memory
 };
 
-constexpr int kTileBytes = kTileRows * kTileCols * 4;
+// bytes of a piece of X in a stage, and of one f32 vector beside it
+template <class T>
+__host__ __device__ constexpr int tile_bytes() {
+  return kTileRows * kTileCols * static_cast<int>(sizeof(T));
+}
 constexpr int kVecBytes = kTileCols * 4;
+
+template <class T>
+__device__ __forceinline__ const T* x_of(const Params& p) {
+  return static_cast<const T*>(p.X);
+}
 
 // The first piece of CTA k's range.
 __device__ __forceinline__ long long bound(const Params& p, int k) {
@@ -222,24 +253,25 @@ __device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
 
 // The producer warp: the bulk copies of a piece into `stage`, X's rows
 // evict-first.
-template <bool XT>
+template <bool XT, class T>
 __device__ __forceinline__ void issue(const Params& p, const Piece<XT>& pc,
                                       unsigned char* stage, uint64_t* bar,
                                       uint64_t policy, int lane) {
-  const uint32_t row_bytes = static_cast<uint32_t>(pc.w) * 4;
+  const uint32_t row_bytes = static_cast<uint32_t>(pc.w) * sizeof(T);
+  const uint32_t vec_bytes = static_cast<uint32_t>(pc.w) * 4;
   if (lane == 0) {
     const uint32_t vecs = XT ? 0 : (p.c ? 2 : 1);
-    mbar_expect_tx(bar, (pc.rows + vecs) * row_bytes);
+    mbar_expect_tx(bar, pc.rows * row_bytes + vecs * vec_bytes);
   }
   __syncwarp();
   for (int r = lane; r < pc.rows; r += 32)
-    bulk_copy_hint(stage + static_cast<size_t>(r) * kTileCols * 4,
-                   p.X + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0,
+    bulk_copy_hint(stage + static_cast<size_t>(r) * kTileCols * sizeof(T),
+                   x_of<T>(p) + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0,
                    row_bytes, bar, policy);
   if (!XT && lane == 0) {
-    bulk_copy(stage + kTileBytes, p.z + pc.c0, row_bytes, bar);
-    if (p.c) bulk_copy(stage + kTileBytes + kVecBytes, p.c + pc.c0, row_bytes,
-                       bar);
+    bulk_copy(stage + tile_bytes<T>(), p.z + pc.c0, vec_bytes, bar);
+    if (p.c) bulk_copy(stage + tile_bytes<T>() + kVecBytes, p.c + pc.c0,
+                       vec_bytes, bar);
   }
 }
 
@@ -300,9 +332,10 @@ __device__ __forceinline__ void write_cols(float (&acc)[4], float* red,
   consumers_sync();                     // red is free again
 }
 
-template <bool XT, bool BULK, bool HAS_C>
+template <bool XT, bool BULK, bool HAS_C, class T>
 __global__ void __launch_bounds__(kThreads + 32, 1)
     stream_kernel(const Params p) {
+  using ells::round_to;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -330,8 +363,8 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       const uint64_t policy = evict_first_policy();
       for (long long t = b0; t < b1; ++t) {
         if (t - b0 >= p.stages) mbar_wait(&empty[stage], phase ^ 1);
-        issue<XT>(p, pc, ring + static_cast<size_t>(stage) * p.stage_bytes,
-                  &full[stage], policy, lane);
+        issue<XT, T>(p, pc, ring + static_cast<size_t>(stage) * p.stage_bytes,
+                     &full[stage], policy, lane);
         if (++stage == p.stages) {
           stage = 0;
           phase ^= 1;
@@ -346,8 +379,10 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
 #pragma unroll
   for (int j = 0; j < (XT ? 4 : kRowsPerThread); ++j) acc[j] = 0.f;
 
-  // xt_u: u of the piece's rows, one a lane, loaded a piece ahead
-  float ul = XT && lane < pc.rows ? __ldg(p.u + pc.r0 + lane) : 0.f;
+  // xt_u: u of the piece's rows, one a lane, loaded a piece ahead and
+  // rounded to the tile type
+  float ul = XT && lane < pc.rows ? round_to<T>(__ldg(p.u + pc.r0 + lane))
+                                  : 0.f;
 
   for (long long t = b0; t < b1; ++t) {
     const unsigned char* st = ring + static_cast<size_t>(stage) * p.stage_bytes;
@@ -362,16 +397,16 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       if (t + 1 < b1) {
         Piece<XT> nx = pc;
         nx.next(p);
-        ul = lane < nx.rows ? __ldg(p.u + nx.r0 + lane) : 0.f;
+        ul = lane < nx.rows ? round_to<T>(__ldg(p.u + nx.r0 + lane)) : 0.f;
       }
       if constexpr (BULK) {
         if (4 * q < pc.w) {
-          const float4* t4 = reinterpret_cast<const float4*>(st);
+          const T* tile = reinterpret_cast<const T*>(st);
 #pragma unroll
           for (int j = 0; j < kRowsPerThread; ++j) {
             const int r = rt + j * kRowThreads;
             if (r < pc.rows) {
-              const float4 x = t4[r * kColThreads + q];
+              const float4 x = ells::load4(tile + r * kTileCols, q);
               acc[0] += ur[j] * x.x;
               acc[1] += ur[j] * x.y;
               acc[2] += ur[j] * x.z;
@@ -384,29 +419,31 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
         for (int j = 0; j < kRowsPerThread; ++j) {
           const int r = rt + j * kRowThreads;
           if (r < pc.rows) {
-            const float* row =
-                p.X + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0;
+            const T* row =
+                x_of<T>(p) + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0;
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               if (q + e * kColThreads < pc.w)
-                acc[e] += ur[j] * __ldg(row + q + e * kColThreads);
+                acc[e] += ur[j] * ells::ldg_elem(row + q + e * kColThreads);
           }
         }
       }
     } else if constexpr (BULK) {
       if (4 * q < pc.w) {
-        const float4* t4 = reinterpret_cast<const float4*>(st);
-        float4 v = reinterpret_cast<const float4*>(st + kTileBytes)[q];
+        const T* tile = reinterpret_cast<const T*>(st);
+        float4 v = reinterpret_cast<const float4*>(st + tile_bytes<T>())[q];
         if (HAS_C) {
-          const float4 s =
-              reinterpret_cast<const float4*>(st + kTileBytes + kVecBytes)[q];
+          const float4 s = reinterpret_cast<const float4*>(
+              st + tile_bytes<T>() + kVecBytes)[q];
           v = make_float4(s.x * v.x, s.y * v.y, s.z * v.z, s.w * v.w);
         }
+        v = make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z),
+                        round_to<T>(v.w));
 #pragma unroll
         for (int j = 0; j < kRowsPerThread; ++j) {
           const int r = rt + j * kRowThreads;
           if (r < pc.rows) {
-            const float4 x = t4[r * kColThreads + q];
+            const float4 x = ells::load4(tile + r * kTileCols, q);
             acc[j] += x.x * v.x + x.y * v.y + x.z * v.z + x.w * v.w;
           }
         }
@@ -417,20 +454,20 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       for (int e = 0; e < 4; ++e) {
         const int col = pc.c0 + q + e * kColThreads;
         v[e] = q + e * kColThreads < pc.w
-                   ? (HAS_C ? __ldg(p.c + col) * __ldg(p.z + col)
-                            : __ldg(p.z + col))
+                   ? round_to<T>(HAS_C ? __ldg(p.c + col) * __ldg(p.z + col)
+                                       : __ldg(p.z + col))
                    : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < kRowsPerThread; ++j) {
         const int r = rt + j * kRowThreads;
         if (r < pc.rows) {
-          const float* row =
-              p.X + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0;
+          const T* row =
+              x_of<T>(p) + static_cast<size_t>(pc.r0 + r) * p.ld + pc.c0;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (q + e * kColThreads < pc.w)
-              acc[j] += __ldg(row + q + e * kColThreads) * v[e];
+              acc[j] += ells::ldg_elem(row + q + e * kColThreads) * v[e];
         }
       }
     }
@@ -491,16 +528,16 @@ __global__ void __launch_bounds__(kFixupThreads)
 }
 
 // The stream kernel's instance for a call (x_cz: with or without c).
-template <bool XT, bool BULK>
+template <bool XT, bool BULK, class T>
 auto pick(const float* c) {
   if constexpr (XT)
-    return stream_kernel<true, BULK, false>;
+    return stream_kernel<true, BULK, false, T>;
   else
-    return c ? stream_kernel<false, BULK, true>
-             : stream_kernel<false, BULK, false>;
+    return c ? stream_kernel<false, BULK, true, T>
+             : stream_kernel<false, BULK, false, T>;
 }
 
-inline Params make_params(const float* X, long long ld, int d, int n,
+inline Params make_params(const void* X, long long ld, int d, int n,
                           int ctas, float* out, float* scratch) {
   Params p{};
   p.X = X;
@@ -516,7 +553,7 @@ inline Params make_params(const float* X, long long ld, int d, int n,
   return p;
 }
 
-inline bool valid_args(const float* X, long long ld, int d, int n, int ctas,
+inline bool valid_args(const void* X, long long ld, int d, int n, int ctas,
                        int tile_rows, int tile_cols, const float* out,
                        const float* scratch) {
   return X && out && scratch && d > 0 && n > 0 && ld >= n && ctas > 0 &&
@@ -525,7 +562,7 @@ inline bool valid_args(const float* X, long long ld, int d, int n, int ctas,
 
 // Plan the call (bulk path and ring, or direct path), launch the stream
 // kernel and the fix-up, and report the path.
-template <bool XT>
+template <bool XT, class T>
 cudaError_t run(Params p, int* path, cudaStream_t stream) {
   int dev = 0, optin = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -545,15 +582,18 @@ cudaError_t run(Params p, int* path, cudaStream_t stream) {
   const int red_bytes = XT ? kRowThreads * kTileCols * 4
                            : kWarps * kRowsPerThread * 4;
   p.ring_off = kBarrierBytes + round_up(red_bytes, 128);
-  p.stage_bytes = round_up(kTileBytes + (XT ? 0 : 2 * kVecBytes), 128);
+  p.stage_bytes = round_up(tile_bytes<T>() + (XT ? 0 : 2 * kVecBytes), 128);
   const long long fit = (budget - p.ring_off) / p.stage_bytes;
-  const bool bulk = p.n % 4 == 0 && p.ld % 4 == 0 && aligned16(p.X) &&
+  // rows of whole 16-byte units: n and ld multiples of 4 at f32, 8 at bf16
+  constexpr int kPerUnit = 16 / static_cast<int>(sizeof(T));
+  const bool bulk = p.n % kPerUnit == 0 && p.ld % kPerUnit == 0 &&
+                    aligned16(p.X) &&
                     (XT || (aligned16(p.z) && (!p.c || aligned16(p.c)))) &&
                     fit >= 2;
   p.stages = bulk ? static_cast<int>(min(fit, 1LL * kMaxStages)) : 1;
   const size_t smem =
       p.ring_off + (bulk ? static_cast<size_t>(p.stages) * p.stage_bytes : 0);
-  auto kernel = bulk ? pick<XT, true>(p.c) : pick<XT, false>(p.c);
+  auto kernel = bulk ? pick<XT, true, T>(p.c) : pick<XT, false, T>(p.c);
   err = kern::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<p.ctas, bulk ? kThreads + 32 : kThreads, smem, stream>>>(p);

@@ -37,5 +37,5 @@ extern "C" int x_cz_launch(const float* X, long long ld, const float* c,
   p.c = c;
   p.z = z;
   return static_cast<int>(
-      dense::run<false>(p, path, static_cast<cudaStream_t>(stream)));
+      dense::run<false, float>(p, path, static_cast<cudaStream_t>(stream)));
 }

@@ -39,5 +39,5 @@ extern "C" int xt_u_launch(const float* X, long long ld, const float* u,
   dense::Params p = dense::make_params(X, ld, d, n, ctas, z, scratch);
   p.u = u;
   return static_cast<int>(
-      dense::run<true>(p, path, static_cast<cudaStream_t>(stream)));
+      dense::run<true, float>(p, path, static_cast<cudaStream_t>(stream)));
 }

@@ -39,7 +39,16 @@ rule) picks Q, the panel width and the ring's stages from d and s;
 :func:`fused_split` is the panels' split over the clusters;
 :data:`last_path` and :data:`last_fused` say what a call ran.
 
-``X`` may be any row-major f32 view (``X.stride(1) == 1``), such as a
+``xt_u``, ``x_cz``, ``xt_multi`` and ``x_cz_multi`` also take bf16 tiles
+(``DiscoConfig.hvp_dtype='bfloat16'``) through bf16 instances of the same
+designs (``csrc/xt_u_bf16.cu``, ``x_cz_bf16.cu``, ``xt_multi_bf16.cu``,
+``x_cz_multi_bf16.cu``), dispatched by X's dtype; they round the vector
+operand to bf16 where the TPU kernels round it (u, U at entry; c .* z,
+c .* Z, or z, Z alone, before pass B), so every product is exact in f32.
+The one-pass ``x_c_xt_u`` and ``x_c_xt_multi`` take f32 tiles only and
+raise NotImplementedError on bf16 ones (not yet ported).
+
+``X`` may be any row-major view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
 stride and handle ragged edges, so nothing is padded or copied per call.
 ``U`` and ``Z`` of the multi-vector kernels are row-major blocks of 1 to
@@ -57,7 +66,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_U, X_CZ,
-                                       X_CZ_MULTI, XT_MULTI, XT_U,
+                                       X_CZ_BF16, X_CZ_MULTI,
+                                       X_CZ_MULTI_BF16, XT_MULTI,
+                                       XT_MULTI_BF16, XT_U, XT_U_BF16,
                                        check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 from repro_torch.kernels.sparse_hvp import default_ctas
@@ -65,8 +76,27 @@ from repro_torch.kernels.sparse_hvp import default_ctas
 THREADS = 256            # threads per CTA of xt_multi, x_cz_multi
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
 # the piece of xt_u and x_cz (kTileRows, kTileCols in csrc/dense_stream.cuh)
+# at every tile dtype: bf16 keeps the elements, so a stage holds half the
+# bytes and the ring more stages (keeping the bytes would double x_cz's
+# f32 z and c beside the piece, past two stages in 227 KB)
 TILE_ROWS = 16
 TILE_COLS = 1536
+TILE_DTYPES = (torch.float32, torch.bfloat16)   # the tiles the kernels take
+# the ring of xt_u and x_cz (kMaxStages, kBarrierBytes, kThreads in
+# csrc/dense_stream.cuh)
+DENSE_MAX_STAGES = 4
+DENSE_BARRIER_BYTES = 128
+DENSE_THREADS = 384
+# each kernel by tile dtype; the one-pass kernels take f32 tiles only
+_BY_DTYPE = {
+    "xt_u": {torch.float32: XT_U, torch.bfloat16: XT_U_BF16},
+    "x_cz": {torch.float32: X_CZ, torch.bfloat16: X_CZ_BF16},
+    "xt_multi": {torch.float32: XT_MULTI, torch.bfloat16: XT_MULTI_BF16},
+    "x_cz_multi": {torch.float32: X_CZ_MULTI,
+                   torch.bfloat16: X_CZ_MULTI_BF16},
+    "x_c_xt_u": {torch.float32: X_C_XT_U},
+    "x_c_xt_multi": {torch.float32: X_C_XT_MULTI},
+}
 # the fused kernels' plan (csrc/fused_stream.cuh: kThreads, kRowQuantum,
 # kSlots, kMaxStages, kBarrierBytes)
 FUSED_THREADS = 256      # consumer threads of a CTA (and a producer warp)
@@ -78,9 +108,9 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 FUSED_WIDTHS = (32, 16)  # panel columns, widest first
 PATHS = ("direct", "bulk")  # the copy paths, by the code the kernels report
 # the copy path of each streaming kernel's last launch ("bulk": bulk or TMA
-# copies)
+# copies), by kernel name
 last_path: dict[str, str | None] = dict.fromkeys(
-    ("xt_u", "x_cz", "x_c_xt_u", "x_c_xt_multi"))
+    ("xt_u", "x_cz", "xt_u_bf16", "x_cz_bf16", "x_c_xt_u", "x_c_xt_multi"))
 
 
 def fused_max_groups(s: int) -> int:
@@ -283,17 +313,54 @@ class DenseSplit(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def dense_split(kernel: str, d: int, n: int, ctas: int) -> DenseSplit:
+def dense_split(kernel: str, d: int, n: int, ctas: int,
+                dtype: torch.dtype = torch.float32) -> DenseSplit:
     """The split of ``kernel`` (``"xt_u"`` or ``"x_cz"``) over a (d, n) X
-    and ``ctas`` CTAs, in pieces of :data:`TILE_ROWS` x :data:`TILE_COLS`;
-    cached per shape."""
+    of tile dtype ``dtype`` (one of :data:`TILE_DTYPES`, whose pieces are
+    the same) and ``ctas`` CTAs, in pieces of :data:`TILE_ROWS` x
+    :data:`TILE_COLS`; cached per shape."""
     if kernel not in ("xt_u", "x_cz"):
         raise ValueError(f"no dense split for {kernel!r}")
+    if dtype not in TILE_DTYPES:
+        raise TypeError(f"no dense split for {dtype} tiles")
     if d < 1 or n < 1 or ctas < 1:
         raise ValueError(f"d = {d}, n = {n} and ctas = {ctas} must be "
                          f"positive")
     return DenseSplit(kernel == "xt_u", -(-d // TILE_ROWS),
                       -(-n // TILE_COLS), ctas, TILE_ROWS, TILE_COLS)
+
+
+def dense_stages(kernel: str, dtype: torch.dtype) -> int:
+    """Stages of the bulk-copy ring of ``kernel`` (``"xt_u"`` or
+    ``"x_cz"``) at tile dtype ``dtype`` in the shared memory one CTA an SM
+    can opt into: ``run`` in ``csrc/dense_stream.cuh`` sizes it so.
+    A stage holds a piece of X, and for ``x_cz`` the chunk's f32 z and c:
+    2 at f32, 4 (``xt_u``) and 3 (``x_cz``) at bf16."""
+    cols = TILE_COLS
+    xt = kernel == "xt_u"
+    row_threads = DENSE_THREADS // (cols // 4)     # kRowThreads
+    # the consumers' reduction space: a row of sums per row thread
+    # (xt_u), a sum per warp and row (x_cz)
+    red = (row_threads * cols * 4 if xt
+           else DENSE_THREADS // 32 * (TILE_ROWS // row_threads) * 4)
+    ring_off = DENSE_BARRIER_BYTES + _round_up(red, 128)
+    stage = _round_up(TILE_ROWS * cols * dtype.itemsize
+                      + (0 if xt else 2 * 4 * cols), 128)
+    return min(DENSE_MAX_STAGES, (SMEM_LIMIT - ring_off) // stage)
+
+
+def dense_path(X, *vectors) -> str:
+    """The copy path ``xt_u`` or ``x_cz`` takes for X (and its f32
+    vectors c, z) as ``run`` in ``csrc/dense_stream.cuh`` decides it:
+    "bulk" when each row of X is a whole number of 16-byte units (n and
+    the row stride multiples of 4 at f32, 8 at bf16) and X and the
+    vectors are 16-byte aligned, else "direct"."""
+    d, n = X.shape
+    ld = X.stride(0) if d > 1 else n
+    per = 16 // X.element_size()
+    aligned = all(v.data_ptr() % 16 == 0 for v in (X, *vectors)
+                  if v is not None)
+    return "bulk" if n % per == 0 and ld % per == 0 and aligned else "direct"
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,13 +369,15 @@ def _sm_count(index: int) -> int:
 
 
 def _check_matrix(X, device) -> int:
-    """Check a row-major f32 matrix on ``device``; return its row stride."""
+    """Check a row-major f32 or bf16 matrix on ``device``; return its
+    row stride."""
     if not isinstance(X, torch.Tensor):
         raise TypeError("X must be a tensor")
     if X.device != device:
         raise ValueError(f"X is on {X.device}, expected {device}")
-    if X.dtype != torch.float32:
-        raise TypeError(f"X must be torch.float32, got {X.dtype}")
+    if X.dtype not in TILE_DTYPES:
+        raise TypeError(f"X must be torch.float32 or torch.bfloat16, got "
+                        f"{X.dtype}")
     if X.dim() != 2:
         raise ValueError(f"X must be 2-D, got {tuple(X.shape)}")
     d, n = X.shape
@@ -320,6 +389,17 @@ def _check_matrix(X, device) -> int:
     return ld
 
 
+def _kernel(name, X):
+    """The kernel ``name`` for X's tile dtype; raises NotImplementedError
+    where it has no instance (the one-pass kernels at bf16)."""
+    kernels = _BY_DTYPE[name]
+    if X.dtype not in kernels:
+        raise NotImplementedError(
+            f"{name} on {X.dtype} tiles is not yet ported to repro_torch "
+            f"(the one-pass dense kernels take f32 tiles only)")
+    return kernels[X.dtype]
+
+
 def _check_vector(name, v, length, device):
     if v is None:
         return
@@ -328,13 +408,15 @@ def _check_vector(name, v, length, device):
         raise ValueError(f"len({name}) = {v.shape[0]}, expected {length}")
 
 
-def _stream(kernel, name, X, ld, vecs, out, ctas):
-    """Launch ``xt_u`` or ``x_cz`` on its split; record the path."""
+def _stream(name, X, ld, vecs, out, ctas):
+    """Launch ``xt_u`` or ``x_cz`` (the instance for X's tile dtype) on
+    its split; record the path."""
     d, n = X.shape
     dev = X.device
+    kernel = _kernel(name, X)
     if ctas is None:
         ctas = default_ctas(dev)
-    split = dense_split(name, d, n, ctas)
+    split = dense_split(name, d, n, ctas, X.dtype)
     scratch = torch.empty(split.ctas * 2 * split.unit_len,
                           dtype=torch.float32, device=dev)
     path = ctypes.c_int(-1)
@@ -342,12 +424,13 @@ def _stream(kernel, name, X, ld, vecs, out, ctas):
         kernel.launch(ptr(X), ld, *map(ptr, vecs), ptr(out), ptr(scratch),
                       d, n, split.ctas, split.tile_rows, split.tile_cols,
                       ctypes.byref(path), stream_of(dev))
-    last_path[name] = PATHS[path.value]
+    last_path[kernel.name] = PATHS[path.value]
     return out
 
 
 def xt_u(X, u, *, _ctas: int | None = None):
-    """z = X^T u on the card.  X (d, n) row-major f32, u (d,) -> z (n,).
+    """z = X^T u on the card.  X (d, n) row-major f32 or bf16 (u then
+    rounded to bf16, as the TPU kernel does), u (d,) -> z (n,) f32.
     ``_ctas`` overrides the CTA count (one per SM) for the checks that
     hold the split at other counts; no solver path sets it."""
     dev = X.device
@@ -358,12 +441,13 @@ def xt_u(X, u, *, _ctas: int | None = None):
     z = torch.empty(n, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return z.zero_()
-    return _stream(XT_U, "xt_u", X, ld, (u,), z, _ctas)
+    return _stream("xt_u", X, ld, (u,), z, _ctas)
 
 
 def x_cz(X, c, z, *, _ctas: int | None = None):
-    """y = X (c .* z) on the card.  X (d, n) row-major f32, c (optional)
-    and z (n,) -> y (d,). ``_ctas`` as for :func:`xt_u`."""
+    """y = X (c .* z) on the card.  X (d, n) row-major f32 or bf16 (c .* z
+    then rounded to bf16, z alone without c), c (optional) and z (n,) ->
+    y (d,) f32. ``_ctas`` as for :func:`xt_u`."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
@@ -373,7 +457,7 @@ def x_cz(X, c, z, *, _ctas: int | None = None):
     y = torch.empty(d, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return y.zero_()
-    return _stream(X_CZ, "x_cz", X, ld, (c, z), y, _ctas)
+    return _stream("x_cz", X, ld, (c, z), y, _ctas)
 
 
 def _plan(name, d, s, cluster):
@@ -422,6 +506,7 @@ def x_c_xt_u(X, c, u, *, _cluster: int | None = None,
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
+    _kernel("x_c_xt_u", X)
     d, n = X.shape
     _check_vector("u", u, d, dev)
     _check_vector("c", c, n, dev)
@@ -433,11 +518,13 @@ def x_c_xt_u(X, c, u, *, _cluster: int | None = None,
 
 
 def xt_multi(X, U):
-    """Z = X^T U on the card.  X (d, n) row-major f32, U (d, s) row-major
-    (any row stride) -> Z (n, s)."""
+    """Z = X^T U on the card.  X (d, n) row-major f32 or bf16 (U then
+    rounded to bf16), U (d, s) row-major (any row stride) -> Z (n, s)
+    f32."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
+    kernel = _kernel("xt_multi", X)
     d, n = X.shape
     s, ldu = check_columns("U", U, d, dev)
     Z = torch.empty((n, s), dtype=torch.float32, device=dev)
@@ -447,17 +534,19 @@ def xt_multi(X, U):
     part = (torch.empty((slices, n, s), dtype=torch.float32, device=dev)
             if slices > 1 else None)
     with torch.cuda.device(dev):
-        XT_MULTI.launch(ptr(X), ld, ptr(U), ldu, ptr(Z), ptr(part), d, n, s,
-                        slices, THREADS, stream_of(dev))
+        kernel.launch(ptr(X), ld, ptr(U), ldu, ptr(Z), ptr(part), d, n, s,
+                      slices, THREADS, stream_of(dev))
     return Z
 
 
 def x_cz_multi(X, c, Z):
-    """Y = X (c[:, None] .* Z) on the card.  X (d, n) row-major f32, c
-    (optional, n,), Z (n, s) row-major (any row stride) -> Y (d, s)."""
+    """Y = X (c[:, None] .* Z) on the card.  X (d, n) row-major f32 or
+    bf16 (c .* Z then rounded to bf16, Z alone without c), c (optional,
+    n,), Z (n, s) row-major (any row stride) -> Y (d, s) f32."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
+    kernel = _kernel("x_cz_multi", X)
     d, n = X.shape
     s, ldz = check_columns("Z", Z, n, dev)
     _check_vector("c", c, n, dev)
@@ -465,8 +554,8 @@ def x_cz_multi(X, c, Z):
     if d == 0 or n == 0:
         return Y.zero_()
     with torch.cuda.device(dev):
-        X_CZ_MULTI.launch(ptr(X), ld, ptr(c), ptr(Z), ldz, ptr(Y), d, n, s,
-                          THREADS, stream_of(dev))
+        kernel.launch(ptr(X), ld, ptr(c), ptr(Z), ldz, ptr(Y), d, n, s,
+                      THREADS, stream_of(dev))
     return Y
 
 
@@ -483,6 +572,7 @@ def x_c_xt_multi(X, c, U, *, _cluster: int | None = None,
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
+    _kernel("x_c_xt_multi", X)
     d, n = X.shape
     s, ldu = check_columns("U", U, d, dev)
     _check_vector("c", c, n, dev)

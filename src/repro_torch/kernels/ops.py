@@ -1,6 +1,10 @@
 """Public HVP ops, dense and blocked-ELL, and flash attention, dispatched by
 the device of their tensors.
 
+The dense ops take f32 or bf16 X (``hvp_dtype='bfloat16'``); at bf16
+the two-pass ones launch the bf16 instances of their kernels, and on the
+CPU the plain versions round where those kernels round.
+
 CUDA tensors go to the hand-written kernels of
 :mod:`repro_torch.kernels.glm_hvp` (dense),
 :mod:`repro_torch.kernels.sparse_hvp` (blocked ELL) and
@@ -67,9 +71,21 @@ def glm_hvp(X, c, u, lam, *, fused=False):
     return y / X.shape[1] + lam * u
 
 
+def glm_hvp_multi(X, c, U, lam, *, fused=False):
+    """Batched H U = X diag(c) X^T U / n + lam U over s probe vectors
+    through the multi-vector kernels.
+
+    ``fused=True`` takes the one-pass :func:`x_c_xt_multi`; otherwise
+    pass A (:func:`xt_multi`) then pass B (:func:`x_cz_multi`).
+    """
+    Y = (x_c_xt_multi(X, c, U) if fused
+         else x_cz_multi(X, c, xt_multi(X, U)))
+    return Y / X.shape[1] + lam * U
+
+
 def xt_u(X, u):
     """z = X^T u (pass A only — what DiSCO-F all-reduces).
-    X (d, n), u (d,) -> z (n,) f32."""
+    X (d, n) f32 or bf16 tiles, u (d,) -> z (n,) f32."""
     if _on_cuda(X, u):
         return _dense.xt_u(X, u)
     return _ref.ref_xt_u(X, u)

@@ -5,7 +5,10 @@ package's oracle contract (``repro/kernels/ref.py``):
 
 * dense GLM HVP (:mod:`repro_torch.kernels.glm_hvp`): ``ref_xt_u``,
   ``ref_x_cz``, ``ref_x_c_xt_u`` and the multi-vector ``ref_xt_multi``,
-  ``ref_x_cz_multi`` and ``ref_x_c_xt_multi``;
+  ``ref_x_cz_multi`` and ``ref_x_c_xt_multi``; f32 or bf16 X (upcast),
+  the vector operand rounded to X's dtype where the TPU kernel rounds it
+  (ROADMAP F10); and the JAX oracles ``ref_glm_hvp``, ``ref_glm_hvp_multi``
+  of the whole product, which round nothing;
 * blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
   (``cols = 0``, zero tile) gather the real vector block 0 and multiply
   it by zeros, products accumulate in f32, and the result is
@@ -26,24 +29,56 @@ import torch
 
 
 def ref_xt_u(X, u):
-    """z = X^T u   (DiSCO-F's one communicated n-vector, pre-all-reduce)."""
-    return X.T @ u
+    """z = X^T u   (DiSCO-F's one communicated n-vector, pre-all-reduce).
+
+    At bf16 X, ``u`` is rounded to bf16 first, as the TPU kernel's
+    ``u.astype(X.dtype)`` (``repro/kernels/glm_hvp.py::xt_u``); every
+    product is then exact in f32. At f32 this is ``X.T @ u``."""
+    return X.float().T @ _round_to(u, X.dtype)
 
 
 def ref_x_cz(X, cz):
-    """y = X @ cz  (second half of the HVP chain; the kernel fuses c)."""
-    return X @ cz
+    """y = X @ cz  (second half of the HVP chain; the kernel fuses c).
+
+    At bf16 X, ``cz`` (c .* z, or z alone) is rounded to bf16 first, as
+    the TPU kernel's ``(c * z).astype(x.dtype)``."""
+    return X.float() @ _round_to(cz, X.dtype)
 
 
 def ref_xt_multi(X, U):
-    """Z = X^T U   (multi-vector pass A: s probe vectors at once)."""
-    return X.T @ U
+    """Z = X^T U   (multi-vector pass A: s probe vectors at once; at bf16
+    X, U rounded to bf16 first, as the TPU kernel's ``U.astype``)."""
+    return X.float().T @ _round_to(U, X.dtype)
 
 
 def ref_x_cz_multi(X, c, Z):
     """Y = X (c .* Z)  (multi-vector pass B; ``c`` (n,) scales the rows
-    of Z (n, s), and None means no scale)."""
-    return X @ (Z if c is None else c[:, None] * Z)
+    of Z (n, s), and None means no scale). At bf16 X, c .* Z (Z alone
+    without c) is rounded to bf16 first, as the TPU kernel's
+    ``(c * z).astype(x.dtype)``."""
+    return X.float() @ _round_to(Z if c is None else c[:, None] * Z,
+                                 X.dtype)
+
+
+def ref_glm_hvp(X, c, u, lam, n_global=None):
+    """GLM Hessian-vector product  H u = X diag(c) X^T u / n + lam u
+    (the JAX oracle ``repro.kernels.ref.ref_glm_hvp``).
+
+    X (d, n) f32 or bf16, c (n,), u (d,). Like the oracle (whose
+    ``X_bf16 @ u`` promotes) it upcasts X and rounds no vector, so at bf16
+    it is the plain dense layout's product, not the kernels' (F10)."""
+    n = X.shape[1] if n_global is None else n_global
+    Xf = X.float()
+    return Xf @ (c * (Xf.T @ u)) / n + lam * u
+
+
+def ref_glm_hvp_multi(X, c, U, lam, n_global=None):
+    """Batched GLM HVP  H U = X diag(c) X^T U / n + lam U  over U (d, s)
+    (the JAX oracle ``repro.kernels.ref.ref_glm_hvp_multi``; X upcast, no
+    vector rounded, as :func:`ref_glm_hvp`)."""
+    n = X.shape[1] if n_global is None else n_global
+    Xf = X.float()
+    return Xf @ (c[:, None] * (Xf.T @ U)) / n + lam * U
 
 
 def ref_x_c_xt_u(X, c, u):

@@ -49,7 +49,8 @@ from repro.data.sparse import ell_from_csr, make_sparse_glm_data
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import (CSRMatrix, DiscoConfig, DiscoSolver, InProcessGroup,
-                         disco_fit)
+                         SoftmaxConfig, SoftmaxSolver, disco_fit)
+from repro_torch.core.hvp import UnsupportedHvpError
 from repro_torch.convert import STATE_KEYS, solver_from_arrays, w_to_port
 from repro_torch.core import comm as tcomm
 from repro_torch.data import sparse as tsparse
@@ -525,14 +526,27 @@ def test_bf16_tiles_engaged_and_f32_makes_no_copy():
 
 
 def test_dense_bf16_raises_not_yet_ported():
-    """bf16 on dense input waits for the dense kernels' bf16 slice; the
-    message names them."""
+    """bf16 on dense input runs on the two-pass kernels and the plain
+    layout (``tests/test_torch_dense_bf16.py``); with the one-pass kernels
+    (``hvp_fused=True``), classic and s-step, it waits for their bf16
+    slice, and the message names K5 and K10. Softmax never fuses: its
+    fused cell is the registry's refusal at every dtype, as in the
+    reference."""
     X, y, _ = _data()
-    for use_kernel in (False, True):
+    for s in (1, 2):
         with pytest.raises(NotImplementedError, match="not yet ported") as e:
             DiscoSolver(X.todense(), y, DiscoConfig(
-                use_kernel=use_kernel, hvp_dtype="bfloat16"), device="cpu")
-        assert "x_c_xt_u" in str(e.value) and "xt_multi" in str(e.value)
+                use_kernel=True, hvp_fused=True, pcg_block_s=s,
+                hvp_dtype="bfloat16"), device="cpu")
+        assert "x_c_xt_u" in str(e.value)
+        assert "x_c_xt_multi" in str(e.value)
+    for use_kernel in (False, True):
+        DiscoSolver(X.todense(), y, DiscoConfig(
+            use_kernel=use_kernel, hvp_dtype="bfloat16"), device="cpu")
+    with pytest.raises(UnsupportedHvpError, match="coupling"):
+        SoftmaxSolver(X.todense(), (y > 0).astype(np.int64), SoftmaxConfig(
+            use_kernel=True, hvp_fused=True, hvp_dtype="bfloat16"),
+            device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -118,10 +118,10 @@ def test_cell_registry_matches_jax():
 
 def test_dense_layout_not_yet_ported():
     """The dense layouts build their operators now; what the dense path
-    still lacks (bf16 tiles) raises "not yet ported", and the plain dense
-    layout has no fused kernel, as in the reference. s-step PCG builds on
-    two-pass and on fused dense kernels (the fused round, x_c_xt_multi,
-    is ported)."""
+    still lacks (bf16 tiles for the one-pass kernels) raises "not yet
+    ported", and the plain dense layout has no fused kernel, as in the
+    reference. s-step PCG builds on two-pass and on fused dense kernels
+    (the fused round, x_c_xt_multi, is ported)."""
     from repro_torch import DiscoConfig, DiscoSolver
     X = torch.zeros((8, 8))
     assert isinstance(thvp.make_local_operator(X, None),
@@ -132,7 +132,8 @@ def test_dense_layout_not_yet_ported():
         thvp.make_local_operator(X, None, fused=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
-                    DiscoConfig(use_kernel=True, hvp_dtype="bfloat16"),
+                    DiscoConfig(use_kernel=True, hvp_fused=True,
+                                hvp_dtype="bfloat16"),
                     device="cpu")
     # the dense s-step paths build, two-pass and fused, and the fused one
     # runs a step

@@ -8,9 +8,9 @@ that has only PyTorch:
 
 Tolerance: relative L2 error <= 1e-5 in f32 (sums in another order, and
 for ``ell_hvp`` and ``ell_hvp_mm`` reductions into the output in a
-varying order). The bf16 instances of the blocked-ELL kernels are held to
-the plain versions at bf16 tiles at the same 1e-5 (their products are
-exact in f32); the fused ones in two halves, since their hand-off
+varying order). The bf16 instances of the blocked-ELL and of the two-pass
+dense kernels are held to the plain versions at bf16 tiles at the same
+1e-5 (their products are exact in f32); the fused ones in two halves, since their hand-off
 ``c .* z`` rounds to bf16 (ROADMAP F11): the kernel's hand-off equals the
 plain one's rounding except at ties within the f32 summation error bound,
 and the output equals the plain pass B of the kernel's hand-off.
@@ -96,7 +96,9 @@ def test_cuda_ops_launch_the_kernels(dev):
         "ell_mv": 1, "ell_hvp": 1, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
         "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
-        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
+        "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
+        "x_cz_multi_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -353,7 +355,9 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 2, "x_cz": 2, "x_c_xt_u": 1,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 1, "x_cz_multi": 1,
         "x_c_xt_multi": 4, "flash_attention": 0, "ell_mv_bf16": 0,
-        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
+        "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
+        "x_cz_multi_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -1252,3 +1256,191 @@ def test_cuda_bf16_disco_fit_matches_cpu(dev, partition, m, fused, s):
     assert counts["ell_hvp"] == counts["ell_mm"] == counts["ell_hvp_mm"] == 0
     assert sum(counts[k + "_bf16"] for k in ("ell_mv", "ell_hvp", "ell_mm",
                                             "ell_hvp_mm")) > 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 tiles: the bf16 instances of K3, K4, K8 and K9
+# ---------------------------------------------------------------------------
+
+def _bf16_dense_edge(dev, name):
+    """A bf16 X at an edge of the dense split or of the bulk-copy rule
+    (rows of whole 16-byte units: n and the row stride multiples of 8),
+    and the copy path it calls for."""
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    mat = lambda d, n: torch.randn((d, n), generator=g,
+                                   device=dev).to(torch.bfloat16)
+    wide = mat(64, 3000)
+    solver = mat(256, 4096)
+    return {
+        "ragged_n": (mat(70, 1101), "direct"),
+        "d_below_ctas": (mat(5, 2048), "bulk"),
+        "n_below_tile": (mat(64, 104), "bulk"),
+        "n_4": (mat(64, 100), "direct"),
+        "d1_n8": (mat(1, 8), "bulk"),
+        "d1_n4": (mat(1, 4), "direct"),
+        "view_at_0": (wide[:, 0:1024], "bulk"),
+        "view_at_4": (wide[:, 4:1028], "direct"),
+        "view_at_8": (wide[:, 8:1032], "bulk"),
+        "ld_not_8": (mat(40, 1028)[:, :1024], "direct"),
+        "full": (solver, "bulk"),
+        "S_m4_view": (solver[:, 1024:2048], "bulk"),
+        "S_m4_view_odd": (mat(32, 4 * 1025)[:, 1025:2050], "direct"),
+        "F_m4_rows": (solver[64:128], "bulk"),
+    }[name]
+
+
+BF16_DENSE_EDGES = ["ragged_n", "d_below_ctas", "n_below_tile", "n_4",
+                    "d1_n8", "d1_n4", "view_at_0", "view_at_4",
+                    "view_at_8", "ld_not_8", "full", "S_m4_view",
+                    "S_m4_view_odd", "F_m4_rows"]
+
+
+@pytest.mark.parametrize("name", BF16_DENSE_EDGES)
+@pytest.mark.parametrize("ctas", [None, 1, 7])
+def test_cuda_bf16_dense_stream_edge_shapes(dev, name, ctas):
+    """K3 and K4 on bf16 X at an edge of the split or of the bulk-copy
+    rule, on the card's CTA count and on 1 and 7 CTAs, with and without
+    c: on the copy path the shape calls for (and the wrapper's mirror
+    predicts), within 1e-5 of the plain versions at bf16, repeated bit
+    for bit; only the bf16 instances counted."""
+    X, path = _bf16_dense_edge(dev, name)
+    d, n = X.shape
+    g = torch.Generator(device=dev).manual_seed(d * n)
+    u = torch.randn(d, generator=g, device=dev)
+    z = torch.randn(n, generator=g, device=dev)
+    c = torch.rand(n, generator=g, device=dev)
+    assert glm_hvp.dense_path(X, c, z) == path
+    build.reset_launch_counts()
+    got = glm_hvp.xt_u(X, u, _ctas=ctas)
+    assert glm_hvp.last_path["xt_u_bf16"] == path
+    again = glm_hvp.xt_u(X, u, _ctas=ctas)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert _rel(got, ref.ref_xt_u(X, u)) <= 1e-5
+    assert torch.equal(got, again)
+    for cc in (None, c):
+        got = glm_hvp.x_cz(X, cc, z, _ctas=ctas)
+        assert glm_hvp.last_path["x_cz_bf16"] == path
+        again = glm_hvp.x_cz(X, cc, z, _ctas=ctas)
+        torch.cuda.synchronize()
+        assert got.shape == (d,)
+        want = ref.ref_x_cz(X, z if cc is None else cc * z)
+        assert _rel(got, want) <= 1e-5
+        assert torch.equal(got, again)
+    counts = build.launch_counts()
+    assert counts["xt_u_bf16"] == 2 and counts["x_cz_bf16"] == 4
+    assert counts["xt_u"] == counts["x_cz"] == 0
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES + [(256, 4096)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("s", MULTI_S + [13])
+def test_cuda_bf16_dense_multi_match_plain(dev, shape, s):
+    """K8 and K9 on bf16 X, contiguous and as a column view at an offset
+    of 4 (the scalar loads), with and without c, on strided U and Z (13
+    columns: two launches through the ops): within 1e-5 of the plain
+    versions at bf16, repeated bit for bit."""
+    d, n = shape
+    g = torch.Generator(device=dev).manual_seed(d * n + s)
+    wide = torch.randn((d, n + 4), generator=g,
+                       device=dev).to(torch.bfloat16)
+    c = torch.rand(n, generator=g, device=dev)
+    U = _basis(dev, d, s, s, strided=True)
+    Z = _basis(dev, n, s, s + 1, strided=True)
+    for X in (wide[:, :n].contiguous(), wide[:, 4:]):
+        for cc in (None, c):
+            for got_fn, want in (
+                    (lambda: ops.xt_multi(X, U), ref.ref_xt_multi(X, U)),
+                    (lambda: ops.x_cz_multi(X, cc, Z),
+                     ref.ref_x_cz_multi(X, cc, Z))):
+                got, again = got_fn(), got_fn()
+                torch.cuda.synchronize()
+                assert got.dtype == torch.float32
+                assert _rel(got, want) <= 1e-5
+                assert torch.equal(got, again)
+
+
+def test_cuda_bf16_dense_dispatch(dev):
+    """The ops dispatch by X's dtype: bf16 X launches the bf16 instances
+    only (13 columns: two launches each), f32 X the f32 kernels only; the
+    one-pass kernels refuse bf16 X (not yet ported), and any other dtype
+    is refused before a launch."""
+    X, u, z, c = _dense(dev, 64, 256, seed=8)
+    Xh = X.to(torch.bfloat16)
+    U = torch.ones((64, 13), device=dev)
+    Z = torch.ones((256, 13), device=dev)
+    build.reset_launch_counts()
+    ops.xt_u(Xh, u)
+    ops.x_cz_local(Xh, c, z)
+    ops.xt_multi(Xh, U)
+    ops.x_cz_multi(Xh, None, Z)
+    assert {k: v for k, v in build.launch_counts().items() if v} == {
+        "xt_u_bf16": 1, "x_cz_bf16": 1, "xt_multi_bf16": 2,
+        "x_cz_multi_bf16": 2}
+    build.reset_launch_counts()
+    ops.xt_u(X, u)
+    ops.xt_multi(X, U[:, :3])
+    assert {k: v for k, v in build.launch_counts().items() if v} == {
+        "xt_u": 1, "xt_multi": 1}
+    build.reset_launch_counts()
+    for fn in (lambda: glm_hvp.x_c_xt_u(Xh, c, u),
+               lambda: glm_hvp.x_c_xt_multi(Xh, c, U[:, :2]),
+               lambda: ops.x_c_xt_u(Xh, c, u)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            fn()
+    for fn in (lambda: glm_hvp.xt_u(X.half(), u),
+               lambda: glm_hvp.x_cz_multi(X.half(), c, Z[:, :2])):
+        with pytest.raises(TypeError):
+            fn()
+    assert not any(build.launch_counts().values())
+
+
+def test_cuda_bf16_dense_failed_launch_raises(dev, monkeypatch):
+    """A launch the bf16 entry points refuse raises, naming the bf16
+    instance: a piece shape other than the header's (K3, K4), a block size
+    that is not a whole number of warps (K8, K9)."""
+    X, u, z, c = _dense(dev, 64, 1024, seed=6)
+    Xh = X.to(torch.bfloat16)
+    monkeypatch.setattr(glm_hvp, "TILE_ROWS", glm_hvp.TILE_ROWS // 2)
+    glm_hvp.dense_split.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="xt_u_bf16 launch failed"):
+            glm_hvp.xt_u(Xh, u)
+        with pytest.raises(RuntimeError, match="x_cz_bf16 launch failed"):
+            glm_hvp.x_cz(Xh, c, z)
+    finally:
+        glm_hvp.dense_split.cache_clear()
+    monkeypatch.setattr(glm_hvp, "THREADS", 100)
+    with pytest.raises(RuntimeError, match="xt_multi_bf16 launch failed"):
+        glm_hvp.xt_multi(Xh, torch.ones((64, 2), device=dev))
+    with pytest.raises(RuntimeError, match="x_cz_multi_bf16 launch failed"):
+        glm_hvp.x_cz_multi(Xh, c, torch.ones((1024, 2), device=dev))
+
+
+@pytest.mark.parametrize("partition", ["samples", "features"])
+@pytest.mark.parametrize("m,s,use_kernel", [(1, 1, True), (2, 1, True),
+                                            (1, 2, True), (1, 1, False)])
+def test_cuda_dense_bf16_disco_fit_matches_cpu(dev, partition, m, s,
+                                               use_kernel):
+    """A small bf16 dense solve on the card against the same solve on the
+    CPU: the same PCG iterations (or rounds) every step, and w within
+    relative L2 3e-4 (F11); with the kernels, PCG's products on the bf16
+    instances only (the margins and the gradient are cuBLAS on the f32
+    X)."""
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                      grad_tol=0.0, partition=partition, pcg_block_s=s,
+                      use_kernel=use_kernel, hvp_dtype="bfloat16")
+    build.reset_launch_counts()
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    assert np.linalg.norm(on_card.w - on_cpu.w) <= \
+        3e-4 * np.linalg.norm(on_cpu.w)
+    f32 = ("xt_u", "x_cz", "xt_multi", "x_cz_multi", "x_c_xt_u",
+           "x_c_xt_multi")
+    assert not any(counts[k] for k in f32)
+    bf16 = sum(counts[k + "_bf16"] for k in f32[:4])
+    assert (bf16 > 0) == use_kernel

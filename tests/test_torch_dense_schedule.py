@@ -191,9 +191,10 @@ def test_header_and_wrapper_agree_on_the_piece():
                                                    glm_hvp.TILE_COLS)
     assert default_ctas("cpu") == 132
     assert glm_hvp.PATHS == ("direct", "bulk")
-    assert set(glm_hvp.last_path) == {"xt_u", "x_cz", "x_c_xt_u",
+    assert set(glm_hvp.last_path) == {"xt_u", "x_cz", "xt_u_bf16",
+                                      "x_cz_bf16", "x_c_xt_u",
                                       "x_c_xt_multi"}
-    for src in ("xt_u.cu", "x_cz.cu"):
+    for src in ("xt_u.cu", "x_cz.cu", "xt_u_bf16.cu", "x_cz_bf16.cu"):
         assert '#include "dense_stream.cuh"' in (build.CSRC / src).read_text()
 
 
@@ -225,3 +226,82 @@ def test_dense_ops_match_jax_at_shard_shapes(shard, with_c):
     want = jops.x_cz_local(A, c if with_c else np.ones_like(c), z)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# bf16 tiles: the same split, a deeper ring, the 16-byte rule in bf16
+# ---------------------------------------------------------------------------
+
+def test_bf16_split_and_ring_mirror_the_header():
+    """bf16 keeps the piece in elements (16 x 1536: the header's one
+    kTileCols), so its split equals the f32 one at every shape; the ring
+    the wrapper's mirror sizes from the header's constants takes 2 stages
+    of f32 pieces and 4 (xt_u) or 3 (x_cz, whose stages also hold the f32
+    z and c) of bf16 ones in 227 KB."""
+    text = (build.CSRC / "dense_stream.cuh").read_text()
+    get = lambda k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
+    assert get("kTileCols") == glm_hvp.TILE_COLS
+    assert glm_hvp.TILE_DTYPES == (torch.float32, torch.bfloat16)
+    assert (get("kMaxStages"), get("kBarrierBytes"), get("kThreads")) == (
+        glm_hvp.DENSE_MAX_STAGES, glm_hvp.DENSE_BARRIER_BYTES,
+        glm_hvp.DENSE_THREADS)
+    for kernel in KERNELS:
+        for d, n in SHAPES + [(4096, 262_144), (4096, 65_536)]:
+            assert (dense_split(kernel, d, n, 132, torch.bfloat16)
+                    == dense_split(kernel, d, n, 132))
+    assert [glm_hvp.dense_stages(k, dt) for k in KERNELS
+            for dt in (torch.float32, torch.bfloat16)] == [2, 4, 2, 3]
+    with pytest.raises(TypeError):
+        dense_split("xt_u", 8, 8, 1, torch.float16)
+
+
+BF16_PATHS = {
+    # name: (rows, columns allocated, view columns [lo, hi), path at f32,
+    # path at bf16): rows of whole 16-byte units, 4 f32 or 8 bf16 elements
+    "full": (64, 1024, (0, 1024), "bulk", "bulk"),
+    "n_4": (64, 1028, (0, 1028), "bulk", "direct"),
+    "view_at_4": (64, 2048, (4, 1028), "bulk", "direct"),
+    "view_at_8": (64, 2048, (8, 1032), "bulk", "bulk"),
+    "view_at_1": (64, 2048, (1, 1025), "direct", "direct"),
+    "ld_1028": (64, 1028, (0, 1024), "bulk", "direct"),
+    "ld_1032": (64, 1032, (0, 1024), "bulk", "bulk"),
+    "S_m4_view_odd": (16, 4 * 1025, (1025, 2050), "direct", "direct"),
+}
+
+
+@pytest.mark.parametrize("name", list(BF16_PATHS))
+def test_dense_path_mirrors_the_bulk_rule(name):
+    """The copy path the wrapper's mirror predicts for an X view at f32
+    and at bf16: a DiSCO-S column view at an offset not a multiple of 8
+    takes the direct path at bf16 (the kernels report the path they took;
+    ``tests/test_torch_cuda.py`` holds them to it)."""
+    rows, cols, (lo, hi), want32, want16 = BF16_PATHS[name]
+    base = torch.zeros((rows, cols))
+    for dtype, want in ((torch.float32, want32), (torch.bfloat16, want16)):
+        X = base.to(dtype)[:, lo:hi]
+        assert glm_hvp.dense_path(X) == want
+
+
+@pytest.mark.parametrize("shard", list(SHARDS))
+@pytest.mark.parametrize("with_c", [False, True])
+def test_dense_bf16_ops_match_jax_at_shard_shapes(shard, with_c):
+    """The bf16 ops on the shard views of a bf16 X (64, 2048) against the
+    JAX ops in interpret mode on bf16 copies: relative L2 <= 1e-5 (the
+    products are exact in f32)."""
+    import ml_dtypes
+    X, _, _ = make_glm_data(64, 2048, seed=3)
+    rows, cols = SHARDS[shard]
+    rng = np.random.default_rng(4)
+    A = np.ascontiguousarray(X[rows, cols]).astype(ml_dtypes.bfloat16)
+    d, n = A.shape
+    u = rng.standard_normal(d).astype(np.float32)
+    z = rng.standard_normal(n).astype(np.float32)
+    c = rng.uniform(0.0, 0.25, n).astype(np.float32)
+    view = torch.from_numpy(X).to(torch.bfloat16)[rows, cols]
+    T = torch.from_numpy
+    rel = lambda a, b: (np.linalg.norm(a - np.asarray(b))
+                        / np.linalg.norm(np.asarray(b)))
+    assert rel(tops.xt_u(view, T(u)).numpy(), jops.xt_u(A, u)) <= 1e-5
+    got = tops.x_cz_local(view, T(c) if with_c else None, T(z))
+    want = jops.x_cz_local(A, c if with_c else np.ones_like(c), z)
+    assert rel(got.numpy(), want) <= 1e-5

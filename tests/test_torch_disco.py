@@ -165,10 +165,11 @@ def test_unported_options_raise(override):
     Hessian subsampling and the SAG preconditioner (they raised until
     then; ``tests/test_torch_subsample.py`` and ``tests/test_torch_sag.py``
     hold them to the reference): they build on sparse and dense input and
-    take a step. bf16 HVP tiles (which raised until the sparse kernels
-    took them; ``tests/test_torch_bf16.py`` holds them to the reference)
-    build on sparse input and take a step; on dense input they still
-    raise."""
+    take a step. bf16 HVP tiles (which raised until the sparse and the
+    two-pass dense kernels took them; ``tests/test_torch_bf16.py`` and
+    ``tests/test_torch_dense_bf16.py`` hold them to the reference) build
+    on sparse and dense input and take a step; with the one-pass dense
+    kernels (``hvp_fused=True``) they still raise."""
     X, y, Xt = _data()
     cfg = DiscoConfig(**dict(KW, **override))
     if "hvp_dtype" in override:
@@ -176,8 +177,14 @@ def test_unported_options_raise(override):
         assert solver.ell_data_h.dtype == torch.bfloat16
         w, stats = solver._step(torch.zeros(solver._w_shape))
         assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
+        dense = DiscoSolver(X.todense(), y, cfg, device="cpu")
+        assert dense.X_h.dtype == torch.bfloat16
+        w, stats = dense._step(torch.zeros(dense._w_shape))
+        assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            DiscoSolver(X.todense(), y, cfg, device="cpu")
+            DiscoSolver(X.todense(), y, DiscoConfig(**dict(
+                KW, use_kernel=True, hvp_fused=True, **override)),
+                device="cpu")
         return
     if "hessian_subsample" in override or "precond" in override:
         kw = dict(KW, partition="samples", **override)

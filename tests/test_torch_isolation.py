@@ -154,7 +154,7 @@ def test_no_jax_or_repro_imports_in_port_sources():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "chip_k11_variants.py",
          ROOT / "chip_hvp_variants.py", ROOT / "chip_dense_variants.py",
-         ROOT / "chip_fused_variants.py"]
+         ROOT / "chip_fused_variants.py", ROOT / "chip_multi_variants.py"]
     assert len(files) > 10
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())

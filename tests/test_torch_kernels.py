@@ -226,11 +226,18 @@ def test_cpu_calls_launch_no_kernel():
                     torch.ones(fwd.n_col_blocks * 8))
     tops.ell_hvp_mm(bf(tr.data), T(tr.cols),
                     torch.ones((fwd.n_row_blocks * 8, 3)))
+    Xh = X.to(torch.bfloat16)
+    tops.xt_u(Xh, torch.ones(6))
+    tops.x_cz_local(Xh, None, torch.ones(10))
+    tops.xt_multi(Xh, torch.ones((6, 13)))
+    tops.x_cz_multi(Xh, torch.ones(10), torch.ones((10, 3)))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
         "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
-        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0}
+        "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
+        "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
+        "x_cz_multi_bf16": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -277,7 +284,8 @@ def test_kernel_sources_and_build_target():
         "ell_mv", "ell_hvp", "xt_u", "x_cz", "x_c_xt_u", "ell_mm",
         "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi",
         "flash_attention", "ell_mv_bf16", "ell_hvp_bf16", "ell_mm_bf16",
-        "ell_hvp_mm_bf16"]
+        "ell_hvp_mm_bf16", "xt_u_bf16", "x_cz_bf16", "xt_multi_bf16",
+        "x_cz_multi_bf16"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -300,13 +308,18 @@ def test_kernel_sources_and_build_target():
     for f32, bf16 in ((build.ELL_MV, build.ELL_MV_BF16),
                       (build.ELL_MM, build.ELL_MM_BF16),
                       (build.ELL_HVP, build.ELL_HVP_BF16),
-                      (build.ELL_HVP_MM, build.ELL_HVP_MM_BF16)):
+                      (build.ELL_HVP_MM, build.ELL_HVP_MM_BF16),
+                      (build.XT_U, build.XT_U_BF16),
+                      (build.X_CZ, build.X_CZ_BF16),
+                      (build.XT_MULTI, build.XT_MULTI_BF16),
+                      (build.X_CZ_MULTI, build.X_CZ_MULTI_BF16)):
         assert names(bf16) == names(f32)
         assert bf16.argtypes == f32.argtypes
         assert f"{bf16.name}_launch(const __nv_bfloat16*" in \
             bf16.source.read_text()
-    assert names(build.XT_MULTI) == ["partials.cuh", "common.cuh"]
-    assert names(build.X_CZ_MULTI) == ["common.cuh"]
+    assert names(build.XT_MULTI) == ["dense_multi.cuh", "ell_tiles.cuh",
+                                     "partials.cuh", "common.cuh"]
+    assert names(build.X_CZ_MULTI) == names(build.XT_MULTI)
     assert names(build.X_C_XT_MULTI) == ["fused_stream.cuh", "ell_tiles.cuh",
                                          "partials.cuh", "common.cuh"]
     assert names(build.X_C_XT_U) == names(build.X_C_XT_MULTI)
