@@ -67,7 +67,7 @@ INTERLEAVE = [
     "      max(0, (p.panels - cl + p.clusters - 1) / p.clusters));",
     "  return (first + m) * bn;",
     "  return (first + static_cast<long long>(m) * p.clusters) * bn;"]
-NO_EXCHANGE = ["        wait_cluster(&xfull[sl], (m / kSlots) & 1);\n", "",
+NO_EXCHANGE = ["      if (t < E) wait_cluster(&xfull[sl], (m / kSlots) & 1);\n", "",
                "r < p.q ? ld_peer(peer_addr(mine, r)) : 0.f;",
                "r == 0 ? *mine : 0.f;"]
 L2_256 = ["CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
@@ -259,8 +259,9 @@ def main() -> int:
         for shape, (A, u, c, Us) in inputs.items():
             d = A.shape[0]
 
-            def planned(dd, s=1, cluster=None, _d=d):
-                if plan and dd == _d and cluster is None:
+            def planned(dd, s=1, cluster=None, dtype=torch.float32, _d=d):
+                if plan and dd == _d and cluster is None \
+                        and dtype == torch.float32:
                     q, bn, stages = plan
                     rows = glm_hvp.fused_rows(dd, q)
                     if (rows // glm_hvp.FUSED_ROW_QUANTUM
@@ -268,7 +269,7 @@ def main() -> int:
                             and glm_hvp.fused_smem_bytes(rows, bn, stages, s)
                             <= glm_hvp.SMEM_LIMIT):
                         return glm_hvp.FusedPlan(q, bn, stages, rows)
-                return rule(dd, s, cluster)
+                return rule(dd, s, cluster, dtype=dtype)
 
             glm_hvp.fused_plan = planned
             calls = {"x_c_xt_u": lambda: glm_hvp.x_c_xt_u(A, c, u)}

@@ -7,10 +7,11 @@ Usage, from the repository root on a machine with one Hopper card:
 
 Eight phases; any failed check makes the exit code nonzero.
 
-1. Build: compiles the nineteen hand-written CUDA kernels from
+1. Build: compiles the twenty-one hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
    all at once: the eleven, and the bf16-tile instances of K1, K2, K6,
-   K7, K3, K4, K8 and K9) and prints the card's name and power limit.
+   K7, K3, K4, K8, K9, K5 and K10) and prints the card's name and power
+   limit.
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card (relative L2 error <= 1e-5 in f32): ``ell_mv`` and ``ell_hvp`` at
    8x8, 16x16 and 128x128 tiles on layouts with padding slots; ``xt_u``,
@@ -44,7 +45,14 @@ Eight phases; any failed check makes the exit code nonzero.
    at the dense shapes on bf16 X as whole rows, column views at offsets
    1 and 8 and rows of a stride not a multiple of 8 (both copy paths),
    against their plain versions at bf16 (<= 1e-5), each repeated bit for
-   bit, K8 and K9 at s = 1, 2, 4, 5, 8 and 13; ``flash_attention`` (K11)
+   bit, K8 and K9 at s = 1, 2, 4, 5, 8 and 13; the bf16 one-pass
+   instances (``x_c_xt_u_bf16``, ``x_c_xt_multi_bf16``) on the same views,
+   on every cluster size their fit rule allows, K10 at s = 1, 2, 4, 5 and
+   8 on contiguous and strided U, with and without c, each call in two
+   halves (the hand-off against the plain one's and the two-pass bf16
+   pair's rounding, values within the f32 summation slack aside; the
+   output against the plain and the pair's pass B of the kernel's own
+   hand-off, <= 1e-5), repeated bit for bit; ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -59,7 +67,8 @@ Eight phases; any failed check makes the exit code nonzero.
    solves (``hvp_dtype='bfloat16'``: DiSCO-S m = 1 two-pass and fused,
    DiSCO-F m = 2 and a fused s-step, card against CPU within relative L2
    3e-4, F11); small bf16 dense solves (DiSCO-S m = 1, DiSCO-F m = 2, an
-   s-step and the plain layout, the same limit); and the paper's
+   s-step and the plain layout, and fused: DiSCO-S m = 1 and 2, a DiSCO-F
+   s-step and DiSCO-F m = 2, the same limit); and the paper's
    comparisons: the original DiSCO (``precond='sag'``, DiSCO-S) sparse
    and dense at m = 1 and 4 and one s-step solve, Hessian subsampling
    (frac 0.5, the same masks on both) on both partitions, sparse and
@@ -95,11 +104,11 @@ Eight phases; any failed check makes the exit code nonzero.
    m = 1 two-pass, DiSCO-S m = 1 fused and DiSCO-F m = 4 two-pass, each
    held to the launches the code predicts, the classic convergence check
    and the classic m = 1 ``w``; the first is profiled. Then the original
-   DiSCO (SAG, sag_epochs = 5, tau = 100) on DiSCO-S at m = 1 and 4, 3
+   DiSCO (SAG, sag_epochs = 5, tau = 100) on DiSCO-S at m = 1 and 4, 2
    Newton steps (f falling every step, the gradient norm falling, the
    predicted launches; one SAG application timed: ms, launches, device
    time), and DiSCO-F with ``hessian_subsample`` 0.5 and 0.0625 at
-   m = 1 and 4, 3 steps (finite, one mask a step of the right shape and
+   m = 1 and 4, 2 steps (finite, one mask a step of the right shape and
    mean, the predicted launches; f printed; the first profiled).
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
@@ -125,7 +134,11 @@ Eight phases; any failed check makes the exit code nonzero.
    dense instances are held to their plain versions and timed at the full
    width and both m = 4 shard shapes (K8 and K9 at s = 5, and 8 and 13 at
    the full width) beside the plain versions, ``torch.mv`` / ``@`` on the
-   bf16 X and the f32 kernels of the same call.
+   bf16 X and the f32 kernels of the same call; so are the bf16 K5 (full
+   width and both shard shapes) and K10 (s = 5 and 8 at the full width,
+   s = 5 at both shard shapes), each held in its two halves, beside its
+   bound, the bf16 two-pass kernel pair, the ``torch.mv`` pair on the
+   bf16 X, the plain version and the f32 kernel.
 5. Workloads on the dense slice's X: a warm λ-path (λ = 1e-2, 1e-3,
    1e-4; fused s-step DiSCO-S, scored on 32,768 held-out samples of the
    same model), multinomial softmax with K = 10 classes (DiSCO-S m = 1
@@ -138,7 +151,13 @@ Eight phases; any failed check makes the exit code nonzero.
    (s = 4) and a ``use_kernel=False`` run, and a warm two-pass λ-path,
    each held to the launches the code predicts (PCG on the bf16
    instances, no f32 dense kernel), f falling and the f32 run's w or W
-   (<= 1e-4). Then Figure 3 on ``make_regime('rcv1_like')``
+   (<= 1e-4). Then fused at bf16 (the one-pass K5 and K10): DiSCO-S and
+   DiSCO-F m = 1, DiSCO-S m = 4 and a DiSCO-S s-step (s = 4), each held
+   to its predicted launches, f falling, the f32 fused run's and the
+   bf16 two-pass run's w (<= 1e-4) and PCG iterations within 10% of the
+   f32 fused run's; and a warm fused s-step λ-path on K5 + K10, its
+   endpoint at the f32 fused and the bf16 two-pass paths' (<= 1e-4).
+   Then Figure 3 on ``make_regime('rcv1_like')``
    (m = 4, logistic): DiSCO-F, DiSCO-S and the original DiSCO on the
    dense kernels, DANE, and CoCoA+ (2 outer iterations), each's
    gradient norm and rounds per iteration, and CoCoA+'s launches per
@@ -229,9 +248,9 @@ SOFTMAX_RUNS = [("samples", 1, 1), ("samples", 1, 2), ("features", 4, 1),
 # Figure 3) on DiSCO-S, Hessian subsampling (Figure 5's ends below 1) on
 # DiSCO-F, both on the sparse slice; GD and DANE on the dense slice's X;
 # Figure 3's five methods on make_regime('rcv1_like')
-SAG_SOLVE = dict(SOLVE, precond="sag", sag_epochs=5, max_outer=3)
+SAG_SOLVE = dict(SOLVE, precond="sag", sag_epochs=5, max_outer=2)
 SUBSAMPLE_FRACS = (0.5, 0.0625)
-SUBSAMPLE_SOLVE = dict(SOLVE, max_outer=3)
+SUBSAMPLE_SOLVE = dict(SOLVE, max_outer=2)
 COMPARISON_SHARDS = (1, 4)
 BASELINE_OUTER = 3
 FIG3 = dict(regime="rcv1_like", lam=1e-4, m=4, outer=3, cocoa_outer=2)
@@ -346,6 +365,17 @@ BF16_MULTI_S = MULTI_S + (13,)
 BF16_DENSE_RUNS = [("samples", 1, 1, True), ("features", 1, 1, True),
                    ("samples", 4, 1, True), ("samples", 1, SSTEP_S, True),
                    ("samples", 1, 1, False)]
+# the one-pass dense kernels' instances on bf16 tiles (hvp_fused=True with
+# hvp_dtype='bfloat16' on dense input): the same TPU kernels at bf16
+DENSE_FUSED_BF16 = ("x_c_xt_u_bf16", "x_c_xt_multi_bf16")
+REPLACES.update({k: REPLACES[k[:-len("_bf16")]] for k in DENSE_FUSED_BF16})
+# the fused bf16 runs on the dense slice's X: partition, m, pcg_block_s;
+# each held to the f32 fused run and the bf16 two-pass run of its cell (w
+# at REL_TOL_W), its PCG iterations (or rounds) in all within
+# FUSED_BF16_ITERS of the f32 fused run's
+BF16_FUSED_RUNS = [("samples", 1, 1), ("features", 1, 1), ("samples", 4, 1),
+                   ("samples", 1, SSTEP_S)]
+FUSED_BF16_ITERS = 0.10
 
 FAILURES: list[str] = []
 
@@ -1074,6 +1104,122 @@ def phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs) -> None:
                   f"bf16 dense {d}x{n} {view}: worst rel err "
                   + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
                   + f"; repeatable {same}; K3/K4 path {sorted(paths)} (want "
+                  f"{want_path})")
+
+
+def check_dense_fused_bf16(torch, glm_hvp, ref, X, c, U, got, cz) -> dict:
+    """A bf16 K5 (U a vector) or K10 call held in its two halves: its
+    hand-off ``cz`` (rounded c .* z) against the plain hand-off and the
+    bf16 two-pass pair's pass A (K3 / K8), roundings of values within the
+    f32 summation slack aside (``ref.dense_handoff_flips``; the rate of
+    such elements against the plain version is held by the caller over
+    its calls, ``ref.handoff_rate_ok``: the pair's K3 / K8 sum rows in
+    order, so more of its elements sit across a tie, each within the
+    slack); its output against the plain pass B of its
+    own hand-off and the pair's pass B (K4 / K9) on it. Returns the rel
+    errors, the flips, the elements and the end-to-end rel err against
+    the whole plain version."""
+    t = ref.ref_dense_handoff(X, c, U)
+    slack = ref.dense_handoff_slack(X, c, U, t)
+    cz = cz.reshape(t.shape)
+    flips, ties = ref.dense_handoff_flips(cz, t, slack)
+    if U.dim() == 1:
+        pz = glm_hvp.xt_u(X, U)
+        tp = pz if c is None else c * pz
+        want, pair_y = ref.ref_x_cz(X, cz), glm_hvp.x_cz(X, None, cz)
+        whole = ref.ref_x_cz(X, t)
+    else:
+        pz = glm_hvp.xt_multi(X, U)
+        tp = pz if c is None else c[:, None] * pz
+        want = ref.ref_x_cz_multi(X, None, cz)
+        pair_y = glm_hvp.x_cz_multi(X, None, cz)
+        whole = ref.ref_x_cz_multi(X, None, t)
+    pflips, pties = ref.dense_handoff_flips(cz, tp, slack)
+    torch.cuda.synchronize()
+    return dict(rel=rel_err(got, want), abs=float((got - want).abs().max()),
+                pair_rel=rel_err(got, pair_y), flips=flips,
+                pair_flips=pflips, ties=ties and pties, numel=t.numel(),
+                end_to_end=rel_err(got, whole))
+
+
+def record_fused_bf16(errs, name, r) -> None:
+    """Keep a bf16 fused call's halves in the kernel's worst errors."""
+    rec = errs[name]
+    rec["rel"] = max(rec["rel"], r["rel"], r["pair_rel"])
+    rec["abs"] = max(rec["abs"], r["abs"])
+    rec["end_to_end"] = max(rec.get("end_to_end", 0.0), r["end_to_end"])
+    rec["flips"] = rec.get("flips", 0) + r["flips"]
+
+
+def phase_dense_fused_bf16_kernels(torch, glm_hvp, ref, errs) -> None:
+    """The bf16 K5 and K10 at DENSE_SHAPES on bf16 X, each shape as whole
+    rows, column views at offsets 1 and 8 and rows of another stride
+    (:func:`bf16_dense_views`), on every cluster size the bf16 fit rule
+    allows: K5 with and without c, K10 at s in MULTI_S on contiguous and
+    strided U, with and without c; each call held in its two halves
+    (:func:`check_dense_fused_bf16`, against the plain version and the
+    bf16 two-pass pair at REL_TOL_KERNEL), repeated bit for bit, on the
+    copy path ``glm_hvp.fused_path`` predicts. One check line per shape
+    and view."""
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    for d, n in DENSE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(11 * d + n)
+        u = torch.randn(d, generator=g, device=dev)
+        c = torch.rand(n, generator=g, device=dev)
+        Ub = torch.randn((d, MAX_COLS + 1), generator=g, device=dev)
+        for view, X in bf16_dense_views(torch, dev, d, n, d + 2 * n).items():
+            worst = dict(rel=0.0, pair_rel=0.0, end_to_end=0.0)
+            flips, pflips, numel = 0, 0, 0
+            ties, same, paths, sizes = True, True, set(), set()
+
+            def held(name, fn, Uv, cc):
+                nonlocal flips, pflips, numel, ties, same
+                cz = torch.zeros((n,) if Uv.dim() == 1 else (n, Uv.shape[1]),
+                                 device=dev)
+                got, again = fn(cz), fn(None)
+                paths.add(glm_hvp.last_path[name])
+                torch.cuda.synchronize()
+                r = check_dense_fused_bf16(torch, glm_hvp, ref, X, cc, Uv,
+                                           got, cz)
+                record_fused_bf16(errs, name, r)
+                for k in worst:
+                    worst[k] = max(worst[k], r[k])
+                flips += r["flips"]
+                pflips += r["pair_flips"]
+                numel += r["numel"]
+                ties &= r["ties"]
+                same &= bool(torch.equal(got, again))
+
+            for q in glm_hvp.CLUSTER_SIZES:
+                if glm_hvp.fused_plan(d, 1, q, dtype=bf) is not None:
+                    sizes.add(q)
+                    for cc in (None, c):
+                        held("x_c_xt_u_bf16",
+                             lambda cz: glm_hvp.x_c_xt_u(
+                                 X, cc, u, cz_out=cz, _cluster=q), u, cc)
+                for k in MULTI_S:
+                    if glm_hvp.fused_plan(d, k, q, dtype=bf) is None:
+                        continue
+                    sizes.add(q)
+                    for U in (Ub[:, :k].contiguous(), Ub[:, :k]):
+                        for cc in (None, c):
+                            held("x_c_xt_multi_bf16",
+                                 lambda cz: glm_hvp.x_c_xt_multi(
+                                     X, cc, U, cz_out=cz, _cluster=q), U, cc)
+            want_path = glm_hvp.fused_path(X)
+            rate = ref.handoff_rate_ok(flips, numel)
+            check(max(worst["rel"], worst["pair_rel"]) <= REL_TOL_KERNEL
+                  and ties and rate and same and paths == {want_path},
+                  f"bf16 x_c_xt_u / x_c_xt_multi {d}x{n} {view}, clusters "
+                  f"of {sorted(sizes)}, c, s in {list(MULTI_S)} contiguous "
+                  f"and strided: rel err of y against the plain and the "
+                  f"pair's pass B on the kernel's hand-off {worst['rel']:.2e}"
+                  f" / {worst['pair_rel']:.2e}, hand-off elements off the "
+                  f"plain / pair rounding {flips} / {pflips} of {numel} "
+                  f"(all within the slack {ties}), "
+                  f"end-to-end rel err {worst['end_to_end']:.2e}, "
+                  f"repeatable {same}, path {sorted(paths)} (want "
                   f"{want_path})")
 
 
@@ -1825,9 +1971,11 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
     """The s-step runs of a slice (``pcg_block_s = SSTEP_S``): each held
     to the launches the code predicts, the slice's convergence check and
     the classic m = 1 ``w`` of its partition (``classic``); fused against
-    two-pass. The first run is profiled and its host syncs counted."""
+    two-pass. The first run is profiled and its host syncs counted.
+    Returns each run's ``w`` and rounds per step, by (partition, m,
+    fused)."""
     prefix = "" if sparse else "dense "
-    results = {}
+    results, iters = {}, {}
     for partition, m, fused in runs:
         tag = f"{prefix}s-step s={SSTEP_S} " + run_tag(partition, m, fused)
         cfg = rt.DiscoConfig(partition=partition, hvp_fused=fused,
@@ -1868,6 +2016,7 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
               f"{base_iters}), median iter_s {row['iter_s_median']:.4f}",
               flush=True)
         results[(partition, m, fused)] = res.w
+        iters[(partition, m, fused)] = rounds
         if (partition, m, fused) == runs[0]:
             try:
                 profile_fit(torch, solver, count_syncs=True,
@@ -1882,6 +2031,7 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
             e = rel_w(results[(p, 1, True)], results[(p, 1, False)])
             check(e <= 1e-4, f"{prefix}s-step {p} fused vs two-pass: rel "
                              f"diff of w {e:.2e}")
+    return {k: (w, iters[k]) for k, w in results.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2272,23 +2422,35 @@ def measure_dense_bf16(torch, X, glm_hvp, ref, errs, f32) -> dict:
                   f"{row['gbps']:.0f} GB/s, bound {row['bound_ms'] * 1e3:.1f}"
                   f" us ({100 * row['share_of_bound']:.1f}%), library "
                   f"{row['library_ms']}, path {path}", flush=True)
-    # K8 and K9 at 8 and 13 columns at the full width (13: two launches)
+    # K8 and K9 at 8 and 13 columns at the full width (13: two launches),
+    # beside their bound (X once, the f32 blocks once) and the bf16 cuBLAS
+    # call of the same product
     for k in (8, 13):
         U, Zk = U13[:, :k], Z13[:, :k].contiguous()
-        for name, kernel, plain in (
+        for name, kernel, plain, library, vec in (
                 ("xt_multi_bf16", lambda: ops.xt_multi(Xh, U),
-                 lambda: ref.ref_xt_multi(Xh, U)),
+                 lambda: ref.ref_xt_multi(Xh, U),
+                 lambda: Xh.t() @ U.to(bf), (d + n) * k),
                 ("x_cz_multi_bf16", lambda: ops.x_cz_multi(Xh, c, Zk),
-                 lambda: ref.ref_x_cz_multi(Xh, c, Zk))):
+                 lambda: ref.ref_x_cz_multi(Xh, c, Zk),
+                 lambda: Xh @ (c[:, None] * Zk).to(bf), n * k + n + d * k)):
             got, again, want = kernel(), kernel(), plain()
+            lib = library()
             torch.cuda.synchronize()
             e = record_err(errs, name, got, want)
             same = bool(torch.equal(got, again))
+            lib_rel = rel_err(lib.float(), got)
             check(e <= REL_TOL_KERNEL and same,
                   f"{name} full width s={k} ({groups(k)} launches): rel err "
-                  f"{e:.2e}, repeatable {same}")
-            del got, again, want
+                  f"{e:.2e}, repeatable {same}; the library call (bf16 "
+                  f"output) {lib_rel:.2e} from it")
+            del got, again, want, lib
+            t_bytes = (2 * d * n + 4 * vec) / HBM_BYTES_PER_S
+            t_ops = 2 * d * n * k / F32_FLOPS_PER_S
             out[name][f"ms_s{k}"] = time_ms(kernel)
+            out[name][f"bound_ms_s{k}"] = 1e3 * max(t_bytes, t_ops)
+            out[name][f"library_ms_s{k}"] = (time_ms(library)
+                                             if lib_rel <= 1e-2 else None)
     for name in DENSE_BF16:
         m = out[name]
         print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call, "
@@ -2299,10 +2461,133 @@ def measure_dense_bf16(torch, X, glm_hvp, ref, errs, f32) -> dict:
               f"f32 {m['f32_ms'] * 1e3:.1f} us ({m['bf16_over_f32']:.3f}x)",
               flush=True)
     print("dense bf16 detail " + json.dumps(
-        {k: {key: v for key, v in m.items() if key.startswith(("ms_s",
-                                                               "shapes"))}
+        {k: {key: v for key, v in m.items() if key.startswith(
+            ("ms_s", "bound_ms_s", "library_ms_s", "shapes"))}
          for k, m in out.items()}), flush=True)
+    out.update(measure_fused_bf16(torch, Xh, glm_hvp, ref, errs, f32))
     del Xh
+    return out
+
+
+def measure_fused_bf16(torch, Xh, glm_hvp, ref, errs, f32) -> dict:
+    """The bf16 K5 and K10 on the bf16 copy ``Xh`` of the dense slice's X
+    (2 GiB): K5 at the full width and the m = 4 shard shapes (the DiSCO-S
+    column view, the DiSCO-F row block), K10 at the full width at s =
+    TIMED_S and 8 and at the two shard shapes at s = TIMED_S (contiguous
+    U, as a DiSCO-S round passes its basis): each call held in its two
+    halves (:func:`check_dense_fused_bf16`), repeated bit for bit, on the
+    TMA path, then timed beside its bound (X's 2-byte elements and the f32
+    vectors once over the HBM rate; the f32 FMAs over the f32 peak), the
+    bf16 two-pass kernel pair (K3 + K4, K8 + K9), the pair of PyTorch
+    calls on the bf16 X (``torch.mv`` / ``@``, no single PyTorch call
+    computes the fused product, so ``library_ms`` is null), the plain
+    version and the f32 kernel's time of the same call (``f32``)."""
+    d, n = Xh.shape
+    bf = torch.bfloat16
+    s = TIMED_S
+    g = torch.Generator(device=Xh.device).manual_seed(6)
+    u = torch.randn(d, generator=g, device=Xh.device)
+    c = 0.25 * torch.rand(n, generator=g, device=Xh.device)
+    U8 = torch.randn((d, 8), generator=g, device=Xh.device)
+    cases = [("x_c_xt_u_bf16", "full", Xh, c, u),
+             ("x_c_xt_u_bf16", "S_m4_view", Xh[:, :n // 4], c[:n // 4], u),
+             ("x_c_xt_u_bf16", "F_m4_rows", Xh[:d // 4], c, u[:d // 4]),
+             ("x_c_xt_multi_bf16", "full", Xh, c, U8[:, :s].contiguous()),
+             ("x_c_xt_multi_bf16", "full_s8", Xh, c, U8),
+             ("x_c_xt_multi_bf16", "S_m4_view", Xh[:, :n // 4], c[:n // 4],
+              U8[:, :s].contiguous()),
+             ("x_c_xt_multi_bf16", "F_m4_rows", Xh[:d // 4], c,
+              U8[:d // 4, :s].contiguous())]
+    f32_of = {"x_c_xt_u_bf16": {
+        "full": f32["x_c_xt_u"]["ms"],
+        **{k: f32["x_c_xt_u"]["shapes"][k]["us"] / 1e3
+           for k in ("S_m4_view", "F_m4_rows")}},
+        "x_c_xt_multi_bf16": {
+        "full": f32["x_c_xt_multi"]["ms"],
+        "full_s8": f32["x_c_xt_multi"]["ms_by_s"][8],
+        "S_m4_view": f32["x_c_xt_multi"]["shapes"]["S_m4_view"]["us"] / 1e3}}
+    out = {}
+    for name, shape, A, ca, Ua in cases:
+        multi = Ua.dim() == 2
+        k = Ua.shape[1] if multi else 1
+        if multi:
+            kernel = lambda cz=None: glm_hvp.x_c_xt_multi(A, ca, Ua,
+                                                          cz_out=cz)
+            plain = lambda: ref.ref_x_c_xt_multi(A, ca, Ua)
+            pair = lambda: glm_hvp.x_cz_multi(A, ca, glm_hvp.xt_multi(A, Ua))
+            library = lambda: A @ (ca[:, None] * (A.t() @ Ua.to(bf))).to(bf)
+        else:
+            kernel = lambda cz=None: glm_hvp.x_c_xt_u(A, ca, Ua, cz_out=cz)
+            plain = lambda: ref.ref_x_c_xt_u(A, ca, Ua)
+            pair = lambda: glm_hvp.x_cz(A, ca, glm_hvp.xt_u(A, Ua))
+            library = lambda: torch.mv(A, (ca * torch.mv(
+                A.t(), Ua.to(bf)).float()).to(bf))
+        cz = torch.zeros((A.shape[1],) + ((k,) if multi else ()),
+                         device=Xh.device)
+        got, again = kernel(cz), kernel()
+        run = glm_hvp.last_fused[name]
+        torch.cuda.synchronize()
+        r = check_dense_fused_bf16(torch, glm_hvp, ref, A, ca, Ua, got, cz)
+        record_fused_bf16(errs, name, r)
+        same = bool(torch.equal(got, again))
+        lib = library()
+        torch.cuda.synchronize()
+        lib_rel = rel_err(lib.float(), got)
+        rate = ref.handoff_rate_ok(r["flips"], r["numel"])
+        check(max(r["rel"], r["pair_rel"]) <= REL_TOL_KERNEL and r["ties"]
+              and rate and same and run.path == "bulk",
+              f"{name} {shape} {tuple(A.shape)} s={k}: rel err of y against "
+              f"the plain and the pair's pass B on the kernel's hand-off "
+              f"{r['rel']:.2e} / {r['pair_rel']:.2e}, hand-off elements off "
+              f"the plain / pair rounding {r['flips']} / {r['pair_flips']} "
+              f"of {cz.numel()} (all within the slack {r['ties']}), "
+              f"end-to-end rel err {r['end_to_end']:.2e}, repeatable "
+              f"{same}, {fused_tag(run)}; the library pair (bf16 output) "
+              f"{lib_rel:.2e} from it")
+        del got, again, lib, cz
+        rows, cols = A.shape
+        nbytes = 2 * A.numel() + 4 * (2 * rows * k + cols)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (4 * A.numel() * k + cols * k) / F32_FLOPS_PER_S
+        ms = time_ms(kernel)
+        f32_ms = f32_of[name].get(shape)
+        row = dict(ms=ms, library_ms=None,
+                   library_pair_ms=(time_ms(library) if lib_rel <= 1e-2
+                                    else None),
+                   kernel_pair_ms=time_ms(pair),
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, gbps=nbytes / ms / 1e6,
+                   share_of_bound=1e3 * max(t_bytes, t_ops) / ms,
+                   dims=list(A.shape), s=k, path=run.path,
+                   plan=dict(run.plan._asdict(), clusters=run.clusters),
+                   f32_ms=f32_ms,
+                   bf16_over_f32=None if f32_ms is None else ms / f32_ms)
+        if shape == "full":
+            out[name] = dict(row, plain_ms=time_ms(plain), shape=[d, n] + (
+                [k] if multi else []), shapes={})
+        else:
+            out[name]["shapes"][shape] = row
+        print(f"{name} {shape} {row['dims']} s={k}: {ms * 1e3:.1f} us/call, "
+              f"{row['gbps']:.0f} GB/s, bound {row['bound_ms'] * 1e3:.1f} us"
+              f" ({100 * row['share_of_bound']:.1f}%), bf16 kernel pair "
+              f"{row['kernel_pair_ms'] * 1e3:.1f} us, library pair "
+              f"{row['library_pair_ms']} ms, f32 kernel "
+              + ("not measured" if f32_ms is None
+                 else f"{f32_ms * 1e3:.1f} us")
+              + f", {fused_tag(run)}", flush=True)
+    for name in DENSE_FUSED_BF16:
+        m = out[name]
+        print(f"{name} full width {m['shape']}: {m['ms'] * 1e3:.1f} us/call,"
+              f" {m['gbps']:.0f} GB/s over {m['bytes'] / 1e9:.3f} GB, bound "
+              f"{m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}, "
+              f"{100 * m['share_of_bound']:.1f}%), plain "
+              f"{m['plain_ms'] * 1e3:.1f} us, bf16 kernel pair "
+              f"{m['kernel_pair_ms'] * 1e3:.1f} us, library pair "
+              f"{m['library_pair_ms']}, f32 {m['f32_ms'] * 1e3:.1f} us "
+              f"({m['bf16_over_f32']:.3f}x)", flush=True)
+    print("dense fused bf16 detail " + json.dumps(
+        {k: m["shapes"] for k, m in out.items()}), flush=True)
     return out
 
 
@@ -2336,7 +2621,8 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     timings = measure_dense_kernels(torch, X, glm_hvp, ref, errs)
     timings.update(measure_dense_bf16(torch, X, glm_hvp, ref, errs, timings))
-    launches = dict.fromkeys(DENSE_KERNELS + DENSE_BF16, 0)
+    launches = dict.fromkeys(DENSE_KERNELS + DENSE_BF16 + DENSE_FUSED_BF16,
+                             0)
     results, iters = {}, {}
     for partition, m, fused in RUNS:
         tag = "dense " + run_tag(partition, m, fused)
@@ -2382,16 +2668,24 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
                             ((p, 1, True), "fused vs two-pass")):
             e = rel_w(results[other], base)
             check(e <= REL_TOL_W, f"dense {p} {what}: rel diff of w {e:.2e}")
-    sstep_phase(torch, rt, build, X, y, DENSE_SOLVE, DENSE_SSTEP_RUNS,
-                {p: (results[(p, 1, False)], iters[(p, 1, False)])
-                 for p in ("samples", "features")}, False, launches)
-    lambda_path_phase(torch, rt, build, X, y, model,
-                      results[("samples", 1, False)], launches)
+    sstep = sstep_phase(torch, rt, build, X, y, DENSE_SOLVE,
+                        DENSE_SSTEP_RUNS,
+                        {p: (results[(p, 1, False)], iters[(p, 1, False)])
+                         for p in ("samples", "features")}, False, launches)
+    f32_path = lambda_path_phase(torch, rt, build, X, y, model,
+                                 results[("samples", 1, False)], launches)
     softmax_phase(torch, rt, build, X, launches)
     glm_losses_phase(torch, rt, build, X, model, launches)
-    dense_bf16_phase(torch, rt, build, X, y, model,
-                     {p: results[(p, 1, False)]
-                      for p in ("samples", "features")}, launches)
+    bf16_pair = dense_bf16_phase(torch, rt, build, X, y, model,
+                                 {p: results[(p, 1, False)]
+                                  for p in ("samples", "features")},
+                                 launches)
+    f32_fused = {(p, 1, 1): (results[(p, 1, True)], iters[(p, 1, True)])
+                 for p in ("samples", "features")}
+    f32_fused[("samples", 1, SSTEP_S)] = sstep[("samples", 1, True)]
+    f32_fused["path"] = f32_path
+    dense_fused_bf16_phase(torch, rt, build, X, y, model, f32_fused,
+                           bf16_pair, launches)
     baselines_dense_phase(torch, rt, X, y)
     del X, y, model
     gc.collect()
@@ -2408,21 +2702,26 @@ def as_bf16(n: dict) -> dict:
     kernels) moved to the bf16 instances: on bf16 tiles the f32 kernels
     launch none."""
     out = dict.fromkeys(DENSE_KERNELS, 0)
-    out.update({f"{k}_bf16": n.get(k, 0) for k in DENSE_TWO_PASS})
+    out.update({f"{k}_bf16": n.get(k, 0) for k in DENSE_KERNELS})
     return out
 
 
-def dense_bf16_launches(partition, m, s, use_kernel, steps, units) -> dict:
+def dense_bf16_launches(partition, m, s, use_kernel, steps, units,
+                        fused=False) -> dict:
     """The dense kernel launches of a bf16 fit: the margins and the
     gradient are cuBLAS on the f32 X, so no f32 kernel launches; PCG's
-    products go to the bf16 instances: classic, one two-pass HVP an
-    iteration on each shard; s-step as :func:`predicted_launches` counts
+    products go to the bf16 instances as an f32 fit makes them: classic,
+    one HVP an iteration on each shard (the one-pass K5 when ``fused``
+    and no collective separates the passes: DiSCO-S, one-shard DiSCO-F;
+    else the two-pass pair); s-step as :func:`predicted_launches` counts
     them; the plain layout (``use_kernel=False``) launches none."""
     if not use_kernel:
         return as_bf16({})
     if s > 1:
-        return as_bf16(predicted_launches(False, partition, m, False, s,
+        return as_bf16(predicted_launches(False, partition, m, fused, s,
                                           steps, units))
+    if fused and (partition == "samples" or m == 1):
+        return as_bf16({"x_c_xt_u": m * units})
     return as_bf16({"xt_u": m * units, "x_cz": m * units})
 
 
@@ -2435,9 +2734,12 @@ def dense_bf16_phase(torch, rt, build, X, y, model, f32_w, launches):
     then a warm two-pass λ-path (classic DiSCO-S m = 1 at LAMBDAS, scored
     on N_VAL held-out samples), the same checks, its λ = 1e-4 endpoint at
     the f32 w. Each prints iter_s, PCG iterations, gradient norms and peak
-    memory."""
+    memory. Returns the kernels' runs' ``w`` and PCG iterations (rounds)
+    per step by (partition, m, pcg_block_s), and the λ-path's endpoint
+    ``w`` under "path"."""
     from repro_torch.core import comm
     bf = torch.bfloat16
+    out = {}
     for partition, m, s, use_kernel in BF16_DENSE_RUNS:
         kind = f"s-step s={s} " if s > 1 else ""
         layout = "" if use_kernel else " plain layout"
@@ -2484,6 +2786,8 @@ def dense_bf16_phase(torch, rt, build, X, y, model, f32_w, launches):
               f"{row['pcg_iters']}, median iter_s "
               f"{row['iter_s_median']:.4f}, peak "
               f"{row['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        if use_kernel:
+            out[(partition, m, s)] = (res.w, row["pcg_iters"])
         del solver, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2530,8 +2834,168 @@ def dense_bf16_phase(torch, rt, build, X, y, model, f32_w, launches):
     check(path.lambdas[-1] == DENSE_SOLVE["lam"] and e <= REL_TOL_W,
           f"bf16 lambda path: the lambda={path.lambdas[-1]:g} endpoint vs "
           f"the f32 classic m=1 w: rel diff {e:.2e}")
+    out["path"] = path.results[-1].w
     del X_val, y_val, path
+    return out
 
+
+
+def dense_fused_bf16_phase(torch, rt, build, X, y, model, f32_fused,
+                           bf16_pair, launches) -> None:
+    """The fused bf16 runs on the dense slice's X (``hvp_fused=True,
+    hvp_dtype='bfloat16'``): BF16_FUSED_RUNS, each with X shared and
+    PCG's shards views of one bf16 copy, held to the launches the code
+    predicts (:func:`dense_bf16_launches`), f falling every Newton step,
+    ``w`` within REL_TOL_W of the f32 fused run's (``f32_fused``; the f32
+    DiSCO-S m = 4 fused run is made here first, as the f32 runs have
+    none) and of the bf16 two-pass run's of its cell (``bf16_pair``), and
+    its PCG iterations (rounds) in all within FUSED_BF16_ITERS of the f32
+    fused run's. Then a warm fused s-step λ-path (DiSCO-S m = 1: K5 for
+    the basis products, K10 for the rounds) at LAMBDAS, scored on N_VAL
+    held-out samples: ``with_lam`` allocates nothing and shares X and its
+    bf16 copy, the launches predicted, f falling at every point, the
+    λ = 1e-4 endpoint within REL_TOL_W of the f32 fused λ-path's and the
+    bf16 two-pass λ-path's; its rounds printed beside the f32 path's."""
+    from repro_torch.core import comm
+    bf = torch.bfloat16
+    cfg = rt.DiscoConfig(partition="samples", hvp_fused=True, **DENSE_SOLVE)
+    solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(4),
+                            device="cuda")
+    res, counts = fit_counted(torch, build, solver)
+    for k in launches:
+        launches[k] += counts[k]
+    tag = "dense " + run_tag("samples", 4, True)
+    row = run_row(torch, tag, res, counts, 0.0,
+                  f=[h["f"] for h in res.history])
+    check_f_decreases(tag, res.history)
+    check(counts["x_c_xt_u"] > 0 and counts["xt_u"] == 0,
+          f"{tag}: x_c_xt_u launched for every HVP")
+    f32_fused[("samples", 4, 1)] = (res.w, row["pcg_iters"])
+    del solver, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    for partition, m, s in BF16_FUSED_RUNS:
+        kind = f"s-step s={s} " if s > 1 else ""
+        tag = f"dense bf16 {kind}{run_tag(partition, m, True)}"
+        cfg = rt.DiscoConfig(partition=partition, pcg_block_s=s,
+                             hvp_fused=True, hvp_dtype="bfloat16",
+                             **DENSE_SOLVE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=rt.InProcessGroup(m),
+                                device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        base = solver.X_h.untyped_storage().data_ptr()
+        check(solver.X.data_ptr() == X.data_ptr()
+              and solver.X_h.dtype == bf
+              and all(h.dtype == bf and h.untyped_storage().data_ptr() == base
+                      for h in solver._hvp_locs),
+              f"{tag}: X shared, PCG's shards views of one bf16 copy")
+        res, counts = fit_counted(torch, build, solver)
+        for k in launches:
+            launches[k] += counts[k]
+        hist = res.history
+        units = sum(int(h["pcg_iters"]) for h in hist)
+        row = run_row(torch, tag, res, counts, setup_s,
+                      f=[h["f"] for h in hist],
+                      hvp_bytes=comm.dense_hvp_bytes(
+                          *X.shape, fused=True, dtype_bytes=BYTES_BF16))
+        check(bool(torch.from_numpy(res.w).isfinite().all())
+              and res.w.shape == (X.shape[0],),
+              f"{tag}: finite w of shape (d,)")
+        want = dense_bf16_launches(partition, m, s, True, len(hist), units,
+                                   fused=True)
+        got = {k: counts[k] for k in want}
+        check(got == want and units > 0
+              and counts["x_c_xt_u_bf16"] + counts["x_c_xt_multi_bf16"] > 0,
+              f"{tag}: launches as predicted {json.dumps(want)}"
+              + ("" if got == want else f", got {json.dumps(got)}"))
+        check_f_decreases(tag, hist)
+        f32_w, f32_iters = f32_fused[(partition, m, s)]
+        pair_w, pair_iters = bf16_pair[(partition, m, s)]
+        e32, epair = rel_w(res.w, f32_w), rel_w(res.w, pair_w)
+        check(e32 <= REL_TOL_W and epair <= REL_TOL_W,
+              f"{tag}: rel diff of w {e32:.2e} from the f32 fused run, "
+              f"{epair:.2e} from the bf16 two-pass run (<= {REL_TOL_W:g})")
+        base_iters = sum(f32_iters)
+        check(abs(units - base_iters) <= FUSED_BF16_ITERS * base_iters,
+              f"{tag}: PCG {'rounds' if s > 1 else 'iterations'} {units} "
+              f"{row['pcg_iters']} within {FUSED_BF16_ITERS:.0%} of the f32 "
+              f"fused run's {base_iters} {f32_iters} (bf16 two-pass "
+              f"{sum(pair_iters)})")
+        print(f"{tag}: median iter_s {row['iter_s_median']:.4f}, peak "
+              f"{row['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    X_val, y_val = held_out(torch, model, N_VAL, seed=1)
+    cfg = rt.DiscoConfig(partition="samples", hvp_fused=True,
+                         pcg_block_s=SSTEP_S, hvp_dtype="bfloat16",
+                         **dict(DENSE_SOLVE, grad_tol=1e-8))
+    solver = rt.DiscoSolver(X, y, cfg, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    other = solver.with_lam(LAMBDAS[1])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after == before and other.X is solver.X
+          and other.X_h is solver.X_h
+          and other._hvp_locs is solver._hvp_locs,
+          f"fused bf16 lambda path: with_lam allocated {after - before} "
+          f"bytes and shares X and its bf16 copy")
+    del solver, other
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = rt.lambda_path_fit(X, y, LAMBDAS, cfg, device="cuda",
+                              X_val=X_val, y_val=y_val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    pred = dict.fromkeys(DENSE_KERNELS, 0)
+    points = []
+    for lam, res, passes, vloss in zip(path.lambdas, path.results,
+                                       path.x_passes, path.val_losses):
+        hist = res.history
+        rounds = [int(h["pcg_iters"]) for h in hist]
+        for k, v in predicted_launches(False, "samples", 1, True, SSTEP_S,
+                                       len(hist), sum(rounds)).items():
+            if k in pred:
+                pred[k] += v
+        check_f_decreases(f"fused bf16 lambda path point {lam:g}", hist)
+        points.append(dict(
+            lam=lam, newton_iters=len(hist), rounds=rounds,
+            iter_s_median=statistics.median(h["iter_s"] for h in hist),
+            x_passes=passes, val_loss=vloss,
+            grad_norm_first=hist[0]["grad_norm"],
+            grad_norm_last=hist[-1]["grad_norm"]))
+    want = as_bf16(pred)
+    total = sum(sum(p["rounds"]) for p in points)
+    print("lambda path fused bf16 " + json.dumps(dict(
+        points=points, best_lambda=path.best_lambda, wall_s=wall,
+        total_x_passes=path.total_x_passes, n_val=N_VAL, rounds=total,
+        f32_fused_rounds=f32_fused["path"][1],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: counts[k] for k in want})), flush=True)
+    got = {k: counts[k] for k in want}
+    check(got == want and counts["x_c_xt_u_bf16"] > 0
+          and counts["x_c_xt_multi_bf16"] > 0,
+          f"fused bf16 lambda path: launches as predicted "
+          f"{json.dumps(want)}"
+          + ("" if got == want else f", got {json.dumps(got)}"))
+    e32 = rel_w(path.results[-1].w, f32_fused["path"][0])
+    epair = rel_w(path.results[-1].w, bf16_pair["path"])
+    check(path.lambdas[-1] == DENSE_SOLVE["lam"] and e32 <= REL_TOL_W
+          and epair <= REL_TOL_W,
+          f"fused bf16 lambda path: the lambda={path.lambdas[-1]:g} "
+          f"endpoint vs the f32 fused path's {e32:.2e}, vs the bf16 "
+          f"two-pass path's {epair:.2e} (<= {REL_TOL_W:g}); rounds {total} "
+          f"against the f32 fused path's {f32_fused['path'][1]}")
+    del X_val, y_val, path
 
 
 def lambda_path_phase(torch, rt, build, X, y, model, classic_w,
@@ -2595,7 +3059,9 @@ def lambda_path_phase(torch, rt, build, X, y, model, classic_w,
     check(path.lambdas[-1] == DENSE_SOLVE["lam"] and e <= REL_TOL_W,
           f"lambda path: the lambda={path.lambdas[-1]:g} endpoint vs the "
           f"classic m=1 w: rel diff {e:.2e}")
+    out = (path.results[-1].w, sum(sum(p["rounds"]) for p in points))
     del X_val, y_val, path
+    return out
 
 
 def softmax_launches(partition, m, s, units):
@@ -2968,22 +3434,26 @@ def small_bf16_reference(torch, rt) -> None:
 
 def small_bf16_dense_reference(torch, rt) -> None:
     """Small bf16 dense solves (``hvp_dtype='bfloat16'``) on the card
-    against the same solves on the CPU: DiSCO-S m = 1 and DiSCO-F m = 2
-    on the kernels' layout, DiSCO-S m = 1 s-step (s = 2), and DiSCO-S m = 1
-    on the plain layout. The same PCG iterations (or rounds) every step
-    and w within relative L2 BF16_REL_W_SMALL (F11), the bf16 instances
-    launched on the kernels' layout and no f32 dense kernel at all."""
+    against the same solves on the CPU: two-pass DiSCO-S m = 1 and
+    DiSCO-F m = 2 on the kernels' layout, DiSCO-S m = 1 s-step (s = 2),
+    and DiSCO-S m = 1 on the plain layout; fused (the one-pass K5 / K10)
+    DiSCO-S m = 1 and 2, DiSCO-F m = 1 s-step (s = 2) and DiSCO-F m = 2.
+    The same PCG iterations (or rounds) every step and w within relative
+    L2 BF16_REL_W_SMALL (F11), the bf16 instances launched on the
+    kernels' layout (the one-pass ones wherever no collective separates
+    the passes) and no f32 dense kernel at all."""
     import numpy as np
     from repro_torch.kernels import build
     X, y, _ = rt.make_glm_data(d=98, n=202, seed=1)
-    for partition, m, s, use_kernel in (("samples", 1, 1, True),
-                                        ("features", 2, 1, True),
-                                        ("samples", 1, 2, True),
-                                        ("samples", 1, 1, False)):
+    for partition, m, s, use_kernel, fused in (
+            ("samples", 1, 1, True, False), ("features", 2, 1, True, False),
+            ("samples", 1, 2, True, False), ("samples", 1, 1, False, False),
+            ("samples", 1, 1, True, True), ("samples", 2, 1, True, True),
+            ("features", 1, 2, True, True), ("features", 2, 1, True, True)):
         cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100,
                              max_outer=4, grad_tol=0.0, partition=partition,
                              pcg_block_s=s, use_kernel=use_kernel,
-                             hvp_dtype="bfloat16")
+                             hvp_fused=fused, hvp_dtype="bfloat16")
         group = rt.InProcessGroup(m)
         build.reset_launch_counts()
         on_card = rt.disco_fit(X, y, cfg, group=group, device="cuda")
@@ -2992,17 +3462,21 @@ def small_bf16_dense_reference(torch, rt) -> None:
         e = rel_w(on_card.w, on_cpu.w)
         same_iters = [h["pcg_iters"] for h in on_card.history] == \
             [h["pcg_iters"] for h in on_cpu.history]
-        bf16 = sum(counts[k] for k in DENSE_BF16)
+        bf16 = sum(counts[k] for k in DENSE_BF16 + DENSE_FUSED_BF16)
+        one_pass = sum(counts[k] for k in DENSE_FUSED_BF16)
         f32 = sum(counts[k] for k in DENSE_KERNELS)
         kind = "" if s == 1 else f" s-step s={s}"
         layout = "" if use_kernel else " plain layout"
         check(e <= BF16_REL_W_SMALL and same_iters and f32 == 0
               and (bf16 > 0) == use_kernel
+              and (one_pass > 0) == (fused and (partition == "samples"
+                                                or m == 1))
               and bool(np.isfinite(on_card.w).all()),
-              f"small bf16 dense{kind} {run_tag(partition, m, False)}"
+              f"small bf16 dense{kind} {run_tag(partition, m, fused)}"
               f"{layout} on the card vs the CPU: rel diff of w {e:.2e} (<= "
               f"{BF16_REL_W_SMALL:g}), same PCG iterations {same_iters}, "
-              f"bf16 launches {bf16}, f32 dense launches {f32}")
+              f"bf16 launches {bf16} (one-pass {one_pass}), f32 dense "
+              f"launches {f32}")
 
 
 # ---------------------------------------------------------------------------
@@ -3136,8 +3610,8 @@ def f_decreases(hist) -> bool:
 
 def sag_slice_runs(torch, rt, build, X, y, woodbury, launches) -> None:
     """The original DiSCO at the sparse slice's shape: DiSCO-S with
-    ``precond='sag'`` (sag_epochs = 5, tau = 100) at m = 1 and 4, 3 Newton
-    steps, two-pass. Each: the launches the code predicts, f decreasing
+    ``precond='sag'`` (sag_epochs = 5, tau = 100) at m = 1 and 4, 2 Newton
+    steps, two-pass (3 until the bf16 one-pass phases took their time). Each: the launches the code predicts, f decreasing
     at every step and the gradient norm falling; one SAG application
     timed (ms, launches, busy share) on the first; the steps' PCG
     iterations and time per SAG application against the classic
@@ -3193,8 +3667,8 @@ def sag_slice_runs(torch, rt, build, X, y, woodbury, launches) -> None:
 
 def subsample_slice_runs(torch, rt, build, X, y, launches) -> None:
     """Hessian subsampling at the sparse slice's shape: DiSCO-F two-pass
-    with ``hessian_subsample`` in SUBSAMPLE_FRACS at m = 1 and 4, 3
-    Newton steps. Each: one mask a step over the padded sample axis,
+    with ``hessian_subsample`` in SUBSAMPLE_FRACS at m = 1 and 4, 2
+    Newton steps (3 until the bf16 one-pass phases took their time). Each: one mask a step over the padded sample axis,
     its mean within 5 sigma of frac; finite f and w; the launches the code
     predicts. f and the gradient norm are printed, not held to a
     decrease: at lam = 1e-4 with d > n a Newton step on a 6.25% Hessian
@@ -3802,6 +4276,7 @@ def main() -> int:
     phase_bf16_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs)
+    phase_dense_fused_bf16_kernels(torch, glm_hvp, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)

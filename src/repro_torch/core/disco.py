@@ -22,9 +22,9 @@ no preconditioner and optional Hessian subsampling. On the card the ops
 are the CUDA kernels. PCG's HVP tiles are f32 or bf16
 (``hvp_dtype='bfloat16'``: bf16 copies of the two sparse layouts, or of
 the dense X, for PCG, the f32 data kept for the margins and the
-gradient, as in the reference). bf16 with the one-pass dense kernels
-(``hvp_fused=True`` on dense input), checkpointing and tracing are not
-yet ported and raise. :meth:`DiscoSolver.with_lam`
+gradient, as in the reference; with the two-pass or the one-pass
+kernels alike). Checkpointing and tracing are not yet ported and raise.
+:meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
@@ -64,14 +64,12 @@ class DiscoConfig:
     'sag' (DiSCO-S only, ``sag_epochs`` inner epochs) | 'none'),
     max_outer, max_pcg, pcg_rel_tol, grad_tol, hessian_subsample (each
     outer step draws fresh masks from ``seed``: :func:`subsample_mask`),
-    use_kernel (dense input), hvp_fused, hvp_dtype ('float32', or
-    'bfloat16': on dense input with the two-pass HVP only),
+    use_kernel (dense input), hvp_fused, hvp_dtype ('float32' or
+    'bfloat16', on every input, two-pass or fused),
     pcg_block_s (s-step PCG; ``max_pcg`` then caps rounds),
     partition_strategy, partition_block, ell_block_d, ell_block_n (sparse
-    input). The fields for the paths not yet ported must keep their
-    defaults (``hvp_dtype='float32'`` on dense input with
-    ``hvp_fused=True``, ``trace=False``); the out-of-core fields are
-    unused.
+    input). ``trace`` must keep its default (False: not yet ported); the
+    out-of-core fields are unused.
     """
 
     loss: str = "logistic"
@@ -239,12 +237,6 @@ class DiscoSolver:
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
                              sparse=sparse, use_kernel=cfg.use_kernel)
-        if (not sparse and self.hvp_dtype != torch.float32
-                and cfg.hvp_fused):
-            raise _not_ported(
-                "hvp_dtype='bfloat16' with hvp_fused=True on dense input "
-                "(bf16 X tiles for the one-pass dense kernels K5 x_c_xt_u "
-                "and K10 x_c_xt_multi)")
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg

@@ -248,7 +248,7 @@ class DenseKernelOperator(HvpOperator):
     their multi-vector ``xt_multi``, ``x_cz_multi``; on bf16 X their bf16
     instances, which round the vector operand as the TPU kernels do);
     ``fused=True`` selects the one-pass ``x_c_xt_u`` and ``x_c_xt_multi``
-    for the full products (f32 X only)."""
+    for the full products (their bf16 instances on bf16 X)."""
 
     layout = "dense_kernel"
 

@@ -56,8 +56,9 @@ class SoftmaxConfig:
     ``n_classes=0`` infers K from the labels. The preconditioner is the
     identity (plain CG): the Woodbury closed form does not extend to the
     (dK x dK) coupled system. ``hvp_fused`` is always an unsupported cell
-    (kept so the registry names it); ``hvp_dtype`` must stay 'float32'
-    (bf16 tiles are not yet ported).
+    (kept so the registry names it); ``hvp_dtype`` is 'float32' or
+    'bfloat16' (PCG's products on one bf16 copy of X, as in the module
+    notes).
     """
 
     n_classes: int = 0              # 0 = infer from labels

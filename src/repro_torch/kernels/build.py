@@ -17,7 +17,8 @@ The kernels, and the modules whose wrappers launch them:
                                            :mod:`repro_torch.kernels.sparse_hvp`
   xt_u, x_cz, x_c_xt_u, xt_multi, x_cz_multi, x_c_xt_multi, and the
   bf16-tile instances xt_u_bf16, x_cz_bf16, xt_multi_bf16,
-  x_cz_multi_bf16                          :mod:`repro_torch.kernels.glm_hvp`
+  x_cz_multi_bf16, x_c_xt_u_bf16, x_c_xt_multi_bf16
+                                           :mod:`repro_torch.kernels.glm_hvp`
   flash_attention                          :mod:`repro_torch.kernels.flash_attention`
 
 The multi-vector kernels (``ell_mm``, ``ell_hvp_mm``, ``xt_multi``,
@@ -124,10 +125,11 @@ XT_U = CudaKernel("xt_u", [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _PI,
 #  stream)
 X_CZ = CudaKernel("x_cz", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _PI, _P])
-# (X, ld, c, u, y, scratch, d, n, cluster size, panel columns, stages,
-#  clusters (0: as many as fit), cap, path out, clusters out, stream)
-X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _PI, _PI, _P])
+# (X, ld, c, u, y, c .* z out, scratch, d, n, cluster size, panel columns,
+#  stages, clusters (0: as many as fit), cap, path out, clusters out,
+#  stream)
+X_C_XT_U = CudaKernel("x_c_xt_u", [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _PI, _PI, _P])
 # (tiles, cols, schedule, ctas, V, ldv, floats readable from V, c, Y,
 #  scratch, n_blocks, W, rows, cols-per-tile, n_in_blocks, s, path out,
 #  stream)
@@ -145,12 +147,12 @@ XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
 # (X, ld, c, Z, ldz, Y, d, n, s, threads, stream)
 X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
                                        _I, _P])
-# (X, ld, c, U, ldu, Y, scratch, d, n, s, cluster size, panel columns,
-#  stages, clusters (0: as many as fit), cap, path out, clusters out,
-#  stream)
-X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _I,
-                                           _I, _I, _I, _I, _I, _I, _I, _PI,
-                                           _PI, _P])
+# (X, ld, c, U, ldu, Y, c .* Z out, scratch, d, n, s, cluster size, panel
+#  columns, stages, clusters (0: as many as fit), cap, path out, clusters
+#  out, stream)
+X_C_XT_MULTI = CudaKernel("x_c_xt_multi", [_P, _L, _P, _P, _L, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _I, _I,
+                                           _PI, _PI, _P])
 # (q, k, v, o, strides: 12 int64, the (batch, head, row) strides of q, k,
 #  v and o; B, Hq, Hkv, S, T, Dh, kv_len, causal, window, scale, bf16,
 #  stream)
@@ -163,15 +165,17 @@ ELL_MV_BF16 = CudaKernel("ell_mv_bf16", ELL_MV.argtypes)
 ELL_HVP_BF16 = CudaKernel("ell_hvp_bf16", ELL_HVP.argtypes)
 ELL_MM_BF16 = CudaKernel("ell_mm_bf16", ELL_MM.argtypes)
 ELL_HVP_MM_BF16 = CudaKernel("ell_hvp_mm_bf16", ELL_HVP_MM.argtypes)
-# the two-pass dense kernels on bf16 tiles, likewise
+# the dense kernels on bf16 tiles, likewise
 XT_U_BF16 = CudaKernel("xt_u_bf16", XT_U.argtypes)
 X_CZ_BF16 = CudaKernel("x_cz_bf16", X_CZ.argtypes)
 XT_MULTI_BF16 = CudaKernel("xt_multi_bf16", XT_MULTI.argtypes)
 X_CZ_MULTI_BF16 = CudaKernel("x_cz_multi_bf16", X_CZ_MULTI.argtypes)
+X_C_XT_U_BF16 = CudaKernel("x_c_xt_u_bf16", X_C_XT_U.argtypes)
+X_C_XT_MULTI_BF16 = CudaKernel("x_c_xt_multi_bf16", X_C_XT_MULTI.argtypes)
 KERNELS = (ELL_MV, ELL_HVP, XT_U, X_CZ, X_C_XT_U, ELL_MM, ELL_HVP_MM,
            XT_MULTI, X_CZ_MULTI, X_C_XT_MULTI, FLASH_ATTENTION, ELL_MV_BF16,
            ELL_HVP_BF16, ELL_MM_BF16, ELL_HVP_MM_BF16, XT_U_BF16, X_CZ_BF16,
-           XT_MULTI_BF16, X_CZ_MULTI_BF16)
+           XT_MULTI_BF16, X_CZ_MULTI_BF16, X_C_XT_U_BF16, X_C_XT_MULTI_BF16)
 
 
 def _nvcc() -> str:

@@ -2,19 +2,32 @@
 // over S = 1..kern::kMaxCols columns: a thread-block cluster shares each
 // column panel of X, split by rows, and exchanges only the panel's partial
 // X^T U through distributed shared memory. x_c_xt_u.cu (K5, S = 1) and
-// x_c_xt_multi.cu (K10) are its two entry points.
+// x_c_xt_multi.cu (K10) are its entry points for f32 tiles,
+// x_c_xt_u_bf16.cu and x_c_xt_multi_bf16.cu for bf16 tiles
+// (DiscoConfig.hvp_dtype = 'bfloat16').
 //
-// Layout: X (d, n) f32, row-major with row stride ld >= n elements (a
-// DiSCO-S column view or a DiSCO-F row block is passed as a view, never
-// copied); c (optional, n); U (d, S) f32 row-major with row stride ldu >= S
-// (K5: u, ldu = 1); scratch (clusters, d, S) f32; Y (d, S) f32 row-major.
-// Element offsets are 64-bit.
+// Layout: X (d, n) of tile type T (float or __nv_bfloat16), row-major with
+// row stride ld >= n elements (a DiSCO-S column view or a DiSCO-F row block
+// is passed as a view, never copied); c (optional, n); U (d, S) f32
+// row-major with row stride ldu >= S (K5: u, ldu = 1); scratch (clusters,
+// d, S) f32; Y (d, S) f32 row-major; cz_out (optional, n x S f32, row-major)
+// receives the hand-off c .* z as pass 2 uses it, for the checks (null on
+// every solver path). Element offsets are 64-bit.
+//
+// bf16 tiles round where the TPU kernels round (repro/kernels/glm_hvp.py:
+// `u.astype(X.dtype)` at entry, `cz = (c * z).astype(x.dtype)` between the
+// passes): U is rounded to bf16 as it is staged into U's slice, and c .* z
+// (z alone without c) after the cluster's rank-ordered sum of z. Every
+// product is then of two bf16 values, exact in f32; the sums are f32, so
+// only their order differs from the plain version's.
 //
 // The plan (kernels/glm_hvp.py fused_plan mirrors it on the host).
 // - A cluster of Q CTAs (Q in 1, 2, 4, 8, one CTA an SM) walks column
-//   panels of BN (32 or 16) columns. CTA rank q holds rows [q R, (q + 1) R)
-//   of every panel, R = ceil(d / Q) rounded up to kRowQuantum; rows past d
-//   read as zeros. At d = 4,096: Q = 8, BN = 32, R = 512, a 64 KB stage.
+//   panels of BN columns: rows of 128 or 64 bytes, so BN is 32 or 16 at
+//   f32 and 64 or 32 at bf16. CTA rank q holds rows [q R, (q + 1) R) of
+//   every panel, R = ceil(d / Q) rounded up to kRowQuantum; rows past d
+//   read as zeros. At d = 4,096: Q = 8, R = 512, BN = 32 at f32 and 64 at
+//   bf16, a 64 KB stage either way.
 // - With C clusters and P = ceil(n / BN) panels, cluster k takes panels
 //   [k P / C, (k + 1) P / C) (glm_hvp.fused_split): shares differ by at
 //   most one panel, with no table. C is as many clusters as the card holds
@@ -23,36 +36,45 @@
 // Design.
 // - A producer warp brings each CTA's R x BN slice of a panel in by 2-D
 //   TMA copies of kBoxRows rows (the tensor map is over the X view: dims
-//   {n, d}, row stride ld * 4 bytes; X evict-first in L2) into a ring of
+//   {n, d}, row stride ld * sizeof(T) bytes; X evict-first in L2) into a ring of
 //   2-4 stages with full and empty mbarriers. Rows and columns past the
 //   view arrive as zeros, which covers a ragged last panel, d not a
 //   multiple of Q, and ranks wholly past d.
-// - 256 consumer threads; thread t takes the float4 column q = t % (BN / 4)
-//   of the panel and the rows rt + RT j (rt = t / (BN / 4), RT = 256 /
-//   (BN / 4) row threads): a warp reads whole 128-byte (BN = 32) rows, so
-//   no bank conflicts. U's slice (R x S) sits in shared memory for the
-//   CTA's whole run; the partial Y of the thread's rows in registers.
-// - Pass 1 of a panel: each thread's partial z over its rows (4 columns x
+// - 256 consumer threads; thread t takes the 16-byte column q = t % CT of
+//   the panel (V = 16 / sizeof(T) elements: 4 at f32, 8 at bf16; CT = BN /
+//   V threads a row) and the rows rt + RT j (rt = t / CT, RT = 256 / CT row
+//   threads): a warp reads whole 128-byte rows (CT = 8), so no bank
+//   conflicts. U's slice (R x S, f32) sits in shared memory for the CTA's
+//   whole run; the partial Y of the thread's rows in registers.
+// - Pass 1 of a panel: each thread's partial z over its rows (V columns x
 //   S), summed over the warp's row threads by shuffles, then over the warps
-//   in order through shared memory, into the CTA's exchange slot. Each warp
-//   then arrives (release, cluster scope) on every peer's exchange barrier
-//   for that slot.
+//   in order through shared memory, into the CTA's exchange slot (E = BN S
+//   partials: thread t sums partials t, t + 256, ..., E / 256 rounded up of
+//   them; at bf16 E passes 256 from S = 5 on). Each warp then arrives
+//   (release, cluster scope) on every peer's exchange barrier for that
+//   slot.
 // - Pass 2 (one panel later when the ring has three stages or more, so
 //   that pass 1 of panel i + 1 runs while the peers' partials of panel i
 //   arrive): wait (acquire) on the CTA's own exchange barrier, read the Q
 //   slots through DSMEM in rank order 0..Q-1 (every CTA gets the same z,
-//   summed in the same order), cz = c .* z, and dot each of the thread's
-//   rows with cz from the same stage; the BN / 4 threads of a row add their
-//   sums by a reduce-scatter of shuffles, which leaves each lane the whole
-//   sum of one row. Then the warps release the stage.
+//   summed in the same order), cz = c .* z (rounded to T), and dot each
+//   of the thread's rows with cz from the same stage; the CT threads of a
+//   row add their sums by a reduce-scatter of shuffles, which leaves each
+//   lane the whole sum of one row. Rank 0 copies cz to cz_out when asked,
+//   after the rows, not in the exchange loop (a store there took 11% of
+//   K10's time at s = 5 on an H100 at 700 W, chip_fused_variants.py).
+//   Then the warps release the stage.
 // - After its last panel each CTA writes the partial Y of its rows to the
 //   scratch row of its cluster; sum_rows (partials.cuh), launched right
 //   after by the same entry point, adds the C partials in cluster order.
 //   Every sum's order is fixed by (shape, Q, BN, C): no atomics, and the
 //   result repeats bit for bit.
-// - Direct path, for views a tensor map cannot take (ld % 4 != 0, or X not
-//   16-byte aligned): the same plan, split and exchange, X read from device
-//   memory by every consumer thread in both passes, no producer warp.
+// - Direct path, for views a tensor map cannot take (a row stride that is
+//   not a multiple of 16 bytes: ld % 4 != 0 at f32, ld % 8 != 0 at bf16; or
+//   X not 16-byte aligned, such as a DiSCO-S column view at an odd offset):
+//   the same plan, split and exchange, X read from device memory element by
+//   element (at the alignment it has) by every consumer thread in both
+//   passes, no producer warp.
 //
 // Where trouble was likely, and how it is resolved.
 // - The exchange slots: a CTA publishes panel m's partial into slot
@@ -71,15 +93,18 @@
 //   stages, so the lag is used only with three stages or more.
 // - Shared buffers between passes: the warps' column partials are written
 //   in pass 1 and cz in pass 2; one consumer barrier of each pass orders
-//   every reuse, and pass 1 of panels 0 and 1, back to back, have one more
-//   between them.
+//   every reuse, pass 1 of panels 0 and 1, back to back, have one more
+//   between them, and so do the last panels' pass 2, back to back when
+//   the lag is 1 (without it a warp could rewrite cz while a slower one
+//   still reads the panel before, or copies it to cz_out).
 // - Exit: a CTA must not exit while a peer may still read its slots, and
 //   the exchange barriers must be initialised in every CTA before a peer
 //   arrives on them: a cluster barrier of all threads at the start and at
 //   the end.
 //
-// Bound: device-memory bytes (4 S flops per 4-byte element of X, at S = 8
-// 8 flops a byte, under the f32 rate of 67 TFLOP/s per 3.35 TB/s). On an
+// Bound: device-memory bytes (4 S flops per element of X, at S = 8 8 flops
+// a byte at f32 and 16 at bf16, under the f32 rate of 67 TFLOP/s per 3.35
+// TB/s). On an
 // H100 SXM at 700 W (chip_fused_variants.py ablations, S = 1, full width):
 // the copies alone take 1562 us of the kernel's 1696 (rows of 128 bytes
 // 1 MiB apart stream at 2.75 TB/s; the bound is 1282 us), the exchange
@@ -87,7 +112,10 @@
 // columns, clusters of 4, the panels of a cluster taken in turn, 256-byte
 // L2 promotion, an evict-normal policy, boxes of 64 or 128 rows, 512
 // consumer threads, and the panel held in registers at S = 1 (the stage
-// released after pass 1).
+// released after pass 1). The bf16 instances keep every choice in bytes
+// (128-byte rows, 64 KB stages at d = 4,096) and take each thread's 16
+// bytes as 8 columns, so a thread holds twice the partial sums of pass 1
+// and the cz values of pass 2.
 #pragma once
 
 #include <cuda.h>
@@ -99,9 +127,11 @@
 namespace fused {
 
 using ells::aligned16;
+using ells::ldg_elem;
 using ells::mbar_expect_tx;
 using ells::mbar_init;
 using ells::mbar_wait;
+using ells::round_to;
 using ells::round_up;
 using ells::smem_u32;
 
@@ -114,6 +144,16 @@ constexpr int kSlots = 4;              // exchange slots (see the header)
 constexpr int kMaxStages = 4;
 constexpr int kBarrierBytes = 128;     // full, empty and exchange barriers
 static_assert(kRowQuantum % kBoxRows == 0, "a stage is whole copies");
+
+// Elements of X in one 16-byte read of a thread: 4 f32, 8 bf16.
+template <class T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// The two panel widths of tile type T: rows of 128 or 64 bytes.
+template <class T>
+constexpr int kWide = 8 * kVec<T>;
+template <class T>
+constexpr int kNarrow = 4 * kVec<T>;
 
 // Row groups (R / kRowQuantum) a CTA can hold at S columns: the partial Y
 // of a thread's rows lives in registers, groups x S of them.
@@ -133,13 +173,15 @@ enum Path : int { kDirect = 0, kBulk = 1 };
 constexpr int kMapError = 1000;
 constexpr int kNoCluster = 2000;
 
+template <class T>
 struct Params {
-  const float* X;
+  const T* X;
   long long ld;
   const float* c;        // or null
   const float* U;
   long long ldu;
   float* scratch;        // (clusters, d, S)
+  float* cz_out;         // (n, S) or null
   int d, n;
   int q;                 // CTAs of a cluster
   int rows, groups;      // R and R / kRowQuantum
@@ -153,7 +195,8 @@ struct Layout {
   int slot_off, red_off, cz_off, us_off, ring_off, bytes;
 };
 
-inline Layout layout(int S, int bn, int rows, int stages, bool bulk) {
+inline Layout layout(int S, int bn, int rows, int stages, bool bulk,
+                     int esize) {
   const int e = bn * S;
   Layout l;
   l.slot_off = kBarrierBytes;
@@ -163,7 +206,7 @@ inline Layout layout(int S, int bn, int rows, int stages, bool bulk) {
   l.ring_off = l.us_off +
                round_up(static_cast<size_t>(rows) * padded(S) * 4, 128);
   l.bytes = l.ring_off +
-            (bulk ? stages * rows * bn * 4 : 0);
+            (bulk ? stages * rows * bn * esize : 0);
   return l;
 }
 
@@ -260,36 +303,56 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
 }
 
 // The first panel of cluster k's range: k P / C.
-__device__ __forceinline__ long long panel_bound(const Params& p, int k) {
+template <class P>
+__device__ __forceinline__ long long panel_bound(const P& p, int k) {
   return static_cast<long long>(k) * p.panels / p.clusters;
 }
 
 // The first column of the m-th panel of a cluster whose range starts at
 // panel `first`.
-__device__ __forceinline__ long long panel_col(const Params& p,
-                                               long long first, int m,
-                                               int bn) {
+template <class P>
+__device__ __forceinline__ long long panel_col(const P& p, long long first,
+                                               int m, int bn) {
   return (first + m) * bn;
 }
 
-// Row r of the CTA's slice, columns col .. col + 3 of the panel: from the
-// stage (TMA path) or from device memory (direct path), zeros past the view.
-template <int BN, bool BULK>
-__device__ __forceinline__ float4 load_x(const Params& p, const float* tile,
-                                         int r, int row0, long long col,
-                                         int q) {
+// The elements of one 16-byte read as f32 (a bf16 value is the high half
+// of its f32).
+__device__ __forceinline__ void widen16(uint4 w, float (&x)[4]) {
+  x[0] = __uint_as_float(w.x);
+  x[1] = __uint_as_float(w.y);
+  x[2] = __uint_as_float(w.z);
+  x[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void widen16(uint4 w, float (&x)[8]) {
+  const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(h[i] << 16);
+    x[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);
+  }
+}
+
+// Row r of the CTA's slice, columns col .. col + V - 1 of the panel as f32:
+// from the stage (TMA path, one 16-byte read) or from device memory (direct
+// path, element by element), zeros past the view.
+template <class T, int BN, bool BULK>
+__device__ __forceinline__ void load_x(const Params<T>& p, const T* tile,
+                                       int r, int row0, long long col, int q,
+                                       float (&x)[kVec<T>]) {
+  constexpr int V = kVec<T>;
   if constexpr (BULK) {
-    return reinterpret_cast<const float4*>(tile)[r * (BN / 4) + q];
+    widen16(reinterpret_cast<const uint4*>(tile)[r * (BN / V) + q], x);
   } else {
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = 0.f;
     const int gr = row0 + r;
     if (gr < p.d) {
-      const float* src = p.X + static_cast<long long>(gr) * p.ld + col;
+      const T* src = p.X + static_cast<long long>(gr) * p.ld + col;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (col + e < p.n) v[e] = __ldg(src + e);
+      for (int e = 0; e < V; ++e)
+        if (col + e < p.n) x[e] = ldg_elem(src + e);
     }
-    return make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -339,15 +402,17 @@ __device__ __forceinline__ void scatter(float (&v)[CT][S], int q) {
   }
 }
 
-template <int S, int BN, bool BULK>
+template <class T, int S, int BN, bool BULK>
 __global__ void __launch_bounds__(kThreads + 32, 1)
-    fused_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
-  constexpr int CT = BN / 4;            // threads of a row
+    fused_kernel(const __grid_constant__ CUtensorMap map, const Params<T> p) {
+  constexpr int V = kVec<T>;            // columns of a thread's read
+  constexpr int CT = BN / V;            // threads of a row
   constexpr int RW = 32 / CT;           // rows of a warp
   constexpr int RT = kThreads / CT;     // row threads
   constexpr int E = BN * S;             // partials of a panel
+  constexpr int PER = (E + kThreads - 1) / kThreads;   // of them a thread
   constexpr int G = max_groups(S);
-  static_assert(E <= kThreads, "one partial a thread");
+  static_assert(RT * CT == kRowQuantum, "a row group is every thread's row");
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -356,7 +421,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
   float* red = reinterpret_cast<float*>(smem + p.red_off);
   float* cz = reinterpret_cast<float*>(smem + p.cz_off);
   float* us = reinterpret_cast<float*>(smem + p.us_off);
-  float* ring = reinterpret_cast<float*>(smem + p.ring_off);
+  T* ring = reinterpret_cast<T*>(smem + p.ring_off);
 
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -366,7 +431,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
   const int row0 = rank * p.rows;
   const long long first = panel_bound(p, cl);
   const int np = static_cast<int>(panel_bound(p, cl + 1) - first);
-  const int stage_floats = p.rows * BN;
+  const int stage_elems = p.rows * BN;
 
   if (t == 0) {
     if (BULK) {
@@ -378,13 +443,15 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     for (int sl = 0; sl < kSlots; ++sl) mbar_init(&xfull[sl], p.q * kWarps);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // U's slice, zeros past d and past S
+  // U's slice rounded to T (as the TPU kernel's U.astype(X.dtype)), zeros
+  // past d and past S
   constexpr int SP = padded(S);
   for (int i = t; i < p.rows * SP; i += blockDim.x) {
     const int r = i / SP, k = i - r * SP;
     const int gr = row0 + r;
     us[i] = k < S && gr < p.d
-                ? __ldg(p.U + static_cast<long long>(gr) * p.ldu + k)
+                ? round_to<T>(
+                      __ldg(p.U + static_cast<long long>(gr) * p.ldu + k))
                 : 0.f;
   }
   cluster_sync();
@@ -392,12 +459,13 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
   if (BULK && warp == kWarps) {           // the producer warp
     if (lane == 0) {
       const uint64_t policy = evict_first_policy();
-      const uint32_t bytes = static_cast<uint32_t>(stage_floats) * 4;
+      const uint32_t bytes =
+          static_cast<uint32_t>(stage_elems) * static_cast<uint32_t>(sizeof(T));
       int st = 0, round = 0;
       for (int m = 0; m < np; ++m) {
         if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
         mbar_expect_tx(&full[st], bytes);
-        float* dst = ring + static_cast<size_t>(st) * stage_floats;
+        T* dst = ring + static_cast<size_t>(st) * stage_elems;
         const int col = static_cast<int>(panel_col(p, first, m, BN));
         for (int h = 0; h < p.rows / kBoxRows; ++h)
           tma_2d(dst + h * kBoxRows * BN, &map, &full[st], col,
@@ -420,10 +488,10 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       for (int k = 0; k < S; ++k) y[g][k] = 0.f;
 
     // the CTA's partial z of panel m into slot m % kSlots; publish it
-    auto publish = [&](int m, float (&acc)[4][S]) {
+    auto publish = [&](int m, float (&acc)[V][S]) {
       // over the warp's row threads (lanes of the same q), then the warps
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < V; ++e)
 #pragma unroll
         for (int k = 0; k < S; ++k)
 #pragma unroll
@@ -431,17 +499,21 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
             acc[e][k] += __shfl_down_sync(0xffffffffu, acc[e][k], off);
       if (lane < CT) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < V; ++e)
 #pragma unroll
           for (int k = 0; k < S; ++k)
-            red[warp * E + (4 * q + e) * S + k] = acc[e][k];
+            red[warp * E + (V * q + e) * S + k] = acc[e][k];
       }
       consumers_sync();
       const int sl = m % kSlots;
-      if (t < E) {
-        float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s += red[w * E + t];
-        slots[sl * E + t] = s;
+#pragma unroll
+      for (int h = 0; h < PER; ++h) {
+        const int i = t + h * kThreads;
+        if (i < E) {
+          float s = 0.f;
+          for (int w = 0; w < kWarps; ++w) s += red[w * E + i];
+          slots[sl * E + i] = s;
+        }
       }
       __syncwarp();
       if (lane < p.q) arrive_on(&xfull[sl], lane);
@@ -451,56 +523,59 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     auto pass1 = [&](int m) {
       const int st = m % p.stages;
       if (BULK) mbar_wait(&full[st], (m / p.stages) & 1);
-      const float* tile = ring + static_cast<size_t>(st) * stage_floats;
-      const long long col = panel_col(p, first, m, BN) + 4 * q;
-      float acc[4][S];
+      const T* tile = ring + static_cast<size_t>(st) * stage_elems;
+      const long long col = panel_col(p, first, m, BN) + V * q;
+      float acc[V][S];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < V; ++e)
 #pragma unroll
         for (int k = 0; k < S; ++k) acc[e][k] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < rpt; ++j) {
         const int r = rt + RT * j;
-        const float4 x = load_x<BN, BULK>(p, tile, r, row0, col, q);
+        float x[V];
+        load_x<T, BN, BULK>(p, tile, r, row0, col, q, x);
         float u[S];
         load_u<S>(us, r, u);
 #pragma unroll
-        for (int k = 0; k < S; ++k) {
-          acc[0][k] += x.x * u[k];
-          acc[1][k] += x.y * u[k];
-          acc[2][k] += x.z * u[k];
-          acc[3][k] += x.w * u[k];
-        }
+        for (int e = 0; e < V; ++e)
+#pragma unroll
+          for (int k = 0; k < S; ++k) acc[e][k] += x[e] * u[k];
       }
       publish(m, acc);
     };
 
-    // pass 2 of panel m: z from the cluster's slots, cz, Y += X cz
+    // pass 2 of panel m: z from the cluster's slots, cz rounded to T (as
+    // the TPU kernel's (c * z).astype(x.dtype)), Y += X cz
     auto pass2 = [&](int m) {
       const int st = m % p.stages;
       const int sl = m % kSlots;
-      if (t < E) {
-        wait_cluster(&xfull[sl], (m / kSlots) & 1);
-        const float* mine = slots + sl * E + t;
-        float part[8];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-          part[r] = r < p.q ? ld_peer(peer_addr(mine, r)) : 0.f;
-        float z = part[0];
+      for (int h = 0; h < PER; ++h) {
+        const int i = t + h * kThreads;
+        if (i < E) {
+          if (h == 0) wait_cluster(&xfull[sl], (m / kSlots) & 1);
+          const float* mine = slots + sl * E + i;
+          float part[8];
 #pragma unroll
-        for (int r = 1; r < 8; ++r)
-          if (r < p.q) z += part[r];
-        const long long j = panel_col(p, first, m, BN) + t / S;
-        cz[t] = j < p.n ? (p.c ? __ldg(p.c + j) * z : z) : 0.f;
+          for (int r = 0; r < 8; ++r)
+            part[r] = r < p.q ? ld_peer(peer_addr(mine, r)) : 0.f;
+          float z = part[0];
+#pragma unroll
+          for (int r = 1; r < 8; ++r)
+            if (r < p.q) z += part[r];
+          const long long j = panel_col(p, first, m, BN) + i / S;
+          cz[i] = j < p.n ? round_to<T>(p.c ? __ldg(p.c + j) * z : z) : 0.f;
+        }
       }
       consumers_sync();
-      float w[4][S];
+      float w[V][S];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < V; ++e)
 #pragma unroll
-        for (int k = 0; k < S; ++k) w[e][k] = cz[(4 * q + e) * S + k];
-      const float* tile = ring + static_cast<size_t>(st) * stage_floats;
-      const long long col = panel_col(p, first, m, BN) + 4 * q;
+        for (int k = 0; k < S; ++k) w[e][k] = cz[(V * q + e) * S + k];
+      const T* tile = ring + static_cast<size_t>(st) * stage_elems;
+      const long long col = panel_col(p, first, m, BN) + V * q;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         if (g < p.groups) {
@@ -508,16 +583,28 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
 #pragma unroll
           for (int jj = 0; jj < CT; ++jj) {
             const int r = rt + RT * (g * CT + jj);
-            const float4 x = load_x<BN, BULK>(p, tile, r, row0, col, q);
+            float x[V];
+            load_x<T, BN, BULK>(p, tile, r, row0, col, q, x);
 #pragma unroll
-            for (int k = 0; k < S; ++k)
-              v[jj][k] = x.x * w[0][k] + x.y * w[1][k] + x.z * w[2][k] +
-                         x.w * w[3][k];
+            for (int k = 0; k < S; ++k) {
+              float a = x[0] * w[0][k];
+#pragma unroll
+              for (int e = 1; e < V; ++e) a += x[e] * w[e][k];
+              v[jj][k] = a;
+            }
           }
           scatter<CT / 2>(v, q);
 #pragma unroll
           for (int k = 0; k < S; ++k) y[g][k] += v[0][k];
         }
+      }
+      // the hand-off for the checks, from rank 0 (cz is rewritten only
+      // after the next pass 1's consumer barrier)
+      if (__builtin_expect(p.cz_out != nullptr && rank == 0, 0)) {
+        const long long c0 = panel_col(p, first, m, BN) * S;
+        for (int i = t; i < E; i += kThreads)
+          if (c0 + i < static_cast<long long>(p.n) * S)
+            p.cz_out[c0 + i] = cz[i];
       }
       if (BULK) {                         // the warp is done with the stage
         __syncwarp();
@@ -534,6 +621,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       for (int m = 0; m < np; ++m) {
         pass2(m);
         if (m + 1 + p.lag < np) pass1(m + 1 + p.lag);
+        else if (m + 1 < np) consumers_sync();   // cz is read again
       }
     }
     float* out = p.scratch + static_cast<size_t>(cl) * p.d * S;
@@ -567,18 +655,21 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // The 2-D map {n, d} of the X view in boxes of bn columns by kBoxRows rows;
 // elements past the view read as zeros.
-inline CUresult encode_map(CUtensorMap* map, const float* X, long long ld,
-                           int d, int n, int bn) {
+template <class T>
+CUresult encode_map(CUtensorMap* map, const T* X, long long ld, int d, int n,
+                    int bn) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(d)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(T)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(bn),
                              static_cast<cuuint32_t>(kBoxRows)};
   const cuuint32_t elem[2] = {1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<float*>(X), dims, strides, box, elem,
+  const CUtensorMapDataType type = sizeof(T) == 4
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2, const_cast<T*>(X), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -620,14 +711,14 @@ cudaError_t max_clusters(Kernel kernel, int q, int threads, int smem,
   return cudaSuccess;
 }
 
-// One launch of the instance <S, BN, BULK> on C clusters (C = `clusters`
-// when positive, else as many as fit, at most `cap` and one per panel),
-// then the sum of the clusters' partials into Y. Reports C.
-template <int S, int BN, bool BULK>
-int launch(const CUtensorMap& map, Params p, float* Y, int clusters, int cap,
-           int* used, cudaStream_t stream) {
-  auto kernel = fused_kernel<S, BN, BULK>;
-  const Layout l = layout(S, BN, p.rows, p.stages, BULK);
+// One launch of the instance <T, S, BN, BULK> on C clusters (C =
+// `clusters` when positive, else as many as fit, at most `cap` and one per
+// panel), then the sum of the clusters' partials into Y. Reports C.
+template <class T, int S, int BN, bool BULK>
+int launch(const CUtensorMap& map, Params<T> p, float* Y, int clusters,
+           int cap, int* used, cudaStream_t stream) {
+  auto kernel = fused_kernel<T, S, BN, BULK>;
+  const Layout l = layout(S, BN, p.rows, p.stages, BULK, sizeof(T));
   p.slot_off = l.slot_off;
   p.red_off = l.red_off;
   p.cz_off = l.cz_off;
@@ -663,34 +754,39 @@ int launch(const CUtensorMap& map, Params p, float* Y, int clusters, int cap,
   return kern::sum_rows(p.scratch, Y, C, p.d * S, stream);
 }
 
-template <int S, bool BULK>
-int launch_bn(int bn, const CUtensorMap& map, const Params& p, float* Y,
+template <class T, int S, bool BULK>
+int launch_bn(int bn, const CUtensorMap& map, const Params<T>& p, float* Y,
               int clusters, int cap, int* used, cudaStream_t stream) {
-  return bn == 32 ? launch<S, 32, BULK>(map, p, Y, clusters, cap, used, stream)
-                  : launch<S, 16, BULK>(map, p, Y, clusters, cap, used,
-                                        stream);
+  return bn == kWide<T>
+             ? launch<T, S, kWide<T>, BULK>(map, p, Y, clusters, cap, used,
+                                            stream)
+             : launch<T, S, kNarrow<T>, BULK>(map, p, Y, clusters, cap, used,
+                                              stream);
 }
 
 // Check a call's plan, encode the map (TMA path) and launch the instance
-// for S columns; write the path and the clusters used. Returns a
+// for tile type T and S columns; write the path and the clusters used.
+// bn is one of T's two panel widths (kWide, kNarrow). Returns a
 // cudaError_t, kMapError + the CUresult, or kNoCluster.
-template <int S>
-int run(const float* X, long long ld, const float* c, const float* U,
-        long long ldu, float* Y, float* scratch, int d, int n, int q, int bn,
-        int stages, int clusters, int cap, int* path, int* used,
-        cudaStream_t stream) {
+template <class T, int S>
+int run(const T* X, long long ld, const float* c, const float* U,
+        long long ldu, float* Y, float* cz_out, float* scratch, int d, int n,
+        int q, int bn, int stages, int clusters, int cap, int* path,
+        int* used, cudaStream_t stream) {
   if (!X || !U || !Y || !scratch || !path || !used || d <= 0 || n <= 0 ||
       ld < n || ldu < S || cap <= 0 || clusters < 0 ||
-      !(q == 1 || q == 2 || q == 4 || q == 8) || !(bn == 16 || bn == 32) ||
-      stages < 2 || stages > kMaxStages)
+      !(q == 1 || q == 2 || q == 4 || q == 8) ||
+      !(bn == kWide<T> || bn == kNarrow<T>) || stages < 2 ||
+      stages > kMaxStages)
     return cudaErrorInvalidValue;
-  Params p{};
+  Params<T> p{};
   p.X = X;
   p.ld = ld;
   p.c = c;
   p.U = U;
   p.ldu = ldu;
   p.scratch = scratch;
+  p.cz_out = cz_out;
   p.d = d;
   p.n = n;
   p.q = q;
@@ -708,17 +804,21 @@ int run(const float* X, long long ld, const float* c, const float* U,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   // the plan must fit the TMA path, whichever path runs
-  if (layout(S, bn, p.rows, stages, true).bytes > optin)
+  if (layout(S, bn, p.rows, stages, true, sizeof(T)).bytes > optin)
     return cudaErrorInvalidValue;
   CUtensorMap map{};
-  const bool bulk = ld % 4 == 0 && aligned16(X);
+  // a tensor map needs a row stride of whole 16-byte units and an aligned
+  // base: ld a multiple of 4 at f32, 8 at bf16
+  const bool bulk = (ld * static_cast<long long>(sizeof(T))) % 16 == 0 &&
+                    aligned16(X);
   if (bulk) {
     const CUresult r = encode_map(&map, X, ld, d, n, bn);
     if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
   }
   const int rc =
-      bulk ? launch_bn<S, true>(bn, map, p, Y, clusters, cap, used, stream)
-           : launch_bn<S, false>(bn, map, p, Y, clusters, cap, used, stream);
+      bulk ? launch_bn<T, S, true>(bn, map, p, Y, clusters, cap, used, stream)
+           : launch_bn<T, S, false>(bn, map, p, Y, clusters, cap, used,
+                                    stream);
   if (rc == 0) *path = bulk ? kBulk : kDirect;
   return rc;
 }

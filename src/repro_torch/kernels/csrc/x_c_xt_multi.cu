@@ -9,7 +9,8 @@
 //
 // Layout: X (d, n) f32, row-major with row stride ld >= n elements; c
 // (optional, n); U (d, s) f32 row-major with row stride ldu >= s; scratch
-// (clusters, d, s) f32; Y (d, s) f32 row-major.
+// (clusters, d, s) f32; Y (d, s) f32 row-major; cz_out (optional, n x s
+// f32, row-major) receives the hand-off c .* Z (checks only).
 //
 // Design: fused_stream.cuh at S = s columns: a cluster shares each column
 // panel by rows, every CTA keeps U's slice of its rows in shared memory for
@@ -25,16 +26,16 @@
 // U (ldu) and s in place of u. Returns the same codes.
 extern "C" int x_c_xt_multi_launch(const float* X, long long ld,
                                    const float* c, const float* U,
-                                   long long ldu, float* Y, float* scratch,
-                                   int d, int n, int s, int q, int bn,
-                                   int stages, int clusters, int cap,
+                                   long long ldu, float* Y, float* cz_out,
+                                   float* scratch, int d, int n, int s, int q,
+                                   int bn, int stages, int clusters, int cap,
                                    int* path, int* used, void* stream) {
   static_assert(kern::kMaxCols == 8, "one case per column count");
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X_C_XT_MULTI_CASE(S)                                               \
   case S:                                                                  \
-    return fused::run<S>(X, ld, c, U, ldu, Y, scratch, d, n, q, bn, stages, \
-                         clusters, cap, path, used, st);
+    return fused::run<float, S>(X, ld, c, U, ldu, Y, cz_out, scratch, d, n, \
+                                q, bn, stages, clusters, cap, path, used, st);
   switch (s) {
     X_C_XT_MULTI_CASE(1)
     X_C_XT_MULTI_CASE(2)

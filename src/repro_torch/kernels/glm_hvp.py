@@ -39,14 +39,16 @@ rule) picks Q, the panel width and the ring's stages from d and s;
 :func:`fused_split` is the panels' split over the clusters;
 :data:`last_path` and :data:`last_fused` say what a call ran.
 
-``xt_u``, ``x_cz``, ``xt_multi`` and ``x_cz_multi`` also take bf16 tiles
-(``DiscoConfig.hvp_dtype='bfloat16'``) through bf16 instances of the same
-designs (``csrc/xt_u_bf16.cu``, ``x_cz_bf16.cu``, ``xt_multi_bf16.cu``,
-``x_cz_multi_bf16.cu``), dispatched by X's dtype; they round the vector
-operand to bf16 where the TPU kernels round it (u, U at entry; c .* z,
-c .* Z, or z, Z alone, before pass B), so every product is exact in f32.
-The one-pass ``x_c_xt_u`` and ``x_c_xt_multi`` take f32 tiles only and
-raise NotImplementedError on bf16 ones (not yet ported).
+All six also take bf16 tiles (``DiscoConfig.hvp_dtype='bfloat16'``)
+through bf16 instances of the same designs (``csrc/xt_u_bf16.cu``,
+``x_cz_bf16.cu``, ``x_c_xt_u_bf16.cu``, ``xt_multi_bf16.cu``,
+``x_cz_multi_bf16.cu``, ``x_c_xt_multi_bf16.cu``), dispatched by X's
+dtype; they round the vector operand to bf16 where the TPU kernels round
+it (u, U at entry; c .* z, c .* Z, or z, Z alone, before pass B), so every
+product is exact in f32. The one-pass kernels' bf16 instances take panels
+of 64 (or 32) columns, so a row of a panel is 128 (or 64) bytes as at
+f32 (:data:`FUSED_WIDTHS_BY_DTYPE`); ``cz_out=`` hands their rounded
+``c .* z`` back for the checks.
 
 ``X`` may be any row-major view (``X.stride(1) == 1``), such as a
 DiSCO-S shard's column slice of the whole matrix: the kernels take its row
@@ -65,7 +67,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_U, X_CZ,
+from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_MULTI_BF16,
+                                       X_C_XT_U, X_C_XT_U_BF16, X_CZ,
                                        X_CZ_BF16, X_CZ_MULTI,
                                        X_CZ_MULTI_BF16, XT_MULTI,
                                        XT_MULTI_BF16, XT_U, XT_U_BF16,
@@ -87,15 +90,16 @@ TILE_DTYPES = (torch.float32, torch.bfloat16)   # the tiles the kernels take
 DENSE_MAX_STAGES = 4
 DENSE_BARRIER_BYTES = 128
 DENSE_THREADS = 384
-# each kernel by tile dtype; the one-pass kernels take f32 tiles only
+# each kernel by tile dtype
 _BY_DTYPE = {
     "xt_u": {torch.float32: XT_U, torch.bfloat16: XT_U_BF16},
     "x_cz": {torch.float32: X_CZ, torch.bfloat16: X_CZ_BF16},
     "xt_multi": {torch.float32: XT_MULTI, torch.bfloat16: XT_MULTI_BF16},
     "x_cz_multi": {torch.float32: X_CZ_MULTI,
                    torch.bfloat16: X_CZ_MULTI_BF16},
-    "x_c_xt_u": {torch.float32: X_C_XT_U},
-    "x_c_xt_multi": {torch.float32: X_C_XT_MULTI},
+    "x_c_xt_u": {torch.float32: X_C_XT_U, torch.bfloat16: X_C_XT_U_BF16},
+    "x_c_xt_multi": {torch.float32: X_C_XT_MULTI,
+                     torch.bfloat16: X_C_XT_MULTI_BF16},
 }
 # the fused kernels' plan (csrc/fused_stream.cuh: kThreads, kRowQuantum,
 # kSlots, kMaxStages, kBarrierBytes)
@@ -105,12 +109,16 @@ FUSED_SLOTS = 4          # exchange slots of a CTA
 FUSED_MAX_STAGES = 4
 FUSED_BARRIER_BYTES = 128
 CLUSTER_SIZES = (1, 2, 4, 8)
-FUSED_WIDTHS = (32, 16)  # panel columns, widest first
+# panel columns by tile dtype, widest first (kWide, kNarrow): rows of 128
+# and 64 bytes, a consumer thread's 16-byte read 4 f32 or 8 bf16 columns
+FUSED_WIDTHS_BY_DTYPE = {torch.float32: (32, 16), torch.bfloat16: (64, 32)}
+FUSED_WIDTHS = FUSED_WIDTHS_BY_DTYPE[torch.float32]
 PATHS = ("direct", "bulk")  # the copy paths, by the code the kernels report
 # the copy path of each streaming kernel's last launch ("bulk": bulk or TMA
 # copies), by kernel name
 last_path: dict[str, str | None] = dict.fromkeys(
-    ("xt_u", "x_cz", "xt_u_bf16", "x_cz_bf16", "x_c_xt_u", "x_c_xt_multi"))
+    ("xt_u", "x_cz", "xt_u_bf16", "x_cz_bf16", "x_c_xt_u", "x_c_xt_multi",
+     "x_c_xt_u_bf16", "x_c_xt_multi_bf16"))
 
 
 def fused_max_groups(s: int) -> int:
@@ -135,15 +143,17 @@ def fused_rows(d: int, cluster: int) -> int:
     return _round_up(max(1, -(-d // cluster)), FUSED_ROW_QUANTUM)
 
 
-def fused_smem_bytes(rows: int, bn: int, stages: int, s: int = 1) -> int:
+def fused_smem_bytes(rows: int, bn: int, stages: int, s: int = 1,
+                     dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of a fused CTA on the TMA path (``layout`` in
     ``csrc/fused_stream.cuh``): barriers, exchange slots, the warps'
-    column partials and c .* z (bn x s each), U's slice, then the ring."""
+    column partials and c .* z (bn x s f32 each), U's slice (f32), then
+    the ring of ``stages`` panels' slices at ``dtype``'s element size."""
     e = 4 * bn * s
     return (FUSED_BARRIER_BYTES + _round_up(FUSED_SLOTS * e, 128)
             + _round_up(FUSED_THREADS // 32 * e, 128) + _round_up(e, 128)
             + _round_up(4 * rows * fused_padded(s), 128)
-            + 4 * stages * rows * bn)
+            + dtype.itemsize * stages * rows * bn)
 
 
 class FusedPlan(NamedTuple):
@@ -167,25 +177,36 @@ class FusedPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def fused_plan(d: int, s: int = 1, cluster: int | None = None
-               ) -> FusedPlan | None:
-    """The fit rule of the fused kernels at d rows and s columns: the
-    widest panel, on the smallest cluster, whose ring of three stages (the
-    pipelined exchange) fits one CTA's shared memory beside the rest; else
-    the same with two stages; None when nothing fits (d past 12,288 at one
-    column, 8,192 at five, 6,144 at eight: every shape the panels of
-    earlier versions took, and more), and then the product takes the
-    two-pass route. ``cluster`` restricts the choice to one
-    cluster size (checks only)."""
+def fused_plan(d: int, s: int = 1, cluster: int | None = None,
+               dtype: torch.dtype = torch.float32) -> FusedPlan | None:
+    """The fit rule of the fused kernels at d rows, s columns and tile
+    ``dtype``: the widest panel of the dtype's
+    (:data:`FUSED_WIDTHS_BY_DTYPE`), on the smallest cluster, whose ring
+    of three stages (the pipelined exchange) fits one CTA's shared memory
+    beside the rest; else the same with two stages; None when nothing
+    fits, and then the product takes the two-pass route. The reach is the
+    same at both dtypes, set by the rows a thread's registers hold: d up
+    to 12,288 at one column, 10,240 at two and three, 8,192 at four and
+    five, 6,144 at six to eight (every shape the panels of earlier
+    versions took, and more). At bf16 a panel of 64 columns is the bytes
+    of 32 f32 ones, so up to s = 5 each bf16 plan is the f32 plan with the
+    panel twice as wide (at d = 4,096: clusters of 8, 64 columns, three
+    64 KB stages). From s = 6 on the exchange's 64 s f32 partials leave
+    no room for three such stages beside U's slice, and the rule takes
+    32-column panels there (at d = 4,096: four 32 KB stages).
+    ``cluster`` restricts the choice to one cluster size (checks only)."""
+    if dtype not in FUSED_WIDTHS_BY_DTYPE:
+        raise TypeError(f"no fused plan for {dtype} tiles")
     sizes = CLUSTER_SIZES if cluster is None else (cluster,)
     for least in (3, 2):
-        for bn in FUSED_WIDTHS:
+        for bn in FUSED_WIDTHS_BY_DTYPE[dtype]:
             for q in sizes:
                 rows = fused_rows(d, q)
                 if rows // FUSED_ROW_QUANTUM > fused_max_groups(s):
                     continue
-                free = SMEM_LIMIT - fused_smem_bytes(rows, bn, 0, s)
-                stages = min(FUSED_MAX_STAGES, free // (4 * rows * bn))
+                free = SMEM_LIMIT - fused_smem_bytes(rows, bn, 0, s, dtype)
+                stages = min(FUSED_MAX_STAGES,
+                             free // (dtype.itemsize * rows * bn))
                 if stages >= least:
                     return FusedPlan(q, bn, stages, rows)
     return None
@@ -231,9 +252,9 @@ class FusedLaunch(NamedTuple):
     path: str
 
 
-# the last launch of each fused kernel
+# the last launch of each fused kernel, by kernel name
 last_fused: dict[str, FusedLaunch | None] = dict.fromkeys(
-    ("x_c_xt_u", "x_c_xt_multi"))
+    ("x_c_xt_u", "x_c_xt_multi", "x_c_xt_u_bf16", "x_c_xt_multi_bf16"))
 
 
 def xt_u_slices(d: int, n: int, sm_count: int) -> int:
@@ -363,6 +384,19 @@ def dense_path(X, *vectors) -> str:
     return "bulk" if n % per == 0 and ld % per == 0 and aligned else "direct"
 
 
+def fused_path(X) -> str:
+    """The copy path ``x_c_xt_u`` or ``x_c_xt_multi`` takes for X as
+    ``run`` in ``csrc/fused_stream.cuh`` decides it: "bulk" (TMA) when the
+    row stride is a whole number of 16-byte units (a multiple of 4
+    elements at f32, 8 at bf16) and X is 16-byte aligned, else
+    "direct"."""
+    d, n = X.shape
+    ld = X.stride(0) if d > 1 else n
+    aligned = X.data_ptr() % 16 == 0
+    return "bulk" if ld * X.element_size() % 16 == 0 and aligned \
+        else "direct"
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -390,14 +424,9 @@ def _check_matrix(X, device) -> int:
 
 
 def _kernel(name, X):
-    """The kernel ``name`` for X's tile dtype; raises NotImplementedError
-    where it has no instance (the one-pass kernels at bf16)."""
-    kernels = _BY_DTYPE[name]
-    if X.dtype not in kernels:
-        raise NotImplementedError(
-            f"{name} on {X.dtype} tiles is not yet ported to repro_torch "
-            f"(the one-pass dense kernels take f32 tiles only)")
-    return kernels[X.dtype]
+    """The kernel ``name`` for X's tile dtype (:func:`_check_matrix` has
+    checked that it is one of :data:`TILE_DTYPES`)."""
+    return _BY_DTYPE[name][X.dtype]
 
 
 def _check_vector(name, v, length, device):
@@ -460,21 +489,35 @@ def x_cz(X, c, z, *, _ctas: int | None = None):
     return _stream("x_cz", X, ld, (c, z), y, _ctas)
 
 
-def _plan(name, d, s, cluster):
-    plan = fused_plan(d, s, cluster)
+def _plan(name, X, s, cluster):
+    d = X.shape[0]
+    plan = fused_plan(d, s, cluster, dtype=X.dtype)
     if plan is None:
         raise ValueError(f"no {name} plan fits shared memory at d = {d}, "
-                         f"s = {s} (cluster = {cluster})")
+                         f"s = {s}, {X.dtype} tiles (cluster = {cluster})")
     return plan
 
 
-def _fused(name, X, ld, c, U, ldu, out, plan, clusters):
-    """Launch ``x_c_xt_u`` or ``x_c_xt_multi`` on ``plan``; record the path
-    and the clusters. ``clusters`` (None: as many as the card holds at
-    once) sizes the scratch of the clusters' partials."""
+def _check_cz_out(cz_out, shape, device):
+    """``cz_out``: None, or a contiguous f32 buffer of ``shape`` for the
+    hand-off."""
+    if cz_out is None:
+        return
+    check_tensor("cz_out", cz_out, torch.float32, len(shape), device)
+    if tuple(cz_out.shape) != shape:
+        raise ValueError(f"cz_out is {tuple(cz_out.shape)}, expected "
+                         f"{shape}")
+
+
+def _fused(name, X, ld, c, U, ldu, out, cz_out, plan, clusters):
+    """Launch ``x_c_xt_u`` or ``x_c_xt_multi`` (the instance for X's tile
+    dtype) on ``plan``; record the path and the clusters. ``clusters``
+    (None: as many as the card holds at once) sizes the scratch of the
+    clusters' partials."""
     d, n = X.shape
     s = out.shape[1] if out.dim() == 2 else 1
     dev = X.device
+    kernel = _kernel(name, X)
     cap = max(1, _sm_count(dev.index or 0) // plan.cluster)
     scratch = torch.empty((max(cap, clusters or 0), d, s),
                           dtype=torch.float32, device=dev)
@@ -483,38 +526,43 @@ def _fused(name, X, ld, c, U, ldu, out, plan, clusters):
             ctypes.byref(path), ctypes.byref(used), stream_of(dev))
     with torch.cuda.device(dev):
         if name == "x_c_xt_u":
-            X_C_XT_U.launch(ptr(X), ld, ptr(c), ptr(U), ptr(out),
-                            ptr(scratch), d, n, *tail)
+            kernel.launch(ptr(X), ld, ptr(c), ptr(U), ptr(out), ptr(cz_out),
+                          ptr(scratch), d, n, *tail)
         else:
-            X_C_XT_MULTI.launch(ptr(X), ld, ptr(c), ptr(U), ldu, ptr(out),
-                                ptr(scratch), d, n, s, *tail)
-    last_path[name] = PATHS[path.value]
-    last_fused[name] = FusedLaunch(plan, used.value, last_path[name])
+            kernel.launch(ptr(X), ld, ptr(c), ptr(U), ldu, ptr(out),
+                          ptr(cz_out), ptr(scratch), d, n, s, *tail)
+    last_path[kernel.name] = PATHS[path.value]
+    last_fused[kernel.name] = FusedLaunch(plan, used.value,
+                                          last_path[kernel.name])
     return out
 
 
-def x_c_xt_u(X, c, u, *, _cluster: int | None = None,
+def x_c_xt_u(X, c, u, *, cz_out=None, _cluster: int | None = None,
              _clusters: int | None = None):
     """y = X (c .* (X^T u)) on the card, in one pass over X.
 
-    X (d, n) row-major f32, c (optional, n,), u (d,) -> y (d,). The plan is
-    :func:`fused_plan`'s; raises ValueError when none fits shared memory.
-    ``_cluster`` fixes the cluster size and ``_clusters`` the number of
-    clusters, for the checks that hold every plan and split; no solver
-    path sets them.
+    X (d, n) row-major f32 or bf16 (u then rounded to bf16, and c .* z, z
+    alone without c, between the passes, as the TPU kernel does), c
+    (optional, n,), u (d,) -> y (d,) f32. The plan is :func:`fused_plan`'s
+    at X's dtype; raises ValueError when none fits shared memory.
+    ``cz_out``: an optional f32 (n,) buffer that receives the hand-off
+    c .* z as pass 2 used it (rounded at bf16), for the checks; no solver
+    path passes one. ``_cluster`` fixes the cluster size and
+    ``_clusters`` the number of clusters, for the checks that hold every
+    plan and split; no solver path sets them.
     """
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
-    _kernel("x_c_xt_u", X)
     d, n = X.shape
     _check_vector("u", u, d, dev)
     _check_vector("c", c, n, dev)
-    plan = _plan("x_c_xt_u", d, 1, _cluster)
+    _check_cz_out(cz_out, (n,), dev)
+    plan = _plan("x_c_xt_u", X, 1, _cluster)
     y = torch.empty(d, dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return y.zero_()
-    return _fused("x_c_xt_u", X, ld, c, u, 1, y, plan, _clusters)
+    return _fused("x_c_xt_u", X, ld, c, u, 1, y, cz_out, plan, _clusters)
 
 
 def xt_multi(X, U):
@@ -559,25 +607,28 @@ def x_cz_multi(X, c, Z):
     return Y
 
 
-def x_c_xt_multi(X, c, U, *, _cluster: int | None = None,
+def x_c_xt_multi(X, c, U, *, cz_out=None, _cluster: int | None = None,
                  _clusters: int | None = None):
     """Y = X (c[:, None] .* (X^T U)) on the card, in one pass over X.
 
-    X (d, n) row-major f32, c (optional, n,), U (d, s) row-major (any row
+    X (d, n) row-major f32 or bf16 (U, and c .* Z, then rounded to bf16
+    as in :func:`x_c_xt_u`), c (optional, n,), U (d, s) row-major (any row
     stride, 1 to :data:`~repro_torch.kernels.build.MAX_COLS` columns) ->
-    Y (d, s). The plan is :func:`fused_plan`'s at s columns; raises
-    ValueError when none fits shared memory. ``_cluster`` and
-    ``_clusters`` as for :func:`x_c_xt_u`.
+    Y (d, s) f32. The plan is :func:`fused_plan`'s at s columns and X's
+    dtype; raises ValueError when none fits shared memory. ``cz_out``: an
+    optional f32 (n, s) buffer for the hand-off, as for :func:`x_c_xt_u`;
+    ``_cluster`` and ``_clusters`` as there.
     """
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
-    _kernel("x_c_xt_multi", X)
     d, n = X.shape
     s, ldu = check_columns("U", U, d, dev)
     _check_vector("c", c, n, dev)
-    plan = _plan("x_c_xt_multi", d, s, _cluster)
+    _check_cz_out(cz_out, (n, s), dev)
+    plan = _plan("x_c_xt_multi", X, s, _cluster)
     Y = torch.empty((d, s), dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return Y.zero_()
-    return _fused("x_c_xt_multi", X, ld, c, U, ldu, Y, plan, _clusters)
+    return _fused("x_c_xt_multi", X, ld, c, U, ldu, Y, cz_out, plan,
+                  _clusters)

@@ -2,8 +2,9 @@
 the device of their tensors.
 
 The dense ops take f32 or bf16 X (``hvp_dtype='bfloat16'``); at bf16
-the two-pass ones launch the bf16 instances of their kernels, and on the
-CPU the plain versions round where those kernels round.
+they launch the bf16 instances of their kernels, the one-pass ones
+included, and on the CPU the plain versions round where those kernels
+round.
 
 CUDA tensors go to the hand-written kernels of
 :mod:`repro_torch.kernels.glm_hvp` (dense),
@@ -120,15 +121,19 @@ def x_c_xt_multi(X, c, U):
     """Y = X (c[:, None] .* (X^T U)) in one streaming pass over X per
     column group (the s-step round's batched HVP on fused dense input).
 
-    X (d, n), c (optional, n,), U (d, s) row-major (any row stride) ->
-    Y (d, s) f32. Legal where :func:`x_c_xt_u` is. On the card each group
-    of at most MAX_COLS columns is the fused kernel when a plan fits
-    shared memory (:func:`repro_torch.kernels.glm_hvp.fused_plan`), else
-    the two-pass route: the ``xt_multi`` kernel, then ``x_cz_multi``.
+    X (d, n) f32 or bf16, c (optional, n,), U (d, s) row-major (any row
+    stride) -> Y (d, s) f32. Legal where :func:`x_c_xt_u` is. On the card
+    each group of at most MAX_COLS columns is the fused kernel of X's tile
+    dtype when a plan fits shared memory
+    (:func:`repro_torch.kernels.glm_hvp.fused_plan` at X's dtype), else
+    the two-pass route of the same dtype: the ``xt_multi`` kernel, then
+    ``x_cz_multi``. On the CPU the plain version is the two-pass pair's,
+    rounding where both routes round.
     """
     if _on_cuda(X, c, U):
         def launch(G):
-            if _dense.fused_plan(X.shape[0], G.shape[1]) is not None:
+            if _dense.fused_plan(X.shape[0], G.shape[1],
+                                 dtype=X.dtype) is not None:
                 return _dense.x_c_xt_multi(X, c, G)
             return _dense.x_cz_multi(X, c, _dense.xt_multi(X, G))
         return _by_columns(launch, U)
@@ -139,13 +144,14 @@ def x_c_xt_u(X, c, u):
     """y = X (c .* (X^T u)) in one streaming pass over X.
 
     Legal wherever no collective separates the two passes (every DiSCO-S
-    local product, single-shard DiSCO-F). On the card it is the fused
-    kernel when a plan fits shared memory
-    (:func:`repro_torch.kernels.glm_hvp.fused_plan`), else the two-pass
-    route: the ``xt_u`` kernel, then ``x_cz``.
+    local product, single-shard DiSCO-F). X (d, n) f32 or bf16. On the
+    card it is the fused kernel of X's tile dtype when a plan fits shared
+    memory (:func:`repro_torch.kernels.glm_hvp.fused_plan` at X's dtype),
+    else the two-pass route of the same dtype: the ``xt_u`` kernel, then
+    ``x_cz``. On the CPU the plain version is the two-pass pair's.
     """
     if _on_cuda(X, c, u):
-        if _dense.fused_plan(X.shape[0]) is not None:
+        if _dense.fused_plan(X.shape[0], dtype=X.dtype) is not None:
             return _dense.x_c_xt_u(X, c, u)
         return _dense.x_cz(X, c, _dense.xt_u(X, u))
     if c is None:

@@ -7,8 +7,11 @@ package's oracle contract (``repro/kernels/ref.py``):
   ``ref_x_cz``, ``ref_x_c_xt_u`` and the multi-vector ``ref_xt_multi``,
   ``ref_x_cz_multi`` and ``ref_x_c_xt_multi``; f32 or bf16 X (upcast),
   the vector operand rounded to X's dtype where the TPU kernel rounds it
-  (ROADMAP F10); and the JAX oracles ``ref_glm_hvp``, ``ref_glm_hvp_multi``
-  of the whole product, which round nothing;
+  (ROADMAP F10; the one-pass versions are the two-pass chains, so they
+  round u at entry and c .* z between the passes, as K5 and K10 do);
+  the one-pass kernels' hand-off ``ref_dense_handoff`` and its slack; and
+  the JAX oracles ``ref_glm_hvp``, ``ref_glm_hvp_multi`` of the whole
+  product, which round nothing;
 * blocked ELL (:mod:`repro_torch.kernels.sparse_hvp`): padding slots
   (``cols = 0``, zero tile) gather the real vector block 0 and multiply
   it by zeros, products accumulate in f32, and the result is
@@ -97,6 +100,67 @@ def ref_x_c_xt_multi(X, c, U):
     as :func:`ref_x_c_xt_u` is for one vector; ``c`` None means no scale.
     """
     return ref_x_cz_multi(X, c, ref_xt_multi(X, U))
+
+
+def ref_dense_handoff(X, c, U):
+    """The one-pass dense HVP's hand-off before its rounding:
+    ``c .* (X^T U)`` in f32, (n,) for a vector u (d,) and (n, s) for U
+    (d, s), pass A rounding U to X's dtype as :func:`ref_xt_u` does
+    (``c`` None: z alone). The bf16 instances of ``x_c_xt_u`` and
+    ``x_c_xt_multi`` round it to bf16 (their ``cz_out``), after a sum of
+    z in another f32 order than this one, so an element within f32
+    rounding of a bf16 tie may round either way (ROADMAP F11): checks
+    compare the two halves (:func:`dense_handoff_flips` with
+    :func:`dense_handoff_slack`)."""
+    if U.dim() == 1:
+        z = ref_xt_u(X, U)
+        return z if c is None else c * z
+    Z = ref_xt_multi(X, U)
+    return Z if c is None else c[:, None] * Z
+
+
+def dense_handoff_slack(X, c, U, t):
+    """Per element of an unrounded dense hand-off ``t``
+    (:func:`ref_dense_handoff` of these operands), the most that two f32
+    summation orders of its d products can put between their results:
+    2 gamma_d (gamma_d = d u / (1 - d u), u = 2^-24) times the sum of the
+    products' magnitudes sum |x| |u| (times |c|), plus the rounding of
+    the product by c in each."""
+    d = X.shape[0]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    mag = ref_dense_handoff(X.abs(), None if c is None else c.abs(),
+                            U.abs())
+    return 2 * gamma * mag + 2.0 ** -23 * t.abs()
+
+
+def dense_handoff_flips(cz, t, slack) -> tuple[int, bool]:
+    """A bf16 one-pass dense kernel's rounded hand-off ``cz`` against an
+    unrounded one ``t`` (the plain version's, or the two-pass pair's):
+    the number of elements where ``cz`` is not ``t``'s bf16 rounding, and
+    whether the hand-off agrees: ``cz`` holds bf16 values, each the bf16
+    rounding of some value within ``slack`` (:func:`dense_handoff_slack`)
+    of ``t`` (between the roundings of ``t - slack`` and ``t + slack``).
+    Near a bf16 tie that is the other neighbour; where the d products
+    cancel (|t| far below their magnitudes) two f32 orders may be several
+    bf16 steps of the small result apart, which :func:`ell_handoff_flips`'
+    one step does not allow (ROADMAP F11). How often such elements differ
+    is a rate, held over a whole check's calls by
+    :func:`handoff_rate_ok`: one call of a few hundred elements may see
+    two where the rate is a few in ten thousand."""
+    cz = cz.reshape(t.shape)
+    bf = torch.bfloat16
+    lo = (t - slack).to(bf).float()
+    hi = (t + slack).to(bf).float()
+    flips = int((cz != t.to(bf).float()).sum())
+    inside = bool(((cz >= lo) & (cz <= hi)).all())
+    return flips, bool(torch.equal(cz.to(bf).float(), cz)) and inside
+
+
+def handoff_rate_ok(flips: int, numel: int) -> bool:
+    """Whether ``flips`` hand-off elements rounded the other way, of
+    ``numel`` over a check's calls, stay at most one in a thousand (plus
+    one): a wrong rounding would miss about half."""
+    return flips <= 1 + numel // 1000
 
 
 def _round_to(x, dtype):

@@ -526,20 +526,23 @@ def test_bf16_tiles_engaged_and_f32_makes_no_copy():
 
 
 def test_dense_bf16_raises_not_yet_ported():
-    """bf16 on dense input runs on the two-pass kernels and the plain
-    layout (``tests/test_torch_dense_bf16.py``); with the one-pass kernels
-    (``hvp_fused=True``), classic and s-step, it waits for their bf16
-    slice, and the message names K5 and K10. Softmax never fuses: its
-    fused cell is the registry's refusal at every dtype, as in the
-    reference."""
+    """bf16 on dense input runs on every dense path: the two-pass kernels
+    and the plain layout (``tests/test_torch_dense_bf16.py``), and, since
+    the one-pass kernels K5 and K10 take bf16 tiles, with
+    ``hvp_fused=True`` too, classic and s-step (it raised "not yet
+    ported" until then; ``tests/test_torch_fused_bf16.py`` holds it to
+    the reference): it builds PCG's shards as views of one bf16 copy and
+    takes a step. Softmax never fuses: its fused cell is the registry's
+    refusal at every dtype, as in the reference."""
     X, y, _ = _data()
     for s in (1, 2):
-        with pytest.raises(NotImplementedError, match="not yet ported") as e:
-            DiscoSolver(X.todense(), y, DiscoConfig(
-                use_kernel=True, hvp_fused=True, pcg_block_s=s,
-                hvp_dtype="bfloat16"), device="cpu")
-        assert "x_c_xt_u" in str(e.value)
-        assert "x_c_xt_multi" in str(e.value)
+        solver = DiscoSolver(X.todense(), y, DiscoConfig(
+            use_kernel=True, hvp_fused=True, pcg_block_s=s,
+            hvp_dtype="bfloat16"), device="cpu")
+        assert solver.X_h.dtype == torch.bfloat16
+        assert all(h.dtype == torch.bfloat16 for h in solver._hvp_locs)
+        w, stats = solver._step(torch.zeros(solver._w_shape))
+        assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
     for use_kernel in (False, True):
         DiscoSolver(X.todense(), y, DiscoConfig(
             use_kernel=use_kernel, hvp_dtype="bfloat16"), device="cpu")

@@ -117,11 +117,11 @@ def test_cell_registry_matches_jax():
 
 
 def test_dense_layout_not_yet_ported():
-    """The dense layouts build their operators now; what the dense path
-    still lacks (bf16 tiles for the one-pass kernels) raises "not yet
-    ported", and the plain dense layout has no fused kernel, as in the
-    reference. s-step PCG builds on two-pass and on fused dense kernels
-    (the fused round, x_c_xt_multi, is ported)."""
+    """The dense layouts build their operators now, the one-pass kernels
+    on bf16 tiles too (that raised "not yet ported" until K5 and K10 took
+    bf16 tiles), and the plain dense layout has no fused kernel, as in
+    the reference. s-step PCG builds on two-pass and on fused dense
+    kernels (the fused round, x_c_xt_multi, is ported)."""
     from repro_torch import DiscoConfig, DiscoSolver
     X = torch.zeros((8, 8))
     assert isinstance(thvp.make_local_operator(X, None),
@@ -130,11 +130,14 @@ def test_dense_layout_not_yet_ported():
                       thvp.DenseKernelOperator)
     with pytest.raises(thvp.UnsupportedHvpError, match="use_kernel=True"):
         thvp.make_local_operator(X, None, fused=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
-                    DiscoConfig(use_kernel=True, hvp_fused=True,
-                                hvp_dtype="bfloat16"),
-                    device="cpu")
+    fused_bf16 = DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),
+                             DiscoConfig(use_kernel=True, hvp_fused=True,
+                                         hvp_dtype="bfloat16"),
+                             device="cpu")
+    assert fused_bf16.X_h.dtype == torch.bfloat16
+    op = thvp.make_local_operator(fused_bf16._hvp_locs[0], None,
+                                  use_kernel=True, fused=True)
+    assert isinstance(op, thvp.DenseKernelOperator) and op.fused
     # the dense s-step paths build, two-pass and fused, and the fused one
     # runs a step
     DiscoSolver(np.eye(8, dtype=np.float32), np.ones(8),

@@ -98,7 +98,7 @@ def test_cuda_ops_launch_the_kernels(dev):
         "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
         "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
         "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
-        "x_cz_multi_bf16": 0}
+        "x_cz_multi_bf16": 0, "x_c_xt_u_bf16": 0, "x_c_xt_multi_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -357,7 +357,7 @@ def test_cuda_dense_ops_launch_the_kernels(dev):
         "x_c_xt_multi": 4, "flash_attention": 0, "ell_mv_bf16": 0,
         "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
         "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
-        "x_cz_multi_bf16": 0}
+        "x_cz_multi_bf16": 0, "x_c_xt_u_bf16": 0, "x_c_xt_multi_bf16": 0}
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])
@@ -1362,9 +1362,10 @@ def test_cuda_bf16_dense_multi_match_plain(dev, shape, s):
 
 def test_cuda_bf16_dense_dispatch(dev):
     """The ops dispatch by X's dtype: bf16 X launches the bf16 instances
-    only (13 columns: two launches each), f32 X the f32 kernels only; the
-    one-pass kernels refuse bf16 X (not yet ported), and any other dtype
-    is refused before a launch."""
+    only (13 columns: two launches each), the one-pass ones included, f32
+    X the f32 kernels only; past the bf16 fit rule's reach (d = 12,289 at
+    one column, 6,145 at eight) the one-pass ops take the bf16 two-pass
+    pair; any other dtype is refused before a launch."""
     X, u, z, c = _dense(dev, 64, 256, seed=8)
     Xh = X.to(torch.bfloat16)
     U = torch.ones((64, 13), device=dev)
@@ -1374,22 +1375,42 @@ def test_cuda_bf16_dense_dispatch(dev):
     ops.x_cz_local(Xh, c, z)
     ops.xt_multi(Xh, U)
     ops.x_cz_multi(Xh, None, Z)
+    ops.x_c_xt_u(Xh, c, u)
+    ops.x_c_xt_multi(Xh, c, U)
     assert {k: v for k, v in build.launch_counts().items() if v} == {
         "xt_u_bf16": 1, "x_cz_bf16": 1, "xt_multi_bf16": 2,
-        "x_cz_multi_bf16": 2}
+        "x_cz_multi_bf16": 2, "x_c_xt_u_bf16": 1, "x_c_xt_multi_bf16": 2}
     build.reset_launch_counts()
     ops.xt_u(X, u)
     ops.xt_multi(X, U[:, :3])
+    ops.x_c_xt_u(X, c, u)
     assert {k: v for k, v in build.launch_counts().items() if v} == {
-        "xt_u": 1, "xt_multi": 1}
+        "xt_u": 1, "xt_multi": 1, "x_c_xt_u": 1}
+    bf = torch.bfloat16
+    for d, s in ((12_289, 1), (6145, 8)):
+        assert glm_hvp.fused_plan(d, s, dtype=bf) is None
+        assert glm_hvp.fused_plan(d - 1, s, dtype=bf) is not None
+        Xb = torch.randn((d, 64), device=dev).to(bf)
+        ub = torch.randn((d, s), device=dev)
+        build.reset_launch_counts()
+        if s == 1:
+            got = ops.x_c_xt_u(Xb, c[:64], ub[:, 0])
+            want = ref.ref_x_c_xt_u(Xb, c[:64], ub[:, 0])
+            pair = {"xt_u_bf16": 1, "x_cz_bf16": 1}
+        else:
+            got = ops.x_c_xt_multi(Xb, c[:64], ub)
+            want = ref.ref_x_c_xt_multi(Xb, c[:64], ub)
+            pair = {"xt_multi_bf16": 1, "x_cz_multi_bf16": 1}
+        torch.cuda.synchronize()
+        assert {k: v for k, v in build.launch_counts().items() if v} == pair
+        assert got.shape == want.shape
+        with pytest.raises(ValueError, match="no x_c_xt"):
+            (glm_hvp.x_c_xt_u(Xb, c[:64], ub[:, 0]) if s == 1
+             else glm_hvp.x_c_xt_multi(Xb, c[:64], ub))
     build.reset_launch_counts()
-    for fn in (lambda: glm_hvp.x_c_xt_u(Xh, c, u),
-               lambda: glm_hvp.x_c_xt_multi(Xh, c, U[:, :2]),
-               lambda: ops.x_c_xt_u(Xh, c, u)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn()
     for fn in (lambda: glm_hvp.xt_u(X.half(), u),
-               lambda: glm_hvp.x_cz_multi(X.half(), c, Z[:, :2])):
+               lambda: glm_hvp.x_cz_multi(X.half(), c, Z[:, :2]),
+               lambda: glm_hvp.x_c_xt_u(X.half(), c, u)):
         with pytest.raises(TypeError):
             fn()
     assert not any(build.launch_counts().values())
@@ -1444,3 +1465,265 @@ def test_cuda_dense_bf16_disco_fit_matches_cpu(dev, partition, m, s,
     assert not any(counts[k] for k in f32)
     bf16 = sum(counts[k + "_bf16"] for k in f32[:4])
     assert (bf16 > 0) == use_kernel
+
+
+# ---------------------------------------------------------------------------
+# bf16 tiles: the bf16 instances of K5 and K10
+# ---------------------------------------------------------------------------
+
+def _fused_bf16_edge(dev, name):
+    """A bf16 X at an edge of the fused kernels' plan and split, and the
+    copy path it calls for: a tensor map needs a row stride of whole
+    16-byte units (ld a multiple of 8) and a 16-byte aligned X."""
+    g = torch.Generator(device=dev).manual_seed(11 + len(name))
+    mat = lambda d, n: (torch.randn((d, n), generator=g, device=dev)
+                        / d ** 0.5).to(torch.bfloat16)
+    wide = mat(64, 3000)
+    solver = mat(512, 4096)     # the dense slice at d cut 8-fold
+    return {
+        "ragged_n": (mat(70, 1101), "direct"),
+        "ragged_panel": (mat(70, 1104), "bulk"),
+        "d_below_q": (mat(5, 2048), "bulk"),
+        "d_not_multiple_of_q": (mat(1001, 704), "bulk"),
+        "n_below_bn": (mat(64, 24), "bulk"),
+        "n_below_bn_direct": (mat(64, 7), "direct"),
+        "d1_n1": (mat(1, 1), "direct"),
+        "d1_n8": (mat(1, 8), "bulk"),
+        "view_at_0": (wide[:, 0:1024], "bulk"),
+        "view_at_1": (wide[:, 1:1025], "direct"),
+        "view_at_4": (wide[:, 4:1028], "direct"),
+        "view_at_8": (wide[:, 8:1032], "bulk"),
+        "ld_above_n": (mat(40, 1032)[:, :1000], "bulk"),
+        "ld_not_8": (mat(40, 1028)[:, :1024], "direct"),
+        "S_m4_view": (solver[:, :1024], "bulk"),
+        "S_m4_view_odd": (mat(32, 4 * 1025)[:, 1025:2050], "direct"),
+        "F_m4_rows": (solver[:128], "bulk"),
+    }[name]
+
+
+FUSED_BF16_EDGES = ["ragged_n", "ragged_panel", "d_below_q",
+                    "d_not_multiple_of_q", "n_below_bn",
+                    "n_below_bn_direct", "d1_n1", "d1_n8", "view_at_0",
+                    "view_at_1", "view_at_4", "view_at_8", "ld_above_n",
+                    "ld_not_8", "S_m4_view", "S_m4_view_odd", "F_m4_rows"]
+
+
+def _fused_bf16_halves(X, c, U, got, cz):
+    """A bf16 K5 (U a vector) or K10 call held in its two halves, against
+    the plain version and against the bf16 two-pass pair: the hand-off
+    ``cz`` is the plain (and the pair's pass A) hand-off rounded to bf16
+    but for roundings of values within the f32 summation slack (F11),
+    and ``got`` is the plain pass B (and the pair's bf16 pass B) of the
+    kernel's own hand-off. Returns (hand-offs agree, rel err vs plain,
+    rel err vs the pair's pass B, elements rounded the other way against
+    the plain and the pair, elements); the caller holds the rate over all
+    its calls (``ref.handoff_rate_ok``)."""
+    t = ref.ref_dense_handoff(X, c, U)
+    slack = ref.dense_handoff_slack(X, c, U, t)
+    cz = cz.reshape(t.shape)
+    flips, ok = ref.dense_handoff_flips(cz, t, slack)
+    if U.dim() == 1:
+        pz = glm_hvp.xt_u(X, U)
+        tp = pz if c is None else c * pz
+        want, pair_y = ref.ref_x_cz(X, cz), glm_hvp.x_cz(X, None, cz)
+    else:
+        pz = glm_hvp.xt_multi(X, U)
+        tp = pz if c is None else c[:, None] * pz
+        want = ref.ref_x_cz_multi(X, None, cz)
+        pair_y = glm_hvp.x_cz_multi(X, None, cz)
+    pflips, pair_ok = ref.dense_handoff_flips(cz, tp, slack)
+    torch.cuda.synchronize()
+    if float(torch.linalg.norm(want)) == 0.0:
+        e, ep = float(got.abs().max()), float((got - pair_y).abs().max())
+    else:
+        e, ep = _rel(got, want), _rel(got, pair_y)
+    return ok and pair_ok, e, ep, (flips, pflips, t.numel())
+
+
+class _Flips:
+    """Hand-off elements rounded the other way over a test's calls,
+    against the plain version and the pair, and the elements seen."""
+
+    def __init__(self):
+        self.plain = self.pair = self.numel = 0
+
+    def add(self, counts):
+        self.plain += counts[0]
+        self.pair += counts[1]
+        self.numel += counts[2]
+
+    def ok(self):
+        """The rate against the plain version (cuBLAS's sum); the pair's
+        K3 / K8 sum its rows in order, so more of its elements sit off a
+        tie's other side (each within the slack, checked per call)."""
+        return ref.handoff_rate_ok(self.plain, self.numel)
+
+
+@pytest.mark.parametrize("name", FUSED_BF16_EDGES)
+@pytest.mark.parametrize("cluster", glm_hvp.CLUSTER_SIZES)
+def test_cuda_bf16_fused_edge_shapes(dev, name, cluster):
+    """The bf16 K5 (with and without c) and K10 (s = 1..8, U the first s
+    of s + 1 columns; without c too at s = 1 and 5) at an edge of the plan
+    and split, on each cluster size the bf16 fit rule allows there, on
+    as many clusters as fit and on 3: on the copy path the shape calls
+    for, held in halves (:func:`_fused_bf16_halves`) at 1e-5, repeated
+    bit for bit, the rate of hand-off elements rounded the other way
+    over the test's calls at most one in a thousand; only the bf16
+    instances counted."""
+    X, path = _fused_bf16_edge(dev, name)
+    assert glm_hvp.fused_path(X) == path
+    d, n = X.shape
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(d * n + cluster)
+    u = torch.randn(d, generator=g, device=dev)
+    c = torch.rand(n, generator=g, device=dev)
+    ran = 0
+    flips = _Flips()
+    build.reset_launch_counts()
+    for clusters in (None, 3):
+        kw = dict(_cluster=cluster, _clusters=clusters)
+        if glm_hvp.fused_plan(d, 1, cluster, dtype=bf) is not None:
+            for cc in (None, c):
+                cz = torch.zeros(n, device=dev)
+                got = glm_hvp.x_c_xt_u(X, cc, u, cz_out=cz, **kw)
+                run = glm_hvp.last_fused["x_c_xt_u_bf16"]
+                again = glm_hvp.x_c_xt_u(X, cc, u, **kw)
+                torch.cuda.synchronize()
+                assert run.path == glm_hvp.last_path["x_c_xt_u_bf16"] == path
+                assert run.plan == glm_hvp.fused_plan(d, 1, cluster,
+                                                      dtype=bf)
+                assert run.clusters == (clusters or run.clusters) >= 1
+                ok, e, ep, cnt = _fused_bf16_halves(X, cc, u, got, cz)
+                flips.add(cnt)
+                assert ok and e <= 1e-5 and ep <= 1e-5, (e, ep)
+                assert torch.equal(got, again)
+                ran += 1
+        for s in range(1, build.MAX_COLS + 1):
+            if glm_hvp.fused_plan(d, s, cluster, dtype=bf) is None:
+                continue
+            U = _basis(dev, d, s, s + cluster, strided=True)
+            for cc in (c, None) if s in (1, 5) else (c,):
+                cz = torch.zeros((n, s), device=dev)
+                got = glm_hvp.x_c_xt_multi(X, cc, U, cz_out=cz, **kw)
+                again = glm_hvp.x_c_xt_multi(X, cc, U, **kw)
+                torch.cuda.synchronize()
+                assert glm_hvp.last_path["x_c_xt_multi_bf16"] == path
+                assert got.shape == (d, s) and got.dtype == torch.float32
+                ok, e, ep, cnt = _fused_bf16_halves(X, cc, U, got, cz)
+                flips.add(cnt)
+                assert ok and e <= 1e-5 and ep <= 1e-5, (s, e, ep)
+                assert torch.equal(got, again)
+                ran += 1
+    assert flips.ok(), vars(flips)
+    counts = build.launch_counts()
+    assert counts["x_c_xt_u"] == counts["x_c_xt_multi"] == 0
+    if not ran:
+        pytest.skip(f"no bf16 plan of {cluster} CTAs a cluster at d = {d}")
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("s", MULTI_S)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_cuda_bf16_x_c_xt_multi_matches_plain(dev, shape, s, with_c):
+    """The bf16 K10 on every cluster size the bf16 fit rule allows, on
+    contiguous and strided U, X whole and as a column view at offset 1
+    (direct path): held in halves against the plain version and the bf16
+    two-pass pair (1e-5), repeated bit for bit; at s = 1 the bf16 K5
+    likewise."""
+    d, n = shape
+    X, _, _, c = _dense(dev, d, n + 1, seed=d + n + s)
+    Xh = X.to(torch.bfloat16)
+    c = c[:n] if with_c else None
+    flips = _Flips()
+    for A in (Xh[:, :n].contiguous(), Xh[:, 1:]):
+        for strided in (False, True):
+            U = _basis(dev, d, s, 7 * s, strided=strided)
+            sizes = [q for q in glm_hvp.CLUSTER_SIZES
+                     if glm_hvp.fused_plan(d, s, q,
+                                           dtype=torch.bfloat16) is not None]
+            assert sizes
+            for q in sizes:
+                cz = torch.zeros((n, s), device=dev)
+                got = glm_hvp.x_c_xt_multi(A, c, U, cz_out=cz, _cluster=q)
+                again = glm_hvp.x_c_xt_multi(A, c, U, _cluster=q)
+                ok, e, ep, k = _fused_bf16_halves(A, c, U, got, cz)
+                flips.add(k)
+                assert ok and e <= 1e-5 and ep <= 1e-5, (q, strided, e, ep)
+                assert torch.equal(got, again)
+                if s == 1:
+                    u = U[:, 0].contiguous()
+                    cz = torch.zeros(n, device=dev)
+                    got = glm_hvp.x_c_xt_u(A, c, u, cz_out=cz, _cluster=q)
+                    ok, e, ep, k = _fused_bf16_halves(A, c, u, got, cz)
+                    flips.add(k)
+                    assert ok and e <= 1e-5 and ep <= 1e-5, (q, e, ep)
+    assert flips.ok(), vars(flips)
+
+
+def test_cuda_bf16_fused_failed_launch_raises(dev, monkeypatch):
+    """A plan the bf16 entry points refuse (a panel width of the f32
+    kernels' narrow 16, not one of bf16's 64 and 32) raises, naming the
+    bf16 instance, and counts no launch."""
+    X, u, _, c = _dense(dev, 64, 1024, seed=12)
+    Xh = X.to(torch.bfloat16)
+    bad = glm_hvp.FusedPlan(1, 16, 2, 256)
+    monkeypatch.setattr(glm_hvp, "fused_plan", lambda *a, **k: bad)
+    build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="x_c_xt_u_bf16 launch failed"):
+        glm_hvp.x_c_xt_u(Xh, c, u)
+    with pytest.raises(RuntimeError,
+                       match="x_c_xt_multi_bf16 launch failed"):
+        glm_hvp.x_c_xt_multi(Xh, c, torch.ones((64, 3), device=dev))
+    assert not any(build.launch_counts().values())
+
+
+@pytest.mark.parametrize("partition", ["samples", "features"])
+@pytest.mark.parametrize("m,s", [(1, 1), (2, 1), (1, 2)])
+def test_cuda_dense_bf16_fused_disco_fit_matches_cpu(dev, partition, m, s):
+    """A small fused bf16 dense solve on the card against the same solve
+    on the CPU: the same PCG iterations (or rounds) every step, w within
+    relative L2 3e-4 (F11); PCG's products on the bf16 instances only,
+    the one-pass ones wherever no collective separates the passes."""
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                      grad_tol=0.0, partition=partition, pcg_block_s=s,
+                      use_kernel=True, hvp_fused=True,
+                      hvp_dtype="bfloat16")
+    build.reset_launch_counts()
+    on_card = disco_fit(X, y, cfg, group=InProcessGroup(m))
+    counts = build.launch_counts()
+    on_cpu = disco_fit(X, y, cfg, group=InProcessGroup(m), device="cpu")
+    assert [h["pcg_iters"] for h in on_card.history] == \
+        [h["pcg_iters"] for h in on_cpu.history]
+    assert np.linalg.norm(on_card.w - on_cpu.w) <= \
+        3e-4 * np.linalg.norm(on_cpu.w)
+    f32 = ("xt_u", "x_cz", "xt_multi", "x_cz_multi", "x_c_xt_u",
+           "x_c_xt_multi")
+    assert not any(counts[k] for k in f32)
+    fused = counts["x_c_xt_u_bf16"] + counts["x_c_xt_multi_bf16"]
+    assert fused > 0 if partition == "samples" or m == 1 else fused == 0
+
+
+def test_cuda_bf16_lambda_path_matches_cpu(dev):
+    """A small warm λ-path on the fused bf16 s-step solve (the bf16 K5
+    for the basis products, K10 for the rounds) on the card against the
+    same path on the CPU: the same best λ, each point's w within relative
+    L2 3e-4 (F11); no f32 dense kernel launched."""
+    from repro_torch import lambda_path_fit
+    X, y, _ = make_glm_data(d=98, n=202, seed=1)
+    Xv, yv, _ = make_glm_data(d=98, n=150, seed=2)
+    cfg = DiscoConfig(loss="logistic", tau=100, max_outer=6, grad_tol=1e-6,
+                      partition="samples", use_kernel=True, hvp_fused=True,
+                      pcg_block_s=3, hvp_dtype="bfloat16")
+    build.reset_launch_counts()
+    on_card = lambda_path_fit(X, y, [1e-2, 1e-3, 1e-4], cfg, X_val=Xv,
+                              y_val=yv)
+    counts = build.launch_counts()
+    assert counts["x_c_xt_u_bf16"] > 0 and counts["x_c_xt_multi_bf16"] > 0
+    assert counts["x_c_xt_u"] == counts["x_c_xt_multi"] == 0
+    on_cpu = lambda_path_fit(X, y, [1e-2, 1e-3, 1e-4], cfg, X_val=Xv,
+                             y_val=yv, device="cpu")
+    assert on_card.best_lambda == on_cpu.best_lambda
+    for a, b in zip(on_card.results, on_cpu.results):
+        assert np.linalg.norm(a.w - b.w) <= 3e-4 * np.linalg.norm(b.w)

@@ -168,8 +168,9 @@ def test_unported_options_raise(override):
     take a step. bf16 HVP tiles (which raised until the sparse and the
     two-pass dense kernels took them; ``tests/test_torch_bf16.py`` and
     ``tests/test_torch_dense_bf16.py`` hold them to the reference) build
-    on sparse and dense input and take a step; with the one-pass dense
-    kernels (``hvp_fused=True``) they still raise."""
+    on sparse and dense input and take a step, with the one-pass dense
+    kernels (``hvp_fused=True``) too (they raised until K5 and K10 took
+    bf16 tiles; ``tests/test_torch_fused_bf16.py``)."""
     X, y, Xt = _data()
     cfg = DiscoConfig(**dict(KW, **override))
     if "hvp_dtype" in override:
@@ -181,10 +182,12 @@ def test_unported_options_raise(override):
         assert dense.X_h.dtype == torch.bfloat16
         w, stats = dense._step(torch.zeros(dense._w_shape))
         assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            DiscoSolver(X.todense(), y, DiscoConfig(**dict(
-                KW, use_kernel=True, hvp_fused=True, **override)),
-                device="cpu")
+        fused = DiscoSolver(X.todense(), y, DiscoConfig(**dict(
+            KW, use_kernel=True, hvp_fused=True, **override)),
+            device="cpu")
+        assert fused.X_h.dtype == torch.bfloat16
+        w, stats = fused._step(torch.zeros(fused._w_shape))
+        assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
         return
     if "hessian_subsample" in override or "precond" in override:
         kw = dict(KW, partition="samples", **override)

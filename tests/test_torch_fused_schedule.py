@@ -13,10 +13,12 @@ published into one of four exchange slots, read back in rank order once
 every CTA of the cluster has arrived, pass 2 one panel behind pass 1, the
 clusters' partials added in cluster order), run under random interleavings
 of the CTAs, never overwrites a slot a peer has still to read and gives
-X (c .* (X^T U)) exactly on integer data. The ops at the solver's m = 4
-shard shapes run their plain versions here, which must equal the JAX ops
-on the same numpy inputs (rtol 1e-5, atol 1e-5: f32 sums in another
-order). The kernels themselves run only on the card
+X (c .* (X^T U)) exactly on integer data; within a CTA every partial of
+the exchange belongs to one consumer thread at both tile types (two a
+thread from s = 5 on at bf16's 64-column panels). The ops at the
+solver's m = 4 shard shapes run their plain versions here, which must
+equal the JAX ops on the same numpy inputs (rtol 1e-5, atol 1e-5: f32
+sums in another order). The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 import random
@@ -287,11 +289,57 @@ def test_header_and_wrapper_agree_on_the_plan():
     assert "return S <= 2 ? S : S <= 4 ? 4 : 8;" in text
     assert [glm_hvp.fused_padded(s) for s in COLUMNS] == \
         [1, 2, 4, 4, 8, 8, 8, 8]
-    assert "bn == 16 || bn == 32" in text
-    assert set(glm_hvp.last_fused) == {"x_c_xt_u", "x_c_xt_multi"}
-    for src in ("x_c_xt_u.cu", "x_c_xt_multi.cu"):
+    # the panel widths: rows of 128 and 64 bytes, 16 bytes a thread's read
+    assert "constexpr int kVec = 16 / static_cast<int>(sizeof(T));" in text
+    assert "constexpr int kWide = 8 * kVec<T>;" in text
+    assert "constexpr int kNarrow = 4 * kVec<T>;" in text
+    assert "bn == kWide<T> || bn == kNarrow<T>" in text
+    assert glm_hvp.FUSED_WIDTHS_BY_DTYPE == {
+        dt: (8 * 16 // dt.itemsize, 4 * 16 // dt.itemsize)
+        for dt in glm_hvp.TILE_DTYPES}
+    assert glm_hvp.FUSED_WIDTHS == (32, 16)
+    assert set(glm_hvp.last_fused) == {"x_c_xt_u", "x_c_xt_multi",
+                                       "x_c_xt_u_bf16", "x_c_xt_multi_bf16"}
+    for src in ("x_c_xt_u.cu", "x_c_xt_multi.cu", "x_c_xt_u_bf16.cu",
+                "x_c_xt_multi_bf16.cu"):
         assert '#include "fused_stream.cuh"' in \
             (build.CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("s", COLUMNS)
+@pytest.mark.parametrize("dtype", glm_hvp.TILE_DTYPES,
+                         ids=["f32", "bf16"])
+def test_exchange_partials_cover_the_panel(s, dtype):
+    """The exchange's E = bn s partials of a panel over the 256 consumer
+    threads, as the kernel unrolls them (thread t takes t + 256 h for h <
+    PER = E / 256 rounded up, the same loop in the publish and in pass 2,
+    so the threads that wait on the exchange are the ones that read it):
+    every partial summed over the warps, published and read back by
+    exactly one thread; PER is 1 at f32 and 2 from s = 5 on at bf16's
+    64-column panels. A walk of the publish on integer data is exact."""
+    text = (build.CSRC / "fused_stream.cuh").read_text()
+    assert "constexpr int PER = (E + kThreads - 1) / kThreads;" in text
+    assert text.count("const int i = t + h * kThreads;") == 2
+    rng = np.random.default_rng(s)
+    threads = glm_hvp.FUSED_THREADS
+    for bn in glm_hvp.FUSED_WIDTHS_BY_DTYPE[dtype]:
+        E = bn * s
+        per = -(-E // threads)
+        owner = {}
+        for t in range(threads):
+            for h in range(per):
+                i = t + h * threads
+                if i < E:
+                    assert i not in owner
+                    owner[i] = t
+        assert sorted(owner) == list(range(E))
+        assert (per > 1) == (dtype == torch.bfloat16 and bn == 64
+                             and s >= 5)
+        red = rng.integers(-9, 10, (8, E))
+        slots = np.full(E, np.nan)
+        for i, t in owner.items():
+            slots[i] = red[:, i].sum()
+        np.testing.assert_array_equal(slots, red.sum(axis=0))
 
 
 SHARDS = {"S_m4_view": (slice(None), slice(0, 512)),

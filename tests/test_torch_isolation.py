@@ -38,6 +38,14 @@ SCRIPT = textwrap.dedent("""
                       group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.w).all() and r.w.shape == (30,)
         assert r.grad_norms[-1] < r.grad_norms[0]
+        for s in (1, 2):
+            r = disco_fit(Xd, yd, DiscoConfig(partition=partition, tau=16,
+                                              max_outer=2, use_kernel=True,
+                                              hvp_fused=True, pcg_block_s=s,
+                                              hvp_dtype="bfloat16"),
+                          group=InProcessGroup(1), device="cpu")
+            assert np.isfinite(r.w).all() and r.w.shape == (30,)
+            assert r.grad_norms[-1] < r.grad_norms[0]
         r = disco_fit(X, y, DiscoConfig(partition=partition, tau=16,
                                         max_outer=2, ell_block_d=8,
                                         ell_block_n=8, pcg_block_s=3),
@@ -98,13 +106,16 @@ SCRIPT = textwrap.dedent("""
                         group=InProcessGroup(2), device="cpu")
         assert np.isfinite(r.W).all() and r.W.shape == (30, 3)
         assert r.grad_norms[-1] < r.grad_norms[0]
-    path = lambda_path_fit(Xd, yd, [1e-2, 1e-3],
-                           DiscoConfig(tau=16, max_outer=2, use_kernel=True,
-                                       hvp_fused=True, pcg_block_s=2,
-                                       partition="samples"),
-                           X_val=Xd, y_val=yd, device="cpu")
-    assert path.lambdas == [1e-2, 1e-3] and path.best_lambda in path.lambdas
-    assert all(np.isfinite(r.w).all() for r in path.results)
+    for dtype in ("float32", "bfloat16"):
+        path = lambda_path_fit(Xd, yd, [1e-2, 1e-3],
+                               DiscoConfig(tau=16, max_outer=2,
+                                           use_kernel=True, hvp_fused=True,
+                                           pcg_block_s=2, hvp_dtype=dtype,
+                                           partition="samples"),
+                               X_val=Xd, y_val=yd, device="cpu")
+        assert path.lambdas == [1e-2, 1e-3]
+        assert path.best_lambda in path.lambdas
+        assert all(np.isfinite(r.w).all() for r in path.results)
     import torch
     assert GLMProblem.create(Xd, yd, device="cpu").grad(torch.zeros(30)).shape == (30,)
     import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
@@ -158,6 +169,26 @@ def test_no_jax_or_repro_imports_in_port_sources():
     assert len(files) > 10
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+_LIBRARY = re.compile(
+    r"^\s*#\s*include\s*[<\"](cublas|cublasLt|cudnn|cusparse|cutlass|cute|"
+    r"torch|ATen|c10|thrust|cub)[/_.]", re.MULTILINE)
+
+
+def test_kernel_sources_call_no_library():
+    """Every CUDA source of the port, the bf16 one-pass instances
+    included, is a kernel written here: no cuBLAS, cuDNN, cuSPARSE,
+    CUTLASS, Thrust or PyTorch header is included, and every source
+    ``kernels/build.py`` compiles is among them."""
+    from repro_torch.kernels import build
+    sources = sorted((SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu*"))
+    assert {k.source for k in build.KERNELS} <= set(sources)
+    assert {"x_c_xt_u_bf16.cu", "x_c_xt_multi_bf16.cu",
+            "fused_stream.cuh"} <= {f.name for f in sources}
+    for f in sources:
+        hits = _LIBRARY.findall(f.read_text())
         assert not hits, (f, hits)
 
 

@@ -231,13 +231,15 @@ def test_cpu_calls_launch_no_kernel():
     tops.x_cz_local(Xh, None, torch.ones(10))
     tops.xt_multi(Xh, torch.ones((6, 13)))
     tops.x_cz_multi(Xh, torch.ones(10), torch.ones((10, 3)))
+    tops.x_c_xt_u(Xh, torch.ones(10), torch.ones(6))
+    tops.x_c_xt_multi(Xh, None, torch.ones((6, 13)))
     assert build.launch_counts() == {
         "ell_mv": 0, "ell_hvp": 0, "xt_u": 0, "x_cz": 0, "x_c_xt_u": 0,
         "ell_mm": 0, "ell_hvp_mm": 0, "xt_multi": 0, "x_cz_multi": 0,
         "x_c_xt_multi": 0, "flash_attention": 0, "ell_mv_bf16": 0,
         "ell_hvp_bf16": 0, "ell_mm_bf16": 0, "ell_hvp_mm_bf16": 0,
         "xt_u_bf16": 0, "x_cz_bf16": 0, "xt_multi_bf16": 0,
-        "x_cz_multi_bf16": 0}
+        "x_cz_multi_bf16": 0, "x_c_xt_u_bf16": 0, "x_c_xt_multi_bf16": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -285,7 +287,7 @@ def test_kernel_sources_and_build_target():
         "ell_hvp_mm", "xt_multi", "x_cz_multi", "x_c_xt_multi",
         "flash_attention", "ell_mv_bf16", "ell_hvp_bf16", "ell_mm_bf16",
         "ell_hvp_mm_bf16", "xt_u_bf16", "x_cz_bf16", "xt_multi_bf16",
-        "x_cz_multi_bf16"]
+        "x_cz_multi_bf16", "x_c_xt_u_bf16", "x_c_xt_multi_bf16"]
     for k in build.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == build.BUILD_DIR
@@ -312,7 +314,9 @@ def test_kernel_sources_and_build_target():
                       (build.XT_U, build.XT_U_BF16),
                       (build.X_CZ, build.X_CZ_BF16),
                       (build.XT_MULTI, build.XT_MULTI_BF16),
-                      (build.X_CZ_MULTI, build.X_CZ_MULTI_BF16)):
+                      (build.X_CZ_MULTI, build.X_CZ_MULTI_BF16),
+                      (build.X_C_XT_U, build.X_C_XT_U_BF16),
+                      (build.X_C_XT_MULTI, build.X_C_XT_MULTI_BF16)):
         assert names(bf16) == names(f32)
         assert bf16.argtypes == f32.argtypes
         assert f"{bf16.name}_launch(const __nv_bfloat16*" in \
