@@ -52,7 +52,15 @@ Eight phases; any failed check makes the exit code nonzero.
    halves (the hand-off against the plain one's and the two-pass bf16
    pair's rounding, values within the f32 summation slack aside; the
    output against the plain and the pair's pass B of the kernel's own
-   hand-off, <= 1e-5), repeated bit for bit; ``flash_attention`` (K11)
+   hand-off, <= 1e-5), repeated bit for bit; K8 ``xt_multi`` and K9
+   ``x_cz_multi`` at both tile types (``csrc/dense_multi.cuh``) at the
+   dense shapes as whole rows, column views at offsets 1, 4 and 8 and
+   rows of a stride not a multiple of 8, at s = 1 .. 8 and 13 on
+   contiguous and strided blocks, K9 with and without c, on the card's
+   CTA count and on 3 and 1,000 CTAs, each call repeated bit for bit on
+   the copy path ``glm_hvp.dense_path(X)`` predicts (the ptxas report of
+   their instances, registers and spills by path and s, is printed after
+   the build); ``flash_attention`` (K11)
    in f32 (<= 1e-5) and bf16 (<= 1e-2 against the plain version in f32
    on the same bf16 inputs, and at most 1.5x the error of the plain
    output's bf16 rounding alone) over GQA groups 1, 2, 4, 5 and 16,
@@ -134,7 +142,11 @@ Eight phases; any failed check makes the exit code nonzero.
    dense instances are held to their plain versions and timed at the full
    width and both m = 4 shard shapes (K8 and K9 at s = 5, and 8 and 13 at
    the full width) beside the plain versions, ``torch.mv`` / ``@`` on the
-   bf16 X and the f32 kernels of the same call; so are the bf16 K5 (full
+   bf16 X and the f32 kernels of the same call; K8 and K9 at both types
+   are held and timed at the full width at s = 1, 2, 4, 5, 8 and 13 and at
+   both shard shapes at s = 5 and 8 beside their bound, the cuBLAS call
+   of the same type and the plain version (lines ``multi grid ...``); so
+   are the bf16 K5 (full
    width and both shard shapes) and K10 (s = 5 and 8 at the full width,
    s = 5 at both shard shapes), each held in its two halves, beside its
    bound, the bf16 two-pass kernel pair, the ``torch.mv`` pair on the
@@ -441,6 +453,40 @@ def record_err(errs, name, got, want) -> float:
 # phase 1
 # ---------------------------------------------------------------------------
 
+MULTI_KERNEL = re.compile(r"multi_kernelILb([01])ELb([01])E\w+?Li(\d)E")
+
+
+def multi_ptxas(log: str) -> list:
+    """The registers and spill bytes of each instance of
+    ``csrc/dense_multi.cuh``'s kernel in an ``nvcc -Xptxas -v`` log (its
+    path and its s, from the mangled name)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            k = MULTI_KERNEL.search(m[1])
+            if k is None:
+                cur = None
+                continue
+            key = ("bulk" if k[2] == "1" else "direct", int(k[3]))
+            cur = next((r for r in out if (r["path"], r["s"]) == key), None)
+            if cur is None:
+                cur = dict(path=key[0], s=key[1], registers=None,
+                           spill_stores=0, spill_loads=0)
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+    return sorted(out, key=lambda r: (r["path"], r["s"]))
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     reports = build.build_kernels()
@@ -450,6 +496,14 @@ def phase_build(build) -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for name, log in reports.items():
+        if name.startswith(("xt_multi", "x_cz_multi")):
+            rows = multi_ptxas(log)
+            print(f"ptxas {name} by instance: " + ", ".join(
+                f"{r['path']} s={r['s']} {r['registers']} regs"
+                + (f" SPILLS {r['spill_stores']}/{r['spill_loads']} B"
+                   if r["spill_stores"] or r["spill_loads"] else "")
+                for r in rows), flush=True)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -1105,6 +1159,85 @@ def phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs) -> None:
                   + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
                   + f"; repeatable {same}; K3/K4 path {sorted(paths)} (want "
                   f"{want_path})")
+
+
+def multi_views(torch, dev, d, n, seed, dtype) -> dict:
+    """X of (d, n) at ``dtype`` as whole rows, column views at offsets 1,
+    4 and 8 of rows of n + 8, and rows of n + 4 (a stride not a multiple
+    of 8): the bulk path where rows are whole 16-byte units and X is
+    aligned, the direct path elsewhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wide = (torch.randn((d, n + 8), generator=g, device=dev)
+            / d ** 0.5).to(dtype)
+    odd = (torch.randn((d, n + 4), generator=g, device=dev)
+           / d ** 0.5).to(dtype)
+    return {"rows": wide[:, :n].contiguous(), "view_at_1": wide[:, 1:n + 1],
+            "view_at_4": wide[:, 4:n + 4], "view_at_8": wide[:, 8:],
+            "ld_n+4": odd[:, :n]}
+
+
+MULTI_CTAS = (None, 3, 1000)    # the card's count, fewer and more than pieces
+MULTI_PATH_S = tuple(range(1, MAX_COLS + 1)) + (13,)
+
+
+def phase_multi_paths(torch, glm_hvp, ops, ref, errs) -> None:
+    """K8 ``xt_multi`` and K9 ``x_cz_multi`` (``csrc/dense_multi.cuh``) at
+    DENSE_SHAPES at both tile types, each shape as whole rows, column views
+    at offsets 1, 4 and 8 and rows of a stride not a multiple of 8, at
+    s = 1 .. 8 and 13 (two launches through the ops) on contiguous and
+    strided blocks, K9 with and without c, on the card's CTA count and
+    forced to 3 and 1,000 CTAs (fewer and more than the pieces): within
+    1e-5 of the plain versions, each call repeated bit for bit, on the
+    copy path ``glm_hvp.dense_path(X)`` predicts. One check line per shape,
+    type and view."""
+    dev = torch.device("cuda")
+    for d, n in DENSE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(3 * d + n)
+        c = torch.rand(n, generator=g, device=dev)
+        Ub = torch.randn((d, 14), generator=g, device=dev)
+        Zb = torch.randn((n, 14), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "" if dtype == torch.float32 else "_bf16"
+            for view, X in multi_views(torch, dev, d, n, d * n,
+                                       dtype).items():
+                worst = {"xt_multi": 0.0, "x_cz_multi": 0.0}
+                same, paths = True, set()
+                for k in MULTI_PATH_S:
+                    for strided in (False, True):
+                        U = Ub[:, :k] if strided else Ub[:, :k].contiguous()
+                        Z = Zb[:, :k] if strided else Zb[:, :k].contiguous()
+                        cases = [("xt_multi", None, ref.ref_xt_multi(X, U))]
+                        cases += [("x_cz_multi", cc,
+                                   ref.ref_x_cz_multi(X, cc, Z))
+                                  for cc in (None, c)]
+                        for ctas in MULTI_CTAS if k <= MAX_COLS else (None,):
+                            for name, cc, want in cases:
+                                if name == "xt_multi":
+                                    fn = ((lambda: glm_hvp.xt_multi(
+                                        X, U, _ctas=ctas)) if k <= MAX_COLS
+                                        else (lambda: ops.xt_multi(X, U)))
+                                else:
+                                    fn = ((lambda: glm_hvp.x_cz_multi(
+                                        X, cc, Z, _ctas=ctas))
+                                        if k <= MAX_COLS
+                                        else (lambda: ops.x_cz_multi(
+                                            X, cc, Z)))
+                                got = fn()
+                                paths.add(glm_hvp.last_path[name + tag])
+                                again = fn()
+                                torch.cuda.synchronize()
+                                worst[name] = max(worst[name], record_err(
+                                    errs, name + tag, got, want))
+                                same &= bool(torch.equal(got, again))
+                want_path = glm_hvp.dense_path(X)
+                check(max(worst.values()) <= REL_TOL_KERNEL and same
+                      and paths == {want_path},
+                      f"K8/K9{tag or ' f32'} {d}x{n} {view} s in 1-8, 13, "
+                      f"contiguous and strided, c and none, ctas "
+                      f"{list(MULTI_CTAS)}: worst rel err "
+                      + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
+                      + f"; repeatable {same}; path {sorted(paths)} (want "
+                      f"{want_path})")
 
 
 def check_dense_fused_bf16(torch, glm_hvp, ref, X, c, U, got, cz) -> dict:
@@ -2387,8 +2520,8 @@ def measure_dense_bf16(torch, X, glm_hvp, ref, errs, f32) -> dict:
             e = record_err(errs, name, got, want)
             same = bool(torch.equal(got, again))
             lib_rel = rel_err(lib.float(), got)
-            path = glm_hvp.last_path.get(name)   # None: K8 / K9 copy nothing
-            check(e <= REL_TOL_KERNEL and same and path in (None, "bulk"),
+            path = glm_hvp.last_path[name]
+            check(e <= REL_TOL_KERNEL and same and path == "bulk",
                   f"{name} {shape} {tuple(A.shape)}: rel err {e:.2e}, "
                   f"repeatable {same}, path {path}; the library call "
                   f"(bf16 output) {lib_rel:.2e} from it")
@@ -2464,8 +2597,95 @@ def measure_dense_bf16(torch, X, glm_hvp, ref, errs, f32) -> dict:
         {k: {key: v for key, v in m.items() if key.startswith(
             ("ms_s", "bound_ms_s", "library_ms_s", "shapes"))}
          for k, m in out.items()}), flush=True)
+    grid = measure_multi_grid(torch, X, Xh, glm_hvp, ops, ref, errs)
+    for name, rows in grid.items():
+        target = out[name] if name in out else f32[name]
+        target["grid"] = rows
     out.update(measure_fused_bf16(torch, Xh, glm_hvp, ref, errs, f32))
     del Xh
+    return out
+
+
+MULTI_GRID_FULL = (1, 2, 4, 5, 8, 13)
+MULTI_GRID_SHARDS = (5, 8)
+
+
+def measure_multi_grid(torch, X, Xh, glm_hvp, ops, ref, errs) -> dict:
+    """K8 and K9 at both tile types, at the full width at s in
+    MULTI_GRID_FULL (13: two launches through the ops, as softmax's column
+    groups go) and at the m = 4 shard shapes (the DiSCO-S column view, the
+    DiSCO-F row block) at s in MULTI_GRID_SHARDS: each held to its plain
+    version (<= 1e-5) and repeated bit for bit, then timed beside its
+    bound, one cuBLAS call of the same type (``X.t() @ U``,
+    ``X @ (c Z)``, the block formed beforehand, so the matmul alone; at
+    bf16 on the bf16 X with the block rounded to bf16 beforehand, where
+    ``measure_dense_bf16`` times the call with the rounding in it) and
+    the plain version. U is the
+    strided block DiSCO-F passes, Z contiguous, as pass A leaves it.
+    Bound: X once and the f32 blocks once over the HBM rate, or the
+    multiply-adds over the f32 peak (the bf16 tensor-core peak at bf16) if
+    larger. One line per case; {kernel name: {case: row}}."""
+    d, n = X.shape
+    dev = X.device
+    g = torch.Generator(device=dev).manual_seed(17)
+    c = 0.25 * torch.rand(n, generator=g, device=dev)
+    U13 = torch.randn((d, 14), generator=g, device=dev)[:, :13]
+    Z13 = torch.randn((n, 13), generator=g, device=dev)
+    shapes = {"full": (slice(None), slice(None), MULTI_GRID_FULL),
+              "S_m4_view": (slice(None), slice(0, n // 4), MULTI_GRID_SHARDS),
+              "F_m4_rows": (slice(0, d // 4), slice(None), MULTI_GRID_SHARDS)}
+    out = {}
+    for A0, tag in ((X, ""), (Xh, "_bf16")):
+        bf = A0.dtype == torch.bfloat16
+        peak = BF16_FLOPS_PER_S if bf else F32_FLOPS_PER_S
+        for shape, (rows, cols, ss) in shapes.items():
+            A = A0[rows, cols]
+            ca = c[cols]
+            dd, nn = A.shape
+            for k in ss:
+                U, Z = U13[rows, :k], Z13[cols, :k].contiguous()
+                Ub = U.to(torch.bfloat16) if bf else U
+                czb = ((ca[:, None] * Z).to(torch.bfloat16) if bf
+                       else ca[:, None] * Z)
+                for name, kernel, plain, library, vec in (
+                        ("xt_multi", lambda: ops.xt_multi(A, U),
+                         lambda: ref.ref_xt_multi(A, U),
+                         lambda: A.t() @ Ub, (dd + nn) * k),
+                        ("x_cz_multi", lambda: ops.x_cz_multi(A, ca, Z),
+                         lambda: ref.ref_x_cz_multi(A, ca, Z),
+                         lambda: A @ czb, nn * k + nn + dd * k)):
+                    got, again, want = kernel(), kernel(), plain()
+                    lib = library()
+                    torch.cuda.synchronize()
+                    e = record_err(errs, name + tag, got, want)
+                    same = bool(torch.equal(got, again))
+                    lib_rel = rel_err(lib.float(), got)
+                    check(e <= REL_TOL_KERNEL and same,
+                          f"{name}{tag} {shape} {list(A.shape)} s={k}: rel "
+                          f"err {e:.2e}, repeatable {same}; the cuBLAS call "
+                          f"{lib_rel:.2e} from it")
+                    del got, again, want, lib
+                    t_bytes = (A.numel() * A.element_size() + 4 * vec) \
+                        / HBM_BYTES_PER_S
+                    t_ops = 2 * A.numel() * k / peak
+                    ms = time_ms(kernel)
+                    row = dict(
+                        us=ms * 1e3, bound_us=1e6 * max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations",
+                        library_us=(time_ms(library) * 1e3
+                                    if lib_rel <= (1e-2 if bf else 1e-5)
+                                    else None),
+                        plain_us=time_ms(plain, reps=5) * 1e3,
+                        max_rel_err=e, dims=[dd, nn, k])
+                    row["share_of_bound"] = row["bound_us"] / row["us"]
+                    out.setdefault(name + tag, {})[f"{shape}_s{k}"] = row
+                    print(f"multi grid {name}{tag} {shape} {[dd, nn]} s={k}:"
+                          f" {row['us']:.1f} us, bound {row['bound_us']:.1f} "
+                          f"us ({100 * row['share_of_bound']:.1f}%), cuBLAS "
+                          f"{row['library_us'] and round(row['library_us'], 1)}"
+                          f" us, plain {row['plain_us']:.1f} us, path "
+                          f"{glm_hvp.last_path[name + tag]}", flush=True)
     return out
 
 
@@ -4276,6 +4496,7 @@ def main() -> int:
     phase_bf16_edges(torch, sparse_hvp, ref, errs)
     phase_fused_multi_kernel(torch, glm_hvp, ref, errs)
     phase_dense_bf16_kernels(torch, glm_hvp, ops, ref, errs)
+    phase_multi_paths(torch, glm_hvp, ops, ref, errs)
     phase_dense_fused_bf16_kernels(torch, glm_hvp, ref, errs)
     bf16_errs = {"flash_attention": dict(rel=0.0, abs=0.0)}
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)

@@ -141,12 +141,14 @@ ELL_MM = CudaKernel("ell_mm", [_P, _P, _P, _I, _P, _L, _L, _P, _P, _P, _I,
 ELL_HVP_MM = CudaKernel("ell_hvp_mm", [_P, _P, _P, _P, _I, _I, _I, _P, _L,
                                        _L, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _PI, _P])
-# (X, ld, U, ldu, Z, part, d, n, s, slices, threads, stream)
+# (X, ld, U, ldu, Z, scratch, d, n, s, ctas, tile rows, tile cols, path
+#  out, stream)
 XT_MULTI = CudaKernel("xt_multi", [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
-                                   _I, _P])
-# (X, ld, c, Z, ldz, Y, d, n, s, threads, stream)
-X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _I, _I, _I,
-                                       _I, _P])
+                                   _I, _I, _PI, _P])
+# (X, ld, c, Z, ldz, Y, scratch, d, n, s, ctas, tile rows, tile cols, path
+#  out, stream)
+X_CZ_MULTI = CudaKernel("x_cz_multi", [_P, _L, _P, _P, _L, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _PI, _P])
 # (X, ld, c, U, ldu, Y, c .* Z out, scratch, d, n, s, cluster size, panel
 #  columns, stages, clusters (0: as many as fit), cap, path out, clusters
 #  out, stream)

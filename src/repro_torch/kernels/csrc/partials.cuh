@@ -1,5 +1,5 @@
-// The second pass of the dense kernels that split a reduction across CTAs
-// (xt_multi.cu, x_c_xt_u.cu, x_c_xt_multi.cu): out[j] = sum_s
+// The second pass of the fused dense kernels, which split a reduction
+// across clusters (x_c_xt_u.cu, x_c_xt_multi.cu): out[j] = sum_s
 // part[s * len + j], the S rows added in order s = 0, 1, ..., so the
 // result does not depend on which CTA finished first.
 #pragma once

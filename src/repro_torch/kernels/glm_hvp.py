@@ -30,6 +30,16 @@ CTAs summed in CTA order by a second kernel of the same launch call.
 :data:`last_path` says whether a call took the bulk copies or the direct
 path (shapes a bulk copy cannot take).
 
+``xt_multi`` and ``x_cz_multi`` share the same kind of design
+(``csrc/dense_multi.cuh``) over s columns: pieces of long rows (short
+and wide for ``xt_multi``, whose unit is a column chunk; tall for
+``x_cz_multi``, whose unit is a row group) split evenly by
+:func:`multi_split`, a producer warp's bulk copies into a ring of two or
+three stages, the piece's block
+of U or of c .* Z staged once into shared memory, the f32 tiles on the
+CUDA cores and the bf16 tiles on the tensor cores (``mma.sync``), cut
+units summed in CTA order; :data:`last_path` says which copy path ran.
+
 ``x_c_xt_u`` and ``x_c_xt_multi`` share another (``csrc/fused_stream.cuh``):
 a cluster of Q CTAs walks column panels of X, each CTA holding a slice of
 every panel's rows, brought in by TMA; only a panel's partial ``X^T U``
@@ -67,16 +77,15 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import (X_C_XT_MULTI, X_C_XT_MULTI_BF16,
-                                       X_C_XT_U, X_C_XT_U_BF16, X_CZ,
-                                       X_CZ_BF16, X_CZ_MULTI,
-                                       X_CZ_MULTI_BF16, XT_MULTI,
+from repro_torch.kernels.build import (MAX_COLS, X_C_XT_MULTI,
+                                       X_C_XT_MULTI_BF16, X_C_XT_U,
+                                       X_C_XT_U_BF16, X_CZ, X_CZ_BF16,
+                                       X_CZ_MULTI, X_CZ_MULTI_BF16, XT_MULTI,
                                        XT_MULTI_BF16, XT_U, XT_U_BF16,
                                        check_card, check_columns,
                                        check_tensor, ptr, stream_of)
 from repro_torch.kernels.sparse_hvp import default_ctas
 
-THREADS = 256            # threads per CTA of xt_multi, x_cz_multi
 SMEM_LIMIT = 232_448     # shared memory one CTA can opt into on sm_90 (227 KB)
 # the piece of xt_u and x_cz (kTileRows, kTileCols in csrc/dense_stream.cuh)
 # at every tile dtype: bf16 keeps the elements, so a stage holds half the
@@ -90,6 +99,16 @@ TILE_DTYPES = (torch.float32, torch.bfloat16)   # the tiles the kernels take
 DENSE_MAX_STAGES = 4
 DENSE_BARRIER_BYTES = 128
 DENSE_THREADS = 384
+# the pieces of xt_multi and x_cz_multi (csrc/dense_multi.cuh:
+# k{Xt,Cz}RowBytes{F32,Bf16}, k{Xt,Cz}Rows{F32,Bf16}): (rows, bytes of a
+# tile row) at f32 and at bf16; and their ring (kThreads, kMaxStages,
+# kBarrierBytes, kRowPad: the bytes after each tile row in a stage)
+MULTI_PIECES = {"xt_multi": ((16, 4096), (32, 2048)),
+                "x_cz_multi": ((40, 2048), (96, 1024))}
+MULTI_THREADS = 256
+MULTI_MAX_STAGES = 4
+MULTI_BARRIER_BYTES = 128
+MULTI_ROW_PAD = 16
 # each kernel by tile dtype
 _BY_DTYPE = {
     "xt_u": {torch.float32: XT_U, torch.bfloat16: XT_U_BF16},
@@ -118,7 +137,8 @@ PATHS = ("direct", "bulk")  # the copy paths, by the code the kernels report
 # copies), by kernel name
 last_path: dict[str, str | None] = dict.fromkeys(
     ("xt_u", "x_cz", "xt_u_bf16", "x_cz_bf16", "x_c_xt_u", "x_c_xt_multi",
-     "x_c_xt_u_bf16", "x_c_xt_multi_bf16"))
+     "x_c_xt_u_bf16", "x_c_xt_multi_bf16", "xt_multi", "x_cz_multi",
+     "xt_multi_bf16", "x_cz_multi_bf16"))
 
 
 def fused_max_groups(s: int) -> int:
@@ -257,25 +277,16 @@ last_fused: dict[str, FusedLaunch | None] = dict.fromkeys(
     ("x_c_xt_u", "x_c_xt_multi", "x_c_xt_u_bf16", "x_c_xt_multi_bf16"))
 
 
-def xt_u_slices(d: int, n: int, sm_count: int) -> int:
-    """Row slices of ``xt_multi``: 1 when the column strips alone fill the
-    card (8 resident CTAs of 256 threads per SM), else enough slices of at
-    least 64 rows to do so."""
-    strips = -(-n // (4 * THREADS))
-    want = 8 * sm_count
-    if strips >= want:
-        return 1
-    return max(1, min(-(-want // strips), -(-d // 64), 65_535))
-
-
 class DenseSplit(NamedTuple):
-    """How ``xt_u`` or ``x_cz`` splits an X of ``groups`` row groups of
-    ``tile_rows`` rows by ``chunks`` column chunks of ``tile_cols`` over
-    ``ctas`` CTAs (``csrc/dense_stream.cuh``).
+    """How ``xt_u`` or ``x_cz`` (``csrc/dense_stream.cuh``), or
+    ``xt_multi`` or ``x_cz_multi`` (``csrc/dense_multi.cuh``), splits an X
+    of ``groups`` row groups of ``tile_rows`` rows by ``chunks`` column
+    chunks of ``tile_cols`` over ``ctas`` CTAs.
 
-    Pieces are numbered chunk-major for ``xt_u`` (``by_chunk``: a unit is a
-    column chunk, the run of pieces whose sums add to its z) and
-    row-group-major for ``x_cz`` (a unit is a row group). CTA ``k`` takes
+    Pieces are numbered chunk-major for ``xt_u`` and ``xt_multi``
+    (``by_chunk``: a unit is a column chunk, the run of pieces whose sums
+    add to its z or its rows of Z) and row-group-major for ``x_cz`` and
+    ``x_cz_multi`` (a unit is a row group). CTA ``k`` takes
     pieces ``[bound(k), bound(k + 1))``; the kernel computes the same
     bounds. A unit cut by range boundaries is summed from its CTAs'
     partials in the order :meth:`fixup` gives.
@@ -301,7 +312,8 @@ class DenseSplit(NamedTuple):
 
     @property
     def unit_len(self) -> int:
-        """Outputs of a unit: a chunk's columns or a row group's rows."""
+        """Outputs of a unit: a chunk's columns or a row group's rows (each
+        s floats for the multi-vector kernels)."""
         return self.tile_cols if self.by_chunk else self.tile_rows
 
     def bound(self, k: int) -> int:
@@ -370,12 +382,63 @@ def dense_stages(kernel: str, dtype: torch.dtype) -> int:
     return min(DENSE_MAX_STAGES, (SMEM_LIMIT - ring_off) // stage)
 
 
+def multi_tile(kernel: str, dtype: torch.dtype) -> tuple[int, int]:
+    """(rows, columns) of a piece of ``kernel`` (``"xt_multi"`` or
+    ``"x_cz_multi"``) at tile dtype ``dtype`` (``tile_rows`` and
+    ``tile_cols`` in ``csrc/dense_multi.cuh``): ``xt_multi`` 16 x 1024 at
+    f32 and 32 x 1024 at bf16 (64 KB), ``x_cz_multi`` 40 x 512 at f32
+    (rows of 2 KB) and 96 x 512 at bf16 (rows of 1 KB)."""
+    if kernel not in MULTI_PIECES:
+        raise ValueError(f"no multi-vector split for {kernel!r}")
+    if dtype not in TILE_DTYPES:
+        raise TypeError(f"no multi-vector split for {dtype} tiles")
+    rows, row_bytes = MULTI_PIECES[kernel][TILE_DTYPES.index(dtype)]
+    return rows, row_bytes // dtype.itemsize
+
+
+@functools.lru_cache(maxsize=1024)
+def multi_split(kernel: str, d: int, n: int, ctas: int,
+                dtype: torch.dtype = torch.float32) -> DenseSplit:
+    """The split of ``kernel`` (``"xt_multi"`` or ``"x_cz_multi"``) over a
+    (d, n) X of tile dtype ``dtype`` and ``ctas`` CTAs, in the pieces of
+    :func:`multi_tile`; cached per shape. The bounds, the owners and the
+    fix-up order are :class:`DenseSplit`'s; a unit's outputs are
+    ``unit_len`` rows of s floats."""
+    rows, cols = multi_tile(kernel, dtype)
+    if d < 1 or n < 1 or ctas < 1:
+        raise ValueError(f"d = {d}, n = {n} and ctas = {ctas} must be "
+                         f"positive")
+    return DenseSplit(kernel == "xt_multi", -(-d // rows), -(-n // cols),
+                      ctas, rows, cols)
+
+
+def multi_stages(kernel: str, dtype: torch.dtype) -> int:
+    """Stages of the bulk-copy ring of ``kernel`` (``"xt_multi"`` or
+    ``"x_cz_multi"``) at tile dtype ``dtype`` in the shared memory one CTA
+    can opt into, as ``run`` in ``csrc/dense_multi.cuh`` sizes it: the
+    barriers, two buffers of kMaxCols staged vector rows (U's rows of a
+    group, or c .* Z of a chunk's columns, each 16 bytes longer), then
+    stages of a piece whose rows are MULTI_ROW_PAD bytes longer: 3 for
+    ``xt_multi`` (64 KB pieces), 2 for ``x_cz_multi`` (80 KB and 96 KB
+    pieces)."""
+    rows, cols = multi_tile(kernel, dtype)
+    size = dtype.itemsize
+    length = rows if kernel == "xt_multi" else cols
+    vec = _round_up(MAX_COLS * (length + 16 // size) * size, 128)
+    ring_off = MULTI_BARRIER_BYTES + 2 * vec
+    stage = rows * (cols * size + MULTI_ROW_PAD)
+    return min(MULTI_MAX_STAGES, (SMEM_LIMIT - ring_off) // stage)
+
+
 def dense_path(X, *vectors) -> str:
     """The copy path ``xt_u`` or ``x_cz`` takes for X (and its f32
     vectors c, z) as ``run`` in ``csrc/dense_stream.cuh`` decides it:
     "bulk" when each row of X is a whole number of 16-byte units (n and
     the row stride multiples of 4 at f32, 8 at bf16) and X and the
-    vectors are 16-byte aligned, else "direct"."""
+    vectors are 16-byte aligned, else "direct". ``xt_multi`` and
+    ``x_cz_multi`` (``run`` in ``csrc/dense_multi.cuh``) take the same
+    rule on X alone (``dense_path(X)``): they stage their vector blocks by
+    ordinary loads, whatever their strides and alignment."""
     d, n = X.shape
     ld = X.stride(0) if d > 1 else n
     per = 16 // X.element_size()
@@ -565,46 +628,60 @@ def x_c_xt_u(X, c, u, *, cz_out=None, _cluster: int | None = None,
     return _fused("x_c_xt_u", X, ld, c, u, 1, y, cz_out, plan, _clusters)
 
 
-def xt_multi(X, U):
+def _multi(name, X, ld, c, V, ldv, out, ctas):
+    """Launch ``xt_multi`` or ``x_cz_multi`` (the instance for X's tile
+    dtype) on its split; record the path."""
+    d, n = X.shape
+    s = out.shape[1]
+    dev = X.device
+    kernel = _kernel(name, X)
+    if ctas is None:
+        ctas = default_ctas(dev)
+    split = multi_split(name, d, n, ctas, X.dtype)
+    scratch = torch.empty(split.ctas * 2 * split.unit_len * s,
+                          dtype=torch.float32, device=dev)
+    path = ctypes.c_int(-1)
+    head = ((ptr(X), ld, ptr(V), ldv) if name == "xt_multi"
+            else (ptr(X), ld, ptr(c), ptr(V), ldv))
+    with torch.cuda.device(dev):
+        kernel.launch(*head, ptr(out), ptr(scratch), d, n, s, split.ctas,
+                      split.tile_rows, split.tile_cols, ctypes.byref(path),
+                      stream_of(dev))
+    last_path[kernel.name] = PATHS[path.value]
+    return out
+
+
+def xt_multi(X, U, *, _ctas: int | None = None):
     """Z = X^T U on the card.  X (d, n) row-major f32 or bf16 (U then
     rounded to bf16), U (d, s) row-major (any row stride) -> Z (n, s)
-    f32."""
+    f32. ``_ctas`` overrides the CTA count (one per SM) for the checks
+    that hold the split at other counts; no solver path sets it."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
-    kernel = _kernel("xt_multi", X)
     d, n = X.shape
     s, ldu = check_columns("U", U, d, dev)
     Z = torch.empty((n, s), dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return Z.zero_()
-    slices = xt_u_slices(d, n, _sm_count(dev.index or 0))
-    part = (torch.empty((slices, n, s), dtype=torch.float32, device=dev)
-            if slices > 1 else None)
-    with torch.cuda.device(dev):
-        kernel.launch(ptr(X), ld, ptr(U), ldu, ptr(Z), ptr(part), d, n, s,
-                      slices, THREADS, stream_of(dev))
-    return Z
+    return _multi("xt_multi", X, ld, None, U, ldu, Z, _ctas)
 
 
-def x_cz_multi(X, c, Z):
+def x_cz_multi(X, c, Z, *, _ctas: int | None = None):
     """Y = X (c[:, None] .* Z) on the card.  X (d, n) row-major f32 or
     bf16 (c .* Z then rounded to bf16, Z alone without c), c (optional,
-    n,), Z (n, s) row-major (any row stride) -> Y (d, s) f32."""
+    n,), Z (n, s) row-major (any row stride) -> Y (d, s) f32. ``_ctas`` as
+    for :func:`xt_multi`."""
     dev = X.device
     check_card(dev)
     ld = _check_matrix(X, dev)
-    kernel = _kernel("x_cz_multi", X)
     d, n = X.shape
     s, ldz = check_columns("Z", Z, n, dev)
     _check_vector("c", c, n, dev)
     Y = torch.empty((d, s), dtype=torch.float32, device=dev)
     if d == 0 or n == 0:
         return Y.zero_()
-    with torch.cuda.device(dev):
-        kernel.launch(ptr(X), ld, ptr(c), ptr(Z), ldz, ptr(Y), d, n, s,
-                      THREADS, stream_of(dev))
-    return Y
+    return _multi("x_cz_multi", X, ld, c, Z, ldz, Y, _ctas)
 
 
 def x_c_xt_multi(X, c, U, *, cz_out=None, _cluster: int | None = None,

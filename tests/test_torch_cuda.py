@@ -679,21 +679,41 @@ def test_cuda_ell_hvp_refuses_a_grid_the_card_cannot_hold(dev):
 
 @pytest.mark.parametrize("shape", DENSE_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("s", MULTI_S)
-def test_cuda_dense_multi_kernels_match_plain(dev, shape, s):
+@pytest.mark.parametrize("s", MULTI_S + [13])
+@pytest.mark.parametrize("ctas", [None, 1, 7, 1000])
+def test_cuda_dense_multi_kernels_match_plain(dev, shape, s, ctas):
+    """K8 and K9 (csrc/dense_multi.cuh) on f32 X, whole rows and as a
+    column view at an offset of 1 (the direct path), on strided and
+    contiguous blocks, K9 with and without c; on the card's CTA count, on
+    fewer CTAs (1, 7) and on more CTAs than pieces (1,000): the path the
+    host's rule predicts, within 1e-5 of the plain versions, repeated bit
+    for bit. 13 columns go through the ops (two launches)."""
     d, n = shape
-    X, _, _, c = _dense(dev, d, n, seed=d + n + s)
+    X, _, _, c = _dense(dev, d, n + 1, seed=d + n + s)
+    views = (X[:, :n].contiguous(), X[:, 1:])
     U = _basis(dev, d, s, s, strided=True)
     Z = _basis(dev, n, s, s + 1, strided=s % 2 == 1)
-    got_z = glm_hvp.xt_multi(X, U)
-    got_y = glm_hvp.x_cz_multi(X, c, Z)
-    got_y1 = glm_hvp.x_cz_multi(X, None, Z)
-    torch.cuda.synchronize()
-    assert _rel(got_z, ref.ref_xt_multi(X, U)) <= 1e-5
-    assert _rel(got_y, ref.ref_x_cz_multi(X, c, Z)) <= 1e-5
-    assert _rel(got_y1, ref.ref_x_cz_multi(X, None, Z)) <= 1e-5
-    assert torch.equal(got_z, glm_hvp.xt_multi(X, U))    # no atomics
-    assert torch.equal(got_y, glm_hvp.x_cz_multi(X, c, Z))
+    c = c[:n]
+    for A in views:
+        path = glm_hvp.dense_path(A)
+        if s <= 8:
+            calls = [("xt_multi", lambda: glm_hvp.xt_multi(A, U, _ctas=ctas),
+                      ref.ref_xt_multi(A, U))]
+            calls += [("x_cz_multi",
+                       lambda cc=cc: glm_hvp.x_cz_multi(A, cc, Z, _ctas=ctas),
+                       ref.ref_x_cz_multi(A, cc, Z)) for cc in (None, c)]
+        else:
+            calls = [("xt_multi", lambda: ops.xt_multi(A, U),
+                      ref.ref_xt_multi(A, U))]
+            calls += [("x_cz_multi", lambda cc=cc: ops.x_cz_multi(A, cc, Z),
+                       ref.ref_x_cz_multi(A, cc, Z)) for cc in (None, c)]
+        for name, fn, want in calls:
+            got = fn()
+            assert glm_hvp.last_path[name] == path
+            again = fn()
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= 1e-5
+            assert torch.equal(got, again)                # no atomics
 
 
 def test_cuda_multi_kernels_refuse_too_many_columns(dev):
@@ -1335,25 +1355,39 @@ def test_cuda_bf16_dense_stream_edge_shapes(dev, name, ctas):
 @pytest.mark.parametrize("shape", DENSE_SHAPES + [(256, 4096)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("s", MULTI_S + [13])
-def test_cuda_bf16_dense_multi_match_plain(dev, shape, s):
-    """K8 and K9 on bf16 X, contiguous and as a column view at an offset
-    of 4 (the scalar loads), with and without c, on strided U and Z (13
-    columns: two launches through the ops): within 1e-5 of the plain
-    versions at bf16, repeated bit for bit."""
+@pytest.mark.parametrize("ctas", [None, 1, 7, 1000])
+def test_cuda_bf16_dense_multi_match_plain(dev, shape, s, ctas):
+    """K8 and K9 on bf16 X (the tensor cores), whole rows and as column
+    views at offsets 1, 4 and 8 and a row stride not a multiple of 8, with
+    and without c, on strided U and Z; on the card's CTA count, on fewer
+    CTAs and on more CTAs than pieces: the path the host's rule predicts,
+    within 1e-5 of the plain versions at bf16, repeated bit for bit. 13
+    columns go through the ops (two launches)."""
     d, n = shape
     g = torch.Generator(device=dev).manual_seed(d * n + s)
-    wide = torch.randn((d, n + 4), generator=g,
+    wide = torch.randn((d, n + 8), generator=g,
                        device=dev).to(torch.bfloat16)
+    odd = torch.randn((d, n + 4), generator=g,
+                      device=dev).to(torch.bfloat16)
     c = torch.rand(n, generator=g, device=dev)
     U = _basis(dev, d, s, s, strided=True)
     Z = _basis(dev, n, s, s + 1, strided=True)
-    for X in (wide[:, :n].contiguous(), wide[:, 4:]):
+    for X in (wide[:, :n].contiguous(), wide[:, 1:n + 1], wide[:, 4:n + 4],
+              wide[:, 8:], odd[:, :n]):
+        path = glm_hvp.dense_path(X)
         for cc in (None, c):
-            for got_fn, want in (
-                    (lambda: ops.xt_multi(X, U), ref.ref_xt_multi(X, U)),
-                    (lambda: ops.x_cz_multi(X, cc, Z),
+            for name, got_fn, want in (
+                    ("xt_multi_bf16",
+                     lambda: (glm_hvp.xt_multi(X, U, _ctas=ctas) if s <= 8
+                              else ops.xt_multi(X, U)),
+                     ref.ref_xt_multi(X, U)),
+                    ("x_cz_multi_bf16",
+                     lambda: (glm_hvp.x_cz_multi(X, cc, Z, _ctas=ctas)
+                              if s <= 8 else ops.x_cz_multi(X, cc, Z)),
                      ref.ref_x_cz_multi(X, cc, Z))):
-                got, again = got_fn(), got_fn()
+                got = got_fn()
+                assert glm_hvp.last_path[name] == path
+                again = got_fn()
                 torch.cuda.synchronize()
                 assert got.dtype == torch.float32
                 assert _rel(got, want) <= 1e-5
@@ -1418,8 +1452,7 @@ def test_cuda_bf16_dense_dispatch(dev):
 
 def test_cuda_bf16_dense_failed_launch_raises(dev, monkeypatch):
     """A launch the bf16 entry points refuse raises, naming the bf16
-    instance: a piece shape other than the header's (K3, K4), a block size
-    that is not a whole number of warps (K8, K9)."""
+    instance: a piece shape other than the header's (K3, K4, K8, K9)."""
     X, u, z, c = _dense(dev, 64, 1024, seed=6)
     Xh = X.to(torch.bfloat16)
     monkeypatch.setattr(glm_hvp, "TILE_ROWS", glm_hvp.TILE_ROWS // 2)
@@ -1431,11 +1464,21 @@ def test_cuda_bf16_dense_failed_launch_raises(dev, monkeypatch):
             glm_hvp.x_cz(Xh, c, z)
     finally:
         glm_hvp.dense_split.cache_clear()
-    monkeypatch.setattr(glm_hvp, "THREADS", 100)
-    with pytest.raises(RuntimeError, match="xt_multi_bf16 launch failed"):
-        glm_hvp.xt_multi(Xh, torch.ones((64, 2), device=dev))
-    with pytest.raises(RuntimeError, match="x_cz_multi_bf16 launch failed"):
-        glm_hvp.x_cz_multi(Xh, c, torch.ones((1024, 2), device=dev))
+    pieces = dict(glm_hvp.MULTI_PIECES)
+    monkeypatch.setitem(glm_hvp.MULTI_PIECES, "xt_multi",
+                        tuple((r * 2, b) for r, b in pieces["xt_multi"]))
+    monkeypatch.setitem(glm_hvp.MULTI_PIECES, "x_cz_multi",
+                        tuple((r * 2, b) for r, b in pieces["x_cz_multi"]))
+    glm_hvp.multi_split.cache_clear()
+    try:
+        with pytest.raises(RuntimeError,
+                           match="xt_multi_bf16 launch failed"):
+            glm_hvp.xt_multi(Xh, torch.ones((64, 2), device=dev))
+        with pytest.raises(RuntimeError,
+                           match="x_cz_multi_bf16 launch failed"):
+            glm_hvp.x_cz_multi(Xh, c, torch.ones((1024, 2), device=dev))
+    finally:
+        glm_hvp.multi_split.cache_clear()
 
 
 @pytest.mark.parametrize("partition", ["samples", "features"])

@@ -194,7 +194,9 @@ def test_header_and_wrapper_agree_on_the_piece():
     assert set(glm_hvp.last_path) == {"xt_u", "x_cz", "xt_u_bf16",
                                       "x_cz_bf16", "x_c_xt_u",
                                       "x_c_xt_multi", "x_c_xt_u_bf16",
-                                      "x_c_xt_multi_bf16"}
+                                      "x_c_xt_multi_bf16", "xt_multi",
+                                      "x_cz_multi", "xt_multi_bf16",
+                                      "x_cz_multi_bf16"}
     for src in ("xt_u.cu", "x_cz.cu", "xt_u_bf16.cu", "x_cz_bf16.cu"):
         assert '#include "dense_stream.cuh"' in (build.CSRC / src).read_text()
 

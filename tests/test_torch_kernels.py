@@ -321,8 +321,8 @@ def test_kernel_sources_and_build_target():
         assert bf16.argtypes == f32.argtypes
         assert f"{bf16.name}_launch(const __nv_bfloat16*" in \
             bf16.source.read_text()
-    assert names(build.XT_MULTI) == ["dense_multi.cuh", "ell_tiles.cuh",
-                                     "partials.cuh", "common.cuh"]
+    assert names(build.XT_MULTI) == ["dense_multi.cuh", "dense_stream.cuh",
+                                     "ell_tiles.cuh", "common.cuh"]
     assert names(build.X_CZ_MULTI) == names(build.XT_MULTI)
     assert names(build.X_C_XT_MULTI) == ["fused_stream.cuh", "ell_tiles.cuh",
                                          "partials.cuh", "common.cuh"]
@@ -466,12 +466,6 @@ def test_fused_op_routes_past_the_fit_rule(monkeypatch):
         X = torch.zeros((d, 3))
         tops.x_c_xt_u(X, torch.ones(3), torch.ones(d))
     assert calls == ["x_c_xt_u", "xt_u", "x_cz"]
-
-
-def test_xt_u_slices_fill_the_card():
-    assert glm_hvp.xt_u_slices(4096, 262_144, 132) == 5
-    assert glm_hvp.xt_u_slices(4096, 4 * 256 * 1056, 132) == 1
-    assert glm_hvp.xt_u_slices(100, 10, 132) == 2     # 64 rows at least
 
 
 # ---------------------------------------------------------------------------
