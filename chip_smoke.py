@@ -71,7 +71,10 @@ Eight phases; any failed check makes the exit code nonzero.
    bit. The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
-   dense s-step included), a λ-path and softmax; small bf16 sparse
+   dense s-step included), a λ-path and softmax; checkpoints written on
+   the card (DiSCO-S m = 1 and DiSCO-F m = 4 sparse, DiSCO-S dense,
+   killed at step 2) resumed on the CPU to the CPU's uninterrupted
+   solve; small bf16 sparse
    solves (``hvp_dtype='bfloat16'``: DiSCO-S m = 1 two-pass and fused,
    DiSCO-F m = 2 and a fused s-step, card against CPU within relative L2
    3e-4, F11); small bf16 dense solves (DiSCO-S m = 1, DiSCO-F m = 2, an
@@ -97,8 +100,20 @@ Eight phases; any failed check makes the exit code nonzero.
    share of bound and GB/s over the live bytes, beside the two-pass pair
    and two variants of the schedule: one step over the whole layout and
    half the step_bytes), and held against the plain versions (the fused
-   kernels also against the two-pass pair) at full width; a second fit
-   of the first run is profiled. Then five bf16 runs
+   kernels also against the two-pass pair) at full width. On the first
+   run's solver, trace and checkpoint: a traced fit (``repro_torch.obs``)
+   gives the untraced ``w`` bit for bit with the same launches and host
+   syncs, ``comm.rounds`` equal to ``CommLedger.rounds``, one
+   ``newton.outer`` span a step within its ``iter_s`` and a Chrome trace
+   that reads back; a fit killed at step 3 (``solver._faults``) resumes
+   from its checkpoints within rel. 1e-7 of the uninterrupted ``w`` with
+   the same history and ledger (lines ``trace-ckpt``: the median
+   ``iter_s`` traced and untraced, ``ckpt.write`` ms, the trace's
+   events); the slice's CSR goes through a ``ShardStore`` (chunks of
+   4,096 samples), is read back exact with checksums on, and a solve
+   from it gives the in-memory ``w`` bit for bit (line ``store``: MB/s
+   written and read). A second fit of the first run is profiled. Then
+   five bf16 runs
    (``hvp_dtype='bfloat16'``): DiSCO-S and DiSCO-F m = 1 two-pass,
    DiSCO-S m = 1 fused, and DiSCO-S m = 1 s-step (s = 4) two-pass and
    fused, each held to the launches the code predicts (the f32 ``ell_mv``
@@ -132,7 +147,8 @@ Eight phases; any failed check makes the exit code nonzero.
    ``x_c_xt_u`` at the three shapes and ``x_c_xt_multi`` at the first two
    are timed beside the two-pass kernel pairs they fuse and the library
    pairs, each repeated bit for bit on the TMA path, with its plan (Q,
-   bn, stages) and cluster count C; a
+   bn, stages) and cluster count C; the first run's solver is traced,
+   killed at step 3 and resumed as on the sparse slice; a
    second fit of the first run is profiled. Every Newton step must
    decrease f, and m = 4 and fused runs must end at the m = 1 two-pass
    ``w``. Then six s-step runs: DiSCO-S and DiSCO-F at m = 1 two-pass,
@@ -2072,6 +2088,11 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
             check(counts["ell_hvp"] > 0, f"{tag}: ell_hvp launched")
         results[(partition, m, fused)] = (res.w, row["pcg_iters"])
         if (partition, m, fused) == RUNS[0]:
+            t_tc = time.perf_counter()
+            trace_and_checkpoint(torch, build, solver, res, counts, tag)
+            store_roundtrip(torch, rt, X, y, cfg, res)
+            print(f"trace and checkpoint, sparse: "
+                  f"{time.perf_counter() - t_tc:.1f} s", flush=True)
             try:
                 profile_fit(torch, solver)
             except RuntimeError as exc:   # a measurement only, not a check
@@ -2165,6 +2186,178 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
             check(e <= 1e-4, f"{prefix}s-step {p} fused vs two-pass: rel "
                              f"diff of w {e:.2e}")
     return {k: (w, iters[k]) for k, w in results.items()}
+
+
+# ---------------------------------------------------------------------------
+# trace and checkpoint (phases 3 and 4, on the first run's solver)
+# ---------------------------------------------------------------------------
+
+KILL_AT = 3                      # the kill-and-resume's injected kill
+STORE_CHUNK = 4096               # samples per chunk of the store round trip
+TRAJECTORY = ("outer_iter", "pcg_iters", "comm_rounds_cum",
+              "comm_floats_cum")
+
+
+def synced_fit(torch, build, solver):
+    """``fit_counted`` under PyTorch's sync debug mode: the result, its
+    launch counts and the host syncs of the whole fit."""
+    out = {}
+
+    def run():
+        out["res"], out["counts"] = fit_counted(torch, build, solver)
+    syncs = count_host_syncs(torch, run)
+    return out["res"], out["counts"], syncs
+
+
+def same_trajectory(a, b) -> bool:
+    """The same history columns (not the timings) and the same ledger."""
+    return len(a.history) == len(b.history) and all(
+        x[k] == y[k] for x, y in zip(a.history, b.history)
+        for k in TRAJECTORY) and a.ledger == b.ledger
+
+
+def trace_and_checkpoint(torch, build, solver, plain, plain_counts,
+                         tag) -> dict:
+    """The tracing plane and checkpoint/resume on a full-width solver of
+    the main path, whose untraced fit gave ``plain`` / ``plain_counts``.
+
+    A traced fit must give ``plain.w`` bit for bit with the same launches,
+    and the traced and untraced fits the same host syncs; the
+    ``comm.rounds`` counter must equal the ledger, one ``newton.outer``
+    span a step, each no longer than its ``iter_s``; the Chrome trace
+    must write and read back. Then the fit is killed at step ``KILL_AT``
+    (``solver._faults``) and resumed from its checkpoints: ``w`` within
+    rel. 1e-7 of ``plain.w`` (0 expected), the same trajectory. Tracing
+    is off again at the end."""
+    import tempfile
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.robust import (FaultInjector, FaultPlan, SimulatedKill,
+                                    latest_checkpoint)
+    # host syncs: a traced fit between two untraced ones (the process's
+    # first fit in sync debug mode counted one sync more on the card, so
+    # the traced fit is held to the second)
+    obs.disable()
+    gc.collect()
+    _, _, syncs_first = synced_fit(torch, build, solver)
+    tracer = obs.enable(reset=True)
+    try:
+        _, _, syncs1 = synced_fit(torch, build, solver)
+    finally:
+        obs.disable()
+    untraced, counts0, syncs0 = synced_fit(torch, build, solver)
+    tracer = obs.enable(reset=True)
+    try:
+        traced, counts = fit_counted(torch, build, solver)
+        events, counters, _ = tracer.snapshot()
+    finally:
+        obs.disable()
+    check(np.array_equal(traced.w, plain.w)
+          and np.array_equal(untraced.w, plain.w),
+          f"{tag} traced: w bit for bit the untraced fit's")
+    check(counts == plain_counts == counts0,
+          f"{tag} traced: the untraced fit's launches "
+          f"({sum(counts.values())})")
+    check(syncs0 == syncs1, f"{tag} traced: host syncs {syncs1}, untraced "
+                            f"{syncs0} (before them {syncs_first})")
+    check(counters.get("comm.rounds") == traced.ledger.rounds,
+          f"{tag} traced: comm.rounds {counters.get('comm.rounds')} == "
+          f"CommLedger.rounds {traced.ledger.rounds}")
+    outer = [e for e in events if e.kind == "newton.outer"]
+    check(len(outer) == len(traced.history) and all(
+        e.dur_ns / 1e9 <= h["iter_s"]
+        for e, h in zip(outer, traced.history)),
+        f"{tag} traced: {len(outer)} newton.outer spans, each within its "
+        "iter_s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.export.write_chrome_trace(tracer, f"{tmp}/trace.json")
+        with open(path) as f:
+            back = json.load(f)
+        check(back == json.loads(json.dumps(obs.export.chrome_trace(tracer)))
+              and sum(e["ph"] == "X" for e in back) == len(outer),
+              f"{tag} traced: the Chrome trace reads back ({len(back)} "
+              "events)")
+
+        ckpt = f"{tmp}/ckpt"
+        tracer = obs.enable(reset=True)
+        try:
+            solver._faults = FaultInjector(FaultPlan(kill_at_step=KILL_AT))
+            try:
+                solver.fit(checkpoint_dir=ckpt)
+                killed = False
+            except SimulatedKill:
+                killed = True
+            finally:
+                solver._faults = None
+            at = latest_checkpoint(ckpt)
+            resumed = solver.fit(checkpoint_dir=ckpt, resume=True)
+            torch.cuda.synchronize()
+            writes = [e.dur_ns / 1e6 for e in tracer.events
+                      if e.kind == "ckpt.write"]
+        finally:
+            obs.disable()
+    e = rel_w(resumed.w, plain.w)
+    check(killed and at == KILL_AT,
+          f"{tag} checkpoint: killed at step {KILL_AT}, LATEST {at}")
+    check(e <= 1e-7 and same_trajectory(resumed, plain),
+          f"{tag} checkpoint: the resumed w within rel {e:.2e} of the "
+          "uninterrupted fit's, the same history columns and ledger")
+    row = dict(
+        run=tag, iter_s_median_untraced=statistics.median(
+            h["iter_s"] for h in plain.history),
+        iter_s_median_traced=statistics.median(
+            h["iter_s"] for h in traced.history),
+        trace_events=len(events), chrome_events=len(back),
+        host_syncs=syncs0, launches=sum(counts.values()),
+        ckpt_writes=len(writes),
+        ckpt_write_ms_median=statistics.median(writes) if writes else None,
+        ckpt_write_ms_max=max(writes) if writes else None,
+        resume_rel_err=e)
+    print("trace-ckpt " + json.dumps(row), flush=True)
+    return row
+
+
+def store_roundtrip(torch, rt, X, y, cfg, plain) -> dict:
+    """The shard store at full width: ``X`` (the sparse slice's CSR)
+    written chunked along the samples, reopened with checksums on and
+    read back exact; a solve from the read CSR on the card gives the
+    in-memory solve's ``plain.w`` bit for bit."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.data import ShardStore
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/store"
+        t0 = time.perf_counter()
+        store = ShardStore.from_csr(X, y, path, axis="samples",
+                                    chunk_size=STORE_CHUNK)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        Xb, yb = ShardStore(path, verify=True).to_csr()
+        read_s = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(Xb, f), getattr(X, f))
+                   for f in ("indptr", "indices", "data")) \
+            and np.array_equal(yb, y) and Xb.shape == X.shape
+        check(same, f"store: {store.n_chunks} chunks of {STORE_CHUNK} "
+                    f"samples, {store.nnz} nonzeros read back exact")
+    t0 = time.perf_counter()
+    solver = rt.DiscoSolver(Xb, yb, cfg, device="cuda")
+    res = solver.fit()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    check(np.array_equal(res.w, plain.w),
+          "store: the solve from the store's CSR gives the in-memory w "
+          "bit for bit")
+    row = dict(chunks=store.n_chunks, nnz=store.nnz, bytes=nbytes,
+               write_s=write_s, write_mb_s=nbytes / write_s / 1e6,
+               verified_read_s=read_s,
+               verified_read_mb_s=nbytes / read_s / 1e6,
+               setup_and_fit_s=solve_s)
+    print("store " + json.dumps(row), flush=True)
+    del solver
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2874,6 +3067,10 @@ def phase_dense(torch, rt, build, glm_hvp, ref, errs):
         results[(partition, m, fused)] = res.w
         iters[(partition, m, fused)] = [int(h["pcg_iters"]) for h in hist]
         if (partition, m, fused) == RUNS[0]:
+            t_tc = time.perf_counter()
+            trace_and_checkpoint(torch, build, solver, res, counts, tag)
+            print(f"trace and checkpoint, dense: "
+                  f"{time.perf_counter() - t_tc:.1f} s", flush=True)
             try:
                 profile_fit(torch, solver)
             except RuntimeError as exc:   # a measurement only, not a check
@@ -3607,6 +3804,44 @@ def small_reference(torch, rt) -> None:
                            for dev in ("cuda", "cpu"))
         same_solve(f"small softmax K={SOFTMAX_K} s={s} {partition} m={m}",
                    on_card, on_cpu, w="W")
+
+
+def small_checkpoint_reference(torch, rt) -> None:
+    """Checkpoints move between the card and the CPU: small_reference's
+    sparse problem (DiSCO-S m = 1, DiSCO-F m = 4 on the LPT permutation)
+    and a dense DiSCO-S solve, killed at step 2 on the card and resumed on
+    the CPU, end within ``same_solve``'s tolerance of the CPU's
+    uninterrupted solve with its PCG iterations."""
+    import tempfile
+    from repro_torch.robust import FaultInjector, FaultPlan, SimulatedKill
+    Xs, ys, _ = rt.make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
+                                        beta=0.5, seed=1)
+    Xd, yd, _ = rt.make_glm_data(d=98, n=202, seed=1)
+    for kind, X, y, partition, m, kw in (
+            ("sparse", Xs, ys, "samples", 1,
+             dict(ell_block_d=16, ell_block_n=16)),
+            ("sparse", Xs, ys, "features", 4,
+             dict(ell_block_d=16, ell_block_n=16)),
+            ("dense", Xd, yd, "samples", 1, dict(use_kernel=True))):
+        cfg = rt.DiscoConfig(loss="logistic", lam=1e-3, tau=100,
+                             max_outer=4, grad_tol=0.0, partition=partition,
+                             **kw)
+        group = rt.InProcessGroup(m)
+        card = rt.DiscoSolver(X, y, cfg, group=group, device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            card._faults = FaultInjector(FaultPlan(kill_at_step=2))
+            try:
+                card.fit(checkpoint_dir=tmp)
+                killed = False
+            except SimulatedKill:
+                killed = True
+            cpu = rt.DiscoSolver(X, y, cfg, group=group, device="cpu")
+            resumed = cpu.fit(checkpoint_dir=tmp, resume=True)
+        check(killed, f"small {kind} {run_tag(partition, m, False)}: "
+                      "killed on the card at step 2")
+        same_solve(f"small {kind} {run_tag(partition, m, False)} "
+                   "checkpointed on the card, resumed on the CPU", resumed,
+                   cpu.fit())
 
 
 def small_bf16_reference(torch, rt) -> None:
@@ -4502,6 +4737,7 @@ def main() -> int:
     phase_flash_kernel(torch, flash, ref, errs, bf16_errs)
     time_gram_solve(torch)
     small_reference(torch, rt)
+    small_checkpoint_reference(torch, rt)
     small_bf16_reference(torch, rt)
     small_bf16_dense_reference(torch, rt)
     small_comparisons(torch, rt)

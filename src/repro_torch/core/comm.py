@@ -211,3 +211,78 @@ def disco_sparse_iter_time(shard_nnz, pcg_iters: int, partition: str,
     return dict(compute_s=compute_s, hvp_bytes=hvp_bytes, comm_s=comm_s,
                 total_s=compute_s + comm_s,
                 straggler=straggler_factor(shard_nnz))
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming extension: every HVP re-reads the shard's chunks,
+# and a prefetch pipeline overlaps that I/O with the kernels, so a step
+# pays max(io, compute), not their sum, plus a fill of prefetch_depth
+# chunks at the head of each pass
+# ---------------------------------------------------------------------------
+
+STREAM_BYTES_PER_NNZ = 8  # stored CSR chunk payload: 4B value + 4B index
+
+
+def streaming_data_passes(partition: str, pcg_iters: int, s: int = 1) -> int:
+    """Full passes over the on-disk shard data for ONE Newton iteration.
+
+    DiSCO-S sample chunks complete both HVP directions per chunk (one
+    pass per HVP application; the s-step basis operator is the resident
+    tau-sample estimate and reads no chunk); DiSCO-F feature chunks must
+    finish pass A (the n-vector) before pass B starts (two passes per
+    operator application, each of the ``s - 1`` streamed basis products
+    of an s-step round included). The margins and the gradient of the
+    outer step add 2 passes.
+    """
+    if partition == "features":
+        per_round = 2 * max(s, 1)            # 2(s-1) basis + 2 true HVP
+        return 2 + pcg_iters * per_round
+    if partition == "samples":
+        return 2 + pcg_iters
+    raise ValueError(f"unknown partition {partition!r}")
+
+
+def disco_streaming_iter_time(shard_nnz, pcg_iters: int, partition: str,
+                              n: int, d: int, m: int, s: int = 1, *,
+                              chunk_nnz_max: int, prefetch_depth: int = 2,
+                              flops_per_sec: float = 5e11,
+                              bytes_per_sec: float = 1e10,
+                              latency_s: float = 5e-6,
+                              disk_bytes_per_sec: float = 2e9,
+                              hvp_fused: bool = False,
+                              hvp_dtype_bytes: int = BYTES_PER_FLOAT,
+                              hbm_bytes_per_sec: float = 8e11) -> dict:
+    """Modeled seconds for ONE Newton iteration of a *streamed* solve.
+
+    :func:`disco_sparse_iter_time` plus the I/O plane: every data pass
+    re-reads the heaviest shard's chunk bytes from disk
+    (``STREAM_BYTES_PER_NNZ`` a nonzero), and the streamed phase costs
+    ``max(io_s, compute_s)`` plus a fill of ``prefetch_depth`` chunks a
+    pass. Disk bytes do not depend on the ``hvp_*`` levers (chunks are
+    stored f32 CSR). The default rates are the reference's model
+    constants, not measured ones.
+
+    Returns ``io_s``, ``compute_s``, ``comm_s``, ``fill_s``,
+    ``data_passes``, the overlapped ``total_s``, the serial
+    ``total_no_overlap_s``, ``overlap_savings_s`` and ``straggler``.
+    """
+    base = disco_sparse_iter_time(
+        shard_nnz, pcg_iters, partition, n=n, d=d, m=m, s=s,
+        flops_per_sec=flops_per_sec, bytes_per_sec=bytes_per_sec,
+        latency_s=latency_s, hvp_fused=hvp_fused,
+        hvp_dtype_bytes=hvp_dtype_bytes,
+        hbm_bytes_per_sec=hbm_bytes_per_sec)
+    shard_nnz = np.asarray(shard_nnz, np.float64)
+    max_nnz = float(shard_nnz.max()) if len(shard_nnz) else 0.0
+    passes = streaming_data_passes(partition, pcg_iters, s)
+    io_s = passes * max_nnz * STREAM_BYTES_PER_NNZ / disk_bytes_per_sec
+    fill_s = passes * prefetch_depth * chunk_nnz_max \
+        * STREAM_BYTES_PER_NNZ / disk_bytes_per_sec
+    compute_s, comm_s = base["compute_s"], base["comm_s"]
+    total = comm_s + max(io_s, compute_s) + fill_s
+    total_naive = comm_s + io_s + compute_s + fill_s
+    return dict(io_s=io_s, compute_s=compute_s, comm_s=comm_s,
+                fill_s=fill_s, data_passes=passes, total_s=total,
+                total_no_overlap_s=total_naive,
+                overlap_savings_s=total_naive - total,
+                straggler=base["straggler"])

@@ -23,8 +23,11 @@ are the CUDA kernels. PCG's HVP tiles are f32 or bf16
 (``hvp_dtype='bfloat16'``: bf16 copies of the two sparse layouts, or of
 the dense X, for PCG, the f32 data kept for the margins and the
 gradient, as in the reference; with the two-pass or the one-pass
-kernels alike). Checkpointing and tracing are not yet ported and raise.
-:meth:`DiscoSolver.with_lam`
+kernels alike). ``trace=True`` turns on the tracing plane
+(:mod:`repro_torch.obs`: a ``newton.outer`` span a step and the analytic
+``comm.*`` counters); ``fit(checkpoint_dir=..., resume=True)`` writes and
+resumes atomic checkpoints (:mod:`repro_torch.robust.checkpoint`, the
+reference's format). :meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
 """
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import time
 from typing import Any
 
@@ -51,7 +55,11 @@ from repro_torch.kernels.sparse_hvp import (default_ctas,
                                             ell_hvp_schedule,
                                             ell_schedule,
                                             schedule_parts)
+from repro_torch.obs import tracer as obs
 from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.robust.checkpoint import (CheckpointState, load_checkpoint,
+                                           save_checkpoint)
+from repro_torch.robust.faults import FaultInjector
 from repro_torch.utils.padding import pad_to_multiple
 
 
@@ -68,8 +76,10 @@ class DiscoConfig:
     'bfloat16', on every input, two-pass or fused),
     pcg_block_s (s-step PCG; ``max_pcg`` then caps rounds),
     partition_strategy, partition_block, ell_block_d, ell_block_n (sparse
-    input). ``trace`` must keep its default (False: not yet ported); the
-    out-of-core fields are unused.
+    input), trace (turns on the process-global tracing plane,
+    :func:`repro_torch.obs.enable`, at solver construction; global and
+    sticky; left out of the checkpoint's config fingerprint). The
+    out-of-core fields are unused until the streamed solve is ported.
     """
 
     loss: str = "logistic"
@@ -99,7 +109,7 @@ class DiscoConfig:
     io_retries: int = 3             # stream-step retries on transient I/O
     io_backoff_s: float = 0.05      # first-retry backoff (doubles each try)
     io_deadline_s: float = 0.0      # per-step wall-clock budget (0 = none)
-    trace: bool = False             # tracing plane (not yet ported)
+    trace: bool = False             # enable the repro_torch.obs tracing plane
     seed: int = 0
 
 
@@ -180,10 +190,6 @@ def shard_views(X, partition: str, m: int):
     return [X[:, s * size:(s + 1) * size] for s in range(m)], rem
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
 def _to_device(a, device) -> torch.Tensor:
     """A numpy array or tensor on ``device``, floating types as f32,
     contiguous; no copy when it is already so."""
@@ -232,7 +238,10 @@ class DiscoSolver:
     def _setup(self, cfg: DiscoConfig, shape, group, device, *,
                sparse: bool) -> None:
         if cfg.trace:
-            raise _not_ported("tracing (trace=True)")
+            obs.enable()
+        # a fault plan's executor, set by callers that inject faults (the
+        # tests' kill-and-resume); fit() calls its on_outer_step(k)
+        self._faults: FaultInjector | None = None
         self.hvp_dtype = hvp_tile_dtype(cfg.hvp_dtype)
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
@@ -584,19 +593,66 @@ class DiscoSolver:
         return torch.from_numpy(w0.astype(np.float32)).to(
             self.device).reshape(self._w_shape)
 
+    def _cfg_fingerprint(self) -> dict:
+        """JSON-canonical view of ``cfg`` (what checkpoints compare).
+        ``trace`` is left out: tracing changes nothing about the solve, so
+        a traced resume of an untraced checkpoint (or the other way round)
+        is allowed. The fields are the reference's, so a checkpoint of
+        either package matches the other's config."""
+        cfg_dict = dataclasses.asdict(self.cfg)
+        cfg_dict.pop("trace", None)
+        return json.loads(json.dumps(cfg_dict, default=float))
+
+    def _key_data(self) -> np.ndarray:
+        """The ``key`` a checkpoint stores: the reference's format (uint32,
+        length 2; its ``PRNGKey(seed)``). The port draws its subsampling
+        masks from ``(seed, outer_iter, shard)`` (:func:`subsample_mask`),
+        so it has no RNG state to save and ignores ``key`` on load."""
+        seed = int(self.cfg.seed)
+        return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                        np.uint32)
+
     def fit(self, w0: np.ndarray | None = None, *,
             checkpoint_dir: str | None = None, checkpoint_every: int = 1,
             resume: bool = False) -> DiscoResult:
         """Run the damped Newton outer loop from ``w0`` (default zeros).
 
         ``w0`` is given — and ``DiscoResult.w`` returned — in the
-        original feature order. Checkpointing is not yet ported.
+        original feature order.
+
+        Checkpointing: with ``checkpoint_dir`` the outer state (iterate in
+        the original feature order, history, communication ledger) is
+        saved atomically every ``checkpoint_every`` steps
+        (:mod:`repro_torch.robust.checkpoint`). ``resume=True`` restarts
+        from the newest snapshot there (from ``w0`` when there is none)
+        and continues the uninterrupted trajectory: the step's subsampling
+        masks depend on ``(seed, outer_iter, shard)`` only, so there is no
+        RNG state to restore. A checkpoint written with another config
+        raises ``ValueError``. Checkpoints of the JAX package's in-memory
+        fit resume here and the other way round (at
+        ``hessian_subsample=1.0``, where neither draws).
+
+        Tracing adds no device work: the ``newton.outer`` span ends after
+        the step's ``float()`` reads, as ``iter_s`` does, and the
+        ``comm.*`` counters are the analytic tally of ``CommLedger``.
         """
-        if checkpoint_dir is not None or resume:
-            raise _not_ported("checkpoint/resume")
         cfg = self.cfg
         history: list[dict[str, Any]] = []
         ledger = comm.CommLedger()
+        start_iter = 0
+        if checkpoint_dir is not None and resume:
+            state = load_checkpoint(checkpoint_dir)
+            if state is not None:
+                if state.cfg != self._cfg_fingerprint():
+                    raise ValueError(
+                        f"checkpoint at {checkpoint_dir!r} was written "
+                        "by a solve with a different config; refusing "
+                        "to resume (delete the checkpoint directory or "
+                        "match the config)")
+                w0 = state.w
+                history = list(state.history)
+                ledger = comm.CommLedger(**state.ledger)
+                start_iter = state.next_iter
         if w0 is None:
             w = torch.zeros(self._w_shape, dtype=torch.float32,
                             device=self.device)
@@ -604,18 +660,31 @@ class DiscoSolver:
             w = self._w_from_original(w0)
 
         converged = False
-        for k in range(cfg.max_outer):
+        for k in range(start_iter, cfg.max_outer):
+            if self._faults is not None:
+                self._faults.on_outer_step(k)
             t_it = time.perf_counter()
-            w, stats = self._step(w, k)
-            # the float() reads wait for the step's device work, so
-            # iter_s covers the whole step
-            stats = {name: float(v) for name, v in stats.items()}
+            with obs.span("newton.outer", outer_iter=k, streaming=False):
+                w, stats = self._step(w, k)
+                # the float() reads wait for the step's device work, so
+                # iter_s (and the span) cover the whole step
+                stats = {name: float(v) for name, v in stats.items()}
             stats["iter_s"] = time.perf_counter() - t_it
             rounds, floats, spmd = self._comm_costs(int(stats["pcg_iters"]))
             ledger.add(rounds, floats, spmd)
+            obs.count("comm.floats", floats)
+            obs.count("comm.spmd_collectives", spmd)
+            obs.count("comm.rounds", rounds)
             stats.update(outer_iter=k, comm_rounds_cum=ledger.rounds,
                          comm_floats_cum=ledger.floats)
             history.append(stats)
+            if checkpoint_dir is not None \
+                    and (k + 1) % max(checkpoint_every, 1) == 0:
+                save_checkpoint(checkpoint_dir, CheckpointState(
+                    next_iter=k + 1, w=self._w_to_original(w),
+                    key=self._key_data(), history=history,
+                    ledger=dataclasses.asdict(ledger), replan_events=[],
+                    cfg=self._cfg_fingerprint()))
             if stats["grad_norm"] <= cfg.grad_tol:
                 converged = True
                 break

@@ -7,11 +7,13 @@ scaling and the ridge term are framing the solver adds per partitioning.
 The registry gives every (family, layout, partition, fusion, dtype) cell
 the same supported/unsupported verdict as the JAX package's
 ``repro.core.hvp``; :func:`resolve_cell` turns an unsupported combination
-into an :class:`UnsupportedHvpError` naming the cell. The port implements
-the dense layouts (:class:`DenseOperator`, plain ``torch.matmul``;
-:class:`DenseKernelOperator`, the dense kernels) and the blocked-ELL one
-(:class:`EllOperator`), and the K-class softmax product on any of them
-(:class:`SoftmaxHvpOperator`); the streamed layout is not yet ported.
+into an :class:`UnsupportedHvpError` naming the cell, and
+:func:`render_support_matrix` prints the registry as a table. The port
+implements the dense layouts (:class:`DenseOperator`, plain
+``torch.matmul``; :class:`DenseKernelOperator`, the dense kernels) and
+the blocked-ELL one (:class:`EllOperator`), and the K-class softmax
+product on any of them (:class:`SoftmaxHvpOperator`); the streamed
+layout is not yet ported.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.data.sparse import EllPair
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import tracer as obs
 
 FAMILIES = ("binary", "softmax")
 LAYOUTS = ("dense", "dense_kernel", "ell", "streamed")
@@ -124,7 +127,8 @@ def validate_solver_cell(*, family: str, partition: str, fused: bool,
                          use_kernel: bool = False,
                          streaming: bool = False) -> OperatorCell:
     """Solver-setup validation: map solver flags to the registry layout
-    and resolve the cell, raising early with the cell named."""
+    and resolve the cell, raising early with the cell named; a resolved
+    cell is traced as an ``hvp.dispatch`` instant."""
     if streaming:
         layout = "streamed"
     elif sparse:
@@ -133,7 +137,31 @@ def validate_solver_cell(*, family: str, partition: str, fused: bool,
         layout = "dense_kernel"
     else:
         layout = "dense"
-    return resolve_cell(family, layout, partition, fused, dtype)
+    cell = resolve_cell(family, layout, partition, fused, dtype)
+    obs.instant("hvp.dispatch",
+                cell=cell_id(family, layout, partition, fused, dtype))
+    return cell
+
+
+def render_support_matrix() -> str:
+    """The registry's fusion/support matrix as a Markdown table, the same
+    text as the reference's ``render_support_matrix``."""
+    lines = ["| family | layout | partition | two-pass | fused | dtypes |",
+             "|---|---|---|---|---|---|"]
+    for family in FAMILIES:
+        for layout in LAYOUTS:
+            for partition in PARTITIONS:
+                row = [family, layout, partition]
+                for fused in (False, True):
+                    ok, reason, note = _cell_verdict(
+                        family, layout, partition, fused, "float32")
+                    if ok:
+                        row.append("yes" + (f" ({note})" if note else ""))
+                    else:
+                        row.append(f"no — {reason}")
+                row.append("f32, bf16")
+                lines.append("| " + " | ".join(row) + " |")
+    return "\n".join(lines)
 
 
 class HvpOperator:

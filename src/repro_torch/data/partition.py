@@ -146,6 +146,70 @@ def lpt_partition(nnz_counts, m: int, block: int = 1,
                      n_items=len(nnz_counts), m=m, strategy="lpt")
 
 
+def chunk_partition(chunk_nnz, chunk_size: int, n_items: int, m: int,
+                    strategy: str = "lpt",
+                    chunk_cost=None) -> Partition:
+    """Partition fixed-width *chunks* across ``m`` shards from nnz stats.
+
+    ``chunk_nnz`` comes from a :class:`repro_torch.data.store.ShardStore`
+    header, so a balanced assignment needs no chunk values. Chunk ``c``
+    covers indices ``[c * chunk_size, (c+1) * chunk_size)`` of the chunked
+    axis (the last real chunk may be ragged: its tail indices are
+    ``>= n_items`` and carry no nnz); the chunk list is padded with empty
+    chunks to a multiple of ``m``.
+
+    Gives the same :class:`Partition` as ``lpt_partition(per_index_counts,
+    m, block=chunk_size, pad_multiple=p)`` for any ``p`` dividing
+    ``chunk_size``. ``chunk_cost`` (optional, ``(n_chunks,)`` nonnegative
+    ints) replaces nnz as what the LPT balances (measured per-chunk
+    seconds); each shard's chunks are then ordered by descending cost, so
+    the expensive chunks of different shards fall in the same schedule
+    steps, while ``shard_nnz`` still reports true nonzeros.
+    """
+    chunk_nnz = np.asarray(chunk_nnz, np.int64)
+    n_chunks = len(chunk_nnz)
+    n_chunks_padded = -(-max(n_chunks, 1) // m) * m
+    block_nnz = np.zeros(n_chunks_padded, np.int64)
+    block_nnz[:n_chunks] = chunk_nnz
+    if chunk_cost is not None:
+        chunk_cost = np.asarray(chunk_cost, np.int64)
+        if len(chunk_cost) != n_chunks:
+            raise ValueError(
+                f"chunk_cost has {len(chunk_cost)} entries for "
+                f"{n_chunks} chunks")
+        block_cost = np.zeros(n_chunks_padded, np.int64)
+        block_cost[:n_chunks] = chunk_cost
+    else:
+        block_cost = block_nnz
+    if strategy == "lpt":
+        assign, _ = _lpt_assign(block_cost, m)
+        if chunk_cost is None:
+            perm = _perm_from_assign(assign, chunk_size, m)
+        else:
+            # descending cost within a shard; the stable sort keeps
+            # ascending ids among equal costs
+            perm = np.empty(n_chunks_padded * chunk_size, np.int64)
+            pos = 0
+            for s in range(m):
+                blocks = np.nonzero(assign == s)[0]
+                for b in blocks[np.argsort(-block_cost[blocks],
+                                           kind="stable")]:
+                    perm[pos: pos + chunk_size] = np.arange(
+                        b * chunk_size, (b + 1) * chunk_size)
+                    pos += chunk_size
+        load = np.zeros(m, np.int64)
+        np.add.at(load, assign, block_nnz)
+    elif strategy == "width":
+        perm = np.arange(n_chunks_padded * chunk_size, dtype=np.int64)
+        load = block_nnz.reshape(m, -1).sum(axis=1)
+    else:
+        raise ValueError(f"unknown partition strategy {strategy!r}")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return Partition(perm=perm, inv=inv, shard_nnz=load,
+                     n_items=int(n_items), m=m, strategy=strategy)
+
+
 def make_partition(X: CSRMatrix, axis: str, m: int, strategy: str = "lpt",
                    block: int = 1, pad_multiple: int = 1) -> Partition:
     """Partition a CSR matrix's features or samples across ``m`` shards.

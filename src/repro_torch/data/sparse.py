@@ -237,6 +237,47 @@ def ell_from_csr(csr: CSRMatrix, block_rows: int, block_cols: int,
     return BlockedEll(data=data, cols=cols, shape=(d, n), block=(br, bc))
 
 
+def ell_tile_widths(csr: CSRMatrix, block_rows: int, block_cols: int
+                    ) -> tuple[int, int]:
+    """Natural blocked-ELL widths of a matrix, forward and transposed.
+
+    ``(w_fwd, w_tr)``: the most surviving tiles of a row-block of
+    ``ell_from_csr(csr, block_rows, block_cols)`` and of
+    ``ell_from_csr(csr.T, block_cols, block_rows)``, from the index
+    structure alone (no tile is built); both at least 1, the zero-tile
+    floor of :func:`ell_from_csr`. A streamed solve fixes every chunk's
+    padded widths with it before any chunk value is read.
+    """
+    nrb = -(-csr.shape[0] // block_rows)
+    ncb = max(-(-csr.shape[1] // block_cols), 1)
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    rb = rows // block_rows
+    cb = np.asarray(csr.indices, np.int64) // block_cols
+    uniq = np.unique(rb.astype(np.int64) * ncb + cb)
+    if not len(uniq):
+        return 1, 1
+    w_fwd = int(np.bincount(uniq // ncb, minlength=max(nrb, 1)).max())
+    w_tr = int(np.bincount(uniq % ncb, minlength=ncb).max())
+    return max(w_fwd, 1), max(w_tr, 1)
+
+
+def pad_csr_rows(csr: CSRMatrix, n_rows: int) -> CSRMatrix:
+    """Extend a CSR slab with trailing empty rows up to ``n_rows`` (how a
+    ragged last store chunk is brought to the uniform ``chunk_size``
+    width); the slab itself when it already has ``n_rows``."""
+    have = csr.shape[0]
+    if have == n_rows:
+        return csr
+    if have > n_rows:
+        raise ValueError(f"cannot pad {have} rows down to {n_rows}")
+    indptr = np.concatenate(
+        [np.asarray(csr.indptr, np.int64),
+         np.full(n_rows - have, int(csr.indptr[-1]), np.int64)])
+    return CSRMatrix(indptr=indptr, indices=np.asarray(csr.indices),
+                     data=np.asarray(csr.data),
+                     shape=(n_rows, csr.shape[1]))
+
+
 def hvp_tile_dtype(name: str) -> torch.dtype:
     """Resolve ``DiscoConfig.hvp_dtype`` to the HVP tiles' torch dtype.
 

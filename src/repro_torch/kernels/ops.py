@@ -36,15 +36,33 @@ from repro_torch.kernels import glm_hvp as _dense
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_hvp as _sparse
 from repro_torch.kernels.build import MAX_COLS
+from repro_torch.obs import tracer as obs
+
+# (tracer, modes it has seen): kernel.dispatch is traced once per
+# distinct mode a tracer sees, not once per op
+_seen_dispatch: tuple = (None, frozenset())
+
+
+def _trace_dispatch(mode: str) -> None:
+    global _seen_dispatch
+    tracer = obs.get_tracer()
+    seen = _seen_dispatch[1] if _seen_dispatch[0] is tracer else frozenset()
+    if mode not in seen:
+        _seen_dispatch = (tracer, seen | {mode})
+        obs.instant("kernel.dispatch", mode=mode)
 
 
 def _on_cuda(*tensors) -> bool:
+    """True for CUDA tensors (the kernels), False for CPU tensors (the
+    plain versions): the port's one device dispatch."""
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     kind = devices.pop().type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {kind!r}")
+    if obs.enabled():
+        _trace_dispatch("cuda" if kind == "cuda" else "plain")
     return kind == "cuda"
 
 

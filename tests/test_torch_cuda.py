@@ -15,6 +15,8 @@ dense kernels are held to the plain versions at bf16 tiles at the same
 plain one's rounding except at ties within the f32 summation error bound,
 and the output equals the plain pass B of the kernel's hand-off.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -1770,3 +1772,84 @@ def test_cuda_bf16_lambda_path_matches_cpu(dev):
     assert on_card.best_lambda == on_cpu.best_lambda
     for a, b in zip(on_card.results, on_cpu.results):
         assert np.linalg.norm(a.w - b.w) <= 3e-4 * np.linalg.norm(b.w)
+
+
+# ---------------------------------------------------------------------------
+# tracing and checkpoint/resume on the card
+# ---------------------------------------------------------------------------
+
+def _trace_problem(kind):
+    if kind == "sparse":
+        X, y, _ = make_sparse_glm_data(d=300, n=500, density=0.05, seed=4)
+        return X, y, dict(ell_block_d=16, ell_block_n=16)
+    X, y, _ = make_glm_data(d=200, n=1000, seed=4)
+    return X, y, dict(use_kernel=True)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+@pytest.mark.parametrize("partition", ["samples", "features"])
+def test_cuda_tracing_adds_no_launch(dev, kind, partition):
+    """A traced fit launches the same kernels as an untraced one, the
+    same number of times, and gives the same w bit for bit (the two-pass
+    kernels repeat bit for bit); its comm.rounds counter is the ledger's
+    and kernel.dispatch says 'cuda'."""
+    from repro_torch import DiscoSolver, obs
+    X, y, kw = _trace_problem(kind)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=64, max_outer=4,
+                      grad_tol=0.0, partition=partition, **kw)
+    solver = DiscoSolver(X, y, cfg, device=dev)
+    counts = []
+    results = []
+    for traced in (False, True):
+        obs.disable()
+        tracer = obs.enable(reset=True) if traced else None
+        build.reset_launch_counts()
+        results.append(solver.fit())
+        torch.cuda.synchronize()
+        counts.append(build.launch_counts())
+    obs.disable()
+    assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    np.testing.assert_array_equal(results[0].w, results[1].w)
+    assert tracer.counters["comm.rounds"] == results[1].ledger.rounds
+    assert tracer.span_count("newton.outer") == len(results[1].history)
+    assert [e.args["mode"] for e in tracer.events
+            if e.kind == "kernel.dispatch"] == ["cuda"]
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+@pytest.mark.parametrize("partition,m", [("samples", 1), ("features", 4)])
+def test_cuda_kill_and_resume_matches(dev, tmp_path, kind, partition, m):
+    """A card fit killed at step 2 and resumed from its checkpoint gives
+    the uninterrupted card fit's w bit for bit and its trajectory; the
+    checkpoint resumes on the CPU to the CPU's own uninterrupted w within
+    rtol 1e-4 / atol 1e-6, the card-against-CPU tolerance of these
+    problems (``test_cuda_disco_fit_matches_cpu``,
+    ``test_cuda_dense_disco_fit_matches_cpu``)."""
+    from repro_torch import DiscoSolver
+    from repro_torch.robust import FaultInjector, FaultPlan, SimulatedKill
+    if kind == "sparse":
+        X, y, _ = make_sparse_glm_data(d=96, n=200, density=0.2, alpha=0.8,
+                                       beta=0.5, seed=1)
+        kw = dict(ell_block_d=16, ell_block_n=16)
+    else:
+        X, y, _ = make_glm_data(d=98, n=202, seed=1)
+        kw = dict(use_kernel=True)
+    cfg = DiscoConfig(loss="logistic", lam=1e-3, tau=100, max_outer=4,
+                      grad_tol=0.0, partition=partition, **kw)
+    group = InProcessGroup(m)
+    solver = DiscoSolver(X, y, cfg, group=group, device=dev)
+    whole = solver.fit()
+    ckpt = str(tmp_path / "ckpt")
+    solver._faults = FaultInjector(FaultPlan(kill_at_step=2))
+    with pytest.raises(SimulatedKill):
+        solver.fit(checkpoint_dir=ckpt)
+    solver._faults = None
+    shutil.copytree(ckpt, ckpt + "-cpu")
+    res = solver.fit(checkpoint_dir=ckpt, resume=True)
+    np.testing.assert_array_equal(res.w, whole.w)
+    assert [h["pcg_iters"] for h in res.history] == \
+        [h["pcg_iters"] for h in whole.history]
+    assert res.ledger == whole.ledger
+    cpu = DiscoSolver(X, y, cfg, group=group, device="cpu")
+    on_cpu = cpu.fit(checkpoint_dir=ckpt + "-cpu", resume=True)
+    np.testing.assert_allclose(on_cpu.w, cpu.fit().w, rtol=1e-4, atol=1e-6)

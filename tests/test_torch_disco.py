@@ -170,9 +170,24 @@ def test_unported_options_raise(override):
     ``tests/test_torch_dense_bf16.py`` hold them to the reference) build
     on sparse and dense input and take a step, with the one-pass dense
     kernels (``hvp_fused=True``) too (they raised until K5 and K10 took
-    bf16 tiles; ``tests/test_torch_fused_bf16.py``)."""
+    bf16 tiles; ``tests/test_torch_fused_bf16.py``). ``trace=True`` is
+    ported too (it raised until the tracing plane was;
+    ``tests/test_torch_obs.py`` holds it to the reference): it turns the
+    tracer on and the traced step records its HVP cell."""
     X, y, Xt = _data()
     cfg = DiscoConfig(**dict(KW, **override))
+    if "trace" in override:
+        from repro_torch import obs
+        obs.disable()
+        try:
+            solver = DiscoSolver(Xt, y, cfg, device="cpu")
+            assert obs.enabled()
+            w, stats = solver._step(torch.zeros(solver._w_shape))
+            assert torch.isfinite(w).all() and stats["pcg_iters"] > 0
+            assert obs.span_count("hvp.dispatch") == 1
+        finally:
+            obs.disable()
+        return
     if "hvp_dtype" in override:
         solver = DiscoSolver(Xt, y, cfg, device="cpu")
         assert solver.ell_data_h.dtype == torch.bfloat16
@@ -256,11 +271,14 @@ def test_quadratic_loss_matches_jax(partition, m, jax_4device_quadratic):
     assert got.grad_norms[-1] < 0.5 * got.grad_norms[0]
 
 
-def test_dense_input_and_checkpoint_raise():
+def test_dense_input_and_checkpoint_raise(tmp_path):
     """Dense input fits now (it raised before the dense path was ported;
     tests/test_torch_dense.py holds it to the reference): the same matrix
     dense and sparse gives the same w within rounding. Checkpointing
-    still raises "not yet ported"."""
+    raised "not yet ported" until the robustness layer was ported
+    (``tests/test_torch_robust.py`` holds it to the reference): a
+    checkpointed fit now writes a snapshot a step and gives the
+    unchecked fit's w bit for bit."""
     X, y, Xt = _data()
     cfg = DiscoConfig(**KW)
     dense = disco_fit(X.todense(), y, cfg, device="cpu")
@@ -268,8 +286,11 @@ def test_dense_input_and_checkpoint_raise():
     np.testing.assert_allclose(dense.w, sparse.w, rtol=RTOL, atol=ATOL)
     assert dense.partition_info is None
     solver = DiscoSolver(Xt, y, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        solver.fit(checkpoint_dir="ckpt")
+    ckpt = str(tmp_path / "ckpt")
+    res = solver.fit(checkpoint_dir=ckpt)
+    np.testing.assert_array_equal(res.w, sparse.w)
+    with open(os.path.join(ckpt, "LATEST")) as f:
+        assert int(f.read()) == KW["max_outer"]
 
 
 def test_warm_start_roundtrip():

@@ -19,9 +19,9 @@ SCRIPT = textwrap.dedent("""
     sys.modules["ml_dtypes"] = None    # nor of ml_dtypes (bf16 is torch's)
     import numpy as np
     import repro_torch
-    from repro_torch import (CSRMatrix, DiscoConfig, GLMProblem,
-                             InProcessGroup, disco_fit, make_glm_data,
-                             make_sparse_glm_data)
+    from repro_torch import (CSRMatrix, DiscoConfig, DiscoSolver,
+                             GLMProblem, InProcessGroup, disco_fit,
+                             make_glm_data, make_sparse_glm_data)
     import repro_torch.convert, repro_torch.kernels.sparse_hvp
     import repro_torch.kernels.glm_hvp, repro_torch.kernels.build
     X, y, _ = make_sparse_glm_data(d=48, n=80, density=0.2, seed=0)
@@ -137,6 +137,35 @@ SCRIPT = textwrap.dedent("""
     eng = ContinuousEngine(cfg, model, batch_size=2, max_len=16)
     eng.submit(Request(prompt=[3], max_new_tokens=2))
     assert len(eng.run_until_done()[0].tokens) == 2
+    import repro_torch.obs, repro_torch.robust, repro_torch.data.store
+    from repro_torch import obs
+    from repro_torch.data import ShardStore
+    from repro_torch.robust import FaultInjector, FaultPlan, SimulatedKill
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ShardStore.from_csr(X, y, os.path.join(tmp, "s"),
+                                    axis="samples", chunk_size=16)
+        Xs, ys = ShardStore(store.path, verify=True).to_csr()
+        assert np.array_equal(Xs.data, X.data) and np.array_equal(ys, y)
+        cfg = DiscoConfig(partition="features", tau=16, max_outer=3,
+                          ell_block_d=8, ell_block_n=8, trace=True)
+        solver = DiscoSolver(Xs, ys, cfg, group=InProcessGroup(2),
+                             device="cpu")
+        whole = solver.fit()
+        solver._faults = FaultInjector(FaultPlan(kill_at_step=2))
+        ckpt = os.path.join(tmp, "ckpt")
+        try:
+            solver.fit(checkpoint_dir=ckpt)
+            raise AssertionError("not killed")
+        except SimulatedKill:
+            pass
+        solver._faults = None
+        r = solver.fit(checkpoint_dir=ckpt, resume=True)
+        assert np.array_equal(r.w, whole.w)
+        tracer = obs.get_tracer()
+        obs.export.write_chrome_trace(tracer, os.path.join(tmp, "t.json"))
+        assert tracer.span_count("newton.outer") == 3 + 2 + 1
+        assert tracer.span_count("ckpt.write") == 2 + 1
+        obs.disable()
     leaked = sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro.")
                     or (m.split(".")[0] in ("jax", "ml_dtypes")
