@@ -132,7 +132,27 @@ Eight phases; any failed check makes the exit code nonzero.
    predicted launches; one SAG application timed: ms, launches, device
    time), and DiSCO-F with ``hessian_subsample`` 0.5 and 0.0625 at
    m = 1 and 4, 2 steps (finite, one mask a step of the right shape and
-   mean, the predicted launches; f printed; the first profiled).
+   mean, the predicted launches; f printed; the first profiled). Right
+   after the first run (DiSCO-S m = 1), whose in-memory solver its m = 1
+   twins re-target, the streamed (out-of-core) solve (lines ``stream
+   ...``): the slice written as two stores of 1,024-index chunks
+   (samples and features); every chunk's tiles assembled on the card
+   against ``ell_from_csr`` bit for bit (f32, both layouts; bf16 the
+   cast); ``DiscoSolver.from_store`` at 2 Newton steps, DiSCO-S m = 1
+   two-pass f32 (K1), fused bf16 (K2 bf16), s-step (s = 4) two-pass
+   (K6) and fused (K7), DiSCO-F m = 4 (K1), each against its in-memory
+   twin (partition_info equal to the partitioner's at
+   ``partition_block = 1024``, the first step's gradient norm and f
+   within 1e-6, w within its run's limit, 1e-4 and equal rounds for
+   s-step, 5e-3 fused bf16, 1e-2 classic: the sum order moves classic
+   PCG at lam = 1e-4 by a few 1e-3) and the byte bounds; the DiSCO-S
+   two-pass stream bit for bit the in-memory solve with one shard a
+   chunk, with no more host syncs; the fused bf16 stream under 0.75x the
+   f32 stream's bytes; transient read faults on the s-step stream
+   retried bit for bit, a kill and resume, an elastic re-plan against
+   the static plan (one step); one timed pass of each HVP stream (host,
+   staged bytes, device, wait), two with no chunk plan kept, and a
+   profiled streamed Newton step.
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
@@ -2097,6 +2117,8 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
                 profile_fit(torch, solver)
             except RuntimeError as exc:   # a measurement only, not a check
                 print(f"profile unavailable: {exc}", flush=True)
+            # the streamed solve, its m = 1 twins this solver re-targeted
+            stream_phase(torch, rt, build, X, y, launches, solver)
         del solver, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2358,6 +2380,419 @@ def store_roundtrip(torch, rt, X, y, cfg, plain) -> dict:
     print("store " + json.dumps(row), flush=True)
     del solver
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3, streamed: the out-of-core solve on the same slice
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 1024              # indices per chunk of both stores
+SOLVE_BLOCK = 128                # the slice's tiles (DiscoConfig's default)
+STREAM_DEPTH = 2                 # prefetch_depth of the streamed runs
+# 2 Newton steps: at 3 the phase took 160.5 s on an H100 (PERF.md)
+STREAM_SOLVE = dict(SOLVE, max_outer=2, partition_block=STREAM_CHUNK,
+                    stream_chunk_size=STREAM_CHUNK,
+                    prefetch_depth=STREAM_DEPTH)
+# (tag, partition, m, config overrides, kernels its fit must launch, w's
+# limit against the in-memory twin, whether PCG's iterations must equal
+# the twin's). The chunk sums' order moves classic PCG at lam = 1e-4 by
+# 1.8e-3-2.5e-3 (DiSCO-S) and 5.8e-3-8.8e-3 (DiSCO-F) on an H100, its
+# iteration counts with it; the fused bf16 run, whose sum order K2's
+# f32 atomics change from run to run, by 0.9e-3-2.2e-3; the s-step
+# runs, their rounds equal, by 1.3e-5-2.1e-5 (PERF.md). The classic stream is also held bit for bit to the solve
+# whose shards are the chunks, the s-step stream bit for bit to itself
+# under injected read faults.
+STREAM_RUNS = [
+    ("S_m1_f32", "samples", 1, {}, ("ell_mv",), 1e-2, False),
+    ("S_m1_fused_bf16", "samples", 1,
+     dict(hvp_fused=True, hvp_dtype="bfloat16"), ("ell_mv", "ell_hvp_bf16"),
+     5e-3, False),
+    ("S_m1_sstep", "samples", 1, dict(pcg_block_s=SSTEP_S),
+     ("ell_mv", "ell_mm"), 1e-4, True),
+    ("S_m1_sstep_fused", "samples", 1,
+     dict(pcg_block_s=SSTEP_S, hvp_fused=True), ("ell_mv", "ell_hvp_mm"),
+     1e-4, True),
+    ("F_m4_f32", "features", 4, {}, ("ell_mv",), 1e-2, False),
+]
+STREAM_SLOW_S = 0.02             # injected latency of the straggling chunks
+
+
+def stream_stats_ok(tag, st) -> None:
+    check(st["peak_bytes"] <= (STREAM_DEPTH + 2) * st["max_step_bytes"]
+          and st["peak_bytes"] < st["bytes_loaded"] / 4,
+          f"stream {tag}: peak {st['peak_bytes']} B <= (depth + 2) x "
+          f"{st['max_step_bytes']} B and < {st['bytes_loaded']} / 4 B")
+
+
+def stream_tiles(torch, store, plan_streams) -> None:
+    """Every chunk's tiles assembled on the card, both layouts, against
+    ``ell_from_csr`` on the host bit for bit: ``ell_from_csr`` is
+    ``ell_plan`` + ``ell_fill`` (``tests/test_torch_stream.py`` holds it
+    to the reference's), so the card's tiles must hold exactly the
+    chunk's values at the host plan's offsets and zeros elsewhere, with
+    its column ids; the bf16 tiles must be the f32 ones' cast (round to
+    nearest even, the host's ``astype``). Two plans, one a pass, so the
+    two passes run side by side."""
+    import numpy as np
+    from repro_torch.data.sparse import ell_plan, pad_csr_rows
+    plans = [plan_streams(store, 1, block_rows=SOLVE_BLOCK,
+                          block_cols=SOLVE_BLOCK, device="cuda",
+                          hvp_dtype=torch.bfloat16) for _ in range(2)]
+    plan = plans[0]
+    flip = store.axis == "samples"
+    ok, chunks, nnz = True, 0, 0
+    with plans[0].stream("both") as f32, \
+            plans[1].stream("both", hvp=True) as b16:
+        for t, (a, b) in enumerate(zip(f32, b16)):
+            cid = int(plan.schedule[0, t])
+            slab = pad_csr_rows(store.chunk_csr(cid), plan.chunk_size)
+            vals = np.asarray(slab.data, np.float32)
+            ok &= bool((vals != 0).all())
+            for lay, kd, kc in (("fwd", "data", "cols"),
+                                ("tr", "dataT", "colsT")):
+                _, _, r, c = plan._dims(lay)
+                w = plan.w_fwd if lay == "fwd" else plan.w_tr
+                want = ell_plan(slab, r, c, w, transpose=(lay == "fwd")
+                                == flip)
+                tiles = a[kd][0]
+                ok &= tuple(tiles.shape) == want.shape
+                nz = torch.nonzero(tiles.reshape(-1)).reshape(-1)
+                order = np.argsort(want.offsets, kind="stable")
+                ok &= bool(np.array_equal(nz.cpu().numpy(),
+                                          want.offsets[order]))
+                ok &= bool(np.array_equal(
+                    tiles.reshape(-1)[nz].cpu().numpy(), vals[order]))
+                ok &= bool(np.array_equal(a[kc][0].cpu().numpy(),
+                                          want.cols))
+                ok &= bool(torch.equal(b[kd][0], tiles.to(torch.bfloat16)))
+            chunks += cid >= 0
+            nnz += len(vals)
+    check(ok and chunks == store.n_chunks and nnz == store.nnz,
+          f"stream tiles, {store.axis} store: {chunks} chunks ({nnz} "
+          "nonzeros) assembled on the card equal ell_from_csr bit for "
+          "bit (f32, both layouts), and the bf16 tiles its cast")
+
+
+def stream_pass_probe(torch, tag, plan, kind, run_chunk) -> dict:
+    """One timed pass: the producer's host seconds (read + plan +
+    enqueue) and its seconds waiting for a free device buffer or pinned
+    set, the bytes staged to the card, the pass's device time between
+    CUDA events on the solve's stream, the time that stream waited for
+    payloads, and the device time inside each step's launches (CUDA
+    events just before the step's first launch and just after its last,
+    summed: the kernels and the host's gaps between them)."""
+    st = plan.stats
+    host0, wait0, staged0 = st.host_s, st.wait_s, st.staged_bytes
+    plan.time_waits(True)
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    a, b, steps = event(), event(), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    with plan.stream(*kind) as pf:
+        for pl in pf:
+            steps.append((event(), event()))
+            steps[-1][0].record()
+            run_chunk(pl)
+            steps[-1][1].record()
+    b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    waited = plan.waited_ms()
+    plan.time_waits(False)
+    dev_ms = a.elapsed_time(b)
+    row = dict(tag=tag, wall_ms=wall * 1e3,
+               host_ms=(st.host_s - host0) * 1e3,
+               producer_wait_ms=(st.wait_s - wait0) * 1e3,
+               h2d_bytes=st.staged_bytes - staged0, device_ms=dev_ms,
+               waited_ms=waited,
+               launch_windows_ms=sum(x.elapsed_time(y) for x, y in steps),
+               steps=plan.n_steps)
+    print("stream pass " + json.dumps(row), flush=True)
+    return row
+
+
+def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
+    """The streamed (out-of-core) solve on the sparse slice.
+
+    Two stores in a temporary directory (samples and features, chunks of
+    ``STREAM_CHUNK``); every chunk's tiles on the card against the host;
+    five streamed runs, each held to its in-memory twin: ``partition_info``
+    equal to the in-memory partitioner's at ``partition_block =
+    STREAM_CHUNK``, the first step's gradient norm and f within 1e-6 (the
+    products before PCG), ``w`` within its run's limit and, for the
+    s-step runs, the same PCG rounds (``STREAM_RUNS``: classic PCG at
+    lam = 1e-4 runs 70-100 iterations a step, and a sum in another order
+    moves its iteration counts and ``w`` by a few 1e-3). The m = 1 twins
+    re-target ``solver_m1``, the slice's in-memory DiSCO-S m = 1 solver
+    (``partition_block`` 1 pads n to 20,352 against the stores' 20,480;
+    the padding adds no live tile). The exactness checks: the DiSCO-S
+    m = 1 two-pass stream equals the in-memory solve whose shards are the
+    chunks (``partition_strategy='width'``, m = 20) bit for bit, PCG
+    iterations and host syncs included (an s-step solve at m > 1 is not
+    the m = 1 one: its rounds differ); the s-step (K6) stream under
+    injected read faults equals its fault-free run bit for bit. Then the
+    byte bounds and the bf16 ratio, kill-and-resume / re-plan, one timed
+    pass of each HVP stream, two of a plan that keeps no chunk plan,
+    and a profiled streamed Newton step."""
+    import copy
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.data import ShardStore
+    from repro_torch.data import stream as stream_mod
+    from repro_torch.data.partition import make_partition
+    from repro_torch.data.stream import plan_streams
+    from repro_torch.kernels import ops
+    from repro_torch.robust import FaultPlan, SimulatedKill
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stores = {axis: ShardStore.from_csr(X, y, f"{tmp}/{axis}", axis=axis,
+                                            chunk_size=STREAM_CHUNK)
+                  for axis in ("samples", "features")}
+        print(f"stream stores: {stores['samples'].n_chunks} sample and "
+              f"{stores['features'].n_chunks} feature chunks "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        for store in stores.values():
+            stream_tiles(torch, store, plan_streams)
+        print(f"stream tiles: {time.perf_counter() - t0:.1f} s", flush=True)
+        t_runs = time.perf_counter()
+        setup_s = []                     # the in-memory twins' set-ups
+
+        inmem = {("samples", 1, "lpt"): solver_m1}
+        results = {}
+
+        def config(partition, kw):
+            return rt.DiscoConfig(partition=partition,
+                                  **dict(STREAM_SOLVE, **kw))
+
+        def twin(partition, m, kw):
+            """The in-memory twin: one solver built a partition, shard
+            count and strategy, re-targeted at the run's config like
+            ``with_lam`` (the same device tensors; fused and s-step only
+            change the step; a bf16 twin reloads the f32 twin's device
+            state, which casts the HVP copies on the card)."""
+            cfg = config(partition, kw)
+            key = (partition, m, cfg.partition_strategy)
+            if key not in inmem:
+                t1 = time.perf_counter()
+                inmem[key] = rt.DiscoSolver(
+                    X, y, dataclasses.replace(cfg, hvp_dtype="float32"),
+                    group=rt.InProcessGroup(m), device="cuda")
+                torch.cuda.synchronize()
+                setup_s.append(time.perf_counter() - t1)
+                print(f"stream twin {key}: set-up {setup_s[-1]:.1f} s",
+                      flush=True)
+            base = inmem[key]
+            solver = copy.copy(base)
+            solver.cfg = cfg
+            if cfg.hvp_dtype == "float32":
+                solver._step = solver._build_step()
+                return solver
+            solver.hvp_dtype = torch.bfloat16
+            state = dict(ell_data=base.ell_data, ell_cols=base.ell_cols,
+                         ell_dataT=base.ell_dataT, ell_colsT=base.ell_colsT,
+                         y_tau=base.y_tau, X_tau=base.X_tau,
+                         y=base.y.reshape(-1))
+            if partition == "samples":
+                state["weights"] = base.weights.reshape(-1)
+            else:
+                state["smask"] = base.smask
+            solver._load_state(state, base._perm)
+            return solver
+
+        def streamed(partition, m, kw, **extra):
+            return rt.DiscoSolver.from_store(
+                ShardStore(stores[partition].path), config(partition, kw),
+                group=rt.InProcessGroup(m), device="cuda", **extra)
+
+        for tag, partition, m, kw, kernels, tol, same_its in STREAM_RUNS:
+            t1 = time.perf_counter()
+            solver = streamed(partition, m, kw)
+            res, counts, syncs = synced_fit(torch, build, solver)
+            t_stream = time.perf_counter() - t1
+            for k, v in counts.items():
+                if k in launches:
+                    launches[k] += v
+            mem, _, _ = synced_fit(torch, build, twin(partition, m, kw))
+            results[tag] = (solver, res, mem)
+            e = rel_w(res.w, mem.w)
+            h0, g0 = res.history[0], mem.history[0]
+            first = max(abs(h0[k] - g0[k]) / abs(g0[k])
+                        for k in ("grad_norm", "f"))
+            its = [int(h["pcg_iters"]) for h in res.history]
+            its_mem = [int(h["pcg_iters"]) for h in mem.history]
+            part = make_partition(X, partition, m, "lpt", block=STREAM_CHUNK,
+                                  pad_multiple=SOLVE_BLOCK).stats()
+            check(res.partition_info == part and first <= 1e-6 and e <= tol
+                  and (its == its_mem or not same_its),
+                  f"stream {tag}: partition_info equal to the in-memory "
+                  f"partitioner's at partition_block = {STREAM_CHUNK}, first"
+                  f" step's grad_norm and f within {first:.1e} <= 1e-6, w "
+                  f"within rel {e:.2e} <= {tol:.0e} of the twin's, PCG "
+                  f"iterations {its}, twin {its_mem}"
+                  + (" (equal)" if same_its else ""))
+            check(all(counts[k] > 0 for k in kernels),
+                  f"stream {tag}: " + ", ".join(
+                      f"{k} launched {counts[k]}" for k in kernels))
+            stream_stats_ok(tag, res.stream_stats)
+            row = dict(tag=tag, seconds=t_stream, iter_s_median=statistics
+                       .median(h["iter_s"] for h in res.history),
+                       iter_s_median_inmem=statistics.median(
+                           h["iter_s"] for h in mem.history),
+                       pcg_iters=its, pcg_iters_inmem=its_mem, rel_w=e,
+                       host_syncs=syncs,
+                       launches={k: v for k, v in counts.items() if v},
+                       stream_stats=res.stream_stats,
+                       host_s=solver._plan.stats.host_s,
+                       staged_bytes=solver._plan.stats.staged_bytes)
+            print("stream run " + json.dumps(row), flush=True)
+            if tag == "S_m1_f32":
+                # the exact twin: the in-memory solve whose shards are the
+                # chunks (equal-width partition, one shard a chunk)
+                n_chunks = stores["samples"].n_chunks
+                exact, _, exact_syncs = synced_fit(torch, build, twin(
+                    partition, n_chunks, dict(kw, partition_strategy="width")))
+                its_exact = [int(h["pcg_iters"]) for h in exact.history]
+                check(np.array_equal(res.w, exact.w) and its == its_exact
+                      and syncs <= exact_syncs,
+                      f"stream {tag}: w and PCG iterations bit for bit the "
+                      f"in-memory solve with one shard a chunk (m = "
+                      f"{n_chunks}); host syncs {syncs} <= its {exact_syncs}"
+                      f"; against the m = 1 twin rel {e:.2e}: the sum "
+                      "order's own spread")
+                del exact
+        b_f32 = results["S_m1_f32"][1].stream_stats["bytes_loaded"]
+        b_bf16 = results["S_m1_fused_bf16"][1].stream_stats["bytes_loaded"]
+        check(b_bf16 < 0.75 * b_f32,
+              f"stream: fused bf16 loads {b_bf16} B < 0.75 x the two-pass "
+              f"f32 stream's {b_f32} B ({b_bf16 / b_f32:.3f})")
+
+        t_runs = time.perf_counter() - t_runs
+        t_probe = time.perf_counter()
+        # one timed pass of each HVP stream, one profiled Newton step
+        solver = results["S_m1_f32"][0]
+        plan = solver._plan
+        u = torch.ones(plan.other_padded, device="cuda")
+        c = torch.ones(plan.chunk_size, device="cuda")
+
+        def two_pass(pl):
+            z = ops.ell_matvec(pl["dataT"][0], pl["colsT"][0], u,
+                               sched=pl["schedT"][0])
+            ops.ell_matvec(pl["data"][0], pl["cols"][0], z, c,
+                           sched=pl["sched"][0])
+
+        def one_pass(pl):
+            ops.ell_hvp(pl["dataT"][0], pl["colsT"][0], u, c,
+                        sched=pl["hvp_sched"][0])
+        stream_pass_probe(torch, "S_m1_f32 HVP pass", plan, ("both", True),
+                          two_pass)
+        stream_pass_probe(torch, "S_m1_fused_bf16 HVP pass",
+                          results["S_m1_fused_bf16"][0]._plan,
+                          ("tr", True, True), one_pass)
+        # the producer thread and the solve share the interpreter lock,
+        # which a waiting thread gets after at most the switch interval
+        # (5 ms by default): the same pass with 0.1 ms
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-4)
+        try:
+            stream_pass_probe(torch, "S_m1_f32 HVP pass, switch interval "
+                              "0.1 ms", plan, ("both", True), two_pass)
+        finally:
+            sys.setswitchinterval(interval)
+        w0 = torch.zeros(solver._w_shape, device="cuda")
+        try:
+            # device activity only: the host ops of a streamed step are
+            # hundreds of thousands, and their profile takes longer than
+            # the step
+            wall, prof = device_profile(torch, lambda: solver._step(w0, 0),
+                                        host_ops=False)
+            busy = sum(r[0] for r in prof) * 1e-6
+            print("stream profile " + json.dumps(dict(
+                run="S_m1_f32 step 0", wall_s=wall, device_busy_s=busy,
+                busy_share=busy / wall, top=[
+                    dict(name=k[:60], calls=n, device_s=t * 1e-6)
+                    for t, n, k in prof[:8]])), flush=True)
+        except RuntimeError as exc:        # a measurement only
+            print(f"stream profile unavailable: {exc}", flush=True)
+
+        # with no room for chunk plans: every pass plans every chunk on
+        # the host (the first pass also opens the chunks' memory maps)
+        kept = stream_mod.PLAN_CACHE_BYTES
+        stream_mod.PLAN_CACHE_BYTES = 0
+        try:
+            bare = plan_streams(stores["samples"], 1, block_rows=SOLVE_BLOCK,
+                                block_cols=SOLVE_BLOCK,
+                                prefetch_depth=STREAM_DEPTH, device="cuda")
+            for i in (1, 2):
+                stream_pass_probe(torch, f"S_m1_f32 HVP pass, no plan "
+                                  f"cache, pass {i}", bare, ("both", True),
+                                  two_pass)
+        finally:
+            stream_mod.PLAN_CACHE_BYTES = kept
+        del bare
+
+        t_probe = time.perf_counter() - t_probe
+        t_robust = time.perf_counter()
+        # robustness: retries on the s-step (K6) stream, kill-and-resume
+        # on the classic (K1) one, both deterministic
+        sstep_w = results["S_m1_sstep"][1].w
+        faulty = streamed("samples", 1, dict(io_backoff_s=0.0,
+                                             pcg_block_s=SSTEP_S),
+                          fault_plan=FaultPlan(seed=5, read_error_rate=0.3,
+                                               read_error_attempts=1))
+        res = faulty.fit()
+        check(faulty._faults.faults_injected > 0
+              and np.array_equal(res.w, sstep_w),
+              f"stream retry: {faulty._faults.faults_injected} transient "
+              "read faults retried (io_retries = 3) on the s-step stream, "
+              "w bit for bit the fault-free run's")
+        whole = results["S_m1_f32"][1]
+        ckpt = f"{tmp}/ckpt"
+        kill_at = STREAM_SOLVE["max_outer"] - 1
+        try:
+            streamed("samples", 1, {}, fault_plan=FaultPlan(
+                kill_at_step=kill_at)).fit(checkpoint_dir=ckpt)
+            killed = False
+        except SimulatedKill:
+            killed = True
+        res = streamed("samples", 1, {}).fit(checkpoint_dir=ckpt,
+                                             resume=True)
+        e = rel_w(res.w, whole.w)
+        check(killed and e <= 1e-7 and len(res.history) == len(
+            whole.history), f"stream resume: killed at step {kill_at}, "
+                            f"resumed w within rel {e:.2e} <= 1e-7 of the "
+                            "uninterrupted run's")
+        # re-plan on the m = 4 samples plan with two chunks of shard 0
+        # straggling, at lam = 1e-2, where PCG's trajectory does not move
+        # with the sum order (at 1e-4 it moves by 1e-3, above; the
+        # re-planned sums are in another order after every re-plan); one
+        # Newton step, as DiSCO-S re-plans between PCG rounds
+        probe = plan_streams(stores["samples"], 4, block_rows=SOLVE_BLOCK,
+                             block_cols=SOLVE_BLOCK, device="cpu")
+        slow = {int(cid): STREAM_SLOW_S for cid in probe.schedule[0, :2]}
+        kw = dict(max_outer=1, lam=1e-2)
+        static = streamed("samples", 4, kw).fit()
+        replanned = streamed("samples", 4, dict(
+            kw, elastic_replan=True, replan_threshold=1.3),
+            fault_plan=FaultPlan(slow_chunks=slow)).fit()
+        e = rel_w(replanned.w, static.w)
+        events = replanned.replan_events
+        check(len(events) >= 1 and e <= 1e-4,
+              f"stream re-plan: {len(events)} re-plan(s) (first "
+              f"{events[:1]}), w within rel {e:.2e} <= 1e-4 of the static "
+              "plan's")
+        t_robust = time.perf_counter() - t_robust
+    del inmem, results, solver_m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("stream phase parts " + json.dumps(dict(
+        runs_and_twins_s=t_runs, twin_setups_s=setup_s,
+        passes_and_profile_s=t_probe, robustness_s=t_robust)), flush=True)
+    print(f"stream phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3674,15 +4109,16 @@ def count_host_syncs(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, host_ops=True):
     """``fn()`` under ``torch.profiler``: its wall time and the device-side
     events as (device µs, calls, name), largest first. Device busy time is
     their sum (kernels, copies, fills: one stream, so they do not
-    overlap), not that of the host ops that launched them."""
+    overlap), not that of the host ops that launched them, which
+    ``host_ops=False`` leaves out of the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

@@ -2,7 +2,9 @@
 decoders (the JAX package ``repro`` is the reference it is held against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
-entry points (:func:`disco_fit`, :class:`DiscoSolver`,
+entry points (:func:`disco_fit`, :class:`DiscoSolver` and its streamed
+(out-of-core) form :meth:`DiscoSolver.from_store` /
+:func:`disco_fit_streaming`,
 :func:`lambda_path_fit`, :func:`softmax_fit`, :class:`SoftmaxSolver`, and
 the paper's baselines :func:`gd_fit`, :func:`dane_fit`, :func:`cocoa_fit`)
 run on the card unless the caller passes ``device='cpu'``. Input is a sparse
@@ -23,7 +25,7 @@ from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.core.baselines import (CocoaConfig, DaneConfig, GDConfig,
                                         cocoa_fit, dane_fit, gd_fit)
 from repro_torch.core.disco import (DiscoConfig, DiscoResult, DiscoSolver,
-                                    disco_fit)
+                                    disco_fit, disco_fit_streaming)
 from repro_torch.core.glm import GLMProblem
 from repro_torch.core.lambda_path import LambdaPathResult, lambda_path_fit
 from repro_torch.core.softmax import (SoftmaxConfig, SoftmaxResult,
@@ -37,6 +39,7 @@ from repro_torch.parallel.collectives import InProcessGroup
 from repro_torch.serve import ContinuousEngine, Engine, Request
 
 __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
+           "disco_fit_streaming",
            "GLMProblem", "LambdaPathResult", "lambda_path_fit",
            "SoftmaxConfig", "SoftmaxResult", "SoftmaxSolver", "softmax_fit",
            "GDConfig", "gd_fit", "DaneConfig", "dane_fit", "CocoaConfig",

@@ -286,3 +286,37 @@ def disco_streaming_iter_time(shard_nnz, pcg_iters: int, partition: str,
                 total_no_overlap_s=total_naive,
                 overlap_savings_s=total_naive - total,
                 straggler=base["straggler"])
+
+
+def elastic_replan_model(chunk_seconds, schedule_before, schedule_after,
+                         passes_remaining: int,
+                         replan_overhead_s: float = 0.0) -> dict:
+    """Modeled wall-clock of finishing a solve with vs without a re-plan
+    (the reference's ``repro.core.comm.elastic_replan_model``).
+
+    One pass of a schedule costs ``sum_t max_s chunk_seconds``
+    (:func:`repro_torch.robust.straggler.barrier_seconds`: every
+    collective waits for the slowest shard), so ``passes_remaining``
+    passes cost that much each, and the re-planned variant pays
+    ``replan_overhead_s`` once (no chunk data moves).
+
+    Returns ``static_s`` (keep the old schedule), ``replanned_s``
+    (overhead + new-schedule passes), ``gain`` (static / replanned; > 1
+    means the re-plan pays) and ``break_even_passes`` (``inf`` when the
+    new schedule is no faster).
+    """
+    from repro_torch.robust.straggler import barrier_seconds
+
+    cs = np.asarray(chunk_seconds, np.float64)
+    before = barrier_seconds(np.asarray(schedule_before), cs)
+    after = barrier_seconds(np.asarray(schedule_after), cs)
+    static_s = before * passes_remaining
+    replanned_s = replan_overhead_s + after * passes_remaining
+    per_pass_gain = before - after
+    break_even = (replan_overhead_s / per_pass_gain
+                  if per_pass_gain > 0 else float("inf"))
+    return dict(static_s=float(static_s),
+                replanned_s=float(replanned_s),
+                gain=float(static_s / replanned_s) if replanned_s > 0
+                else float("inf"),
+                break_even_passes=float(break_even))

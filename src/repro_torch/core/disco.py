@@ -30,6 +30,11 @@ resumes atomic checkpoints (:mod:`repro_torch.robust.checkpoint`, the
 reference's format). :meth:`DiscoSolver.with_lam`
 re-targets a built solver at another ``lam`` on the same device tensors
 (the λ-path, :mod:`repro_torch.core.lambda_path`).
+:meth:`DiscoSolver.from_store` (and :func:`disco_fit_streaming`) runs the
+same solve out of core: X stays in a :class:`repro_torch.data.store
+.ShardStore` and every product with it is a prefetched pass over the
+store's chunks (:mod:`repro_torch.data.stream`), with retries, elastic
+re-planning and ``DiscoResult.stream_stats``.
 """
 from __future__ import annotations
 
@@ -43,13 +48,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import comm
-from repro_torch.core.hvp import validate_solver_cell
+from repro_torch.core.hvp import StreamedHvpOperator, validate_solver_cell
 from repro_torch.core.losses import get_loss
-from repro_torch.core.pcg import pcg_features, pcg_samples
+from repro_torch.core.pcg import (_features_precond, _samples_basis_op,
+                                  _samples_precond, pcg_features,
+                                  pcg_samples, pcg_streamed)
 from repro_torch.data.partition import Partition, make_partition
 from repro_torch.data.sparse import (CSRMatrix, EllPair,
                                      build_shard_ell_pairs, hvp_tile_dtype,
                                      shard_csrs_from_partition)
+from repro_torch.data.store import ShardStore
+from repro_torch.data.stream import plan_streams
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sparse_hvp import (default_ctas,
                                             ell_hvp_schedule,
@@ -59,7 +68,10 @@ from repro_torch.obs import tracer as obs
 from repro_torch.parallel.collectives import InProcessGroup
 from repro_torch.robust.checkpoint import (CheckpointState, load_checkpoint,
                                            save_checkpoint)
-from repro_torch.robust.faults import FaultInjector
+from repro_torch.robust.faults import FaultInjector, FaultPlan
+from repro_torch.robust.retry import RetryPolicy
+from repro_torch.robust.straggler import ChunkTimingLedger, ElasticReplanner
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.padding import pad_to_multiple
 
 
@@ -78,8 +90,12 @@ class DiscoConfig:
     partition_strategy, partition_block, ell_block_d, ell_block_n (sparse
     input), trace (turns on the process-global tracing plane,
     :func:`repro_torch.obs.enable`, at solver construction; global and
-    sticky; left out of the checkpoint's config fingerprint). The
-    out-of-core fields are unused until the streamed solve is ported.
+    sticky; left out of the checkpoint's config fingerprint), and the
+    out-of-core fields of :meth:`DiscoSolver.from_store`:
+    stream_chunk_size (the chunk of :func:`disco_fit_streaming`'s store),
+    prefetch_depth (steps staged ahead of the kernels), elastic_replan and
+    replan_threshold (re-plan on measured chunk seconds), io_retries,
+    io_backoff_s and io_deadline_s (a stream step's retries).
     """
 
     loss: str = "logistic"
@@ -126,7 +142,12 @@ class DiscoResult:
         converged: True iff ||grad|| reached ``cfg.grad_tol``.
         partition_info: :meth:`Partition.stats` of the load balance
             (sparse input; None for dense, which slices equal-width).
-        stream_stats, replan_events: out-of-core fields, always empty here.
+        stream_stats: streamed solves only, the data plane's byte ledger
+            (``passes``, ``steps``, ``bytes_loaded``, ``peak_bytes``,
+            ``max_step_bytes``; :class:`repro_torch.data.stream
+            .PrefetchStats`); None otherwise.
+        replan_events: the elastic re-plans that fired (plain dicts of
+            :class:`repro_torch.robust.straggler.ReplanEvent`).
     """
 
     w: np.ndarray
@@ -147,18 +168,6 @@ class DiscoResult:
     def comm_rounds(self) -> np.ndarray:
         """(outer_iters,) cumulative paper-style communication rounds."""
         return np.array([h["comm_rounds_cum"] for h in self.history])
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch device; ``None`` means the card. Raises when a
-    CUDA device is asked for (or implied) and none is present — the port
-    never quietly continues on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device and none is available; pass "
-            "device='cpu' to run the plain PyTorch versions on the CPU")
-    return dev
 
 
 def subsample_mask(seed: int, outer_iter: int, shard: int | None,
@@ -236,16 +245,21 @@ class DiscoSolver:
             self._init_dense(X, y)
 
     def _setup(self, cfg: DiscoConfig, shape, group, device, *,
-               sparse: bool) -> None:
+               sparse: bool, streaming: bool = False) -> None:
         if cfg.trace:
             obs.enable()
         # a fault plan's executor, set by callers that inject faults (the
         # tests' kill-and-resume); fit() calls its on_outer_step(k)
         self._faults: FaultInjector | None = None
+        self._streaming = streaming
+        self._replanner: ElasticReplanner | None = None
+        self._replan_events: list[dict] = []
+        self._outer_iter = 0
         self.hvp_dtype = hvp_tile_dtype(cfg.hvp_dtype)
         validate_solver_cell(family="binary", partition=cfg.partition,
                              fused=cfg.hvp_fused, dtype=cfg.hvp_dtype,
-                             sparse=sparse, use_kernel=cfg.use_kernel)
+                             sparse=sparse, use_kernel=cfg.use_kernel,
+                             streaming=streaming)
         if cfg.partition not in ("features", "samples"):
             raise ValueError(f"unknown partition {cfg.partition!r}")
         self.cfg = cfg
@@ -547,11 +561,425 @@ class DiscoSolver:
         ``self`` and rebuilds
         only the Newton step, whose closure reads ``lam`` from the
         config; the step holds no state of its own between fits.
+        In-memory solvers only: a streamed solver is rebuilt with
+        :meth:`from_store` for each ``lam``.
         """
+        if self._streaming:
+            raise ValueError(
+                "with_lam shares in-memory device arrays; a streaming "
+                "solver must be rebuilt with DiscoSolver.from_store for "
+                "each lam")
         new = copy.copy(self)
         new.cfg = dataclasses.replace(self.cfg, lam=float(lam))
         new._step = new._build_step()
         return new
+
+    # ------------------------------------------------------------------
+    # the streamed (out-of-core) solve
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_store(cls, store, cfg: DiscoConfig,
+                   group: InProcessGroup | None = None, device=None,
+                   fault_plan: FaultPlan | None = None) -> "DiscoSolver":
+        """A solver that *streams* a
+        :class:`repro_torch.data.store.ShardStore` instead of holding X.
+
+        The store's chunked axis must match ``cfg.partition``. Every
+        product with X is one prefetched pass over the store
+        (:mod:`repro_torch.data.stream`): each chunk's CSR goes to the
+        device, its tiles are assembled there, and the blocked-ELL ops run
+        on it with the chunk's schedule (K1 ``ell_mv`` for margins,
+        gradient and two-pass HVPs, K6 ``ell_mm`` in s-step rounds, K2 /
+        K7 for the fused DiSCO-S HVP), at ``cfg.hvp_dtype`` in PCG. Peak
+        data-plane memory is ``cfg.prefetch_depth + 2`` steps of ``m``
+        chunks, never the dataset. The chunk-granular LPT assigns chunks
+        to shards from the store's header; at ``partition_block =
+        stream_chunk_size`` the in-memory solver realises the same
+        partition. The outer loop, damped step, stopping rules and
+        preconditioners are the in-memory solver's; :meth:`fit`
+        additionally reports ``stream_stats``.
+
+        Robustness: stream steps are retried per ``cfg.io_retries`` /
+        ``io_backoff_s`` / ``io_deadline_s``; with ``cfg.elastic_replan``
+        the per-chunk timing ledger feeds an
+        :class:`repro_torch.robust.straggler.ElasticReplanner` that
+        re-balances the chunk->shard schedule on *measured* seconds
+        (DiSCO-S between PCG rounds, DiSCO-F between outer steps).
+        ``fault_plan`` threads a :class:`repro_torch.robust.faults.FaultPlan`
+        into the chunk reads and the outer loop (tests).
+        """
+        if store.axis != cfg.partition:
+            raise ValueError(
+                f"store is chunked along {store.axis!r} but cfg.partition "
+                f"is {cfg.partition!r}; rebuild the store along the "
+                f"partition axis")
+        self = cls.__new__(cls)
+        self._setup(cfg, tuple(store.shape), group, device, sparse=True,
+                    streaming=True)
+        self._faults = (FaultInjector(fault_plan)
+                        if fault_plan is not None else None)
+        retry = (RetryPolicy(max_retries=cfg.io_retries,
+                             backoff_s=cfg.io_backoff_s,
+                             deadline_s=cfg.io_deadline_s)
+                 if cfg.io_retries > 0 or cfg.io_deadline_s > 0 else None)
+        ledger = ChunkTimingLedger(store.n_chunks)
+        if cfg.elastic_replan:
+            self._replanner = ElasticReplanner(
+                ledger, threshold=cfg.replan_threshold)
+        self._plan = plan_streams(
+            store, self.m, cfg.partition_strategy,
+            block_rows=cfg.ell_block_d, block_cols=cfg.ell_block_n,
+            prefetch_depth=cfg.prefetch_depth, device=self.device,
+            hvp_dtype=self.hvp_dtype, timing_ledger=ledger,
+            fault_injector=self._faults, retry=retry)
+        self._part = self._plan.partition
+        self._init_streaming()
+        self._step = self._build_step_streaming()
+        return self
+
+    def _init_streaming(self):
+        """The resident (small) tensors of a streamed solve: labels,
+        sample weights or mask, and the dense tau-sample preconditioner
+        slab; the X chunks stay in the store."""
+        plan, store, m, tau = self._plan, self._plan.store, self.m, self.tau
+        n = self.n
+        put = lambda a: _to_device(a, self.device)
+        y = np.asarray(store.labels(), np.float32)
+        width = plan.width_local
+        if self.cfg.partition == "features":
+            n_padded = plan.other_padded
+            smask = np.zeros(n_padded, np.float32)
+            smask[:n] = 1.0
+            self.y = put(np.pad(y, (0, n_padded - n)))
+            self.smask = put(smask)
+            self._perm = np.asarray(self._part.perm)
+            self._build_tau_features()
+            self._w_shape = (m, width)
+        else:
+            n_padded = plan.axis_padded
+            perm = self._part.perm
+            self.y = put(np.pad(y, (0, n_padded - n))[perm]).reshape(m, -1)
+            self.weights = put(np.pad(np.ones(n, np.float32),
+                                      (0, n_padded - n))[perm]
+                               ).reshape(m, -1)
+            # the first tau *original* samples, read from the chunks that
+            # cover them (sample chunks are in the original order)
+            X_tau = np.zeros((plan.other_padded, tau), np.float32)
+            pos = 0
+            while pos < tau:
+                cid = pos // store.chunk_size
+                info = store.chunks[cid]
+                cnt = min(tau, info.stop) - pos
+                sub = store.chunk_csr(cid).take_rows(
+                    np.arange(pos - info.start, pos - info.start + cnt))
+                X_tau[:self.d, pos:pos + cnt] = sub.todense().T
+                pos += cnt
+            self.X_tau = put(X_tau)
+            self._w_shape = (plan.other_padded,)
+        self.y_tau = put(y[:tau])
+
+    def _build_tau_features(self):
+        """(Re)build DiSCO-F's per-shard dense tau slab ``(m, width,
+        tau)`` from the CURRENT schedule, chunk by chunk (the tau columns
+        of each chunk's feature rows), so an elastic re-plan rebuilds it
+        for the new chunk->shard membership."""
+        plan, store, m, tau = self._plan, self._plan.store, self.m, self.tau
+        chunk = plan.chunk_size
+        X_tau = np.zeros((m, plan.width_local, tau), np.float32)
+        for s in range(m):
+            for t in range(plan.n_steps):
+                cid = int(plan.schedule[s, t])
+                if cid < 0:
+                    continue
+                slab = store.chunk_csr(cid).take_cols_dense(np.arange(tau))
+                X_tau[s, t * chunk: t * chunk + slab.shape[0]] = slab
+        self.X_tau = _to_device(X_tau, self.device)
+
+    # -- streamed X products: each is one prefetched pass over the store
+    def _slab(self, vec, s, t):
+        """Shard ``s``'s step-``t`` chunk of a sharded ``(m, width, ...)``
+        vector."""
+        chunk = self._plan.chunk_size
+        return vec[s, t * chunk:(t + 1) * chunk]
+
+    def _stream_xt(self, u, local=False, multi=False, hvp=False):
+        """Pass A of DiSCO-F, ``z = X^T u``: the transposed chunk layouts,
+        each shard's chunks summed in schedule order, then the shards'
+        sums all-reduced into the ``(n_padded[, k])`` vector; with
+        ``local=True`` the per-shard sums ``(m, n_padded[, k])`` (the
+        s-step basis operator, no collective). ``hvp=True`` streams the
+        tiles in ``cfg.hvp_dtype`` (PCG's passes)."""
+        op = kops.ell_matmat if multi else kops.ell_matvec
+        acc = [None] * self.m
+        with self._plan.stream("tr", hvp=hvp) as pf:
+            for t, pl in enumerate(pf):
+                for s in range(self.m):
+                    part = op(pl["dataT"][s], pl["colsT"][s],
+                              self._slab(u, s, t), sched=pl["schedT"][s])
+                    acc[s] = part if acc[s] is None else acc[s] + part
+        if local:
+            return torch.stack(acc)
+        return self.group.all_reduce(acc)
+
+    def _stream_x(self, z, coeffs=None, local=False, multi=False,
+                  hvp=False):
+        """Pass B of DiSCO-F, ``X (c .* z)``: the forward chunk layouts,
+        each chunk giving its slab of shard ``s``'s rows, joined in
+        schedule order into ``(m, width[, k])``; ``local=True`` reads the
+        per-shard inputs ``z[s]``."""
+        op = kops.ell_matmat if multi else kops.ell_matvec
+        parts = [[None] * self._plan.n_steps for _ in range(self.m)]
+        with self._plan.stream("fwd", hvp=hvp) as pf:
+            for t, pl in enumerate(pf):
+                for s in range(self.m):
+                    parts[s][t] = op(pl["data"][s], pl["cols"][s],
+                                     z[s] if local else z, coeffs,
+                                     sched=pl["sched"][s])
+        return torch.stack([torch.cat(p) for p in parts])
+
+    def _stream_hvp_samples(self, u, coeffs, multi=False):
+        """DiSCO-S's local products, ``sum_s sum_t X_st (c_st .*
+        (X_st^T u))``: each sample chunk completes both directions, so one
+        pass serves the whole product, each shard's chunks summed in
+        schedule order, then the shards' sums all-reduced. With
+        ``cfg.hvp_fused`` (when the plan's tile shape fits the fused
+        kernels, :meth:`StreamPlan.fused_hvp_fits`) only the transposed
+        layout is streamed and each chunk runs K2 ``ell_hvp`` / K7
+        ``ell_hvp_mm`` with its step schedule; else the two-pass K1 / K6
+        pair. Tiles in ``cfg.hvp_dtype`` either way; the choice is made
+        once per stream."""
+        plan, m = self._plan, self.m
+        acc = [None] * m
+        fused = self.cfg.hvp_fused and plan.fused_hvp_fits(
+            self.d, s=(u.shape[1] if multi else 1))
+        if fused:
+            op = kops.ell_hvp_mm if multi else kops.ell_hvp
+            with plan.stream("tr", hvp=True, fused=True) as pf:
+                for t, pl in enumerate(pf):
+                    for s in range(m):
+                        part = op(pl["dataT"][s], pl["colsT"][s], u,
+                                  self._slab(coeffs, s, t),
+                                  sched=pl["hvp_sched"][s])
+                        acc[s] = part if acc[s] is None else acc[s] + part
+            return self.group.all_reduce(acc)
+        op = kops.ell_matmat if multi else kops.ell_matvec
+        with plan.stream("both", hvp=True) as pf:
+            for t, pl in enumerate(pf):
+                for s in range(m):
+                    z = op(pl["dataT"][s], pl["colsT"][s], u,
+                           sched=pl["schedT"][s])
+                    part = op(pl["data"][s], pl["cols"][s], z,
+                              self._slab(coeffs, s, t), sched=pl["sched"][s])
+                    acc[s] = part if acc[s] is None else acc[s] + part
+        return self.group.all_reduce(acc)
+
+    def _stream_margins_samples(self, w):
+        """DiSCO-S margins, ``(m, width)``: one 'tr' pass, each chunk
+        giving its slab of its shard's margins."""
+        parts = [[None] * self._plan.n_steps for _ in range(self.m)]
+        with self._plan.stream("tr") as pf:
+            for t, pl in enumerate(pf):
+                for s in range(self.m):
+                    parts[s][t] = kops.ell_matvec(
+                        pl["dataT"][s], pl["colsT"][s], w,
+                        sched=pl["schedT"][s])
+        return torch.stack([torch.cat(p) for p in parts])
+
+    def _stream_grad_samples(self, d1):
+        """DiSCO-S's ``sum_s X_s d1_s``: one 'fwd' pass, each shard's
+        chunks summed in schedule order, then all-reduced."""
+        acc = [None] * self.m
+        with self._plan.stream("fwd") as pf:
+            for t, pl in enumerate(pf):
+                for s in range(self.m):
+                    part = kops.ell_matvec(pl["data"][s], pl["cols"][s],
+                                           self._slab(d1, s, t),
+                                           sched=pl["sched"][s])
+                    acc[s] = part if acc[s] is None else acc[s] + part
+        return self.group.all_reduce(acc)
+
+    # -- elastic re-planning ---------------------------------------------
+    def _replan_mapping(self, new_plan) -> torch.Tensor:
+        """Index map old-permuted-position -> new-permuted-position, on
+        the device: ``vec_new = vec_old.reshape(-1)[mapping]`` re-permutes
+        a vector of the sharded (permuted, padded) axis to the new plan's
+        layout."""
+        mapping = self._part.inv[new_plan.partition.perm]
+        return torch.from_numpy(np.asarray(mapping, np.int64)).to(
+            self.device)
+
+    def _permute(self, vec, mapping):
+        return vec.reshape(-1)[mapping].reshape(self.m, -1)
+
+    def _maybe_replan_samples(self, state: dict) -> None:
+        """Between-PCG-rounds re-plan window of streamed DiSCO-S.
+
+        The PCG state is replicated d-space and never permuted, so
+        swapping the schedule mid-solve is exact; only the n-space
+        resident vectors (labels, sample weights and the in-flight
+        Hessian coefficients in ``state``) are re-permuted here."""
+        if self._replanner is None:
+            return
+        out = self._replanner.maybe_replan(
+            self._plan, outer_iter=self._outer_iter, trigger="pcg")
+        if out is None:
+            return
+        new_plan, event = out
+        mapping = self._replan_mapping(new_plan)
+        self.y = self._permute(self.y, mapping)
+        self.weights = self._permute(self.weights, mapping)
+        for k in state:
+            state[k] = self._permute(state[k], mapping)
+        self._plan, self._part = new_plan, new_plan.partition
+        self._replan_events.append(event.to_dict())
+
+    def _maybe_replan_features(self, w):
+        """Outer-boundary re-plan window of streamed DiSCO-F: its PCG
+        state and block-diagonal preconditioner are tied to the shard
+        membership, so the swap happens only between outer steps: the
+        iterate is re-permuted and the tau slab rebuilt."""
+        if self._replanner is None:
+            return w
+        out = self._replanner.maybe_replan(
+            self._plan, outer_iter=self._outer_iter, trigger="outer")
+        if out is None:
+            return w
+        new_plan, event = out
+        mapping = self._replan_mapping(new_plan)
+        self._plan, self._part = new_plan, new_plan.partition
+        self._perm = np.asarray(self._part.perm)
+        self._build_tau_features()
+        self._replan_events.append(event.to_dict())
+        return self._permute(w, mapping)
+
+    def _build_step_streaming(self):
+        """The host-driven Newton step of a streamed solve: the in-memory
+        step's arithmetic with every product a prefetched chunk scan and
+        PCG run by :func:`repro_torch.core.pcg.pcg_streamed`. Returns
+        ``step(w, outer_iter=0) -> (w_new, stats)``."""
+        cfg, loss, group = self.cfg, self.loss, self.group
+        n, tau, m = self.n, self.tau, self.m
+        lam = cfg.lam
+        # PCG's 1/n as the in-memory PCG has it, a device scalar (a Python
+        # number would divide by its reciprocal on the card)
+        n_t = torch.tensor(float(n), dtype=torch.float32, device=self.device)
+
+        def outer_rounds(r_outer):
+            # the outer margins / gradient rounds, counted at their call
+            # site (the streamed path's own tally)
+            if obs.enabled():
+                obs.count("comm.rounds", r_outer)
+                for _ in range(r_outer):
+                    obs.instant("comm.allreduce", phase="outer")
+
+        if cfg.partition == "features":
+            def step(w, outer_iter=0):                     # w: (m, width)
+                w = self._maybe_replan_features(w)
+                margins = self._stream_xt(w)
+                d1 = loss.d1(margins, self.y) * self.smask
+                c = loss.d2(margins, self.y) * self.smask
+                vals = loss.value(margins, self.y) * self.smask
+                g = self._stream_x(d1) / n + lam * w
+                gnorm = torch.sqrt(group.all_reduce(
+                    [torch.dot(g[s], g[s]) for s in range(m)]))
+                outer_rounds(comm.disco_f_outer_cost(n, self.d, m)[0])
+                fval = torch.sum(vals) / n + 0.5 * lam * group.all_reduce(
+                    [torch.dot(w[s], w[s]) for s in range(m)])
+                c_eff = self._subsample(c, outer_iter)
+                coeffs_tau = loss.d2(margins[:tau], self.y_tau)
+                apply_precond = _features_precond(
+                    cfg.precond, self.X_tau, coeffs_tau, lam, cfg.mu)
+
+                # two-pass only: the all-reduce of pass A's chunk sums
+                # separates the passes (the registry refuses fused)
+                op = StreamedHvpOperator(
+                    apply=lambda u: self._stream_x(
+                        self._stream_xt(u, hvp=True), coeffs=c_eff,
+                        hvp=True),
+                    apply_multi=lambda U: self._stream_x(
+                        self._stream_xt(U, multi=True, hvp=True),
+                        coeffs=c_eff, multi=True, hvp=True),
+                    pass_a=lambda u: self._stream_xt(u, hvp=True),
+                    pass_b=lambda z: self._stream_x(z, coeffs=c_eff,
+                                                    hvp=True),
+                    pass_a_multi=lambda U: self._stream_xt(
+                        U, multi=True, hvp=True),
+                    pass_b_multi=lambda Z: self._stream_x(
+                        Z, coeffs=c_eff, multi=True, hvp=True))
+
+                def basis_op(u):
+                    z_loc = self._stream_xt(u, local=True, hvp=True)
+                    return self._stream_x(z_loc, coeffs=c_eff, local=True,
+                                          hvp=True) / n_t + lam * u
+
+                res = pcg_streamed(
+                    lambda u: op.apply(u) / n_t + lam * u, apply_precond, g,
+                    cfg.pcg_rel_tol * gnorm, cfg.max_pcg,
+                    block_s=cfg.pcg_block_s,
+                    hvp_multi=lambda U: op.apply_multi(U) / n_t + lam * U,
+                    basis_op=basis_op, variant="features", group=group)
+                w_new = w - res.v / (1.0 + res.delta)
+                return w_new, dict(grad_norm=gnorm, f=fval,
+                                   pcg_iters=res.iters, delta=res.delta,
+                                   pcg_r_norm=res.r_norm)
+
+        else:  # samples
+            def step(w, outer_iter=0):                     # w: (d_padded,)
+                margins = self._stream_margins_samples(w)  # (m, width)
+                d1 = loss.d1(margins, self.y) * self.weights
+                c = loss.d2(margins, self.y) * self.weights
+                g = self._stream_grad_samples(d1) / n + lam * w
+                gnorm = torch.sqrt(torch.dot(g, g))
+                outer_rounds(comm.disco_s_outer_cost(self.d)[0])
+                fval = group.all_reduce(
+                    [torch.sum(loss.value(margins[s], self.y[s])
+                               * self.weights[s]) for s in range(m)]) / n \
+                    + 0.5 * lam * torch.dot(w, w)
+                coeffs_tau = loss.d2(self.X_tau.T @ w, self.y_tau)
+                apply_precond = _samples_precond(
+                    cfg.precond, self.X_tau, coeffs_tau, lam, cfg.mu,
+                    cfg.sag_epochs)
+
+                # the n-space (permuted) coefficients in a holder: a
+                # re-plan between PCG rounds re-permutes them, so the
+                # closures always stream the current schedule's layout
+                state = dict(c_eff=self._subsample(c, outer_iter))
+                op = StreamedHvpOperator(
+                    apply=lambda u: self._stream_hvp_samples(
+                        u, state["c_eff"]),
+                    apply_multi=lambda U: self._stream_hvp_samples(
+                        U, state["c_eff"], multi=True),
+                    fused=cfg.hvp_fused)
+
+                def hvp(u):
+                    return op.apply(u) / n_t + lam * u
+
+                basis_op = None
+                if cfg.pcg_block_s > 1:
+                    basis_op = _samples_basis_op(hvp, m, self.X_tau,
+                                                 coeffs_tau, lam)
+                between = ((lambda: self._maybe_replan_samples(state))
+                           if self._replanner is not None else None)
+                res = pcg_streamed(
+                    hvp, apply_precond, g, cfg.pcg_rel_tol * gnorm,
+                    cfg.max_pcg, block_s=cfg.pcg_block_s,
+                    hvp_multi=lambda U: op.apply_multi(U) / n_t + lam * U,
+                    basis_op=basis_op, variant="samples",
+                    between_rounds=between)
+                w_new = w - res.v / (1.0 + res.delta)
+                return w_new, dict(grad_norm=gnorm, f=fval,
+                                   pcg_iters=res.iters, delta=res.delta,
+                                   pcg_r_norm=res.r_norm)
+
+        return step
+
+    def _stream_stats(self) -> dict:
+        """The data plane's byte ledger (``PrefetchStats``) as a dict."""
+        st = self._plan.stats
+        return dict(passes=st.passes, steps=st.steps,
+                    bytes_loaded=st.bytes_loaded, peak_bytes=st.peak_bytes,
+                    max_step_bytes=st.max_step_bytes)
 
     # ------------------------------------------------------------------
     def _comm_costs(self, pcg_iters: int) -> tuple[int, int, int]:
@@ -653,6 +1081,7 @@ class DiscoSolver:
                 history = list(state.history)
                 ledger = comm.CommLedger(**state.ledger)
                 start_iter = state.next_iter
+                self._replan_events = list(state.replan_events)
         if w0 is None:
             w = torch.zeros(self._w_shape, dtype=torch.float32,
                             device=self.device)
@@ -661,10 +1090,12 @@ class DiscoSolver:
 
         converged = False
         for k in range(start_iter, cfg.max_outer):
+            self._outer_iter = k
             if self._faults is not None:
                 self._faults.on_outer_step(k)
             t_it = time.perf_counter()
-            with obs.span("newton.outer", outer_iter=k, streaming=False):
+            with obs.span("newton.outer", outer_iter=k,
+                          streaming=self._streaming):
                 w, stats = self._step(w, k)
                 # the float() reads wait for the step's device work, so
                 # iter_s (and the span) cover the whole step
@@ -674,7 +1105,10 @@ class DiscoSolver:
             ledger.add(rounds, floats, spmd)
             obs.count("comm.floats", floats)
             obs.count("comm.spmd_collectives", spmd)
-            obs.count("comm.rounds", rounds)
+            if not self._streaming:
+                # in-memory: the analytic tally; a streamed step counts
+                # its rounds at their call sites
+                obs.count("comm.rounds", rounds)
             stats.update(outer_iter=k, comm_rounds_cum=ledger.rounds,
                          comm_floats_cum=ledger.floats)
             history.append(stats)
@@ -683,7 +1117,8 @@ class DiscoSolver:
                 save_checkpoint(checkpoint_dir, CheckpointState(
                     next_iter=k + 1, w=self._w_to_original(w),
                     key=self._key_data(), history=history,
-                    ledger=dataclasses.asdict(ledger), replan_events=[],
+                    ledger=dataclasses.asdict(ledger),
+                    replan_events=list(self._replan_events),
                     cfg=self._cfg_fingerprint()))
             if stats["grad_norm"] <= cfg.grad_tol:
                 converged = True
@@ -692,7 +1127,10 @@ class DiscoSolver:
         return DiscoResult(w=self._w_to_original(w), history=history,
                            ledger=ledger, converged=converged,
                            partition_info=(self._part.stats()
-                                           if self._part else None))
+                                           if self._part else None),
+                           stream_stats=(self._stream_stats()
+                                         if self._streaming else None),
+                           replan_events=list(self._replan_events))
 
 
 def disco_fit(X, y, cfg: DiscoConfig | None = None,
@@ -711,3 +1149,24 @@ def disco_fit(X, y, cfg: DiscoConfig | None = None,
     """
     cfg = cfg or DiscoConfig()
     return DiscoSolver(X, y, cfg, group=group, device=device).fit(w0)
+
+
+def disco_fit_streaming(X, y, store_path: str,
+                        cfg: DiscoConfig | None = None,
+                        group: InProcessGroup | None = None,
+                        w0: np.ndarray | None = None,
+                        device=None) -> DiscoResult:
+    """Out-of-core convenience wrapper: convert once, then stream.
+
+    Writes ``(X, y)`` (a :class:`CSRMatrix` and labels) as a
+    :class:`repro_torch.data.store.ShardStore` at ``store_path``, chunked
+    along ``cfg.partition`` with ``cfg.stream_chunk_size`` indices a
+    chunk, and fits it with :meth:`DiscoSolver.from_store`. Reopen an
+    existing store with ``DiscoSolver.from_store(ShardStore(path), cfg)``
+    to skip the conversion.
+    """
+    cfg = cfg or DiscoConfig()
+    store = ShardStore.from_csr(X, y, store_path, axis=cfg.partition,
+                                chunk_size=cfg.stream_chunk_size)
+    return DiscoSolver.from_store(store, cfg, group=group,
+                                  device=device).fit(w0)

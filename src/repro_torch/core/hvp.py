@@ -11,13 +11,14 @@ into an :class:`UnsupportedHvpError` naming the cell, and
 :func:`render_support_matrix` prints the registry as a table. The port
 implements the dense layouts (:class:`DenseOperator`, plain
 ``torch.matmul``; :class:`DenseKernelOperator`, the dense kernels) and
-the blocked-ELL one (:class:`EllOperator`), and the K-class softmax
-product on any of them (:class:`SoftmaxHvpOperator`); the streamed
-layout is not yet ported.
+the blocked-ELL one (:class:`EllOperator`), the streamed one
+(:class:`StreamedHvpOperator`, the out-of-core solve's chunk scans) and
+the K-class softmax product on the in-memory ones
+(:class:`SoftmaxHvpOperator`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -363,6 +364,69 @@ class EllOperator(HvpOperator):
                                    self.coeffs, sched=self.ell.hvp_sched,
                                    fwd=(self.ell.data, self.ell.cols))
         return self.pass_b_multi(self.pass_a_multi(U))
+
+
+class StreamedHvpOperator(HvpOperator):
+    """Out-of-core layout: the streaming solver supplies chunk-scan
+    callables (each one prefetched pass over the
+    :class:`repro_torch.data.store.ShardStore`), and this class gives them
+    the common operator face. ``fused`` records whether the
+    sample-partition scans run the one-pass chunk kernels (decided from
+    the plan's tile geometry by
+    :meth:`repro_torch.data.stream.StreamPlan.fused_hvp_fits`). Each full
+    product is an ``hvp.apply`` span.
+    """
+
+    layout = "streamed"
+
+    def __init__(self, apply: Callable, apply_multi: Callable,
+                 pass_a: Callable | None = None,
+                 pass_b: Callable | None = None,
+                 pass_a_multi: Callable | None = None,
+                 pass_b_multi: Callable | None = None,
+                 fused: bool = False):
+        self._apply = apply
+        self._apply_multi = apply_multi
+        self._pass_a = pass_a
+        self._pass_b = pass_b
+        self._pass_a_multi = pass_a_multi
+        self._pass_b_multi = pass_b_multi
+        self.fused = bool(fused)
+
+    def _need(self, fn, name):
+        if fn is None:
+            raise UnsupportedHvpError(
+                f"streamed operator was built without {name} (the "
+                "sample-partition chunk scan completes both directions "
+                "per chunk, so split passes do not exist there)")
+        return fn
+
+    def pass_a(self, u):
+        """Pass A chunk scan (features partition streams)."""
+        return self._need(self._pass_a, "pass_a")(u)
+
+    def pass_b(self, z):
+        """Pass B chunk scan (features partition streams)."""
+        return self._need(self._pass_b, "pass_b")(z)
+
+    def pass_a_multi(self, U):
+        """Batched pass A chunk scan."""
+        return self._need(self._pass_a_multi, "pass_a_multi")(U)
+
+    def pass_b_multi(self, Z):
+        """Batched pass B chunk scan."""
+        return self._need(self._pass_b_multi, "pass_b_multi")(Z)
+
+    def apply(self, u):
+        """Full streamed product (one pass over the store)."""
+        with obs.span("hvp.apply", multi=False, fused=self.fused):
+            return self._apply(u)
+
+    def apply_multi(self, U):
+        """Batched full streamed product: one chunk read serves every
+        column."""
+        with obs.span("hvp.apply", multi=True, fused=self.fused):
+            return self._apply_multi(U)
 
 
 class SoftmaxHvpOperator:

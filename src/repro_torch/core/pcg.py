@@ -31,9 +31,15 @@ Gram solve runs on the device and makes its threshold decisions with
 ``torch.where``, as the JAX package does with ``jnp.where``; on the card
 its eigen-solves, like the Woodbury solve, read their error flags on the
 host.
+
+:func:`pcg_streamed` runs the same two engines for the streamed
+(out-of-core) solve, whose HVPs are passes over a store's chunks, with a
+``pcg.round`` span a round and a hook between rounds (the elastic
+re-plan's window).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence, Union
 
 import torch
@@ -42,6 +48,7 @@ from repro_torch.core.hvp import make_local_operator
 from repro_torch.core.preconditioner import (WoodburyPreconditioner,
                                              sag_solve)
 from repro_torch.data.sparse import EllPair
+from repro_torch.obs import tracer as obs
 from repro_torch.parallel.collectives import InProcessGroup
 
 # one shard's data: a blocked-ELL pair, or a dense (d_loc, n_loc) tensor
@@ -56,7 +63,32 @@ class PCGResult(NamedTuple):
     r_norm: torch.Tensor  # final residual norm
 
 
-def _pcg_loop(hvp, apply_precond, psum_dot, g, eps, max_iter):
+class _Rounds:
+    """Per-round hooks of the host-driven loops (the streamed solve's):
+    ``span(t)`` wraps round ``t`` (its residual test included, so a span
+    covers a completed round), ``after()`` runs between rounds."""
+
+    def __init__(self, span=None, after=None):
+        self._span, self._after = span, after
+
+    def span(self, t):
+        return self._span(t) if self._span else contextlib.nullcontext()
+
+    def after(self):
+        if self._after is not None:
+            self._after()
+
+
+_NO_ROUNDS = _Rounds()
+
+
+def _above(psum_dot, r, eps) -> bool:
+    """The loops' residual test ``||r|| > eps``: one host sync."""
+    return bool(torch.sqrt(psum_dot(r, r)) > eps)
+
+
+def _pcg_loop(hvp, apply_precond, psum_dot, g, eps, max_iter,
+              rounds=_NO_ROUNDS):
     """Shared PCG skeleton.
 
     hvp(u) -> H u            (performs its own collectives)
@@ -70,18 +102,22 @@ def _pcg_loop(hvp, apply_precond, psum_dot, g, eps, max_iter):
     Hv = torch.zeros_like(g)
     rs = psum_dot(r, s)
     t = 0
-    while t < max_iter and bool(torch.sqrt(psum_dot(r, r)) > eps):
-        Hu = hvp(u)
-        alpha = rs / psum_dot(u, Hu)
-        v = v + alpha * u
-        Hv = Hv + alpha * Hu
-        r = r - alpha * Hu
-        s = apply_precond(r)
-        rs_new = psum_dot(r, s)
-        beta = rs_new / rs
-        u = s + beta * u
-        rs = rs_new
-        t += 1
+    more = t < max_iter and _above(psum_dot, r, eps)
+    while more:
+        with rounds.span(t):
+            Hu = hvp(u)
+            alpha = rs / psum_dot(u, Hu)
+            v = v + alpha * u
+            Hv = Hv + alpha * Hu
+            r = r - alpha * Hu
+            s = apply_precond(r)
+            rs_new = psum_dot(r, s)
+            beta = rs_new / rs
+            u = s + beta * u
+            rs = rs_new
+            t += 1
+            more = t < max_iter and _above(psum_dot, r, eps)
+        rounds.after()
     delta = torch.sqrt(torch.clamp(psum_dot(v, Hv), min=0.0))
     r_norm = torch.sqrt(psum_dot(r, r))
     return PCGResult(v=v, delta=delta, iters=t, r_norm=r_norm)
@@ -144,7 +180,7 @@ def _solve_round(G, B, b, s, kappa_max=1e10):
 
 
 def _sstep_loop(build_basis, hvp_round, gram, update_scales, psum_dot,
-                g, eps, max_rounds, s):
+                g, eps, max_rounds, s, rounds=_NO_ROUNDS):
     """Shared s-step round skeleton (both partitionings).
 
     build_basis(r, p_prev, scales) -> U (..., s+1), zero communication
@@ -160,16 +196,20 @@ def _sstep_loop(build_basis, hvp_round, gram, update_scales, psum_dot,
     Hv = torch.zeros_like(g)
     scales = torch.ones((max(s - 1, 1),), dtype=g.dtype, device=g.device)
     t = 0
-    while t < max_rounds and bool(torch.sqrt(psum_dot(r, r)) > eps):
-        U = build_basis(r, p, scales)
-        W = hvp_round(U, Hp)
-        G, B, b = gram(U, W, r)
-        a = _solve_round(G, B, b, s)
-        dv = U @ a
-        Hdv = W @ a
-        v, r, p, Hp, Hv = v + dv, r - Hdv, dv, Hdv, Hv + Hdv
-        scales = update_scales(scales, B)
-        t += 1
+    more = t < max_rounds and _above(psum_dot, r, eps)
+    while more:
+        with rounds.span(t):
+            U = build_basis(r, p, scales)
+            W = hvp_round(U, Hp)
+            G, B, b = gram(U, W, r)
+            a = _solve_round(G, B, b, s)
+            dv = U @ a
+            Hdv = W @ a
+            v, r, p, Hp, Hv = v + dv, r - Hdv, dv, Hdv, Hv + Hdv
+            scales = update_scales(scales, B)
+            t += 1
+            more = t < max_rounds and _above(psum_dot, r, eps)
+        rounds.after()
     delta = torch.sqrt(torch.clamp(psum_dot(v, Hv), min=0.0))
     r_norm = torch.sqrt(psum_dot(r, r))
     return PCGResult(v=v, delta=delta, iters=t, r_norm=r_norm)
@@ -293,27 +333,47 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
         return group.all_reduce([op.apply(u) for op in ops]) / n_global \
             + lam * u
 
+    def hvp_multi(U):
+        return group.all_reduce([op.apply_multi(U) for op in ops]) \
+            / n_global + lam * U
+
     apply_precond = _samples_precond(precond, X_tau, coeffs_tau, lam, mu,
                                      sag_epochs)
+    basis_op = None
+    if block_s > 1:
+        basis_op = _samples_basis_op(hvp, group.size, X_tau, coeffs_tau,
+                                     lam)
+    return _samples_engine(hvp, hvp_multi, basis_op, apply_precond, g, eps,
+                           max_iter, block_s)
+
+
+def _samples_basis_op(hvp, m, X_tau, coeffs_tau, lam):
+    """The s-step basis operator of DiSCO-S: zero-communication, the exact
+    Hessian ``hvp`` on one shard, else the replicated tau-sample estimate
+    (plain torch.matmul, which the JAX package also leaves outside any
+    kernel)."""
+    if m == 1:
+        return hvp
+    if X_tau is None:
+        raise ValueError("s-step DiSCO-S on several shards needs the "
+                         "replicated X_tau for its basis operator")
+    tau = torch.tensor(float(X_tau.shape[1]), dtype=X_tau.dtype,
+                       device=X_tau.device)
+
+    def basis_op(u):
+        return X_tau @ (coeffs_tau * (X_tau.T @ u)) / tau + lam * u
+    return basis_op
+
+
+def _samples_engine(hvp, hvp_multi, basis_op, apply_precond, g, eps,
+                    max_iter, block_s, rounds=_NO_ROUNDS):
+    """DiSCO-S's PCG over replicated (d,) vectors: classic, or s-step
+    rounds of an MGS-orthonormalized basis (``block_s > 1``)."""
     if block_s <= 1:
-        return _pcg_loop(hvp, apply_precond, torch.dot, g, eps, max_iter)
+        return _pcg_loop(hvp, apply_precond, torch.dot, g, eps, max_iter,
+                         rounds)
 
     s = int(block_s)
-    # zero-communication basis operator: the exact Hessian on one shard,
-    # else the replicated tau-sample estimate (plain torch.matmul, which
-    # the JAX package also leaves outside any kernel)
-    if group.size == 1:
-        basis_op = hvp
-    else:
-        if X_tau is None:
-            raise ValueError("s-step pcg_samples on several shards needs "
-                             "the replicated X_tau for its basis operator")
-        tau = torch.tensor(float(X_tau.shape[1]), dtype=X_tau.dtype,
-                           device=X_tau.device)
-
-        def basis_op(u):
-            return X_tau @ (coeffs_tau * (X_tau.T @ u)) / tau + lam * u
-
     ones = torch.ones((max(s - 1, 1),), dtype=g.dtype, device=g.device)
 
     def build_basis(r, p, scales):
@@ -326,15 +386,14 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
     # the batched HVP; the all-reduce after it is the round's only
     # collective
     def hvp_round(U, Hp):
-        return group.all_reduce([op.apply_multi(U) for op in ops]) \
-            / n_global + lam * U
+        return hvp_multi(U)
 
     def gram(U, W, r):
         return U.T @ W, U.T @ U, U.T @ r
 
     return _sstep_loop(build_basis, hvp_round, gram,
                        lambda scales, B: scales, torch.dot, g, eps,
-                       max_iter, s)
+                       max_iter, s, rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +435,9 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
     if fuse_full:
         def hvp(u_loc):
             return ops[0].apply(u_loc[0])[None] / n_global + lam * u_loc
+
+        def hvp_multi(Uk):
+            return ops[0].apply_multi(Uk[0])[None] / n_global + lam * Uk
     else:
         def hvp(u_loc):
             # THE communication of DiSCO-F: one reduceAll of an R^n
@@ -385,17 +447,11 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
             return torch.stack([op.pass_b(z) for op in ops]) / n_global \
                 + lam * u_loc
 
-    apply_precond = _features_precond(precond, X_tau_loc, coeffs_tau, lam,
-                                      mu)
-
-    def psum_dot(a, b):
-        return group.all_reduce([torch.dot(a[j], b[j]) for j in range(m)])
-
-    if block_s <= 1:
-        return _pcg_loop(hvp, apply_precond, psum_dot, g_loc, eps,
-                         max_iter)
-
-    s = int(block_s)
+        def hvp_multi(Uk):
+            Z = group.all_reduce([op.pass_a_multi(Uk[j])
+                                  for j, op in enumerate(ops)])  # (n, s)
+            return torch.stack([op.pass_b_multi(Z) for op in ops]) \
+                / n_global + lam * Uk
 
     # zero-communication basis operator: the block-diagonal local Hessian
     # (exact on one shard); no collective separates its passes, so it
@@ -403,6 +459,28 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
     def basis_op(u_loc):
         return torch.stack([op.apply(u_loc[j]) for j, op in enumerate(ops)]
                            ) / n_global + lam * u_loc
+
+    apply_precond = _features_precond(precond, X_tau_loc, coeffs_tau, lam,
+                                      mu)
+    return _features_engine(hvp, hvp_multi, basis_op, apply_precond, group,
+                            g_loc, eps, max_iter, block_s)
+
+
+def _features_engine(hvp, hvp_multi, basis_op, apply_precond, group, g_loc,
+                     eps, max_iter, block_s, rounds=_NO_ROUNDS):
+    """DiSCO-F's PCG over sharded ``(m, d_j)`` vectors: classic, or s-step
+    rounds whose basis keeps scale-managed Krylov columns and the carried
+    ``H p_prev`` (``hvp_multi`` takes the s Krylov columns only)."""
+    m = group.size
+
+    def psum_dot(a, b):
+        return group.all_reduce([torch.dot(a[j], b[j]) for j in range(m)])
+
+    if block_s <= 1:
+        return _pcg_loop(hvp, apply_precond, psum_dot, g_loc, eps,
+                         max_iter, rounds)
+
+    s = int(block_s)
 
     def build_basis(r_loc, p_loc, scales):
         # sharded vectors: the columns are range-managed with last round's
@@ -413,23 +491,75 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
 
     # the basis keeps p_prev verbatim and H p_prev is carried, so only
     # the s Krylov columns (a strided view of U) ride the batched HVP
-    if fuse_full:
-        def hvp_round(U, Hp):
-            Uk = U[:, :, :s]
-            Wk = ops[0].apply_multi(Uk[0])[None] / n_global + lam * Uk
-            return torch.cat([Wk, Hp[:, :, None]], dim=2)
-    else:
-        def hvp_round(U, Hp):
-            Uk = U[:, :, :s]
-            Z = group.all_reduce([op.pass_a_multi(Uk[j])
-                                  for j, op in enumerate(ops)])  # (n, s)
-            Wk = torch.stack([op.pass_b_multi(Z) for op in ops]) \
-                / n_global + lam * Uk
-            return torch.cat([Wk, Hp[:, :, None]], dim=2)
+    def hvp_round(U, Hp):
+        Wk = hvp_multi(U[:, :, :s])
+        return torch.cat([Wk, Hp[:, :, None]], dim=2)
 
     def gram(U, W, r_loc):
         return _sharded_gram(group, U, W, r_loc)
 
     return _sstep_loop(build_basis, hvp_round, gram,
                        lambda scales, B: _feature_scales_update(scales, B, s),
-                       psum_dot, g_loc, eps, max_iter, s)
+                       psum_dot, g_loc, eps, max_iter, s, rounds)
+
+
+# ---------------------------------------------------------------------------
+# host-driven streamed PCG (the out-of-core solve)
+# ---------------------------------------------------------------------------
+
+def pcg_streamed(hvp, apply_precond, g, eps, max_iter, *, block_s=1,
+                 hvp_multi=None, basis_op=None, variant="features",
+                 between_rounds=None, group: InProcessGroup | None = None):
+    """PCG over a *streamed* Hessian operator: the same recurrences as the
+    in-memory loops (:func:`pcg_samples` / :func:`pcg_features` run the
+    same engines), around callables that scan the store:
+
+    hvp(u)        -> H u        (one prefetched pass, its collectives inside)
+    hvp_multi(U)  -> H U        (batched: one chunk read serves every column;
+                   'features' passes the s Krylov columns only)
+    basis_op(u)   -> H~ u       the s-step basis operator (the streamed
+                   block-diagonal local Hessian for 'features', the exact
+                   streamed HVP on one shard or the resident tau-sample
+                   estimate for 'samples')
+
+    ``variant='samples'``: ``g`` is the replicated (d,) gradient and the
+    s-step basis is MGS-orthonormalized; ``'features'``: ``g`` is the
+    sharded ``(m, d_j)`` gradient of ``group`` (its dots all-reduced), the
+    basis scale-managed with the carried ``H p_prev``. ``iters`` counts
+    rounds with ``block_s > 1``.
+
+    Each round is a ``pcg.round`` span (its residual test, the loops' one
+    host sync a round, included), adds the paper's rounds to the
+    ``comm.rounds`` counter (2 a round for 'samples', 1 for 'features', as
+    :mod:`repro_torch.core.comm` counts them) with a ``comm.allreduce``
+    instant each, then calls ``between_rounds`` (the elastic re-plan
+    window: the PCG state is unpermuted, so a callback that swaps what
+    ``hvp`` streams, not what it computes, leaves the recurrence exact).
+    """
+    if variant not in ("samples", "features"):
+        raise ValueError(f"unknown streamed variant {variant!r}")
+    s = int(block_s)
+    if s > 1 and (hvp_multi is None or basis_op is None):
+        raise ValueError("streamed s-step PCG (block_s > 1) needs both "
+                         "hvp_multi (the batched streamed HVP) and "
+                         "basis_op (the zero-communication basis operator)")
+    rpi = 2 if variant == "samples" else 1
+
+    def after():
+        if obs.enabled():
+            obs.count("comm.rounds", rpi)
+            for _ in range(rpi):
+                obs.instant("comm.allreduce", phase="pcg")
+        if between_rounds is not None:
+            between_rounds()
+
+    rounds = _Rounds(
+        span=lambda t: obs.span("pcg.round", t=t, variant=variant,
+                                block_s=s),
+        after=after)
+    if variant == "samples":
+        return _samples_engine(hvp, hvp_multi, basis_op, apply_precond, g,
+                               eps, max_iter, s, rounds)
+    return _features_engine(hvp, hvp_multi, basis_op, apply_precond,
+                            group or InProcessGroup(g.shape[0]), g, eps,
+                            max_iter, s, rounds)

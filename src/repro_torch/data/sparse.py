@@ -199,42 +199,132 @@ class BlockedEll:
         return X[: self.shape[0], : self.shape[1]]
 
 
+class EllPlan(NamedTuple):
+    """Where the nonzeros of one matrix go in its blocked-ELL layout,
+    computed from the index structure alone (:func:`ell_plan`).
+
+    ``cols`` (nb, W) int32 column-block ids (padding slots 0);
+    ``per_block`` (nb,) each row-block's tile count, which is its live
+    count (its slots up to the last real tile); ``offsets`` (nnz,) int64,
+    the flat position of each nonzero, in the order of the values it was
+    planned from, in the ``(nb, W, br, bc)`` tile array ``shape``;
+    ``logical`` the unpadded ``(rows, cols)`` of the matrix.
+    """
+
+    cols: np.ndarray
+    per_block: np.ndarray
+    offsets: np.ndarray
+    shape: tuple[int, int, int, int]
+    logical: tuple[int, int]
+
+
+# tile-id bitmaps up to this many entries (beyond nnz) replace the sort
+# of the tile ids; both give the same plan
+_BITMAP_EXTRA = 1 << 22
+
+
+def _plan_pairs(rows, cols, shape, br, bc, width) -> EllPlan:
+    """The :class:`EllPlan` of the nonzeros at (``rows``, ``cols``) of a
+    ``shape`` matrix cut into ``(br, bc)`` tiles; pairs in any order."""
+    d, n = shape
+    nrb, ncb = -(-d // br), max(-(-n // bc), 1)
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    rb, cb = rows // br, cols // bc
+    tile_ids = rb * ncb + cb
+    # per row-block: its column-blocks in ascending order, and each
+    # nonzero's tile rank among all tiles (row-block major)
+    if nrb * ncb <= len(tile_ids) + _BITMAP_EXTRA:
+        present = np.zeros(nrb * ncb, bool)
+        present[tile_ids] = True
+        uniq = np.flatnonzero(present)
+        rank = np.cumsum(present) - 1
+        tile_rank = rank[tile_ids]
+    else:
+        uniq = np.unique(tile_ids)
+        tile_rank = np.searchsorted(uniq, tile_ids)
+    urb, ucb = uniq // ncb, uniq % ncb
+    per_block = np.bincount(urb, minlength=nrb).astype(np.int64)
+    natural = int(per_block.max()) if len(uniq) else 0
+    w = max(width or 0, natural, 1)
+    if width is not None and width < natural:
+        raise ValueError(f"width {width} < natural max width {natural}")
+    ell_cols = np.zeros((nrb, w), np.int32)
+    # tiles of one row-block occupy a contiguous run of ranks from
+    # starts[r], so a tile's slot is its rank less that start
+    starts = np.zeros(nrb + 1, np.int64)
+    np.cumsum(per_block, out=starts[1:])
+    ell_cols[urb, np.arange(len(uniq)) - starts[urb]] = ucb.astype(np.int32)
+    slot = tile_rank - starts[rb]
+    offsets = ((rb * w + slot) * br + rows % br) * bc + cols % bc
+    return EllPlan(cols=ell_cols, per_block=per_block, offsets=offsets,
+                   shape=(nrb, w, br, bc), logical=(d, n))
+
+
+def ell_plan(csr: CSRMatrix, block_rows: int, block_cols: int,
+             width: int | None = None, *, transpose: bool = False
+             ) -> EllPlan:
+    """The blocked-ELL plan of ``csr`` (``transpose=True``: of its
+    transpose) in ``(block_rows, block_cols)`` tiles, from the index
+    structure alone; ``offsets`` follow ``csr.data``'s order either way,
+    so one value array fills both layouts and no transpose of the CSR is
+    built. ``width`` as for :func:`ell_from_csr`. Host numpy."""
+    d, n = csr.shape
+    rows = np.repeat(np.arange(d, dtype=np.int64), np.diff(csr.indptr))
+    if transpose:
+        return _plan_pairs(csr.indices, rows, (n, d), block_rows,
+                           block_cols, width)
+    return _plan_pairs(rows, csr.indices, (d, n), block_rows, block_cols,
+                       width)
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    """Zeros; on the CPU in numpy's lazily zeroed pages where numpy has
+    the dtype (a layout of several GB is mostly never touched)."""
+    if device.type == "cpu" and dtype != torch.bfloat16:
+        return torch.from_numpy(np.zeros(
+            shape, torch.empty((), dtype=dtype).numpy().dtype))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ell_fill(plan: EllPlan, values, *, out=None, device="cpu",
+             dtype=torch.float32) -> torch.Tensor:
+    """The tiles of ``plan`` holding ``values`` (in the plan's order): a
+    zeroed ``plan.shape`` tensor (``out``, else a new one of ``dtype`` on
+    ``device``) with each value scattered to its offset. Each value is
+    cast to the tile dtype before it is placed (at bf16 the
+    round-to-nearest-even cast of the host's ``astype``). ``values`` and
+    the offsets may be tensors already on the tiles' device (the streamed
+    data plane's staged copies) or host arrays."""
+    if out is None:
+        out = _zeros(plan.shape, dtype, torch.device(device))
+    else:
+        out.zero_()
+    if not isinstance(values, torch.Tensor):
+        values = torch.from_numpy(np.array(values, copy=True))
+    offsets = plan.offsets
+    if not isinstance(offsets, torch.Tensor):
+        offsets = torch.from_numpy(np.asarray(offsets, np.int64))
+    out.view(-1).scatter_(0, offsets.to(out.device),
+                          values.to(out.device).to(out.dtype))
+    return out
+
+
 def ell_from_csr(csr: CSRMatrix, block_rows: int, block_cols: int,
                  width: int | None = None) -> BlockedEll:
-    """Cut ``csr`` into tiles and keep only the nonempty ones.
+    """Cut ``csr`` into tiles and keep only the nonempty ones
+    (:func:`ell_plan` then :func:`ell_fill` on the CPU).
 
     ``width`` pads the per-row-block tile lists to a fixed fan-out (>= the
     natural max). Zero-width matrices get ``width=1`` of zero tiles so the
     kernels always have a (no-op) tile to stream.
     """
-    d, n = csr.shape
-    br, bc = block_rows, block_cols
-    nrb, ncb = -(-d // br), max(-(-n // bc), 1)
-    rows = np.repeat(np.arange(d), np.diff(csr.indptr))
-    rb, cb = rows // br, csr.indices // bc
-
-    # per row-block: sorted unique column-blocks
-    tile_ids = rb.astype(np.int64) * ncb + cb
-    uniq = np.unique(tile_ids)
-    urb, ucb = uniq // ncb, uniq % ncb
-    per_block = np.bincount(urb, minlength=nrb)
-    natural = int(per_block.max()) if len(uniq) else 0
-    w = max(width or 0, natural, 1)
-    if width is not None and width < natural:
-        raise ValueError(f"width {width} < natural max width {natural}")
-
-    data = np.zeros((nrb, w, br, bc), csr.data.dtype)
-    cols = np.zeros((nrb, w), np.int32)
-    # slot of each unique tile within its row-block (uniq is sorted, so
-    # tiles of one row-block occupy a contiguous run starting at starts[r])
-    starts = np.zeros(nrb + 1, np.int64)
-    np.cumsum(per_block, out=starts[1:])
-    cols[urb, np.arange(len(uniq)) - starts[urb]] = ucb.astype(np.int32)
-
-    # scatter nonzeros into their tiles
-    slot = np.searchsorted(uniq, tile_ids) - starts[rb]
-    data[rb, slot, rows % br, csr.indices % bc] = csr.data
-    return BlockedEll(data=data, cols=cols, shape=(d, n), block=(br, bc))
+    plan = ell_plan(csr, block_rows, block_cols, width)
+    values = np.asarray(csr.data)
+    data = ell_fill(plan, values,
+                    dtype=torch.from_numpy(values[:0].copy()).dtype)
+    return BlockedEll(data=data.numpy(), cols=plan.cols, shape=csr.shape,
+                      block=(block_rows, block_cols))
 
 
 def ell_tile_widths(csr: CSRMatrix, block_rows: int, block_cols: int

@@ -189,19 +189,28 @@ class ShardStore:
         with obs.span("store.chunk_read", cid=int(i), verify=do_verify):
             arrays = {f: self._load_field(i, f, mode) for f in _FIELDS}
             if do_verify:
-                for field, arr in arrays.items():
-                    got = _crc(arr)
-                    want = info.crc.get(field)
-                    if want is not None and got != want:
-                        raise ChunkCorruptionError(
-                            f"chunk {i} field {field!r} of store "
-                            f"{self.path!r} failed its checksum "
-                            f"(crc32 {got:#010x} != header {want:#010x}): "
-                            "the stored bytes are corrupt")
+                self.check_chunk(i, arrays)
         return CSRMatrix(indptr=arrays["indptr"],
                          indices=arrays["indices"],
                          data=arrays["data"],
                          shape=(info.stop - info.start, self.other_dim))
+
+    def check_chunk(self, i: int, arrays: dict) -> None:
+        """Check chunk ``i``'s arrays (``indptr`` / ``indices`` / ``data``,
+        e.g. the memory maps of an earlier read) against the v2 header's
+        CRC32; raise :class:`ChunkCorruptionError` naming the chunk and
+        field on a mismatch. A no-op for v1 chunks."""
+        info = self.chunks[i]
+        for field, arr in arrays.items():
+            want = (info.crc or {}).get(field)
+            if want is None:
+                continue
+            got = _crc(arr)
+            if got != want:
+                raise ChunkCorruptionError(
+                    f"chunk {i} field {field!r} of store {self.path!r} "
+                    f"failed its checksum (crc32 {got:#010x} != header "
+                    f"{want:#010x}): the stored bytes are corrupt")
 
     def labels(self, mmap: bool = True,
                verify: bool | None = None) -> np.ndarray:

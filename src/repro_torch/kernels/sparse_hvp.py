@@ -57,7 +57,8 @@ import torch
 
 from repro_torch.kernels.build import (ELL_HVP, ELL_HVP_BF16, ELL_HVP_MM,
                                        ELL_HVP_MM_BF16, ELL_MM, ELL_MM_BF16,
-                                       ELL_MV, ELL_MV_BF16, check_card,
+                                       ELL_MV, ELL_MV_BF16, MAX_COLS,
+                                       check_card,
                                        check_columns, check_tensor, ptr,
                                        stream_of)
 
@@ -207,12 +208,15 @@ class HvpSchedule:
     """
 
     def __init__(self, table, nb: int, ctas: int, steps: int,
-                 step_bytes: int):
+                 step_bytes: int, state=None):
         self.table = table
         self.nb, self.ctas, self.steps = nb, ctas, steps
         self.step_bytes = step_bytes
-        self.state = torch.zeros(2 * nb, dtype=torch.int32,
-                                 device=table.device)
+        # a zeroed (2 nb,) int32 tensor the caller owns (the streamed data
+        # plane zeroes one with each payload), else a new one
+        self.state = (torch.zeros(2 * nb, dtype=torch.int32,
+                                  device=table.device)
+                      if state is None else state)
         self.epoch = 0
 
     def parts(self):
@@ -263,6 +267,15 @@ def ell_hvp_schedule(dataT, colsT, ctas: int | None = None,
 
 
 def _hvp_schedule(live, tile_bytes, ctas, step_bytes):
+    table, steps = hvp_table(live, tile_bytes, ctas, step_bytes)
+    return HvpSchedule(table, live.numel(), ctas, steps, step_bytes)
+
+
+def hvp_table(live, tile_bytes: int, ctas: int, step_bytes: int):
+    """``(table, steps)`` of :class:`HvpSchedule` from the live counts
+    ``live`` (int64), on ``live``'s device; a CPU ``live`` costs no device
+    sync (the streamed data plane builds each chunk's table on the host
+    and copies it with the chunk)."""
     counts = live.tolist()
     first, acc = [0], 0
     for j, n in enumerate(counts):
@@ -280,8 +293,58 @@ def _hvp_schedule(live, tile_bytes, ctas, step_bytes):
     k = torch.arange(ctas + 1, device=dev)
     bounds = lo[:, None] + k[None, :] * (hi - lo)[:, None] // ctas
     table = torch.cat([live, prefix, first_t, bounds.reshape(-1)])
-    return HvpSchedule(table.to(torch.int32), len(counts), ctas,
-                       len(first) - 1, step_bytes)
+    return table.to(torch.int32), len(first) - 1
+
+
+def schedule_from_live(live, ctas: int) -> torch.Tensor:
+    """The :func:`ell_schedule` table from the live counts ``live``
+    (int64) alone, on ``live``'s device."""
+    return _schedule(live, ctas)
+
+
+# the shared memory one CTA can opt into on sm_90 (227 KB), and the
+# constants of csrc/ell_tiles.cuh the fused kernels' launch plans with
+SMEM_OPTIN = 232_448
+_KTHREADS = 512
+_KBARRIER_BYTES = 128
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def ell_hvp_fits(br: int, bc: int, s: int = 1, dtype=torch.float32,
+                 ctas: int | None = None) -> bool:
+    """Whether one ``ell_hvp`` / ``ell_hvp_mm`` launch takes a
+    transposed layout of ``(bc, br)`` tiles (``br`` the forward tiles'
+    rows, ``bc`` their columns) at ``s`` columns and ``ctas`` CTAs
+    (default an H100's), without a card.
+
+    The rule of the launch in ``csrc/ell_hvp_stream.cuh`` (``run``): its
+    fixed shared memory, everything before the ring (the barriers, the
+    staged ``u`` rows and ``c .* z`` of a tile row, the column sums, the
+    CTA ranges), must fit the 227 KB a CTA can opt into, which the direct
+    path needs, and one launch takes at most
+    :data:`~repro_torch.kernels.build.MAX_COLS` columns. The ring itself
+    only chooses between the bulk and the direct path, which give the
+    same product. The reference's rule (``repro.kernels.ops
+    .ell_fused_fits``) budgets a TPU's VMEM for a whole tile row and the
+    resident vectors, so the two can choose differently; either choice
+    computes the same product.
+    """
+    if dtype not in TILE_DTYPES:
+        raise ValueError(f"tile dtype {dtype} is not one of {TILE_DTYPES}")
+    if s < 1 or s > MAX_COLS:
+        return False
+    ctas = H100_SMS * CTAS_PER_SM if ctas is None else ctas
+    R, C = bc, br
+    groups = max(1, _KTHREADS // C)
+    czs_off = _KBARRIER_BYTES + _round_up(s * C * 4, 128)
+    red_off = czs_off + _round_up(R * s * 4, 128)
+    bnd_off = red_off + _round_up(max(groups * C * s, 4 * _KTHREADS) * 4,
+                                  128)
+    ring_off = bnd_off + _round_up((ctas + 1) * 4, 128)
+    return ring_off <= SMEM_OPTIN
 
 
 _EVERY_SLOT_HVP: dict = {}

@@ -6,12 +6,13 @@ fault injection, retrying I/O and checkpoint/resume.
   and real on-disk damage for the shard store's checksums.
 * :mod:`repro_torch.robust.retry`: :class:`RetryPolicy`, bounded retries
   with exponential backoff and a per-step deadline.
+* :mod:`repro_torch.robust.straggler`: :class:`ChunkTimingLedger`
+  (per-chunk observed load seconds) and :class:`ElasticReplanner`, which
+  re-runs the chunk-granular LPT on measured cost when the observed
+  shard imbalance of a streamed solve exceeds a threshold.
 * :mod:`repro_torch.robust.checkpoint`: atomic (fsync + rename)
   outer-loop checkpoints, the persistence half of
   ``DiscoSolver.fit(checkpoint_dir=..., resume=True)``.
-
-The straggler ledger and the elastic re-planner come with the streamed
-solve, the only path that uses them.
 """
 from repro_torch.robust.checkpoint import (CheckpointState,
                                            latest_checkpoint,
@@ -24,12 +25,17 @@ from repro_torch.robust.faults import (ChunkCorruptionError, ChunkReadError,
                                        crashpoint, truncate_chunk_file)
 from repro_torch.robust.retry import (RetryPolicy, StepDeadlineExceeded,
                                       call_with_retries)
+from repro_torch.robust.straggler import (ChunkTimingLedger,
+                                          ElasticReplanner, ReplanEvent,
+                                          barrier_seconds)
 
 __all__ = [
     "ChunkCorruptionError", "ChunkReadError", "FaultInjector", "FaultPlan",
     "SimulatedCrash", "SimulatedKill", "TransientIOError",
     "corrupt_chunk_file", "crashpoint", "truncate_chunk_file",
     "RetryPolicy", "StepDeadlineExceeded", "call_with_retries",
+    "ChunkTimingLedger", "ElasticReplanner", "ReplanEvent",
+    "barrier_seconds",
     "CheckpointState", "latest_checkpoint", "load_checkpoint",
     "save_checkpoint",
 ]

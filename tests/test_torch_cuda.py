@@ -1853,3 +1853,209 @@ def test_cuda_kill_and_resume_matches(dev, tmp_path, kind, partition, m):
     cpu = DiscoSolver(X, y, cfg, group=group, device="cpu")
     on_cpu = cpu.fit(checkpoint_dir=ckpt + "-cpu", resume=True)
     np.testing.assert_allclose(on_cpu.w, cpu.fit().w, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the streamed (out-of-core) solve: chunks staged to the card, tiles
+# assembled there
+# ---------------------------------------------------------------------------
+
+def _stores(tmp_path, seed=1):
+    from repro_torch.data.store import ShardStore
+    X, y, _ = make_sparse_glm_data(d=96, n=160, density=0.2, alpha=1.0,
+                                   beta=0.5, seed=seed)
+    return X, y, {axis: ShardStore.from_csr(X, y, str(tmp_path / axis),
+                                            axis=axis, chunk_size=16)
+                  for axis in ("samples", "features")}
+
+
+STREAM_SOLVE = dict(loss="logistic", lam=1e-2, tau=16, max_outer=4,
+                    grad_tol=1e-10, ell_block_d=8, ell_block_n=8,
+                    partition_block=16, stream_chunk_size=16)
+STREAM_CELLS = [("samples", 1, {}), ("samples", 4, {}),
+                ("samples", 1, dict(pcg_block_s=2)),
+                ("samples", 1, dict(hvp_fused=True)),
+                ("samples", 1, dict(hvp_fused=True, pcg_block_s=2)),
+                ("samples", 1, dict(hvp_fused=True, hvp_dtype="bfloat16")),
+                ("features", 1, {}), ("features", 4, {}),
+                ("features", 4, dict(pcg_block_s=2)),
+                ("features", 1, dict(hvp_dtype="bfloat16"))]
+
+
+@pytest.mark.parametrize("partition,m,kw", STREAM_CELLS,
+                         ids=[f"{p}-m{m}-" + "-".join(
+                             f"{k}={v}" for k, v in kw.items())
+                             for p, m, kw in STREAM_CELLS])
+def test_cuda_streamed_solve_matches_cpu(dev, tmp_path, partition, m, kw):
+    """A small streamed solve on the card against the same streamed solve
+    on the CPU: ``w`` within rtol 1e-4 / atol 1e-6 (relative L2 1e-3 at
+    bf16, ROADMAP F11: a bf16 solve moves with the f32 sum order, and the
+    card sums each chunk's products in its own order, the CPU in the
+    plain one; 3.2e-4 and 3.7e-4 measured on the card's first runs of
+    these cells, above the in-memory cells' 3e-4), the same partition,
+    PCG iterations within one at
+    bf16 and equal at f32, and the same bytes staged with the same
+    iterations; and K1 (with K2 / K6
+    / K7 where the cell runs them) launched."""
+    from repro_torch import DiscoSolver
+    from repro_torch.data.store import ShardStore
+    _, _, stores = _stores(tmp_path)
+    cfg = DiscoConfig(partition=partition, **STREAM_SOLVE, **kw)
+    group = InProcessGroup(m)
+    build.reset_launch_counts()
+    card = DiscoSolver.from_store(ShardStore(stores[partition].path), cfg,
+                                  group=group, device=dev).fit()
+    counts = build.launch_counts()
+    cpu = DiscoSolver.from_store(ShardStore(stores[partition].path), cfg,
+                                 group=group, device="cpu").fit()
+    its = [int(h["pcg_iters"]) for h in card.history]
+    its_cpu = [int(h["pcg_iters"]) for h in cpu.history]
+    assert card.partition_info == cpu.partition_info
+    if its == its_cpu:                 # the same passes, the same bytes
+        for k in ("passes", "steps", "bytes_loaded", "max_step_bytes"):
+            assert card.stream_stats[k] == cpu.stream_stats[k], k
+    if kw.get("hvp_dtype") == "bfloat16":
+        rel = np.linalg.norm(card.w - cpu.w) / np.linalg.norm(cpu.w)
+        assert rel <= 1e-3, rel
+        assert all(abs(a - b) <= 1 for a, b in zip(its, its_cpu))
+    else:
+        np.testing.assert_allclose(card.w, cpu.w, rtol=1e-4, atol=1e-6)
+        assert its == its_cpu
+    bf16 = kw.get("hvp_dtype") == "bfloat16"
+    assert counts["ell_mv"] > 0
+    fused = "ell_hvp_mm" if kw.get("pcg_block_s", 1) > 1 else "ell_hvp"
+    if kw.get("hvp_fused"):
+        assert counts[fused + ("_bf16" if bf16 else "")] > 0
+    elif kw.get("pcg_block_s", 1) > 1:
+        assert counts["ell_mm"] > 0
+
+
+@pytest.mark.parametrize("axis", ["samples", "features"])
+@pytest.mark.parametrize("hvp", [False, True])
+def test_cuda_stream_tiles_match_host(dev, tmp_path, axis, hvp):
+    """Every payload assembled on the card equals the CPU's payload bit for
+    bit (tiles in both layouts, f32 and bf16, column ids, the K1 / K6
+    schedules and the K2 / K7 step tables), which ``ell_from_csr`` and the
+    reference's payloads give on the host
+    (``tests/test_torch_stream.py``)."""
+    from repro_torch.data.stream import plan_streams
+    _, _, stores = _stores(tmp_path)
+    kw = dict(block_rows=8, block_cols=8, hvp_dtype=torch.bfloat16)
+    card = plan_streams(stores[axis], 2, device=dev, **kw)
+    cpu = plan_streams(stores[axis], 2, device="cpu", **kw)
+    kinds = [("both", False), ("tr", True)] if axis == "samples" \
+        else [("both", False)]
+    for kind, fused in kinds:
+        with card.stream(kind, hvp=hvp, fused=fused) as pf:
+            for t, pl in enumerate(pf):
+                want, _ = cpu._load_step(t, kind, hvp, fused)
+                assert set(pl) == set(want)
+                for k, v in want.items():
+                    if k == "hvp_sched":
+                        for a, b in zip(pl[k], v):
+                            assert torch.equal(a.table.cpu(), b.table)
+                            assert a.steps == b.steps
+                            assert not a.state.any()
+                        continue
+                    got = pl[k].cpu()
+                    assert got.dtype == v.dtype and torch.equal(got, v), k
+
+
+def _prefetch_threads():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name == "repro-chunk-prefetch" and t.is_alive()]
+
+
+def test_cuda_prefetcher_closed_mid_pass(dev, tmp_path):
+    """A pass abandoned after one payload and closed leaves no producer
+    thread, every device buffer back in the ring with its events
+    complete, and the next pass whole."""
+    from repro_torch.data.stream import plan_streams
+    _, _, stores = _stores(tmp_path)
+    plan = plan_streams(stores["samples"], 1, block_rows=8, block_cols=8,
+                        device=dev, prefetch_depth=2)
+    pf = plan.stream("both")
+    it = iter(pf)
+    next(it)
+    pf.close()
+    assert _prefetch_threads() == []
+    plane = plan._plane
+    assert plane.free.qsize() == len(plane.slots) == plan.prefetch_depth + 2
+    torch.cuda.synchronize()
+    assert all(s.ready.query() and s.release.query() for s in plane.slots)
+    assert all(p.copied.query() for p in plane.pinned)
+    assert plan.stats.live_bytes == 0
+    with plan.stream("both") as pf:
+        assert sum(1 for _ in pf) == plan.n_steps
+    assert _prefetch_threads() == []
+
+
+def test_cuda_streamed_pass_has_no_host_sync(dev, tmp_path):
+    """A streamed pass (stage, fill, K1 on every chunk) makes no host
+    sync, and a streamed fit makes no more than the in-memory fit with
+    the same PCG iterations: the loops' residual tests and the step's
+    reads."""
+    import warnings
+    from repro_torch import DiscoSolver
+    from repro_torch.data.store import ShardStore
+    X, y, stores = _stores(tmp_path)
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # (setting the mode warns that it is a prototype: not a sync)
+        return sum("called a synchronizing" in str(w.message)
+                   for w in caught)
+
+    cfg = DiscoConfig(partition="samples", **STREAM_SOLVE)
+    streamed = DiscoSolver.from_store(ShardStore(stores["samples"].path),
+                                      cfg, device=dev)
+    plan = streamed._plan
+    w = torch.ones(plan.other_padded, device=dev)
+
+    def one_pass():
+        with plan.stream("both") as pf:
+            for pl in pf:
+                ops.ell_matvec(pl["dataT"][0], pl["colsT"][0], w,
+                               sched=pl["schedT"][0])
+    one_pass()
+    assert syncs(one_pass) == 0
+    inmem = DiscoSolver(X, y, cfg, device=dev)
+    streamed.fit()                 # the first fits' one-off syncs
+    inmem.fit()
+    res_s, res_m = [], []
+    n_s = syncs(lambda: res_s.append(streamed.fit()))
+    n_m = syncs(lambda: res_m.append(inmem.fit()))
+    assert [h["pcg_iters"] for h in res_s[0].history] == \
+        [h["pcg_iters"] for h in res_m[0].history]
+    assert n_s <= n_m, (n_s, n_m)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(hvp_dtype="bfloat16")],
+                         ids=["f32", "bf16"])
+def test_cuda_streamed_equals_one_shard_per_chunk(dev, tmp_path, kw):
+    """On the card too, the streamed DiSCO-S m = 1 two-pass solve is the
+    in-memory solve whose shards are the chunks (equal-width partition,
+    m = the chunk count) bit for bit: K1 is deterministic, and the chunks'
+    products are summed in the same order."""
+    from repro_torch import DiscoSolver
+    from repro_torch.data.store import ShardStore
+    X, y, stores = _stores(tmp_path)
+    cfg = DiscoConfig(partition="samples", **STREAM_SOLVE, **kw)
+    streamed = DiscoSolver.from_store(ShardStore(stores["samples"].path),
+                                      cfg, device=dev).fit()
+    n_chunks = stores["samples"].n_chunks
+    import dataclasses
+    inmem = DiscoSolver(X, y, dataclasses.replace(
+        cfg, partition_strategy="width"), group=InProcessGroup(n_chunks),
+        device=dev).fit()
+    np.testing.assert_array_equal(streamed.w, inmem.w)
+    assert [h["pcg_iters"] for h in streamed.history] == \
+        [h["pcg_iters"] for h in inmem.history]

@@ -166,6 +166,22 @@ SCRIPT = textwrap.dedent("""
         assert tracer.span_count("newton.outer") == 3 + 2 + 1
         assert tracer.span_count("ckpt.write") == 2 + 1
         obs.disable()
+        # the streamed solve, traced, with re-planning armed
+        from repro_torch import disco_fit_streaming
+        from repro_torch.robust import ChunkTimingLedger, ElasticReplanner
+        tracer = obs.enable(reset=True)
+        for partition in ("samples", "features"):
+            cfg = DiscoConfig(partition=partition, tau=16, max_outer=2,
+                              ell_block_d=8, ell_block_n=8,
+                              partition_block=16, stream_chunk_size=16,
+                              elastic_replan=True, replan_threshold=1.0,
+                              trace=True)
+            r = disco_fit_streaming(X, y, os.path.join(tmp, partition), cfg,
+                                    group=InProcessGroup(2), device="cpu")
+            assert np.isfinite(r.w).all() and r.stream_stats["passes"] > 0
+        assert tracer.span_count("stream.pass") > 0
+        assert tracer.span_count("pcg.round") > 0
+        obs.disable()
     leaked = sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro.")
                     or (m.split(".")[0] in ("jax", "ml_dtypes")

@@ -41,12 +41,10 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 PORT_SRC = os.path.join(ROOT, "src", "repro_torch")
 RTOL, ATOL = 1e-4, 1e-6
 
-# registered kinds the port does not emit yet: those of the streamed
-# solve and of GLM serving, which later slices port
+# registered kinds the port does not emit yet: those of GLM serving,
+# which a later slice ports
 NOT_YET_EMITTED = {
-    "span": {"pcg.round", "hvp.apply", "comm.allreduce", "stream.pass",
-             "stream.chunk_load", "robust.replan", "registry.publish",
-             "serve.hot_swap", "serve.tick"},
+    "span": {"registry.publish", "serve.hot_swap", "serve.tick"},
     "count": {"serve.scored"},
     "gauge": {"serve.queue_depth", "serve.ticks"},
 }
@@ -286,8 +284,7 @@ def _emitted(root) -> dict:
 def test_emitted_kinds_are_registered():
     """Every emission literal in the port's sources is registered, and
     the registered kinds the port does not emit yet are exactly those of
-    the streamed solve and of GLM serving (later slices shrink the
-    list)."""
+    GLM serving (a later slice empties the list)."""
     emitted = _emitted(PORT_SRC)
     assert emitted["span"] <= set(SPAN_KINDS)
     assert emitted["count"] <= set(COUNTER_KINDS)
