@@ -152,7 +152,26 @@ Eight phases; any failed check makes the exit code nonzero.
    retried bit for bit, a kill and resume, an elastic re-plan against
    the static plan (one step); one timed pass of each HVP stream (host,
    staged bytes, device, wait), two with no chunk plan kept, and a
-   profiled streamed Newton step.
+   profiled streamed Newton step. Right after the slice, the GLM serving
+   plane (``serve_glm_phase``, lines ``serve-glm ...``) on the first
+   run's model: 8,192 held-out requests of the slice's generator (seed
+   1, about 76 nonzeros each); K1 at the scoring tiles (8 x 128) on
+   micro-batches of 1, 7, 64 and 1,024 requests, f32 and bf16, the
+   card's pack against the host's bit for bit, with the plan's schedule
+   and without against the plain version, repeated bit for bit, NaN in
+   the padding, timed beside its bound and a ``torch.sparse_csr_tensor``
+   product; the fit published to a ``ModelRegistry`` and loaded back bit
+   for bit; every request through ``ScoringEngine`` against
+   ``oracle_margins`` (1e-5 f32, 2e-2 bf16 of the largest margin) and
+   against the CPU engine (1e-6), predict / predict_proba against
+   ``GLMProblem``'s; one host sync a tick; the scheduler over all of
+   them at bf16, and at f32 with every eighth past a deadline of 0 s and a
+   second version published mid-stream and served from the next tick,
+   traced; a warm streamed
+   refit of the 4,096-chunk store grown by n/16 samples, bit for bit the
+   in-memory solve whose shards are the chunks; ``refit_path`` over the
+   λ grid with 4,096 validation samples; and bench_serving's
+   warm-against-cold gate on its own small problem.
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
@@ -249,6 +268,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2068,7 +2088,11 @@ def rel_w(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
+def phase_slice(torch, rt, build, sparse_hvp, ref, errs, keep):
+    """The sparse slice's runs; ``keep`` (a dict holding ``dir``, a
+    directory that outlives the phase) gets what the serving phase reuses:
+    the data, the first run's result and config, DiSCO-S m = 4's w and the
+    store of :func:`store_roundtrip`."""
     from repro_torch.data.sparse import make_sparse_glm_data
     t0 = time.perf_counter()
     X, y, _ = make_sparse_glm_data(**SLICE)
@@ -2110,7 +2134,9 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
         if (partition, m, fused) == RUNS[0]:
             t_tc = time.perf_counter()
             trace_and_checkpoint(torch, build, solver, res, counts, tag)
-            store_roundtrip(torch, rt, X, y, cfg, res)
+            keep.update(X=X, y=y, res=res, cfg=cfg,
+                        store=f"{keep['dir']}/store")
+            store_roundtrip(torch, rt, X, y, cfg, res, keep["store"])
             print(f"trace and checkpoint, sparse: "
                   f"{time.perf_counter() - t_tc:.1f} s", flush=True)
             try:
@@ -2124,6 +2150,7 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs):
         torch.cuda.empty_cache()
 
     w = {k: v[0] for k, v in results.items()}
+    keep["w_m4"] = w[("samples", 4, False)]
     e = rel_w(w[("samples", 4, False)], w[("samples", 1, False)])
     check(e <= 1e-3, f"DiSCO-S m=4 vs m=1: rel diff of w {e:.2e}")
     for p in ("samples", "features"):
@@ -2339,31 +2366,29 @@ def trace_and_checkpoint(torch, build, solver, plain, plain_counts,
     return row
 
 
-def store_roundtrip(torch, rt, X, y, cfg, plain) -> dict:
+def store_roundtrip(torch, rt, X, y, cfg, plain, path) -> dict:
     """The shard store at full width: ``X`` (the sparse slice's CSR)
-    written chunked along the samples, reopened with checksums on and
-    read back exact; a solve from the read CSR on the card gives the
-    in-memory solve's ``plain.w`` bit for bit."""
+    written at ``path`` (kept for the serving phase's refits) chunked
+    along the samples, reopened with checksums on and read back exact; a
+    solve from the read CSR on the card gives the in-memory solve's
+    ``plain.w`` bit for bit."""
     import os
-    import tempfile
     import numpy as np
     from repro_torch.data import ShardStore
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/store"
-        t0 = time.perf_counter()
-        store = ShardStore.from_csr(X, y, path, axis="samples",
-                                    chunk_size=STORE_CHUNK)
-        write_s = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f))
-                     for d, _, fs in os.walk(path) for f in fs)
-        t0 = time.perf_counter()
-        Xb, yb = ShardStore(path, verify=True).to_csr()
-        read_s = time.perf_counter() - t0
-        same = all(np.array_equal(getattr(Xb, f), getattr(X, f))
-                   for f in ("indptr", "indices", "data")) \
-            and np.array_equal(yb, y) and Xb.shape == X.shape
-        check(same, f"store: {store.n_chunks} chunks of {STORE_CHUNK} "
-                    f"samples, {store.nnz} nonzeros read back exact")
+    t0 = time.perf_counter()
+    store = ShardStore.from_csr(X, y, path, axis="samples",
+                                chunk_size=STORE_CHUNK)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    Xb, yb = ShardStore(path, verify=True).to_csr()
+    read_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(Xb, f), getattr(X, f))
+               for f in ("indptr", "indices", "data")) \
+        and np.array_equal(yb, y) and Xb.shape == X.shape
+    check(same, f"store: {store.n_chunks} chunks of {STORE_CHUNK} "
+                f"samples, {store.nnz} nonzeros read back exact")
     t0 = time.perf_counter()
     solver = rt.DiscoSolver(Xb, yb, cfg, device="cuda")
     res = solver.fit()
@@ -2793,6 +2818,522 @@ def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
         passes_and_profile_s=t_probe, robustness_s=t_robust)), flush=True)
     print(f"stream phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3, serving: the GLM serving plane on the sparse slice's model
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 8192            # held-out samples scored as requests
+SERVE_INGEST = SLICE["n"] // 16  # samples a refit ingests (n/16, as bench_serving)
+SERVE_VAL = 4096                 # held-out validation samples of refit_path
+SERVE_SEED = 1                   # the held-out samples' generator seed
+SERVE_LAYOUTS = (1, 7, 64, 1024)  # micro-batches K1 is held to its plain version on
+SERVE_SEQUENTIAL = 512           # requests scored one a tick
+SERVE_SWAP_TICK = 56             # v2 is published before this tick
+SERVE_DEADLINE_EVERY = 8         # every eighth request has a deadline of 0 s
+SERVE_CPU = 1024                 # requests also scored by the CPU engine
+SERVE_GATE = {"float32": 1e-5, "bfloat16": 2e-2}   # bench_serving's parity gate
+# 1 Newton step: at 2 the whole script took 814.5 s on an H100 (PERF.md)
+REFIT_SOLVE = dict(SOLVE, partition="samples", max_outer=1,
+                   partition_block=STORE_CHUNK,
+                   stream_chunk_size=STORE_CHUNK, prefetch_depth=STREAM_DEPTH)
+# bench_serving's own small problem for the warm-against-cold refit gate
+SMALL_REFIT = dict(d=96, n=1024, density=0.08, alpha=1.2, beta=0.8, seed=0)
+SMALL_REFIT_CHUNK = 128
+SMALL_REFIT_SOLVE = dict(partition="samples", loss="logistic", lam=1e-4,
+                         tau=32, max_outer=30, grad_tol=5e-5,
+                         pcg_rel_tol=0.01, ell_block_d=8, ell_block_n=8,
+                         partition_block=SMALL_REFIT_CHUNK,
+                         stream_chunk_size=SMALL_REFIT_CHUNK)
+
+
+def serve_data(rt):
+    """Held-out samples of the slice's generator (another seed): the
+    requests, each built from its sample's sparse column, the samples a
+    refit ingests and the validation set of ``refit_path``."""
+    import numpy as np
+    from repro_torch.glm_serve import ScoreRequest
+    n = SERVE_REQUESTS + SERVE_INGEST + SERVE_VAL
+    Xh, yh, _ = rt.make_sparse_glm_data(**dict(SLICE, n=n, seed=SERVE_SEED))
+    T = Xh.transpose()               # (n, d): a sample a row
+    reqs = [ScoreRequest(
+        T.indices[T.indptr[i]:T.indptr[i + 1]].astype(np.int64),
+        T.data[T.indptr[i]:T.indptr[i + 1]]) for i in range(SERVE_REQUESTS)]
+
+    def part(lo, hi):
+        return T.take_rows(np.arange(lo, hi)).transpose(), yh[lo:hi]
+    ingest = part(SERVE_REQUESTS, SERVE_REQUESTS + SERVE_INGEST)
+    val = part(SERVE_REQUESTS + SERVE_INGEST, n)
+    reqs_csr = part(0, SERVE_REQUESTS)[0]
+    return reqs, reqs_csr, ingest, val
+
+
+def serve_batches(reqs, batch):
+    """The micro-batches K1 and a tick are measured on: ``SERVE_LAYOUTS``
+    requests from the head, where ``batch`` (the engine's) is the median
+    of the consecutive ``batch``-request ticks by nonzeros, and the head's
+    ``batch`` beside it (the generator's power law over samples makes the
+    head the heaviest). Returns ``[(label, requests)]``."""
+    import numpy as np
+    ticks = [reqs[i:i + batch] for i in range(0, len(reqs), batch)]
+    nnz = np.array([sum(r.nnz for r in t) for t in ticks])
+    median = ticks[int(np.argsort(nnz)[len(nnz) // 2])]
+    out = []
+    for B in SERVE_LAYOUTS:
+        if B == batch:
+            out += [(f"{B} median", median), (f"{B} head", reqs[:B])]
+        else:
+            out.append((str(B), reqs[:B]))
+    return out
+
+
+def queued_device_ms(torch, fn, reps: int = 1, cycles: int = 20_000_000):
+    """Device milliseconds a call of ``fn`` (which must not synchronize)
+    over ``reps`` calls, the host's work taken out: the calls are queued
+    behind a spin kernel (``torch.cuda._sleep``) that outlasts their
+    launches, so they run back to back between two events. No profiler
+    is involved. If the start event had passed by the time the last call
+    was queued, the host fell behind and the spin is doubled (three
+    tries); None if it never held."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        behind = start.query()
+        torch.cuda.synchronize()
+        if not behind:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    return None
+
+
+def serve_k1_layouts(torch, sparse_hvp, ref, batches, w, timings) -> None:
+    """K1 at the scoring tiles (8 x 128, rows of requests) on packed
+    micro-batches (:func:`serve_batches`), f32 and bf16: the card's pack
+    against the host's bit for bit; with the plan's schedule and without
+    against the plain version (relative L2 1e-5; at bf16 the plain version
+    at bf16 tiles, rounding ``w`` as F10), each call repeated bit for bit;
+    NaN in the slots past the live ones, which the scheduled call must not
+    read. Timed: µs a call between events, µs on the card
+    (:func:`queued_device_ms`), its bound (the live tiles' bytes, the
+    column ids of the live tiles, ``w`` and the margins once over the HBM
+    rate), and one ``torch.sparse_csr_tensor`` product of the batch. The
+    kernels line's scoring figures are the median batch's, the share from
+    the device time only."""
+    import numpy as np
+    from repro_torch.data.sparse import hvp_tile_dtype
+    from repro_torch.glm_serve import RequestPacker
+    d = len(w)
+    for tiles in ("float32", "bfloat16"):
+        tdt = hvp_tile_dtype(tiles)
+        name = "ell_mv" if tiles == "float32" else "ell_mv_bf16"
+        for label, part in batches:
+            B = len(part)
+            kw = dict(block_b=8, block_d=128, tile_dtype=tdt)
+            p = RequestPacker(d, B, device="cuda", **kw)
+            data, cols, sched = p.pack_scheduled(part)
+            hdata, hcols = RequestPacker(d, B, device="cpu", **kw).pack(part)
+            check(torch.equal(data.cpu().float(), hdata.float())
+                  and torch.equal(cols.cpu(), hcols),
+                  f"serve-glm pack B={label} {tiles}: the card's tiles are "
+                  f"the host's bit for bit")
+            wp = p.pad_weights(w)
+            want = ref.ref_ell_mv(data, cols, wp)
+            for tag, s in (("scheduled", sched), ("every slot", None)):
+                got = sparse_hvp.ell_mv(data, cols, wp, sched=s)
+                e = rel_err(got, want)
+                again = sparse_hvp.ell_mv(data, cols, wp, sched=s)
+                check(e <= REL_TOL_KERNEL and torch.equal(got, again),
+                      f"serve-glm {name} B={label} {tag}: rel err {e:.2e}, "
+                      f"repeats bit for bit")
+            nb = data.shape[0]
+            live = sched[:nb].long()
+            pad = torch.arange(data.shape[1], device=data.device)[None, :] \
+                >= live[:, None]
+            poisoned = data.clone()
+            poisoned[pad] = float("nan")
+            got = sparse_hvp.ell_mv(poisoned, cols, wp, sched=sched)
+            check(torch.equal(got, sparse_hvp.ell_mv(data, cols, wp,
+                                                     sched=sched)),
+                  f"serve-glm {name} B={label}: NaN padding left unread")
+            del poisoned
+            n_live, stored = int(live.sum()), data.shape[0] * data.shape[1]
+
+            def call():
+                return sparse_hvp.ell_mv(data, cols, wp, sched=sched)
+            us = time_ms(call) * 1e3
+            dev_ms = queued_device_ms(torch, call, reps=REPS)
+            dev_us = None if dev_ms is None else dev_ms * 1e3
+            path = sparse_hvp.last_path[name]
+            bound_us = 1e6 * (n_live * (8 * 128 * data.element_size() + 4)
+                              + wp.numel() * 4 + B * 4) / HBM_BYTES_PER_S
+            # the library's product: the batch as a CSR tensor, @ w
+            lens = [r.nnz for r in part]
+            crow = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                                dtype=torch.int64, device="cuda")
+            col = torch.from_numpy(np.concatenate(
+                [r.indices for r in part]).astype(np.int64)).to("cuda")
+            val = torch.from_numpy(np.concatenate(
+                [np.asarray(r.values, np.float32) for r in part])).to("cuda")
+            A = torch.sparse_csr_tensor(crow, col, val, size=(B, d),
+                                        check_invariants=True)
+            wd = wp[:d].contiguous()
+            lib = A @ wd
+            e_lib = (rel_err(lib, want[:B]) if tiles == "float32" else None)
+            lib_us = (time_ms(lambda: A @ wd) * 1e3
+                      if e_lib is None or e_lib <= 1e-5 else None)
+            row = dict(tiles=tiles, batch=label, nnz=int(sum(lens)),
+                       path=path, live_tiles=n_live, stored_tiles=stored,
+                       us=us, device_us=dev_us, bound_us=bound_us,
+                       share=None if dev_us is None else bound_us / dev_us,
+                       sparse_csr_us=lib_us, sparse_csr_rel_err=e_lib,
+                       staged_bytes=p.staged_bytes,
+                       tile_bytes=data.numel() * data.element_size())
+            print("serve-glm k1 " + json.dumps(row), flush=True)
+            if label.endswith("median"):
+                timings.setdefault(name, {}).update(
+                    scoring_us=us, scoring_device_us=dev_us,
+                    scoring_bound_us=bound_us, scoring_nnz=row["nnz"],
+                    scoring_live_tiles=n_live, scoring_path=path,
+                    scoring_sparse_csr_us=lib_us)
+            elif label.endswith("head"):
+                timings.setdefault(name, {}).update(
+                    scoring_head_device_us=dev_us, scoring_head_nnz=row["nnz"])
+            del data, cols, sched, want, A
+
+
+def serve_tick(torch, ops, eng, part) -> dict:
+    """One tick of ``eng`` on ``part``: the host's plan ms, the tick's ms
+    (median of 20, plan to margins on the host), its host syncs, its
+    device µs whole and in parts (:func:`queued_device_ms`: the staging
+    copy and tile fill, K1, the copy back) and the device's busy share of
+    the tick, K1's launches, and the bytes it ships."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng.packer.plan(part)
+    plan_ms = (time.perf_counter() - t0) / 20 * 1e3
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.score(part)
+        times.append(time.perf_counter() - t0)
+    tick_ms = statistics.median(times) * 1e3
+    syncs = count_host_syncs(torch, lambda: eng.score(part))
+    build.reset_launch_counts()
+    eng.score(part)
+    k1 = sum(build.launch_counts().values())
+    wp = eng.packer.pad_weights(eng.w)
+    data, cols, sched = eng.packer.pack_scheduled(part)
+    y = ops.ell_matvec(data, cols, wp, sched=sched)
+
+    def whole():
+        dd, cc, ss = eng.packer.pack_scheduled(part)
+        ops.ell_matvec(dd, cc, wp, sched=ss)[:len(part)].to(
+            "cpu", non_blocking=True)
+    parts = dict(
+        staging=queued_device_ms(torch, lambda: eng.packer.pack_scheduled(
+            part), cycles=100_000_000),
+        k1=queued_device_ms(torch, lambda: ops.ell_matvec(
+            data, cols, wp, sched=sched), reps=REPS),
+        copy_back=queued_device_ms(torch, lambda: y[:len(part)].to(
+            "cpu", non_blocking=True), reps=REPS))
+    dev_ms = queued_device_ms(torch, whole, cycles=100_000_000)
+    return dict(nnz=int(sum(r.nnz for r in part)), plan_ms=plan_ms,
+                tick_ms=tick_ms, host_syncs=syncs, k1_launches=k1,
+                staged_bytes=eng.packer.staged_bytes,
+                reference_tile_bytes=eng.packer.n_row_blocks
+                * eng.packer.width * 8 * 128 * 4,
+                device_us=None if dev_ms is None else dev_ms * 1e3,
+                device_parts_us={k: None if v is None else v * 1e3
+                                 for k, v in parts.items()},
+                busy_share=None if dev_ms is None else dev_ms / tick_ms)
+
+
+def serve_glm_phase(torch, rt, build, sparse_hvp, ref, keep, launches,
+                    timings) -> None:
+    """The GLM serving plane on the sparse slice (``keep``: its X, y, the
+    first run's DiSCO-S m = 1 f32 result and config, DiSCO-S m = 4's w,
+    and the store of ``store_roundtrip``).
+
+    K1 on the scoring layouts (:func:`serve_k1_layouts`); the registry
+    (publish, load bit for bit, ACTIVE); predict / predict_proba against
+    ``GLMProblem``'s on the requests' CSR. Then the main path, its launch
+    window: the engine scoring ``SERVE_REQUESTS`` held-out requests at f32
+    and bf16, the scheduler over all of them at bf16, and at f32 with
+    every eighth past a deadline of 0 s and a second version published
+    mid-stream, traced; a streamed warm refit of the grown store; and
+    ``refit_path`` with a validation set. Its results are checked after
+    the window: against ``oracle_margins`` (bench_serving's gate), the
+    same engine on the CPU (1e-6), ``score``'s margins, the in-memory
+    solve whose shards are the store's chunks (bit for bit). Last, the
+    measurements (ticks, one request a tick) and bench_serving's
+    warm-against-cold gate on its own small problem. The launch counts of
+    the window are added to the slice's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import comm
+    from repro_torch.data import ShardStore
+    from repro_torch.glm_serve import (MicroBatchScheduler, ModelRegistry,
+                                       RefitLoop, ScoringEngine,
+                                       oracle_margins)
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    X, y, res, cfg = keep["X"], keep["y"], keep["res"], keep["cfg"]
+    w1 = np.asarray(res.w)
+    reqs, reqs_csr, (Xi, yi), (Xv, yv) = serve_data(rt)
+    nnz = float(np.mean([r.nnz for r in reqs]))
+    batches = serve_batches(reqs, 64)
+    print(f"serve-glm data: {len(reqs)} requests, {nnz:.1f} nonzeros a "
+          f"request; {Xi.shape[1]} to ingest, {Xv.shape[1]} to validate "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    serve_k1_layouts(torch, sparse_hvp, ref, batches, w1, timings)
+    t_k1 = time.perf_counter() - t_phase
+
+    reg = ModelRegistry(f"{keep['dir']}/registry")
+    v1 = reg.publish(res, cfg)
+    pub = reg.load()
+    check(v1 == 1 and reg.active_version() == 1
+          and pub.w.tobytes() == w1.tobytes() and pub.w.dtype == w1.dtype
+          and pub.cfg == cfg and pub.result.history == res.history
+          and pub.result.ledger == res.ledger
+          and pub.result.partition_info == res.partition_info,
+          "serve-glm registry: the slice's fit published, loaded back "
+          "(w bit for bit; config, history, ledger equal), ACTIVE flipped")
+
+    # checks' inputs, before the launch window: predict / predict_proba,
+    # and each version's margins on the requests the scheduler scores
+    engines = {t: ScoringEngine(reg, hvp_dtype=t, device="cuda")
+               for t in ("float32", "bfloat16")}
+    eng = engines["float32"]
+    prob = rt.GLMProblem.create(np.zeros((len(w1), 1), np.float32),
+                                np.ones(1, np.float32), device="cpu")
+    pred_ok = np.array_equal(eng.predict(reqs),
+                             prob.predict(w1, reqs_csr).numpy())
+    p_err = float(np.abs(eng.predict_proba(reqs)
+                         - prob.predict_proba(w1, reqs_csr).numpy()).max())
+    check(pred_ok and p_err <= 1e-6,
+          f"serve-glm predict equals GLMProblem.predict on the requests' "
+          f"CSR; predict_proba within {p_err:.1e} (limit 1e-6)")
+    w2 = np.asarray(keep["w_m4"], w1.dtype)
+    res2 = dataclasses.replace(res, w=w2)
+    valid = [r for i, r in enumerate(reqs) if i % SERVE_DEADLINE_EVERY]
+    by_v = {1: eng.score(valid),
+            2: ScoringEngine(w2, loss="logistic", device="cuda")
+            .score(valid)}
+    rcfg = rt.DiscoConfig(**REFIT_SOLVE)
+    store = ShardStore(keep["store"])
+    loop = RefitLoop(reg, store, rcfg, device="cuda")
+
+    # the main path: its launch window
+    build.reset_launch_counts()
+    got, score_s = {}, {}
+    for t, e in engines.items():
+        t0 = time.perf_counter()
+        got[t] = e.score(reqs)
+        score_s[t] = time.perf_counter() - t0
+    sb = MicroBatchScheduler(engines["bfloat16"])
+    rids_b = [sb.submit(r) for r in reqs]
+    fin_b = sb.run_until_done()
+    tracer = obs.enable(reset=True)
+    sched = MicroBatchScheduler(eng)
+    rids = [sched.submit(r, deadline_s=None if i % SERVE_DEADLINE_EVERY
+                         else 0.0) for i, r in enumerate(reqs)]
+    t0 = time.perf_counter()
+    while sched.waiting:
+        if sched.stats.ticks == SERVE_SWAP_TICK and reg.active_version() == 1:
+            v2 = reg.publish(res2, cfg)
+        sched.tick()
+    elapsed = time.perf_counter() - t0
+    events, counters, _ = tracer.snapshot()
+    obs.disable()
+    w0 = reg.load().w
+    t0 = time.perf_counter()
+    n_grown = loop.ingest(Xi, yi)
+    v3, warm = loop.refit(warm=True)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    active3, w3 = reg.active_version(), reg.load().w
+    t0 = time.perf_counter()
+    v4, path = loop.refit_path(LAMBDAS, X_val=Xv, y_val=yv)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for k in launches:
+        launches[k] += counts.get(k, 0)
+    check(counts["ell_mv"] > 0 and counts["ell_mv_bf16"] > 0,
+          f"serve-glm: K1 launched on the serving path ({counts['ell_mv']} "
+          f"f32, {counts['ell_mv_bf16']} bf16)")
+
+    # the main path's results
+    want = oracle_margins(reqs, w1)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    for t in engines:
+        err = float(np.abs(got[t] - want).max()) / scale
+        check(err <= SERVE_GATE[t],
+              f"serve-glm score {t}: {len(reqs)} requests, max err "
+              f"{err:.2e} of max |margin| against oracle_margins "
+              f"(gate {SERVE_GATE[t]:.0e}; {len(reqs) / score_s[t]:.0f} "
+              f"req/s)")
+    cpu = ScoringEngine(w1, loss="logistic", device="cpu").score(
+        reqs[:SERVE_CPU])
+    e = float(np.abs(got["float32"][:SERVE_CPU] - cpu).max()) / scale
+    check(e <= 1e-6, f"serve-glm score: card against the CPU engine on the "
+                     f"first {SERVE_CPU} requests {e:.2e} of max |margin| "
+                     f"(limit 1e-6)")
+    mb = np.array([fin_b[r].margin for r in rids_b])
+    e = float(np.abs(mb - want).max()) / scale
+    check(sb.stats.completed == len(reqs)
+          and np.array_equal(mb, got["bfloat16"].astype(np.float64))
+          and e <= SERVE_GATE["bfloat16"],
+          f"serve-glm scheduler bfloat16: {sb.stats.completed} requests, "
+          f"every margin equals score's, {e:.2e} of max |margin| against "
+          f"oracle_margins (gate {SERVE_GATE['bfloat16']:.0e})")
+    st = sched.stats
+    fin = sched.finished
+    done = [fin[r] for i, r in enumerate(rids) if i % SERVE_DEADLINE_EVERY]
+    rejected = [fin[r] for i, r in enumerate(rids)
+                if not i % SERVE_DEADLINE_EVERY]
+    exact = all(c.margin == float(by_v[1 if c.tick < SERVE_SWAP_TICK else 2][k])
+                for k, c in enumerate(done))
+    late = np.array([c.margin for c in done if c.tick >= SERVE_SWAP_TICK])
+    late_want = oracle_margins(
+        [r for r, c in zip(valid, done) if c.tick >= SERVE_SWAP_TICK], w2)
+    e2 = float(np.abs(late - late_want).max()) / scale
+    early = np.array([c.margin for c in done if c.tick < SERVE_SWAP_TICK])
+    e1 = float(np.abs(early - oracle_margins(
+        [r for r, c in zip(valid, done) if c.tick < SERVE_SWAP_TICK],
+        w1)).max()) / scale
+    check(st.completed + st.rejected == len(reqs)
+          and st.rejected == len(rejected)
+          and all(c.rejected and c.margin is None for c in rejected)
+          and not any(c.rejected for c in done) and exact
+          and e1 <= SERVE_GATE["float32"],
+          f"serve-glm scheduler: {st.completed} scored + {st.rejected} "
+          f"rejected = {len(reqs)} submitted; every margin equals score's, "
+          f"{e1:.2e} of max |margin| against oracle_margins before the "
+          f"swap")
+    check(eng.reloads == 1 and eng.version == v2 == 2 and len(late) > 0
+          and e2 <= SERVE_GATE["float32"],
+          f"serve-glm scheduler: v2 served from tick {SERVE_SWAP_TICK} on "
+          f"({len(late)} requests, err {e2:.2e} against its oracle)")
+    spans = [e for e in events if e.kind == "serve.tick"]
+    check(len(spans) == st.ticks
+          and counters.get("serve.scored") == st.completed
+          and sum(e.kind == "serve.hot_swap" for e in events) == 1
+          and sum(e.kind == "registry.publish" for e in events) == 1,
+          f"serve-glm traced: {len(spans)} serve.tick spans for "
+          f"{st.ticks} ticks, serve.scored = {counters.get('serve.scored')}"
+          f", one serve.hot_swap")
+    t0 = time.perf_counter()
+    Xg, yg = store.to_csr()
+    twin = rt.DiscoSolver(
+        Xg, yg, dataclasses.replace(rcfg, partition_strategy="width"),
+        group=rt.InProcessGroup(store.n_chunks), device="cuda").fit(w0=w0)
+    check(n_grown == SLICE["n"] + SERVE_INGEST and v3 == 3 and active3 == 3
+          and np.array_equal(w3, warm.w)
+          and np.array_equal(warm.w, twin.w)
+          and [h["pcg_iters"] for h in warm.history]
+          == [h["pcg_iters"] for h in twin.history],
+          f"serve-glm refit: {SERVE_INGEST} samples ingested "
+          f"({n_grown} in {store.n_chunks} chunks), the warm streamed refit "
+          f"published as v{v3} and active, equal bit for bit to the "
+          f"in-memory solve whose shards are the chunks "
+          f"(grad {warm.history[0]['grad_norm']:.3e} -> "
+          f"{warm.history[-1]['grad_norm']:.3e})")
+    twin_s = time.perf_counter() - t0
+    del twin, Xg, yg
+    best = path.best_index
+    check(v4 == 4 and reg.active_version() == 4 and best is not None
+          and loop.cfg.lam == path.lambdas[best] == reg.load().cfg.lam
+          and np.array_equal(reg.load().w, path.results[best].w),
+          f"serve-glm refit_path over {LAMBDAS}: winner lam "
+          f"{path.best_lambda:g} (val losses "
+          f"{[round(v, 6) for v in path.val_losses]}) published as v{v4}")
+
+    t_main = time.perf_counter() - t_phase - t_k1
+
+    # measurements, after the window: a tick of the median and of the
+    # head batch, one request a tick, and the small warm-against-cold gate
+    t0 = time.perf_counter()
+    count_host_syncs(torch, lambda: None)   # its first use warns once more
+    tick = {label.split()[-1]: serve_tick(torch, ops, eng, part)
+            for label, part in batches if label.startswith(f"{eng.batch} ")}
+    per_tick = {k: (t["host_syncs"], t["k1_launches"])
+                for k, t in tick.items()}
+    check(all(v == (1, 1) for v in per_tick.values()),
+          f"serve-glm tick: one host sync and one K1 launch a tick "
+          f"(host syncs, K1 launches: {per_tick})")
+    seq = ScoringEngine(reg, batch=1, device="cuda")
+    seq.score(reqs[:1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for r in reqs[:SERVE_SEQUENTIAL]:
+        seq.score([r])
+    seq_rps = SERVE_SEQUENTIAL / (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    small = dict(small_refit_gate(rt, keep["dir"]),
+                 seconds=time.perf_counter() - t1)
+    t_meas = time.perf_counter() - t0
+
+    model_tick = comm.glm_serving_tick_time(
+        eng.batch, nnz, ell_width=eng.packer.width, block_b=8, block_d=128)
+    model_rps = comm.glm_serving_throughput(
+        eng.batch, nnz, ell_width=eng.packer.width, block_b=8, block_d=128)
+    row = dict(requests=len(reqs), nnz_per_request=nnz,
+               batched_rps=st.throughput_rps(elapsed),
+               sequential_rps=seq_rps, p50_ms=st.p50_s * 1e3,
+               p99_ms=st.p99_s * 1e3, busy_share_scheduler=st.busy_s / elapsed,
+               ticks=st.ticks, tick=tick, launches=counts, refit_s=refit_s,
+               twin_s=twin_s, refit_newton=len(warm.history),
+               refit_path_s=path_s, small_refit=small,
+               model_figures=dict(tick_s=model_tick["total_s"],
+                                  batched_rps=model_rps["batched_rps"],
+                                  sequential_rps=model_rps["sequential_rps"]),
+               k1_s=t_k1, main_path_s=t_main, measurements_s=t_meas)
+    print("serve-glm " + json.dumps(row), flush=True)
+    print(f"serve-glm phase: {time.perf_counter() - t_phase:.1f} s (K1 "
+          f"layouts {t_k1:.1f}, the main path and its checks {t_main:.1f}, "
+          f"measurements {t_meas:.1f})", flush=True)
+
+
+def small_refit_gate(rt, tmp) -> dict:
+    """bench_serving's warm-against-cold refit gate on its own problem:
+    fit from a store of the first 15/16 of the samples, publish, ingest
+    the rest, refit warm and cold; the warm refit takes at most half the
+    cold one's Newton steps, both converged."""
+    from repro_torch.data import ShardStore
+    from repro_torch.glm_serve import ModelRegistry, RefitLoop
+    X, y, _ = rt.make_sparse_glm_data(**SMALL_REFIT)
+    n0 = X.shape[1] - X.shape[1] // 16
+    T = X.transpose()
+
+    def part(lo, hi):
+        import numpy as np
+        return T.take_rows(np.arange(lo, hi)).transpose(), y[lo:hi]
+    cfg = rt.DiscoConfig(**SMALL_REFIT_SOLVE)
+    store = ShardStore.from_csr(*part(0, n0), f"{tmp}/small_store",
+                                axis="samples", chunk_size=SMALL_REFIT_CHUNK)
+    reg = ModelRegistry(f"{tmp}/small_registry")
+    reg.publish(rt.DiscoSolver.from_store(store, cfg, device="cuda").fit(),
+                cfg)
+    loop = RefitLoop(reg, store, cfg, device="cuda")
+    loop.ingest(*part(n0, X.shape[1]))
+    _, warm = loop.refit(warm=True)
+    _, cold = loop.refit(warm=False)
+    iw, ic = loop.newton_iters(warm), loop.newton_iters(cold)
+    check(warm.converged and cold.converged and 2 * iw <= ic,
+          f"serve-glm warm refit {iw} Newton steps against cold {ic} "
+          f"(gate: at most half), both converged")
+    return dict(warm_newton=iw, cold_newton=ic)
 
 
 # ---------------------------------------------------------------------------
@@ -4003,9 +4544,32 @@ def softmax_phase(torch, rt, build, X, launches) -> None:
         e = rel_w(out[(p, m, 2)], out[(p, m, 1)])
         check(e <= REL_TOL_W, f"softmax {p} m={m} s-step vs classic: rel "
                               f"diff of W {e:.2e}")
+    softmax_hvp_check(torch, X, torch.from_numpy(out[("samples", 1, 1)])
+                      .to(dev))
     softmax_bf16_run(torch, rt, build, X, labels, out[("samples", 1, 1)],
                      launches)
     del labels
+
+
+def softmax_hvp_check(torch, X, W) -> None:
+    """``ops.softmax_hvp`` on the card (K8, the class coupling, K9: the
+    solver's operator, 8 + 2 columns) at the fitted ``W``'s probabilities
+    on a random direction, unweighted and with a 0/1 mask of a fifth of
+    the samples, against the plain ``ref.ref_softmax_hvp`` on the same
+    inputs (relative L2 ``REL_TOL_KERNEL``). A check only: run between
+    the launch windows."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=X.device).manual_seed(4)
+    P = ref.ref_softmax_probs(X.T @ W)
+    U = torch.randn(W.shape, generator=g, device=X.device)
+    mask = (torch.rand(X.shape[1], generator=g, device=X.device) > 0.2
+            ).float()
+    for tag, wts in (("unweighted", None), ("masked", mask)):
+        got = ops.softmax_hvp(X, P, U, lam=1e-3, weights=wts)
+        e = rel_err(got, ref.ref_softmax_hvp(X, P, U, 1e-3, weights=wts))
+        check(e <= REL_TOL_KERNEL, f"softmax_hvp K={W.shape[1]} {tag} on "
+                                   f"the card against its plain version: "
+                                   f"rel err {e:.2e}")
 
 
 def softmax_bf16_run(torch, rt, build, X, labels, f32_W, launches) -> None:
@@ -5177,8 +5741,16 @@ def main() -> int:
     small_bf16_reference(torch, rt)
     small_bf16_dense_reference(torch, rt)
     small_comparisons(torch, rt)
-    timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref, errs)
-    t_sparse = time.perf_counter() - t_start
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = dict(dir=tmp)
+        timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref,
+                                        errs, keep)
+        t_sparse = time.perf_counter() - t_start
+        serve_glm_phase(torch, rt, build, sparse_hvp, ref, keep, launches,
+                        timings)
+        del keep
+        gc.collect()
+        torch.cuda.empty_cache()
     dense_timings, dense_launches = phase_dense(torch, rt, build, glm_hvp,
                                                 ref, errs)
     timings.update(dense_timings)

@@ -1,5 +1,6 @@
 """Analytic communication accounting (paper Tables 2-4), classic and
-s-step PCG, and the HVP's device-memory byte model.
+s-step PCG, the HVP's device-memory byte model and the serving cost
+models.
 
 Counts the collectives the way the paper does:
 
@@ -286,6 +287,81 @@ def disco_streaming_iter_time(shard_nnz, pcg_iters: int, partition: str,
                 total_no_overlap_s=total_naive,
                 overlap_savings_s=total_naive - total,
                 straggler=base["straggler"])
+
+
+# ---------------------------------------------------------------------------
+# online serving (repro_torch.glm_serve)
+#
+# A scoring tick runs ONE kernel launch for the whole micro-batch, whose
+# fixed cost dwarfs the per-request sparse dot product: sequential
+# single-request scoring is dispatch-bound and micro-batching B requests
+# amortizes the dispatch over B. The constants below are the model's
+# parameters, copied from ``repro.core.comm``; they are not measurements
+# of any device.
+# ---------------------------------------------------------------------------
+
+def scoring_flops(nnz: int) -> int:
+    """Flops of scoring stored request nonzeros: one multiply-add per
+    nonzero of the packed request batch (margins only; the loss link is
+    O(batch))."""
+    return 2 * nnz
+
+
+def glm_serving_tick_time(batch: int, nnz_per_req: float, *,
+                          ell_width: int, block_b: int, block_d: int,
+                          dispatch_s: float = 2e-4,
+                          flops_per_sec: float = 5e11,
+                          bytes_per_sec: float = 1e10) -> dict:
+    """Modeled seconds for ONE micro-batched scoring tick of ``batch``
+    requests (``repro.core.comm.glm_serving_tick_time``).
+
+    Three terms: the fixed per-tick ``dispatch_s``, paid once a tick
+    whatever the batch; wire time for staging the *padded* tile stream
+    (``ceil(batch / block_b) * ell_width`` tiles of ``block_b * block_d``
+    f32 values) at ``bytes_per_sec``; and compute time for the useful flops
+    (:func:`scoring_flops` over ``batch * nnz_per_req`` nonzeros) at
+    ``flops_per_sec``. The defaults are the model's parameters, not a
+    card's figures.
+
+    Returns a dict with ``dispatch_s``, ``stage_s``, ``compute_s``,
+    ``total_s`` and ``per_request_s``.
+    """
+    n_row_blocks = -(-max(batch, 1) // block_b)
+    tile_bytes = n_row_blocks * ell_width * block_b * block_d \
+        * BYTES_PER_FLOAT
+    stage_s = tile_bytes / bytes_per_sec
+    compute_s = scoring_flops(int(batch * nnz_per_req)) / flops_per_sec
+    total = dispatch_s + stage_s + compute_s
+    return dict(dispatch_s=dispatch_s, stage_s=stage_s,
+                compute_s=compute_s, total_s=total,
+                per_request_s=total / max(batch, 1))
+
+
+def glm_serving_throughput(batch: int, nnz_per_req: float, *,
+                           ell_width: int, block_b: int, block_d: int,
+                           dispatch_s: float = 2e-4,
+                           flops_per_sec: float = 5e11,
+                           bytes_per_sec: float = 1e10) -> dict:
+    """Modeled requests/second of micro-batched against sequential scoring
+    (``repro.core.comm.glm_serving_throughput``).
+
+    ``batched_rps`` runs ticks of ``batch`` requests; ``sequential_rps``
+    batch-1 ticks (one dispatch a request). Their ratio ``speedup``
+    approaches ``dispatch_s / per_request_work`` as requests shrink.
+    """
+    tick = glm_serving_tick_time(
+        batch, nnz_per_req, ell_width=ell_width, block_b=block_b,
+        block_d=block_d, dispatch_s=dispatch_s,
+        flops_per_sec=flops_per_sec, bytes_per_sec=bytes_per_sec)
+    single = glm_serving_tick_time(
+        1, nnz_per_req, ell_width=ell_width, block_b=block_b,
+        block_d=block_d, dispatch_s=dispatch_s,
+        flops_per_sec=flops_per_sec, bytes_per_sec=bytes_per_sec)
+    batched_rps = batch / tick["total_s"]
+    sequential_rps = 1.0 / single["total_s"]
+    return dict(batched_rps=batched_rps, sequential_rps=sequential_rps,
+                speedup=batched_rps / sequential_rps,
+                tick_s=tick["total_s"])
 
 
 def elastic_replan_model(chunk_seconds, schedule_before, schedule_after,

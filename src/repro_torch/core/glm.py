@@ -104,13 +104,28 @@ class GLMProblem:
 
     # -- inference ---------------------------------------------------------
     def decision_function(self, w, X=None) -> torch.Tensor:
-        """Margins ``X^T w`` for new dense data ``(d, n_new)`` (default:
-        the training data), on ``X``'s device."""
+        """Margins ``X^T w`` for new data (default: the training data), on
+        the problem's device.
+
+        ``X`` may be a dense ``(d, n_new)`` array or tensor, multiplied on
+        the problem's device, or a feature-major
+        :class:`repro_torch.data.sparse.CSRMatrix`, which stays sparse (one
+        O(nnz) host pass, :func:`glm_margins`) and whose margins are then
+        moved there: both give the same margins, as in
+        ``repro.core.glm.GLMProblem.decision_function``.
+        """
+        from repro_torch.data.sparse import CSRMatrix
+
+        if isinstance(X, CSRMatrix):
+            w = w.cpu().numpy() if isinstance(w, torch.Tensor) \
+                else np.asarray(w)
+            return torch.from_numpy(glm_margins(X, w)).to(self.X.device)
         X = self.X if X is None else _tensor(X, self.X.device)
         return X.T @ _tensor(w, X.device)
 
     def predict(self, w, X=None) -> torch.Tensor:
-        """Predicted response for a fitted ``w``.
+        """Predicted response for a fitted ``w`` (``X`` as for
+        :meth:`decision_function`).
 
         Classification losses ('logistic', 'squared_hinge') return +-1
         by the sign of the margin (ties break to +1); 'quadratic' and
@@ -123,3 +138,14 @@ class GLMProblem:
         if self.loss.name == "poisson":
             return torch.exp(a)
         return torch.where(a >= 0, 1.0, -1.0).to(a.dtype)
+
+    def predict_proba(self, w, X=None) -> torch.Tensor:
+        """P(y = +1 | x) under the logistic model: ``sigmoid(margin)``,
+        computed in float64 and cast back to the margins' dtype. Only the
+        'logistic' loss has this reading; any other raises ValueError."""
+        if self.loss.name != "logistic":
+            raise ValueError(
+                f"predict_proba needs the 'logistic' loss, problem uses "
+                f"{self.loss.name!r}")
+        a = self.decision_function(w, X)
+        return (1.0 / (1.0 + torch.exp(-a.double()))).to(a.dtype)

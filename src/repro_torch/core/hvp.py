@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.data.sparse import EllPair
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import ref_softmax_coupling
 from repro_torch.obs import tracer as obs
 
 FAMILIES = ("binary", "softmax")
@@ -465,15 +466,7 @@ class SoftmaxHvpOperator:
         """The class coupling ``S = P.*V - P.*rowsum(P.*V)`` of ``V``
         (n, K) or (n, K, s) (per trailing batch column), sample weights
         folded in."""
-        P = self.probs if V.dim() == 2 else self.probs[:, :, None]
-        PV = P * V
-        S = PV - P * torch.sum(PV, dim=1, keepdim=True)
-        if self.weights is not None:
-            wts = self.weights[:, None]
-            if V.dim() == 3:
-                wts = wts[:, :, None]
-            S = wts * S
-        return S
+        return ref_softmax_coupling(self.probs, V, self.weights)
 
     def apply(self, U):
         """Local K-class Hessian product on one ``(d_loc, K)`` direction:

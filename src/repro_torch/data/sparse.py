@@ -327,6 +327,19 @@ def ell_from_csr(csr: CSRMatrix, block_rows: int, block_cols: int,
                       block=(block_rows, block_cols))
 
 
+def ell_pair_from_csr(csr: CSRMatrix, block_rows: int, block_cols: int,
+                      width: int | None = None, width_t: int | None = None
+                      ) -> tuple[BlockedEll, BlockedEll]:
+    """Forward and transposed blocked-ELL layouts of one shard's matrix
+    (``repro.data.sparse.ell_pair_from_csr``): ``ell_from_csr`` of ``csr``
+    in ``(block_rows, block_cols)`` tiles at ``width``, and of its
+    transpose in ``(block_cols, block_rows)`` tiles at ``width_t``."""
+    fwd = ell_from_csr(csr, block_rows, block_cols, width=width)
+    tr = ell_from_csr(csr.transpose(), block_cols, block_rows,
+                      width=width_t)
+    return fwd, tr
+
+
 def ell_tile_widths(csr: CSRMatrix, block_rows: int, block_cols: int
                     ) -> tuple[int, int]:
     """Natural blocked-ELL widths of a matrix, forward and transposed.

@@ -381,14 +381,49 @@ class _Slot:
         self.ready = torch.cuda.Event()
 
 
-class _Pinned:
-    """One pinned staging set, and the event of its last copy."""
+class PinnedStaging:
+    """A pinned host buffer that ships several host arrays to the device
+    in one copy: :meth:`stage` packs them at :data:`_ALIGN`-aligned
+    offsets, copies the packed bytes with one ``copy_`` on the current
+    stream and returns each array's view of the device buffer, in its own
+    dtype and shape. ``copied`` is the event of the last copy out of the
+    buffer, which must be done before the buffer is written again
+    (:meth:`wait_free`)."""
 
     def __init__(self, nbytes: int):
         self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         self.host = self.buf.numpy()
         self.copied = torch.cuda.Event()
         self.used = False
+
+    @staticmethod
+    def nbytes(arrays) -> int:
+        """Bytes ``arrays`` take staged, the padding between them
+        included."""
+        return _segments([a.nbytes for a in arrays])[-1][1]
+
+    def wait_free(self, cancel: threading.Event | None = None) -> None:
+        """Wait until the last copy out of the buffer is done (polled, so
+        no synchronizing call is made); raises ``_Cancelled`` if ``cancel``
+        is set meanwhile."""
+        while self.used and not self.copied.query():
+            if cancel is not None and cancel.is_set():
+                raise _Cancelled()
+            time.sleep(5e-5)
+
+    def stage(self, arrays, dst: torch.Tensor) -> list[torch.Tensor]:
+        """Copy contiguous host ``arrays`` to the front of ``dst`` (a uint8
+        device tensor of at least :meth:`nbytes` bytes) in one copy on the
+        current stream; returns their views of ``dst``."""
+        segs = _segments([a.nbytes for a in arrays])
+        staged = segs[-1][1]
+        for a, (lo, hi) in zip(arrays, segs):
+            self.host[lo:hi] = a.reshape(-1).view(np.uint8)
+        dst[:staged].copy_(self.buf[:staged], non_blocking=True)
+        self.copied.record(torch.cuda.current_stream(dst.device))
+        self.used = True
+        return [dst[lo:hi].view(_torch_dtype(a.dtype)).view(a.shape)
+                for a, (lo, hi) in zip(arrays, segs)]
 
 
 def _segments(sizes: list[int]) -> list[tuple[int, int]]:
@@ -420,7 +455,8 @@ class _DevicePlane:
             # the staging, then the tiles and the fused kernels' state
             self.slot_bytes = self.staged_max + tiles + state + 4 * _ALIGN
             self.slots = [_Slot(self.slot_bytes, device) for _ in range(n)]
-            self.pinned = [_Pinned(self.staged_max) for _ in range(n)]
+            self.pinned = [PinnedStaging(self.staged_max)
+                           for _ in range(n)]
         self.free: queue.Queue = queue.Queue()
         for i in range(n):
             self.free.put(i)
@@ -436,17 +472,13 @@ class _DevicePlane:
                 if cancel is not None and cancel.is_set():
                     raise _Cancelled()
 
-    def _pinned_set(self, cancel) -> _Pinned:
+    def _pinned_set(self, cancel) -> PinnedStaging:
         with self._lock:
             pin = self.pinned[self._next_pin]
             self._next_pin = (self._next_pin + 1) % len(self.pinned)
         # a host wait in the producer, off the consumer: the last copy out
-        # of this set must be done before it is overwritten (polled, so no
-        # synchronizing call is made)
-        while pin.used and not pin.copied.query():
-            if cancel is not None and cancel.is_set():
-                raise _Cancelled()
-            time.sleep(5e-5)
+        # of this set must be done before it is overwritten
+        pin.wait_free(cancel)
         return pin
 
     def stage(self, plan: "StreamPlan", host: _HostStep,
@@ -465,25 +497,17 @@ class _DevicePlane:
     def _stage(self, plan, host, slot_id, cancel, waited) -> Payload:
         slot = self.slots[slot_id]
         arrays, index = _step_arrays(host)
-        segs = _segments([a.nbytes for a in arrays])
-        staged = segs[-1][1]
+        staged = PinnedStaging.nbytes(arrays)
         t0 = time.perf_counter()
         pin = self._pinned_set(cancel)
         waited += time.perf_counter() - t0
-        for a, (lo, hi) in zip(arrays, segs):
-            pin.host[lo:hi] = a.reshape(-1).view(np.uint8)
         dev = self.device
         with torch.cuda.device(dev), torch.cuda.stream(self.copy):
             if slot.released:
                 self.copy.wait_event(slot.release)
-            dst = slot.buf[:staged]
-            dst.copy_(pin.buf[:staged], non_blocking=True)
-            pin.copied.record(self.copy)
-            pin.used = True
             # the column ids, schedules and step tables are used where
             # they landed; the tiles and the fused kernels' state follow
-            views = [dst[lo:hi].view(_torch_dtype(a.dtype)).view(a.shape)
-                     for a, (lo, hi) in zip(arrays, segs)]
+            views = pin.stage(arrays, slot.buf)
             pos = -(-staged // _ALIGN) * _ALIGN
 
             def region(nbytes, dtype, shape):

@@ -177,6 +177,35 @@ def x_c_xt_u(X, c, u):
     return _ref.ref_x_c_xt_u(X, c, u)
 
 
+def softmax_coupling(probs, V, weights=None):
+    """Softmax class coupling ``S = P .* V - P .* rowsum(P .* V)``, the
+    (n, K) term between pass A and pass B of the multinomial Hessian
+    product: elementwise work and one row sum, plain torch on the tensors'
+    device (the reference's op has no kernel either)."""
+    return _ref.ref_softmax_coupling(probs, V, weights)
+
+
+def softmax_hvp(X, probs, U, *, lam=0.0, n_global=None, weights=None):
+    """Multinomial softmax Hessian product ``H U = X S / n + lam U``.
+
+    On the card all K classes of ``U`` (d, K) ride one multi-vector pass
+    each way through the port's softmax solver's operator
+    (:class:`repro_torch.core.hvp.SoftmaxHvpOperator`): ``xt_multi`` (K8),
+    the class coupling (:func:`softmax_coupling`), then ``x_cz_multi``
+    (K9), in column groups of ``MAX_COLS``. The one-pass K10 cannot carry
+    the coupling, which sits between the passes. On the CPU the plain
+    :func:`repro_torch.kernels.ref.ref_softmax_hvp`.
+    """
+    # the solver's operator (imported here: core imports this module)
+    from repro_torch.core.hvp import DenseKernelOperator, SoftmaxHvpOperator
+    n = X.shape[1] if n_global is None else n_global
+    if not _on_cuda(X, probs, U, weights):
+        return _ref.ref_softmax_hvp(X, probs, U, lam, n_global=n,
+                                    weights=weights)
+    op = SoftmaxHvpOperator(DenseKernelOperator(X, None), probs, weights)
+    return op.apply(U) / n + lam * U
+
+
 # ---------------------------------------------------------------------------
 # blocked-ELL sparse HVP
 # ---------------------------------------------------------------------------

@@ -163,6 +163,40 @@ def handoff_rate_ok(flips: int, numel: int) -> bool:
     return flips <= 1 + numel // 1000
 
 
+def ref_softmax_probs(A):
+    """Row-stochastic class probabilities ``P = softmax(A)`` over the
+    trailing (class) axis with the max shift (A : (n, K) margins ``X^T
+    W``), as ``repro.kernels.ref.ref_softmax_probs``."""
+    A = A - torch.amax(A, dim=-1, keepdim=True)
+    E = torch.exp(A)
+    return E / torch.sum(E, dim=-1, keepdim=True)
+
+
+def ref_softmax_coupling(P, V, weights=None):
+    """Softmax class coupling ``S = P .* V - P .* rowsum(P .* V)``: the
+    (n, K) term between the multi-vector pass A (``V = X^T U``) and pass B
+    (``X S``); ``weights`` (n,) optionally masks padded samples. ``V`` may
+    also be (n, K, s), s stacked directions, each coupled by the same
+    (n, K) ``P``."""
+    if V.dim() == 3:
+        P = P[:, :, None]
+    PV = P * V
+    S = PV - P * torch.sum(PV, dim=1, keepdim=True)
+    if weights is not None:
+        S = weights.reshape(-1, *[1] * (S.dim() - 1)) * S
+    return S
+
+
+def ref_softmax_hvp(X, P, U, lam, n_global=None, weights=None):
+    """Multinomial softmax Hessian product on stacked directions,
+    ``H U = X S / n + lam U`` with ``S`` the class coupling of ``V = X^T
+    U``; X (d, n), P (n, K) probabilities, U (d, K)."""
+    n = X.shape[1] if n_global is None else n_global
+    V = X.T @ U
+    S = ref_softmax_coupling(P, V, weights)
+    return X @ S / n + lam * U
+
+
 def _round_to(x, dtype):
     """``x`` rounded to the tile dtype and back to f32: the identity for
     f32 tiles, round to nearest even for bf16 (as the TPU kernels'

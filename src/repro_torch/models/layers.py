@@ -27,6 +27,19 @@ def make_param(shape, dtype, device, fill=None) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def truncated_normal(generator, shape, std, dtype, device=None):
+    """``std`` times a standard normal truncated to [-2, 2], drawn in f32
+    from ``generator`` on ``device`` (default: the generator's) and cast
+    to ``dtype`` (the
+    distribution of ``repro.models.layers.truncated_normal``; its draws
+    come from ``jax.random`` and cannot be reproduced bit for bit)."""
+    w = torch.empty(shape, dtype=torch.float32,
+                    device=generator.device if device is None else device)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    return w.to(dtype)
+
+
 @torch.no_grad()
 def truncated_normal_(param, std, generator):
     """Fill ``param`` with std * N(0, 1) truncated to [-2, 2] (as
@@ -34,10 +47,8 @@ def truncated_normal_(param, std, generator):
     ``generator`` on the parameter's device, then cast."""
     if generator is None:
         return param
-    w = torch.empty(param.shape, dtype=torch.float32, device=param.device)
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-    param.copy_(w)
+    param.copy_(truncated_normal(generator, param.shape, std,
+                                 torch.float32, param.device))
     return param
 
 

@@ -949,6 +949,29 @@ def test_cuda_softmax_fit_matches_cpu(dev, partition, m, s, use_kernel):
         assert counts["xt_multi"] > 0 and counts["x_cz_multi"] > 0
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("K", [5, 13])
+def test_cuda_softmax_hvp_matches_plain(dev, weighted, K):
+    """``ops.softmax_hvp`` on the card (K8, the class coupling, K9; at
+    K = 13 in column groups of 8 + 5) against the plain
+    ``ref.ref_softmax_hvp`` on the same inputs (relative L2 1e-5), with
+    ``lam``, ``n_global`` and, weighted, a 0/1 mask of padded samples."""
+    rng = np.random.default_rng(10 * K + weighted)
+    d, n = 300, 517
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    X = T(rng.standard_normal((d, n)))
+    P = ref.ref_softmax_probs(T(rng.standard_normal((n, K))))
+    U = T(rng.standard_normal((d, K)))
+    wts = T(rng.uniform(size=n) > 0.2) if weighted else None
+    build.reset_launch_counts()
+    got = ops.softmax_hvp(X, P, U, lam=1e-3, n_global=2 * n, weights=wts)
+    counts = build.launch_counts()
+    groups = -(-K // build.MAX_COLS)
+    assert counts["xt_multi"] == counts["x_cz_multi"] == groups, counts
+    want = ref.ref_softmax_hvp(X, P, U, 1e-3, n_global=2 * n, weights=wts)
+    assert got.shape == (d, K) and _rel(got, want) <= 1e-5
+
+
 def test_cuda_lambda_path_matches_cpu(dev):
     """A small λ-path on the fused dense s-step solve (x_c_xt_multi in
     every round) on the card equals the same path on the CPU."""
@@ -2059,3 +2082,114 @@ def test_cuda_streamed_equals_one_shard_per_chunk(dev, tmp_path, kw):
     np.testing.assert_array_equal(streamed.w, inmem.w)
     assert [h["pcg_iters"] for h in streamed.history] == \
         [h["pcg_iters"] for h in inmem.history]
+
+
+# ---------------------------------------------------------------------------
+# GLM serving: K1 on the scoring micro-batch layouts, engine card vs CPU
+# ---------------------------------------------------------------------------
+
+def _serve_requests(d, k, seed, nnz=24):
+    """``k`` requests of ``nnz`` features each, every fifth one empty."""
+    from repro_torch.glm_serve import ScoreRequest
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(k):
+        m = 0 if i % 5 == 4 else nnz
+        idx = rng.choice(d, size=m, replace=False).astype(np.int64)
+        out.append(ScoreRequest(idx, rng.standard_normal(m)
+                                .astype(np.float32)))
+    return out
+
+
+def _sync_count(fn):
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("tiles", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 7, 64, 1024])
+def test_cuda_k1_on_scoring_layouts(dev, tiles, batch):
+    """K1 at 8 x 128 tiles on packed micro-batches (a short batch
+    included): with the plan's schedule and without, against the plain
+    version at the same tiles (1e-5), repeated bit for bit, and with NaN
+    in the slots past each row-block's live ones, which the scheduled call
+    must not read. The card's pack equals the CPU's bit for bit."""
+    from repro_torch.data.sparse import hvp_tile_dtype
+    from repro_torch.glm_serve import RequestPacker
+    d = 3000
+    reqs = _serve_requests(d, max(1, batch - batch // 3), seed=batch)
+    kw = dict(block_b=8, block_d=128, tile_dtype=hvp_tile_dtype(tiles))
+    p = RequestPacker(d, batch, device=dev, **kw)
+    data, cols, sched = p.pack_scheduled(reqs)
+    cdata, ccols = RequestPacker(d, batch, device="cpu", **kw).pack(reqs)
+    assert torch.equal(data.cpu().float(), cdata.float())
+    assert torch.equal(cols.cpu(), ccols)
+    w = p.pad_weights(np.random.default_rng(0).standard_normal(d)
+                      .astype(np.float32))
+    want = ref.ref_ell_mv(data, cols, w)
+    for s in (sched, None):
+        got = ops.ell_matvec(data, cols, w, sched=s)
+        assert _rel(got, want) <= 1e-5
+        assert torch.equal(got, ops.ell_matvec(data, cols, w, sched=s))
+    live = sched[:data.shape[0]].long()
+    pad = torch.arange(data.shape[1], device=dev)[None, :] >= live[:, None]
+    poisoned = data.clone()
+    poisoned[pad] = float("nan")
+    got = ops.ell_matvec(poisoned, cols, w, sched=sched)
+    assert torch.equal(got, ops.ell_matvec(data, cols, w, sched=sched))
+
+
+def test_cuda_k1_empty_scoring_batch(dev):
+    """An all-padding pack has a schedule with no live tile: K1 writes
+    zeros."""
+    from repro_torch.glm_serve import RequestPacker
+    p = RequestPacker(1000, 64, device=dev)
+    data, cols, sched = p.pack_scheduled([])
+    assert int(sched[:data.shape[0]].sum()) == 0
+    y = ops.ell_matvec(data, cols, p.pad_weights(np.ones(1000, np.float32)),
+                       sched=sched)
+    assert torch.equal(y, torch.zeros_like(y))
+
+
+@pytest.mark.parametrize("hvp_dtype", ["float32", "bfloat16"])
+def test_cuda_scoring_engine_matches_cpu(dev, hvp_dtype, tmp_path):
+    """The engine on the card against the same engine on the CPU (1e-6)
+    and the oracle (1e-5 at f32, 2e-2 at bf16), each of the largest
+    margin (bench_serving's gate: a margin's own f32 sum of 40 products
+    rounds by more than 1e-6 of itself where they cancel), one host sync
+    a tick, K1 launched once a tick, and the scheduler's completions equal
+    ``score``'s."""
+    from repro_torch.glm_serve import (MicroBatchScheduler, ScoringEngine,
+                                       oracle_margins)
+    d = 5000
+    reqs = _serve_requests(d, 300, seed=1, nnz=40)
+    w = np.random.default_rng(2).standard_normal(d).astype(np.float32)
+    eng = ScoringEngine(w, loss="logistic", hvp_dtype=hvp_dtype, device=dev)
+    cpu = ScoringEngine(w, loss="logistic", hvp_dtype=hvp_dtype,
+                        device="cpu")
+    got = eng.score(reqs)
+    want = oracle_margins(reqs, w)
+    scale = np.abs(want).max()
+    assert np.abs(got - cpu.score(reqs)).max() <= 1e-6 * scale
+    lim = 1e-5 if hvp_dtype == "float32" else 2e-2
+    assert np.abs(got - want).max() <= lim * scale
+    name = "ell_mv" if hvp_dtype == "float32" else "ell_mv_bf16"
+    build.reset_launch_counts()
+    n = _sync_count(lambda: eng.score(reqs[:64]))
+    assert n == 1, n
+    assert build.launch_counts()[name] == 1
+    build.reset_launch_counts()
+    eng.score(reqs)
+    assert build.launch_counts()[name] == -(-len(reqs) // 64)
+    sched = MicroBatchScheduler(eng)
+    rids = [sched.submit(r) for r in reqs]
+    fin = sched.run_until_done()
+    assert [fin[r].margin for r in rids] == [float(a) for a in got]

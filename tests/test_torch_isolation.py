@@ -182,6 +182,40 @@ SCRIPT = textwrap.dedent("""
         assert tracer.span_count("stream.pass") > 0
         assert tracer.span_count("pcg.round") > 0
         obs.disable()
+        # GLM serving: publish -> load -> score -> run_until_done ->
+        # refit_path
+        import repro_torch.glm_serve
+        from repro_torch.glm_serve import (MicroBatchScheduler,
+                                           ModelRegistry, RefitLoop,
+                                           ScoreRequest, ScoringEngine,
+                                           oracle_margins)
+        tracer = obs.enable(reset=True)
+        cfg = DiscoConfig(partition="samples", tau=16, max_outer=2,
+                          ell_block_d=8, ell_block_n=8, partition_block=16,
+                          stream_chunk_size=16)
+        reg = ModelRegistry(os.path.join(tmp, "reg"))
+        reg.publish(disco_fit(X, y, cfg, device="cpu"), cfg)
+        assert reg.load().w.shape == (48,)
+        eng = ScoringEngine(reg, batch=4, block_b=2, block_d=8,
+                            device="cpu")
+        Xd = X.todense()
+        reqs = [ScoreRequest.from_dense(Xd[:, j]) for j in range(9)]
+        sched = MicroBatchScheduler(eng)
+        rids = [sched.submit(r) for r in reqs]
+        fin = sched.run_until_done()
+        got = np.array([fin[r].margin for r in rids], np.float32)
+        assert np.allclose(got, oracle_margins(reqs, reg.load().w),
+                           rtol=1e-5, atol=1e-6)
+        assert np.allclose(eng.score(reqs), got, rtol=0, atol=0)
+        store = ShardStore.from_csr(X, y, os.path.join(tmp, "refit"),
+                                    axis="samples", chunk_size=16)
+        loop = RefitLoop(reg, store, cfg, device="cpu")
+        v, path = loop.refit_path([1e-2, 1e-3], X_val=X, y_val=y)
+        assert v == 2 and reg.active_version() == 2
+        assert loop.cfg.lam == path.best_lambda
+        assert tracer.span_count("serve.tick") == 3
+        assert tracer.span_count("registry.publish") == 2
+        obs.disable()
     leaked = sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro.")
                     or (m.split(".")[0] in ("jax", "ml_dtypes")
