@@ -171,7 +171,23 @@ Eight phases; any failed check makes the exit code nonzero.
    refit of the 4,096-chunk store grown by n/16 samples, bit for bit the
    in-memory solve whose shards are the chunks; ``refit_path`` over the
    λ grid with 4,096 validation samples; and bench_serving's
-   warm-against-cold gate on its own small problem.
+   warm-against-cold gate on its own small problem. Between the slice's
+   runs and the serving plane, the multi-process solve (``dist_phase``,
+   lines ``dist ...``): the slice's CSR written once, then
+   ``repro_torch.parallel.launch.spawn`` runs DiSCO-S and DiSCO-F at
+   m = 4 on four gloo ranks sharing the card (one shard a rank, payloads
+   staged through pinned host buffers; DiSCO-F cut to its first 4 Newton
+   steps) and DiSCO-S at m = 1 on one NCCL rank; every rank's ``w``,
+   history, ledger and partition info must equal its one-process twin of
+   the slice's runs (DiSCO-F's: that run's solver refit to 4 steps, whose
+   history is the 10-step run's first 4 entries) bit for bit, every
+   rank the same, each rank must launch ``ell_mv`` (its launches join
+   the kernels line's); printed per run: the ranks' set-up and fit
+   seconds beside the one-process run's, the group's vector and scalar
+   all-reduces, floats and staged bytes, the seconds inside collectives
+   and their share of the fit, and host syncs. Four ranks on one card
+   measure process overhead and host staging, not a cluster; multi-card
+   NCCL is not measured.
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
@@ -262,6 +278,7 @@ package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -2115,9 +2132,15 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs, keep):
             timings.update(measure_sparse_multi(torch, solver, sparse_hvp,
                                                 ref, errs))
             torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
         res, counts = fit_counted(torch, build, solver)
+        fit_s = time.perf_counter() - t_fit
         for k in SPARSE_KERNELS:
             launches[k] += counts[k]
+        if (partition, m, fused) in DIST_TWINS:
+            keep.setdefault("twins", {})[(partition, m)] = dist_twin(
+                torch, solver, res, setup_s, fit_s, DIST_DEPTH[(partition,
+                                                                m)])
         row = run_row(torch, tag, res, counts, setup_s,
                       imbalance=res.partition_info["imbalance"],
                       ell_bytes=ell_bytes,
@@ -2235,6 +2258,182 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
             check(e <= 1e-4, f"{prefix}s-step {p} fused vs two-pass: rel "
                              f"diff of w {e:.2e}")
     return {k: (w, iters[k]) for k, w in results.items()}
+
+
+# ---------------------------------------------------------------------------
+# the multi-process solve (phase 3, after the slice's runs)
+# ---------------------------------------------------------------------------
+
+# the one-process runs of RUNS the ranks are held to, bit for bit
+DIST_TWINS = (("samples", 1, False), ("samples", 4, False),
+              ("features", 4, False))
+DIST_GLOO = (("samples", 4), ("features", 4))   # four gloo ranks on cuda:0
+DIST_NCCL = (("samples", 1),)                   # one NCCL rank
+# Newton steps of each run: DiSCO-F at m = 4 is cut to its first four
+# (315 of its 1,716 PCG iterations) to keep the phase within its budget;
+# its twin is the RUNS solver refit at that depth, whose history is the
+# 10-step run's first four entries
+DIST_DEPTH = {("samples", 4): SOLVE["max_outer"], ("features", 4): 4,
+              ("samples", 1): SOLVE["max_outer"]}
+DIST_TIMEOUT_S = 120.0
+DIST_BUDGET_S = 90.0
+HISTORY_TIMINGS = ("iter_s",)
+
+
+def result_summary(res) -> dict:
+    """A fit's result without its timings (what the ranks must equal)."""
+    import numpy as np
+    led = res.ledger
+    return dict(w=np.asarray(res.w),
+                history=[{k: v for k, v in h.items()
+                          if k not in HISTORY_TIMINGS} for h in res.history],
+                ledger=(led.rounds, led.floats, led.spmd_collectives),
+                partition_info=res.partition_info)
+
+
+def dist_twin(torch, solver, res, setup_s, fit_s, depth) -> dict:
+    """The one-process result a dist run is held to: ``res`` itself, or
+    at a cut depth ``solver``'s refit to ``depth`` Newton steps (timed),
+    whose history must be ``res``'s first ``depth`` entries."""
+    full = result_summary(res)
+    if depth == solver.cfg.max_outer:
+        return dict(summary=full, setup_s=setup_s, fit_s=fit_s)
+    cfg = solver.cfg
+    solver.cfg = dataclasses.replace(cfg, max_outer=depth)
+    try:
+        t0 = time.perf_counter()
+        cut = solver.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        solver.cfg = cfg
+    cut = result_summary(cut)
+    check(cut["history"] == full["history"][:depth],
+          f"dist twin: the {depth}-step refit's history is the "
+          f"{cfg.max_outer}-step run's first {depth} entries")
+    return dict(summary=cut, setup_s=setup_s, fit_s=fit_s)
+
+
+def same_result(a: dict, b: dict) -> bool:
+    import numpy as np
+    return (a["w"].dtype == b["w"].dtype and np.array_equal(a["w"], b["w"])
+            and a["history"] == b["history"] and a["ledger"] == b["ledger"]
+            and a["partition_info"] == b["partition_info"])
+
+
+def dist_rank(group, path: str, runs) -> dict:
+    """The body of a rank of the dist phase (a new interpreter): the
+    slice's CSR from ``path``, then per ``(partition, m)`` run a
+    ``DiscoSolver`` on this rank's shard (``SOLVE``, classic, two-pass,
+    ``DIST_DEPTH`` Newton steps) and one fit under sync debug mode with
+    the launch counts and the group's counters zeroed just before it."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    arr = np.load(path)
+    X = rt.CSRMatrix(arr["indptr"], arr["indices"], arr["data"],
+                     tuple(arr["shape"]))
+    y = arr["y"]
+    dev = group.device or torch.device("cuda")
+    out = {}
+    for partition, m in runs:
+        if m != group.size:
+            raise ValueError(f"run of m = {m} on {group.size} ranks")
+        cfg = rt.DiscoConfig(**dict(
+            SOLVE, partition=partition, hvp_fused=False,
+            max_outer=DIST_DEPTH[(partition, m)]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = rt.DiscoSolver(X, y, cfg, group=group, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        group.reset_counts()
+        t0 = time.perf_counter()
+        res, counts, syncs = synced_fit(torch, build, solver)
+        fit_s = time.perf_counter() - t0
+        out[(partition, m)] = dict(
+            summary=result_summary(res), setup_s=setup_s, fit_s=fit_s,
+            launches=counts, host_syncs=syncs, group=group.counts(),
+            shard_bytes=4 * (solver.ell_data.numel()
+                             + solver.ell_dataT.numel()))
+        del solver, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_phase(torch, keep, launches) -> None:
+    """The multi-process solve (lines ``dist ...``): DiSCO-S and DiSCO-F
+    at m = 4 on four gloo ranks sharing the card, and DiSCO-S at m = 1 on
+    one NCCL rank, each rank a process of
+    :func:`repro_torch.parallel.launch.spawn` holding its own shard, at
+    ``DIST_DEPTH`` Newton steps. Each rank's result must equal its
+    one-process twin of ``RUNS`` (``keep``'s ``twins``, made by
+    :func:`dist_twin`) bit for bit, every rank the same, and each rank
+    must have launched K1; their K1 launches join the kernels line's.
+    Four ranks on one card measure process overhead and host staging, not
+    a cluster."""
+    import numpy as np
+    from repro_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    X, y = keep["X"], keep["y"]
+    path = f"{keep['dir']}/dist_slice.npz"
+    np.savez(path, indptr=X.indptr, indices=X.indices, data=X.data,
+             shape=np.asarray(X.shape), y=np.asarray(y))
+    twins = keep["twins"]
+    for backend, nproc, runs in (("gloo", 4, DIST_GLOO),
+                                 ("nccl", 1, DIST_NCCL)):
+        t0 = time.perf_counter()
+        per_rank = spawn(dist_rank, nproc, backend=backend,
+                         device="cuda" if backend == "gloo" else None,
+                         args=(path, runs), timeout_s=DIST_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        for partition, m in runs:
+            twin = twins[(partition, m)]
+            tag = f"{run_tag(partition, m, False)} {nproc} {backend} rank" \
+                  + ("s" if nproc > 1 else "")
+            rows = [r[(partition, m)] for r in per_rank]
+            for r, row in enumerate(rows):
+                launches["ell_mv"] += row["launches"]["ell_mv"]
+                check(row["launches"]["ell_mv"] > 0,
+                      f"dist {tag}: rank {r} launched ell_mv "
+                      f"({row['launches']['ell_mv']})")
+            same = [same_result(row["summary"], twin["summary"])
+                    for row in rows]
+            check(all(same), f"dist {tag}: every rank's w, history, ledger "
+                             f"and partition_info equal the one-process "
+                             f"m={m} run's bit for bit ({same})")
+            check(all(same_result(row["summary"], rows[0]["summary"])
+                      for row in rows), f"dist {tag}: every rank the same")
+            g = rows[0]["group"]
+            line = dict(
+                run=tag, spawn_s=spawn_s,
+                setup_s=[row["setup_s"] for row in rows],
+                fit_s=[row["fit_s"] for row in rows],
+                one_process_setup_s=twin["setup_s"],
+                one_process_fit_s=twin["fit_s"],
+                newton_iters=len(twin["summary"]["history"]),
+                pcg_iters=sum(int(h["pcg_iters"])
+                              for h in twin["summary"]["history"]),
+                vector_calls=g["vector_calls"],
+                vector_floats=g["vector_floats"],
+                scalar_calls=g["scalar_calls"],
+                gather_calls=g["gather_calls"],
+                ledger_spmd=twin["summary"]["ledger"][2],
+                staged_bytes=[row["group"]["staged_bytes"] for row in rows],
+                collective_s=[row["group"]["seconds"] for row in rows],
+                collective_share=[row["group"]["seconds"] / row["fit_s"]
+                                  for row in rows],
+                host_syncs=[row["host_syncs"] for row in rows],
+                ell_mv=[row["launches"]["ell_mv"] for row in rows],
+                shard_bytes=[row["shard_bytes"] for row in rows])
+            print("dist " + json.dumps(line), flush=True)
+    t_phase = time.perf_counter() - t_phase
+    print(f"dist phase: {t_phase:.1f} s (budget {DIST_BUDGET_S:.0f} s)",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5745,6 +5944,7 @@ def main() -> int:
         keep = dict(dir=tmp)
         timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref,
                                         errs, keep)
+        dist_phase(torch, keep, launches)
         t_sparse = time.perf_counter() - t_start
         serve_glm_phase(torch, rt, build, sparse_hvp, ref, keep, launches,
                         timings)

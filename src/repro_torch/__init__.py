@@ -12,7 +12,10 @@ run on the card unless the caller passes ``device='cpu'``. Input is a sparse
 every HVP of PCG, classic or s-step (``pcg_block_s > 1``), goes through
 the hand-written Hopper kernels of :mod:`repro_torch.kernels` (for dense
 input with ``use_kernel=True``). :func:`load_libsvm_sparse` and
-:func:`load_libsvm` read the paper's libsvm files.
+:func:`load_libsvm` read the paper's libsvm files. The shards of a solve
+live in one process (:class:`InProcessGroup`) or one a process
+(:class:`DistributedGroup`, ``torch.distributed``; the in-memory DiSCO
+solve, the λ-path and the baselines).
 
 The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b:
 :func:`get_config`) are served by :func:`init_params`, :func:`forward`
@@ -35,7 +38,8 @@ from repro_torch.data.sparse import (CSRMatrix, load_libsvm_sparse,
                                      make_sparse_glm_data)
 from repro_torch.data.synthetic import make_glm_data
 from repro_torch.models import decode_step, forward, init_cache, init_params
-from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.parallel.collectives import (DistributedGroup,
+                                              InProcessGroup)
 from repro_torch.serve import ContinuousEngine, Engine, Request
 
 __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
@@ -45,6 +49,7 @@ __all__ = ["DiscoConfig", "DiscoResult", "DiscoSolver", "disco_fit",
            "GDConfig", "gd_fit", "DaneConfig", "dane_fit", "CocoaConfig",
            "cocoa_fit", "CSRMatrix", "load_libsvm", "load_libsvm_sparse",
            "save_libsvm", "make_sparse_glm_data", "make_glm_data",
-           "InProcessGroup", "ModelConfig", "get_config", "get_smoke_config",
+           "InProcessGroup", "DistributedGroup", "ModelConfig", "get_config",
+           "get_smoke_config",
            "init_params", "forward", "init_cache", "decode_step", "Engine",
            "ContinuousEngine", "Request"]

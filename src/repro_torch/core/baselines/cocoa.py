@@ -10,9 +10,9 @@ a single d-vector reduceAll per outer iteration:
 
 Closed-form coordinate step for quadratic loss; a 40-step bisection for
 logistic (its conjugate has no closed-form maximizer). The shards' local
-passes run side by side: step t of every shard is one set of (m,)-wide
-device operations (the same arithmetic per shard as a pass of its own),
-with no host read inside the pass.
+passes run side by side: step t of every shard this process holds is one
+set of (nl,)-wide device operations (the same arithmetic per shard as a
+pass of its own), with no host read inside the pass.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import comm
 from repro_torch.core.baselines.shards import SampleShards
 from repro_torch.core.losses import get_loss
-from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.parallel.collectives import InProcessGroup, local_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +78,15 @@ def _delta_logistic(alpha_i, yi, xv, qi, sigma_p, lam_n):
 def cocoa_fit(X, y, cfg: CocoaConfig | None = None,
               group: InProcessGroup | None = None, device=None):
     """Returns (w, history, ledger). X is a dense (d, n) numpy array or
-    tensor, sharded by samples over ``group``; ``device`` None means the
-    card."""
+    tensor, sharded by samples over ``group`` (under a
+    ``DistributedGroup`` every rank passes the whole X and gets the same
+    result); ``device`` None means the card."""
     cfg = cfg or CocoaConfig()
     loss = get_loss(cfg.loss)
-    sh = SampleShards.create(X, y, group, device)
-    m, d, n_loc = sh.m, sh.d, sh.n_loc
+    group = group or InProcessGroup(1)
+    padded = SampleShards.pad(X, y, group.size, device)
+    sh = SampleShards.create(X, y, group, device, padded=padded)
+    m, d, n_loc, nl = sh.m, sh.d, sh.n_loc, len(sh.locs)
     dev = sh.X.device
     sigma_p = float(m)  # safe aggregation parameter for gamma = 1 (adding)
     H = cfg.local_steps or n_loc
@@ -92,19 +95,21 @@ def cocoa_fit(X, y, cfg: CocoaConfig | None = None,
                 else _delta_logistic)
 
     # a shard's samples as rows, for the per-step gather; label, squared
-    # column norm and weight side by side, one gather a step
-    XT = sh.X.T.reshape(m, n_loc, d).contiguous()
-    side = torch.stack([sh.y, torch.sum(sh.X * sh.X, dim=0).reshape(m, n_loc),
-                        sh.wts], dim=2)
-    rows = torch.arange(m, device=dev)
+    # column norm and weight side by side, one gather a step. The norms
+    # shard by shard: a column sum over the whole block rounds its last
+    # columns by the block's width
+    XT = sh.X.T.reshape(nl, n_loc, d).contiguous()
+    sq = torch.stack([torch.sum(loc * loc, dim=0) for loc in sh.locs])
+    side = torch.stack([sh.y, sq, sh.wts], dim=2)
+    rows = torch.arange(nl, device=dev)
 
     def local_pass(alpha, w, idx):
-        dxa = torch.zeros((m, d), dtype=w.dtype, device=dev)
+        dxa = torch.zeros((nl, d), dtype=w.dtype, device=dev)
         for t in range(H):
             i = idx[:, t]
             xi = XT[rows, i]                                      # (m, d)
             v = w + (sigma_p / lam_n) * dxa
-            v_dot = torch.bmm(xi[:, None, :], v[:, :, None]).reshape(m)
+            v_dot = torch.bmm(xi[:, None, :], v[:, :, None]).reshape(nl)
             yi, qi, wi = side[rows, i].unbind(1)
             delta = delta_fn(alpha[rows, i], yi, v_dot, qi, sigma_p,
                              lam_n) * wi
@@ -113,17 +118,22 @@ def cocoa_fit(X, y, cfg: CocoaConfig | None = None,
         return dxa
 
     # feasible dual start: alpha*y in (0,1) for logistic; 0 fine for
-    # quadratic. w must start dual-consistent: w0 = X alpha0 / (lam n).
-    alpha = 0.5 * sh.y * sh.wts if cfg.loss == "logistic" \
-        else torch.zeros_like(sh.y)
-    w = (sh.X @ alpha.reshape(-1)) / lam_n
+    # quadratic. w must start dual-consistent: w0 = X alpha0 / (lam n),
+    # from the whole padded X on every process (no collective, as the
+    # reference's host product)
+    Xp, yp, wts = padded[:3]
+    alpha = 0.5 * yp * wts if cfg.loss == "logistic" \
+        else torch.zeros_like(yp)
+    w = (Xp @ alpha) / lam_n
+    alpha = alpha.reshape(m, n_loc)[local_slice(group)]
+    del padded, Xp, yp, wts
 
     history: list[dict[str, Any]] = []
     ledger = comm.CommLedger()
     for k in range(cfg.max_outer):
         idx = torch.from_numpy(np.stack([
             cocoa_sample_order(cfg.seed, k, s, H, n_loc)
-            for s in range(m)])).to(dev)
+            for s in group.local])).to(dev)
         dxa = local_pass(alpha, w, idx)
         w = w + sh.group.all_reduce(dxa) / lam_n  # the ONE d-vector reduceAll
         g, fval = sh.objective(loss, cfg.lam, w)

@@ -58,12 +58,13 @@ def dane_fit(X, y, cfg: DaneConfig | None = None,
              group: InProcessGroup | None = None,
              w0: np.ndarray | None = None, device=None):
     """Returns (w, history, ledger). X is a dense (d, n) numpy array or
-    tensor, sharded by samples over ``group``; ``device`` None means the
-    card."""
+    tensor, sharded by samples over ``group`` (under a
+    ``DistributedGroup`` every rank passes the whole X and gets the same
+    result); ``device`` None means the card."""
     cfg = cfg or DaneConfig()
     loss = get_loss(cfg.loss)
     sh = SampleShards.create(X, y, group, device)
-    m = sh.m
+    m, nl = sh.m, len(sh.locs)
     n_loc_eff = sh.n / m  # effective local sample count (uniform partition)
 
     def local_grad(s, wv):
@@ -95,11 +96,11 @@ def dane_fit(X, y, cfg: DaneConfig | None = None,
     history: list[dict[str, Any]] = []
     ledger = comm.CommLedger()
     for k in range(cfg.max_outer):
-        gj = [local_grad(s, w) for s in range(m)]
+        gj = [local_grad(s, w) for s in range(nl)]
         g = sh.group.all_reduce(gj) / m              # round 1 (reduceAll d)
         gnorm = torch.sqrt(torch.dot(g, g))
         w_new = sh.group.all_reduce(                 # round 2 (reduceAll d)
-            [local_solve(s, w, gj[s] - cfg.eta * g) for s in range(m)]) / m
+            [local_solve(s, w, gj[s] - cfg.eta * g) for s in range(nl)]) / m
         fval = sh.value(loss, cfg.lam, w)
         w = w_new
         stats = dict(grad_norm=float(gnorm), f=float(fval))

@@ -43,13 +43,18 @@ def _power_step(X: torch.Tensor, lam: float) -> float:
 def gd_fit(X, y, cfg: GDConfig | None = None,
            group: InProcessGroup | None = None, device=None):
     """Returns (w, history, ledger). X is a dense (d, n) numpy array or
-    tensor, sharded by samples over ``group``; ``device`` None means the
-    card."""
+    tensor, sharded by samples over ``group`` (under a
+    ``DistributedGroup`` every rank passes the whole X and gets the same
+    result); ``device`` None means the card."""
     cfg = cfg or GDConfig()
     loss = get_loss(cfg.loss)
-    sh = SampleShards.create(X, y, group, device)
-    step = _power_step(sh.X[:, :sh.n], cfg.lam) if cfg.step is None \
-        else cfg.step
+    # the step from the whole (padded) X on every process, then the shards
+    padded = SampleShards.pad(X, y, (group or InProcessGroup(1)).size,
+                              device)
+    step = _power_step(padded[0][:, :padded[3]], cfg.lam) \
+        if cfg.step is None else cfg.step
+    sh = SampleShards.create(X, y, group, device, padded=padded)
+    del padded
 
     w = torch.zeros(sh.d, dtype=torch.float32, device=sh.X.device)
     history: list[dict[str, Any]] = []

@@ -1,9 +1,10 @@
-"""A dense ``(d, n)`` problem split by samples over the shards of an
-:class:`~repro_torch.parallel.InProcessGroup`, as the baselines take it.
+"""A dense ``(d, n)`` problem split by samples over the shards of a group
+(:mod:`repro_torch.parallel`), as the baselines take it.
 
 The sample axis is zero-padded to a multiple of ``m``; padded samples
-carry weight 0 (the JAX package's ``pad_to_multiple`` + weights). Each
-shard is a column view of the one device matrix.
+carry weight 0 (the JAX package's ``pad_to_multiple`` + weights). A
+process keeps only the shards it holds (``group.local``): each is a
+column view of its one device block.
 """
 from __future__ import annotations
 
@@ -13,16 +14,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.disco import _to_device, resolve_device
-from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.parallel.collectives import InProcessGroup, local_slice
 from repro_torch.utils.padding import pad_to_multiple
 
 
 @dataclasses.dataclass
 class SampleShards:
-    X: torch.Tensor        # (d, n_padded), f32 on the device
-    y: torch.Tensor        # (m, n_loc) labels, 0 in the padding
-    wts: torch.Tensor      # (m, n_loc) 1 for real samples, 0 for padding
-    locs: list             # m column views (d, n_loc) of X
+    X: torch.Tensor        # (d, nl * n_loc) the local shards' columns, f32
+    y: torch.Tensor        # (nl, n_loc) labels, 0 in the padding
+    wts: torch.Tensor      # (nl, n_loc) 1 for real samples, 0 for padding
+    locs: list             # nl column views (d, n_loc) of X
     group: InProcessGroup
     n: int                 # real samples
 
@@ -38,13 +39,11 @@ class SampleShards:
     def n_loc(self) -> int:
         return self.y.shape[1]
 
-    @classmethod
-    def create(cls, X, y, group: InProcessGroup | None, device
-               ) -> "SampleShards":
-        """``X`` a dense (d, n) numpy array or tensor, ``y`` (n,);
-        ``device`` None means the card."""
-        group = group or InProcessGroup(1)
-        m = group.size
+    @staticmethod
+    def pad(X, y, m: int, device):
+        """The whole problem padded to ``m`` shards on ``device`` (None
+        means the card): ``(Xp (d, n_padded), yp, wts (n_padded,), n)``.
+        ``X`` a dense (d, n) numpy array or tensor, ``y`` (n,)."""
         dev = resolve_device(device)
         if not isinstance(X, torch.Tensor):
             X = np.asarray(X)
@@ -57,17 +56,32 @@ class SampleShards:
         Xp, _ = pad_to_multiple(_to_device(X, dev), 1, m)
         yp, npad = pad_to_multiple(y, 0, m)
         wts = np.pad(np.ones(n, np.float32), (0, npad))
+        return Xp, _to_device(yp, dev), _to_device(wts, dev), n
+
+    @classmethod
+    def create(cls, X, y, group: InProcessGroup | None, device,
+               padded=None) -> "SampleShards":
+        """This process's shards of ``X`` (d, n), ``y`` (n,); ``padded``
+        is :meth:`pad`'s result when the caller already made it (to
+        compute something of the whole problem first)."""
+        group = group or InProcessGroup(1)
+        m, lo, nl = group.size, local_slice(group), len(group.local)
+        Xp, yp, wts, n = padded or cls.pad(X, y, m, device)
         n_loc = Xp.shape[1] // m
-        return cls(X=Xp, y=_to_device(yp, dev).reshape(m, n_loc),
-                   wts=_to_device(wts, dev).reshape(m, n_loc),
-                   locs=[Xp[:, s * n_loc:(s + 1) * n_loc] for s in range(m)],
+        if nl < m:
+            Xp = Xp[:, lo.start * n_loc:lo.stop * n_loc].contiguous()
+        return cls(X=Xp, y=yp.reshape(m, n_loc)[lo],
+                   wts=wts.reshape(m, n_loc)[lo],
+                   locs=[Xp[:, s * n_loc:(s + 1) * n_loc]
+                         for s in range(nl)],
                    group=group, n=n)
 
     def _margins_value(self, loss, lam: float, w: torch.Tensor):
         a = [loc.T @ w for loc in self.locs]
         fval = self.group.all_reduce(
             [torch.sum(loss.value(a[s], self.y[s]) * self.wts[s])
-             for s in range(self.m)]) / self.n + 0.5 * lam * torch.dot(w, w)
+             for s in range(len(self.locs))]) / self.n \
+            + 0.5 * lam * torch.dot(w, w)
         return a, fval
 
     def value(self, loss, lam: float, w: torch.Tensor) -> torch.Tensor:
@@ -81,5 +95,5 @@ class SampleShards:
         a, fval = self._margins_value(loss, lam, w)
         g = self.group.all_reduce(
             [self.locs[s] @ (loss.d1(a[s], self.y[s]) * self.wts[s])
-             for s in range(self.m)]) / self.n + lam * w
+             for s in range(len(self.locs))]) / self.n + lam * w
         return g, fval

@@ -1,9 +1,16 @@
 """DiSCO: inexact damped Newton (paper Algorithm 1) with distributed PCG.
 
-``DiscoSolver`` owns the sharded data on one device, the Newton step and the
-outer loop. The step — gradient, PCG (Algorithm 2 or 3), damped update —
-runs over the ``m`` shards of an :class:`repro_torch.parallel.InProcessGroup`,
-so every collective the algorithm pays is an explicit ``all_reduce``.
+``DiscoSolver`` owns the sharded data, the Newton step and the outer loop.
+The step — gradient, PCG (Algorithm 2 or 3), damped update — runs over the
+shards of a group: all ``m`` in this process on one device
+(:class:`repro_torch.parallel.InProcessGroup`), or one a process
+(:class:`repro_torch.parallel.DistributedGroup`, each rank holding its
+shard on its device); either way every collective the algorithm pays is
+an explicit ``all_reduce`` and the loops run over ``group.local``, the
+shards this process holds. At a given ``m`` the two groups give the same
+result bit for bit: the host builds the same partition and layouts, each
+process keeps its shards of them, and every cross-shard sum is the
+groups' ordered sum.
 
 Partitioning:
   * ``partition='samples'``  -> DiSCO-S (Algorithm 2)
@@ -65,7 +72,8 @@ from repro_torch.kernels.sparse_hvp import (default_ctas,
                                             ell_schedule,
                                             schedule_parts)
 from repro_torch.obs import tracer as obs
-from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.parallel.collectives import (InProcessGroup, local_slice,
+                                              require_in_process)
 from repro_torch.robust.checkpoint import (CheckpointState, load_checkpoint,
                                            save_checkpoint)
 from repro_torch.robust.faults import FaultInjector, FaultPlan
@@ -222,7 +230,12 @@ class DiscoSolver:
             when it is already there).
         y: (n,) labels (+-1 for classification losses).
         cfg: solver hyperparameters.
-        group: the shards (default: one shard).
+        group: the shards (default: one shard): an
+            :class:`InProcessGroup`, or a
+            :class:`repro_torch.parallel.DistributedGroup`, whose rank
+            keeps only its own shard on ``device`` (the whole ``X`` is
+            given on every rank; the host partitions it as one process
+            would).
         device: where the data and the solve live; default ``'cuda'``.
     """
 
@@ -269,6 +282,13 @@ class DiscoSolver:
         self.tau = min(cfg.tau, self.n)
         self.group = group or InProcessGroup(1)
         self.m = self.group.size
+        # the shards this process holds: a slice of the shard axis
+        self._lo = local_slice(self.group)
+        self._nl = len(self.group.local)
+        if getattr(self.group, "backend", None) == "nccl" \
+                and self.device.type != "cuda":
+            raise ValueError("an nccl group's solve runs on its card, not "
+                             f"{self.device}")
         self._sparse = sparse
         self._part: Partition | None = None
         self.smask = None
@@ -294,7 +314,11 @@ class DiscoSolver:
                               pad_multiple=br if cfg.partition == "features"
                               else bc)
         shard_csrs = shard_csrs_from_partition(X, part, cfg.partition)
-        data, cols, dataT, colsT = build_shard_ell_pairs(shard_csrs, br, bc)
+        # a process of a multi-process solve tiles only its shards, at the
+        # widths common to all
+        data, cols, dataT, colsT = build_shard_ell_pairs(
+            shard_csrs, br, bc,
+            local=self._lo if self._nl < self.m else None)
         state = dict(ell_data=data, ell_cols=cols, ell_dataT=dataT,
                      ell_colsT=colsT, y_tau=y_tau)
         if cfg.partition == "features":
@@ -344,7 +368,10 @@ class DiscoSolver:
         Samples state: ``y``/``weights`` (n_padded,) in partition order,
         ``X_tau`` (d_padded, tau) replicated. Features state: ``y``/
         ``smask`` (n_padded,) replicated, ``X_tau`` (d_padded, tau) in
-        partition order. Both: the stacked ``(m, ...)`` f32 ELL arrays.
+        partition order. Both: the stacked ``(m, ...)`` f32 ELL arrays, of
+        which only this process's shards go to the device (or only those
+        shards' rows, as :meth:`_init_sparse` builds them for a process
+        that holds some of the shards).
 
         PCG's HVP tiles (``ell_data_h`` / ``ell_dataT_h``) are the f32
         layouts themselves at ``hvp_dtype='float32'`` (no copy), else
@@ -354,25 +381,25 @@ class DiscoSolver:
         at f32, so their live tiles cover the copies'); the one-pass
         HVP's step schedule is built at the HVP tiles' element size.
         """
-        m = self.m
-        put = lambda a: _to_device(a, self.device)
+        m, lo, nl = self.m, self._lo, self._nl
+        held = state["ell_data"].shape[0]
+        if held not in (m, nl):
+            raise ValueError(f"state has {held} shards, the group {m}")
+        put = lambda a: _to_device(a[lo] if held == m else a, self.device)
         self._perm = np.asarray(perm)
         self.ell_data = put(state["ell_data"])
         self.ell_cols = put(state["ell_cols"])
         self.ell_dataT = put(state["ell_dataT"])
         self.ell_colsT = put(state["ell_colsT"])
-        if self.ell_data.shape[0] != m:
-            raise ValueError(f"state has {self.ell_data.shape[0]} shards, "
-                             f"the group {m}")
         # each layout's live-tile schedule, built once here and passed
         # with every product
         ctas = default_ctas(self.device)
         self.ell_sched = torch.stack([
             ell_schedule(self.ell_data[s], self.ell_cols[s], ctas)
-            for s in range(m)])
+            for s in range(nl)])
         self.ell_schedT = torch.stack([
             ell_schedule(self.ell_dataT[s], self.ell_colsT[s], ctas)
-            for s in range(m)])
+            for s in range(nl)])
         if self.ell_data.dtype == self.hvp_dtype:
             self.ell_data_h, self.ell_dataT_h = self.ell_data, self.ell_dataT
         else:
@@ -384,18 +411,18 @@ class DiscoSolver:
         self.ell_hvp_sched = [
             ell_hvp_schedule(self.ell_dataT_h[s], self.ell_colsT[s], ctas,
                              live=schedule_parts(self.ell_schedT[s], nbT)[0])
-            for s in range(m)]
+            for s in range(nl)]
         pairs = lambda data, dataT, hvp_sched: [
             EllPair(data[s], self.ell_cols[s], dataT[s], self.ell_colsT[s],
                     self.ell_sched[s], self.ell_schedT[s], hvp_sched[s])
-            for s in range(m)]
+            for s in range(nl)]
         # the margins' and the gradient's shards (f32), and PCG's
         self._hvp_locs = pairs(self.ell_data_h, self.ell_dataT_h,
                                self.ell_hvp_sched)
         self._locs = (self._hvp_locs if self.ell_data_h is self.ell_data
-                      else pairs(self.ell_data, self.ell_dataT, [None] * m))
+                      else pairs(self.ell_data, self.ell_dataT, [None] * nl))
         if self.cfg.partition == "features":
-            self.smask = put(state["smask"])
+            self.smask = _to_device(state["smask"], self.device)
         self._load_vectors(state)
 
     def _load_dense_state(self, state: dict) -> None:
@@ -403,44 +430,55 @@ class DiscoSolver:
         DiSCO-F, (d, n_padded) for DiSCO-S, and the vectors as for the
         sparse state (without ``smask``: DiSCO-F pads only d). Each shard
         is a view of ``X``: a block of rows (DiSCO-F) or of columns
-        (DiSCO-S).
+        (DiSCO-S). A process holding some of the shards moves only their
+        block (a contiguous copy of it) and views that.
 
         PCG's shards (``_hvp_locs``) are the same views at
         ``hvp_dtype='float32'`` (no copy), else the same views of one copy
         of ``X`` in that dtype (``X_h``, cast on the device), as the
         reference's ``X_hvp``; the margins, the gradient and the tau slab
         stay on the f32 ``X``."""
-        m = self.m
-        self.X = _to_device(state["X"], self.device)
+        m, lo, nl = self.m, self._lo, self._nl
+        X = state["X"]
+        axis = 0 if self.cfg.partition == "features" else 1
+        size, rem = divmod(X.shape[axis], m)
+        if rem:
+            raise ValueError(f"X {tuple(X.shape)} does not split into "
+                             f"{m} equal shards")
+        if nl < m:
+            block = slice(lo.start * size, lo.stop * size)
+            X = X[block] if axis == 0 else X[:, block]
+        self.X = _to_device(X, self.device)
         self.X_h = (self.X if self.X.dtype == self.hvp_dtype
                     else self.X.to(self.hvp_dtype))
-        self._locs, rem = shard_views(self.X, self.cfg.partition, m)
+        self._locs = shard_views(self.X, self.cfg.partition, nl)[0]
         self._hvp_locs = (self._locs if self.X_h is self.X
                           else shard_views(self.X_h, self.cfg.partition,
-                                           m)[0])
+                                           nl)[0])
         if self.cfg.partition == "features":
-            self._perm = np.arange(self.X.shape[0])
-        if rem:
-            raise ValueError(f"X {tuple(self.X.shape)} does not split into "
-                             f"{m} equal shards")
+            self._perm = np.arange(state["X"].shape[0])
         self._load_vectors(state)
 
     def _load_vectors(self, state: dict) -> None:
         """The vectors and the preconditioner slab, and the step built on
-        the loaded shards."""
-        m = self.m
+        the loaded shards. Sharded ones (DiSCO-F's tau slab, DiSCO-S's
+        labels and weights) keep this process's shards; ``_w_shape`` is
+        the iterate this process holds (DiSCO-F: its rows), and
+        ``_w_full_shape`` the whole one."""
+        m, lo = self.m, self._lo
         put = lambda a: _to_device(a, self.device)
         self.y_tau = put(state["y_tau"])
-        X_tau = put(state["X_tau"])
+        X_tau = state["X_tau"]
         if self.cfg.partition == "features":
             self.y = put(state["y"])
-            self.X_tau = X_tau.reshape(m, -1, X_tau.shape[1])
-            self._w_shape = (m, X_tau.shape[0] // m)
+            self.X_tau = put(X_tau.reshape(m, -1, X_tau.shape[1])[lo])
+            self._w_full_shape = (m, X_tau.shape[0] // m)
+            self._w_shape = (self._nl, X_tau.shape[0] // m)
         else:
-            self.y = put(state["y"]).reshape(m, -1)
-            self.weights = put(state["weights"]).reshape(m, -1)
-            self.X_tau = X_tau
-            self._w_shape = (X_tau.shape[0],)
+            self.y = put(state["y"].reshape(m, -1)[lo])
+            self.weights = put(state["weights"].reshape(m, -1)[lo])
+            self.X_tau = put(X_tau)
+            self._w_full_shape = self._w_shape = (X_tau.shape[0],)
         self._step = self._build_step()
 
     # ------------------------------------------------------------------
@@ -454,7 +492,7 @@ class DiscoSolver:
         coefficients when ``hessian_subsample < 1``. Returns
         ``step(w, outer_iter=0) -> (w_new, stats)``."""
         cfg, loss, group = self.cfg, self.loss, self.group
-        n, tau, m = self.n, self.tau, self.m
+        n, tau, nl = self.n, self.tau, self._nl
         locs, hvp_locs = self._locs, self._hvp_locs
         if self._sparse:
             def xt(s, v):                  # X_s^T v
@@ -474,20 +512,20 @@ class DiscoSolver:
         if cfg.partition == "features":
             smask = self.smask
 
-            def step(w, outer_iter=0):                     # w: (m, d_j)
-                margins = group.all_reduce([xt(s, w[s]) for s in range(m)])
+            def step(w, outer_iter=0):                    # w: (nl, d_j)
+                margins = group.all_reduce([xt(s, w[s]) for s in range(nl)])
                 d1 = loss.d1(margins, self.y)
                 c = loss.d2(margins, self.y)
                 vals = loss.value(margins, self.y)
                 if smask is not None:          # ELL-padded samples
                     d1, c, vals = d1 * smask, c * smask, vals * smask
-                g = torch.stack([xv(s, d1) for s in range(m)]) / n \
+                g = torch.stack([xv(s, d1) for s in range(nl)]) / n \
                     + cfg.lam * w
                 gnorm = torch.sqrt(group.all_reduce(
-                    [torch.dot(g[s], g[s]) for s in range(m)]))
+                    [torch.dot(g[s], g[s]) for s in range(nl)]))
                 fval = torch.sum(vals) / n + 0.5 * cfg.lam * \
                     group.all_reduce([torch.dot(w[s], w[s])
-                                      for s in range(m)])
+                                      for s in range(nl)])
                 coeffs_tau = loss.d2(margins[:tau], self.y_tau)
 
                 eps = cfg.pcg_rel_tol * gnorm
@@ -505,15 +543,20 @@ class DiscoSolver:
 
         else:  # samples
             def step(w, outer_iter=0):                     # w: (d_padded,)
-                margins = torch.stack([xt(s, w) for s in range(m)])
-                d1 = loss.d1(margins, self.y) * self.weights   # (m, n_loc)
-                c = loss.d2(margins, self.y) * self.weights
+                margins = [xt(s, w) for s in range(nl)]
+                # the loss shard by shard: a vectorized exp or log rounds
+                # a row's tail apart from its body, so one call over the
+                # stacked rows would round by how many shards it holds
+                d1 = torch.stack([loss.d1(margins[s], self.y[s])
+                                  for s in range(nl)]) * self.weights
+                c = torch.stack([loss.d2(margins[s], self.y[s])
+                                 for s in range(nl)]) * self.weights
                 g = group.all_reduce(
-                    [xv(s, d1[s]) for s in range(m)]) / n + cfg.lam * w
+                    [xv(s, d1[s]) for s in range(nl)]) / n + cfg.lam * w
                 gnorm = torch.sqrt(torch.dot(g, g))
                 fval = group.all_reduce(
                     [torch.sum(loss.value(margins[s], self.y[s])
-                               * self.weights[s]) for s in range(m)]) / n \
+                               * self.weights[s]) for s in range(nl)]) / n \
                     + 0.5 * cfg.lam * torch.dot(w, w)
                 coeffs_tau = loss.d2(self.X_tau.T @ w, self.y_tau)
 
@@ -536,8 +579,9 @@ class DiscoSolver:
         """The Hessian's coefficients at step ``outer_iter``: ``c`` itself,
         or ``c * mask / frac`` when ``hessian_subsample = frac < 1``.
         DiSCO-F's ``c`` is the (n,) vector every shard shares (the padded
-        n on sparse input), so one mask; DiSCO-S's is (m, n_loc), one
-        mask per shard over its padded local width."""
+        n on sparse input), so one mask; DiSCO-S's is (nl, n_loc), one
+        mask per local shard over its padded local width, drawn for the
+        shard's global index."""
         frac = self.cfg.hessian_subsample
         if frac >= 1.0:
             return c
@@ -548,7 +592,7 @@ class DiscoSolver:
         else:
             mask = torch.stack([
                 subsample_mask(seed, outer_iter, s, frac, tuple(c.shape[1:]))
-                for s in range(self.m)])
+                for s in self.group.local])
         return c * mask.to(c.device) / frac
 
     # ------------------------------------------------------------------
@@ -609,6 +653,8 @@ class DiscoSolver:
         ``fault_plan`` threads a :class:`repro_torch.robust.faults.FaultPlan`
         into the chunk reads and the outer loop (tests).
         """
+        require_in_process(group, "DiscoSolver.from_store (the streamed "
+                                  "solve)")
         if store.axis != cfg.partition:
             raise ValueError(
                 f"store is chunked along {store.axis!r} but cfg.partition "
@@ -655,7 +701,7 @@ class DiscoSolver:
             self.smask = put(smask)
             self._perm = np.asarray(self._part.perm)
             self._build_tau_features()
-            self._w_shape = (m, width)
+            self._w_full_shape = self._w_shape = (m, width)
         else:
             n_padded = plan.axis_padded
             perm = self._part.perm
@@ -676,7 +722,7 @@ class DiscoSolver:
                 X_tau[:self.d, pos:pos + cnt] = sub.todense().T
                 pos += cnt
             self.X_tau = put(X_tau)
-            self._w_shape = (plan.other_padded,)
+            self._w_full_shape = self._w_shape = (plan.other_padded,)
         self.y_tau = put(y[:tau])
 
     def _build_tau_features(self):
@@ -773,6 +819,14 @@ class DiscoSolver:
                               self._slab(coeffs, s, t), sched=pl["sched"][s])
                     acc[s] = part if acc[s] is None else acc[s] + part
         return self.group.all_reduce(acc)
+
+    def _by_chunk(self, fn, margins):
+        """``fn(margins, y)`` of DiSCO-S's ``(m, width)`` margins, one call
+        a chunk slab."""
+        steps = self._plan.n_steps
+        return torch.stack([torch.cat([
+            fn(self._slab(margins, s, t), self._slab(self.y, s, t))
+            for t in range(steps)]) for s in range(self.m)])
 
     def _stream_margins_samples(self, w):
         """DiSCO-S margins, ``(m, width)``: one 'tr' pass, each chunk
@@ -927,8 +981,11 @@ class DiscoSolver:
         else:  # samples
             def step(w, outer_iter=0):                     # w: (d_padded,)
                 margins = self._stream_margins_samples(w)  # (m, width)
-                d1 = loss.d1(margins, self.y) * self.weights
-                c = loss.d2(margins, self.y) * self.weights
+                # the loss chunk by chunk, as the in-memory step takes it
+                # shard by shard (so the solve whose shards are the
+                # chunks rounds it alike)
+                d1 = self._by_chunk(loss.d1, margins) * self.weights
+                c = self._by_chunk(loss.d2, margins) * self.weights
                 g = self._stream_grad_samples(d1) / n + lam * w
                 gnorm = torch.sqrt(torch.dot(g, g))
                 outer_rounds(comm.disco_s_outer_cost(self.d)[0])
@@ -1003,7 +1060,10 @@ class DiscoSolver:
 
     def _w_to_original(self, w) -> np.ndarray:
         """Iterate ``w`` back in the original feature order (padding
-        slots dropped, any load-balancing permutation undone)."""
+        slots dropped, any load-balancing permutation undone); DiSCO-F's
+        rows are first gathered from every shard."""
+        if self.cfg.partition == "features":
+            w = self.group.all_gather(w)
         w_np = w.detach().reshape(-1).cpu().numpy()
         if self.cfg.partition == "features":
             w_full = np.zeros(self.d, w_np.dtype)
@@ -1013,13 +1073,15 @@ class DiscoSolver:
         return w_np[: self.d]
 
     def _w_from_original(self, w0) -> torch.Tensor:
-        """``w0`` (original order) padded, permuted and on the device."""
-        size = int(np.prod(self._w_shape))
+        """``w0`` (original order, the whole vector on every process)
+        padded, permuted, cut to this process's rows and on the device."""
+        size = int(np.prod(self._w_full_shape))
         w0 = np.pad(np.asarray(w0), (0, size - len(w0)))
         if self.cfg.partition == "features":
-            w0 = w0[self._perm]  # into load-balanced order
-        return torch.from_numpy(w0.astype(np.float32)).to(
-            self.device).reshape(self._w_shape)
+            # into load-balanced order, then this process's shards
+            w0 = w0[self._perm].reshape(self._w_full_shape)[self._lo]
+        return torch.from_numpy(np.ascontiguousarray(
+            w0, np.float32)).to(self.device).reshape(self._w_shape)
 
     def _cfg_fingerprint(self) -> dict:
         """JSON-canonical view of ``cfg`` (what checkpoints compare).
@@ -1063,8 +1125,15 @@ class DiscoSolver:
         Tracing adds no device work: the ``newton.outer`` span ends after
         the step's ``float()`` reads, as ``iter_s`` does, and the
         ``comm.*`` counters are the analytic tally of ``CommLedger``.
+
+        Under a :class:`repro_torch.parallel.DistributedGroup` every rank
+        calls ``fit`` with the same ``w0`` and gets the same result
+        (DiSCO-F's rows are gathered); checkpointing raises
+        ``NotImplementedError`` there.
         """
         cfg = self.cfg
+        if checkpoint_dir is not None:
+            require_in_process(self.group, "fit(checkpoint_dir=...)")
         history: list[dict[str, Any]] = []
         ledger = comm.CommLedger()
         start_iter = 0
@@ -1165,6 +1234,7 @@ def disco_fit_streaming(X, y, store_path: str,
     existing store with ``DiscoSolver.from_store(ShardStore(path), cfg)``
     to skip the conversion.
     """
+    require_in_process(group, "disco_fit_streaming (the streamed solve)")
     cfg = cfg or DiscoConfig()
     store = ShardStore.from_csr(X, y, store_path, axis=cfg.partition,
                                 chunk_size=cfg.stream_chunk_size)

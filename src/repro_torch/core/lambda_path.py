@@ -153,7 +153,9 @@ def lambda_path_fit(X, y, lambdas: Sequence[float],
         y: (n,) labels.
         lambdas: regularization grid (any order; fitted descending).
         cfg: base solver config; its ``lam`` is replaced per grid point.
-        group: the shards (default: one shard).
+        group: the shards (default: one shard); under a
+            ``DistributedGroup`` every rank calls this with the same
+            arguments and gets the same result.
         device: default ``'cuda'``; ``'cpu'`` runs the plain versions.
         warm: warm-start each λ at the previous solution.
         X_val, y_val: optional held-out set for model selection.

@@ -21,8 +21,12 @@ the true H to the basis in one batched multi-vector HVP (one collective),
 assembles the small Gram system and takes the Galerkin step over span(U).
 ``iters`` then counts rounds, each worth up to ``s`` classic iterations.
 
-The shards live in an :class:`repro_torch.parallel.InProcessGroup`; every
-cross-shard sum is its ordered ``all_reduce``. The JAX package's
+The shards live in a group (:mod:`repro_torch.parallel`), all in this
+process or one a process; the loops here run over the shards this process
+holds (``group.local``), and every cross-shard sum is the group's ordered
+``all_reduce``. An op whose bits could follow how many shards one call
+batches (DiSCO-F's s-step ``U @ a``) runs shard by shard, so a given
+``m`` gives the same bits in either group. The JAX package's
 ``lax.while_loop`` is a Python loop here with the same condition
 (``t < max_iter and ||r|| > eps``) and the same update order, so the
 iteration (or round) counts match. The condition reads ``||r||`` on the
@@ -180,7 +184,8 @@ def _solve_round(G, B, b, s, kappa_max=1e10):
 
 
 def _sstep_loop(build_basis, hvp_round, gram, update_scales, psum_dot,
-                g, eps, max_rounds, s, rounds=_NO_ROUNDS):
+                g, eps, max_rounds, s, rounds=_NO_ROUNDS,
+                combine=torch.matmul):
     """Shared s-step round skeleton (both partitionings).
 
     build_basis(r, p_prev, scales) -> U (..., s+1), zero communication
@@ -188,6 +193,8 @@ def _sstep_loop(build_basis, hvp_round, gram, update_scales, psum_dot,
                      ``Hp = H p_prev`` is carried (last round's ``W a``)
     gram(U, W, r) -> (U^T W, U^T U, U^T r) summed over the shards
     update_scales(scales, B) -> next round's basis scale estimates
+    combine(U, a) -> U a (the step over the basis; DiSCO-F's shard by
+                     shard)
     """
     v = torch.zeros_like(g)
     r = g
@@ -203,8 +210,8 @@ def _sstep_loop(build_basis, hvp_round, gram, update_scales, psum_dot,
             W = hvp_round(U, Hp)
             G, B, b = gram(U, W, r)
             a = _solve_round(G, B, b, s)
-            dv = U @ a
-            Hdv = W @ a
+            dv = combine(U, a)
+            Hdv = combine(W, a)
             v, r, p, Hp, Hv = v + dv, r - Hdv, dv, Hdv, Hv + Hdv
             scales = update_scales(scales, B)
             t += 1
@@ -253,12 +260,13 @@ def _feature_scales_update(scales, B, s):
 
 
 def _sharded_gram(group, U, W, r):
-    """(U^T W, U^T U, U^T r) of sharded ``(m, rows, k)`` bases, in one
-    all-reduce of the concatenated payload (DiSCO-F's Gram collective)."""
+    """(U^T W, U^T U, U^T r) of sharded ``(nl, rows, k)`` bases (this
+    process's shards), in one all-reduce of the concatenated payload
+    (DiSCO-F's Gram collective)."""
     k = U.shape[2]
     payload = group.all_reduce([torch.cat([
         (U[j].T @ W[j]).reshape(-1), (U[j].T @ U[j]).reshape(-1),
-        U[j].T @ r[j]]) for j in range(group.size)])
+        U[j].T @ r[j]]) for j in range(len(group.local))])
     return (payload[:k * k].reshape(k, k),
             payload[k * k:2 * k * k].reshape(k, k), payload[2 * k * k:])
 
@@ -307,9 +315,10 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
                 sag_epochs=5, block_s=1, hvp_fused=False, use_kernel=False):
     """Classic PCG of DiSCO-S over the shards of ``group``.
 
-    X_locs     : per shard, its sample columns: an :class:`EllPair`, or a
-                 dense (d, n_loc) tensor
-    coeffs_loc : (m, n_loc) phi'' at w_k, one row per shard
+    X_locs     : per shard this process holds (``group.local``), its
+                 sample columns: an :class:`EllPair`, or a dense
+                 (d, n_loc) tensor
+    coeffs_loc : (nl, n_loc) phi'' at w_k, one row per local shard
     g          : (d,) replicated gradient
     X_tau      : (d, tau) replicated preconditioner samples
     precond    : 'woodbury' (DiSCO-S), 'sag' (original DiSCO, ``sag_epochs``
@@ -327,7 +336,7 @@ def pcg_samples(X_locs: Sequence[Shard], coeffs_loc, n_global, lam, g,
     ops = [make_local_operator(X_locs[j], coeffs_loc[j],
                                use_kernel=use_kernel, fused=hvp_fused,
                                partition="samples")
-           for j in range(group.size)]
+           for j in range(len(group.local))]
 
     def hvp(u):
         return group.all_reduce([op.apply(u) for op in ops]) / n_global \
@@ -407,12 +416,13 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
                  use_kernel=False):
     """Classic PCG of DiSCO-F over the shards of ``group``.
 
-    X_locs    : per shard, its feature rows: an :class:`EllPair`, or a
-                dense (d_j, n) tensor
+    X_locs    : per shard this process holds (``group.local``), its
+                feature rows: an :class:`EllPair`, or a dense (d_j, n)
+                tensor
     coeffs    : (n,) phi'' at w_k, replicated
-    g_loc     : (m, d_j) gradient, one row per shard
-    X_tau_loc : (m, d_j, tau) dense shard rows of the preconditioner
-                samples
+    g_loc     : (nl, d_j) gradient, one row per local shard
+    X_tau_loc : (nl, d_j, tau) dense local shard rows of the
+                preconditioner samples
     hvp_fused : on a one-shard group the whole HVP runs the one-pass
                 kernel (``ell_hvp`` or ``x_c_xt_u``); with more shards the
                 n-vector all-reduce separates the passes, so they stay
@@ -424,13 +434,12 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
                 at any shard count with ``hvp_fused``
     """
     group = group or InProcessGroup(len(X_locs))
-    m = group.size
     n_global = torch.tensor(float(n_global), dtype=g_loc.dtype,
                             device=g_loc.device)
     ops = [make_local_operator(X_locs[j], coeffs, use_kernel=use_kernel,
                                fused=hvp_fused, partition="features")
-           for j in range(m)]
-    fuse_full = hvp_fused and m == 1
+           for j in range(len(group.local))]
+    fuse_full = hvp_fused and group.size == 1
 
     if fuse_full:
         def hvp(u_loc):
@@ -468,13 +477,14 @@ def pcg_features(X_locs: Sequence[Shard], coeffs, n_global, lam, g_loc,
 
 def _features_engine(hvp, hvp_multi, basis_op, apply_precond, group, g_loc,
                      eps, max_iter, block_s, rounds=_NO_ROUNDS):
-    """DiSCO-F's PCG over sharded ``(m, d_j)`` vectors: classic, or s-step
-    rounds whose basis keeps scale-managed Krylov columns and the carried
-    ``H p_prev`` (``hvp_multi`` takes the s Krylov columns only)."""
-    m = group.size
+    """DiSCO-F's PCG over sharded ``(nl, d_j)`` vectors (this process's
+    shards): classic, or s-step rounds whose basis keeps scale-managed
+    Krylov columns and the carried ``H p_prev`` (``hvp_multi`` takes the
+    s Krylov columns only)."""
+    nl = len(group.local)
 
     def psum_dot(a, b):
-        return group.all_reduce([torch.dot(a[j], b[j]) for j in range(m)])
+        return group.all_reduce([torch.dot(a[j], b[j]) for j in range(nl)])
 
     if block_s <= 1:
         return _pcg_loop(hvp, apply_precond, psum_dot, g_loc, eps,
@@ -487,7 +497,7 @@ def _features_engine(hvp, hvp_multi, basis_op, apply_precond, group, g_loc,
         # growth estimates instead of exact norms (a psum per column)
         cols = _krylov_columns(r_loc, apply_precond, basis_op, s, scales)
         cols.append(p_loc)
-        return torch.stack(cols, dim=2)              # (m, d_j, s+1)
+        return torch.stack(cols, dim=2)             # (nl, d_j, s+1)
 
     # the basis keeps p_prev verbatim and H p_prev is carried, so only
     # the s Krylov columns (a strided view of U) ride the batched HVP
@@ -498,9 +508,14 @@ def _features_engine(hvp, hvp_multi, basis_op, apply_precond, group, g_loc,
     def gram(U, W, r_loc):
         return _sharded_gram(group, U, W, r_loc)
 
+    # U a shard by shard: a batched (nl, d_j, k) @ (k,) may block its
+    # rows by the batch, and the groups batch different shard counts
+    def combine(U, a):
+        return torch.stack([U[j] @ a for j in range(nl)])
+
     return _sstep_loop(build_basis, hvp_round, gram,
                        lambda scales, B: _feature_scales_update(scales, B, s),
-                       psum_dot, g_loc, eps, max_iter, s, rounds)
+                       psum_dot, g_loc, eps, max_iter, s, rounds, combine)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ from repro_torch.core.pcg import (_feature_scales_update, _krylov_columns,
                                   _mgs, _pcg_loop, _sharded_gram,
                                   _sstep_loop)
 from repro_torch.data.sparse import hvp_tile_dtype
-from repro_torch.parallel.collectives import InProcessGroup
+from repro_torch.parallel.collectives import (InProcessGroup,
+                                              require_in_process)
 from repro_torch.utils.padding import pad_to_multiple
 
 
@@ -158,12 +159,15 @@ class SoftmaxSolver:
             padding).
         y: (n,) integer class labels in ``[0, K)``.
         cfg: solver hyperparameters.
-        group: the shards (default: one shard).
+        group: the shards (default: one shard); an
+            :class:`InProcessGroup` only (a ``DistributedGroup`` raises
+            ``NotImplementedError``).
         device: where the data and the solve live; default ``'cuda'``.
     """
 
     def __init__(self, X, y, cfg: SoftmaxConfig,
                  group: InProcessGroup | None = None, device=None):
+        require_in_process(group, "SoftmaxSolver / softmax_fit")
         if not isinstance(X, torch.Tensor):
             X = np.asarray(X, np.float32)
         y = _labels(y)

@@ -466,7 +466,7 @@ def shard_csrs_from_partition(X: CSRMatrix, part, axis: str
 
 
 def build_shard_ell_pairs(shard_csrs: list[CSRMatrix], block_rows: int,
-                          block_cols: int, dtype=None):
+                          block_cols: int, dtype=None, local=None):
     """Per-shard forward + transposed ELLs, stacked with a leading shard
     axis ``m``: returns ``(data, cols, dataT, colsT)``.
 
@@ -475,11 +475,23 @@ def build_shard_ell_pairs(shard_csrs: list[CSRMatrix], block_rows: int,
     2-byte dtype ``data`` / ``dataT`` come back as CPU tensors of it
     (rounded to nearest even); with ``torch.float32`` (or None) as numpy
     arrays. ``cols`` / ``colsT`` stay int32 numpy arrays.
+    local : a slice of the shards to build (a process of a multi-process
+        solve): only those are tiled, at the widths common to all shards
+        (:func:`ell_tile_widths`, from the index structure alone), so the
+        result is those shards' rows of the whole stack.
     """
-    fwd = [ell_from_csr(c, block_rows, block_cols) for c in shard_csrs]
+    width = width_t = None
+    if local is not None:
+        widths = [ell_tile_widths(c, block_rows, block_cols)
+                  for c in shard_csrs]
+        width = max(w for w, _ in widths)
+        width_t = max(w for _, w in widths)
+        shard_csrs = shard_csrs[local]
+    fwd = [ell_from_csr(c, block_rows, block_cols, width=width)
+           for c in shard_csrs]
     data, cols = stack_shard_ells(fwd)
     del fwd
-    tr = [ell_from_csr(c.transpose(), block_cols, block_rows)
+    tr = [ell_from_csr(c.transpose(), block_cols, block_rows, width=width_t)
           for c in shard_csrs]
     dataT, colsT = stack_shard_ells(tr)
     if dtype is not None and dtype != torch.float32:

@@ -23,6 +23,7 @@ from repro_torch.core.lambda_path import lambda_path_fit
 from repro_torch.data.sparse import CSRMatrix
 from repro_torch.data.store import ShardStore
 from repro_torch.glm_serve.registry import ModelRegistry
+from repro_torch.parallel.collectives import require_in_process
 
 
 class RefitLoop:
@@ -35,13 +36,15 @@ class RefitLoop:
             grown in place by :meth:`ingest`.
         cfg: solver hyperparameters of every refit; ``cfg.partition``
             must match the store's axis (``DiscoSolver.from_store`` checks).
-        group: the shards (default one), as for :class:`DiscoSolver`.
+        group: the shards (default one), as for :class:`DiscoSolver`; an
+            :class:`InProcessGroup` only (its refits stream the store).
         device: where the refits run (default the card; ``'cpu'`` for the
             plain versions).
     """
 
     def __init__(self, registry: ModelRegistry, store: ShardStore,
                  cfg: DiscoConfig, group=None, device=None):
+        require_in_process(group, "glm_serve.RefitLoop")
         self.registry = registry
         self.store = store
         self.cfg = cfg

@@ -2193,3 +2193,55 @@ def test_cuda_scoring_engine_matches_cpu(dev, hvp_dtype, tmp_path):
     rids = [sched.submit(r) for r in reqs]
     fin = sched.run_until_done()
     assert [fin[r].margin for r in rids] == [float(a) for a in got]
+
+
+# the multi-process solve on the card: ranks of launch.spawn
+DIST_KW = dict(loss="logistic", lam=1e-4, tau=100, max_outer=4,
+               grad_tol=0.0)
+
+
+def _dist_problem():
+    X, y, _ = make_sparse_glm_data(d=2000, n=1500, density=0.005, seed=3)
+    return (X.indptr, X.indices, X.data, X.shape), y, X
+
+
+@pytest.mark.parametrize("partition", ["samples", "features"])
+def test_cuda_two_gloo_ranks_equal_in_process(dev, partition):
+    """Two gloo ranks sharing the card, each holding its shard there (the
+    payloads staged through pinned host buffers), give the card's
+    InProcessGroup(2) solve bit for bit, on every rank, with K1 launched
+    on each."""
+    import torch_dist_ranks as ranks
+    from repro_torch.parallel.launch import spawn
+    arrays, y, X = _dist_problem()
+    kw = dict(DIST_KW, partition=partition)
+    twin = ranks.summary(disco_fit(X, y, DiscoConfig(**kw),
+                                   group=InProcessGroup(2), device=dev))
+    out = spawn(ranks.card_solve, 2, backend="gloo", device="cuda",
+                args=(arrays, y, kw), timeout_s=120.0)
+    for o in out:
+        got = o["summary"]
+        assert np.array_equal(got["w"], twin["w"])
+        assert got["history"] == twin["history"]
+        assert got["ledger"] == twin["ledger"]
+        assert got["partition_info"] == twin["partition_info"]
+        assert o["ell_mv"] > 0 and o["counts"]["staged_bytes"] > 0
+
+
+def test_cuda_one_nccl_rank_equals_in_process(dev):
+    """One NCCL rank (cuda:0) gives the card's one-shard solve bit for
+    bit, its collectives on the card (nothing staged)."""
+    import torch_dist_ranks as ranks
+    from repro_torch.parallel.launch import spawn
+    arrays, y, X = _dist_problem()
+    kw = dict(DIST_KW, partition="samples")
+    twin = ranks.summary(disco_fit(X, y, DiscoConfig(**kw),
+                                   group=InProcessGroup(1), device=dev))
+    (o,) = spawn(ranks.card_solve, 1, backend="nccl", args=(arrays, y, kw),
+                 timeout_s=120.0)
+    got = o["summary"]
+    assert np.array_equal(got["w"], twin["w"])
+    assert got["history"] == twin["history"]
+    assert got["ledger"] == twin["ledger"]
+    assert o["ell_mv"] > 0 and o["counts"]["staged_bytes"] == 0
+    assert o["counts"]["vector_calls"] > 0
