@@ -174,20 +174,30 @@ Eight phases; any failed check makes the exit code nonzero.
    warm-against-cold gate on its own small problem. Between the slice's
    runs and the serving plane, the multi-process solve (``dist_phase``,
    lines ``dist ...``): the slice's CSR written once, then
-   ``repro_torch.parallel.launch.spawn`` runs DiSCO-S and DiSCO-F at
-   m = 4 on four gloo ranks sharing the card (one shard a rank, payloads
-   staged through pinned host buffers; DiSCO-F cut to its first 4 Newton
-   steps) and DiSCO-S at m = 1 on one NCCL rank; every rank's ``w``,
-   history, ledger and partition info must equal its one-process twin of
-   the slice's runs (DiSCO-F's: that run's solver refit to 4 steps, whose
-   history is the 10-step run's first 4 entries) bit for bit, every
-   rank the same, each rank must launch ``ell_mv`` (its launches join
-   the kernels line's); printed per run: the ranks' set-up and fit
+   ``repro_torch.parallel.launch.spawn`` runs on four gloo ranks sharing
+   the card (one shard a rank, payloads staged through pinned host
+   buffers) DiSCO-S and DiSCO-F at m = 4 in memory (cut to their first 4
+   Newton steps), softmax K = 10 DiSCO-S and DiSCO-F at m = 4 on the
+   dense slice's recipe drawn chunk by chunk (each rank draws its own
+   block; 2 Newton steps), the streamed DiSCO-F and DiSCO-S at m = 4 and
+   the fused bf16 DiSCO-S (each rank streaming its shard's chunks; 2
+   steps) and the streamed DiSCO-S killed at step 1; on one NCCL rank
+   DiSCO-S m = 1 in memory and softmax; after the serving plane
+   (``dist_resume_phase``) four new ranks resume the killed run and run
+   a one-step warm refit of the serving plane's grown store. Every rank's
+   ``w``, history, ledger and partition info must equal its one-process
+   twin bit for bit (the slice's runs refit to 4 steps, the stream
+   phase's DiSCO-F m = 4 run, the others made in the phase; the fused
+   bf16 ranks, whose K2 atomics order their sums run by run, within
+   5e-3 of the f32 twin), every rank the same, each rank must launch its
+   path's kernels (their launches join the kernels line's), a streamed
+   rank's bytes one shard's; printed per run: the ranks' set-up and fit
    seconds beside the one-process run's, the group's vector and scalar
    all-reduces, floats and staged bytes, the seconds inside collectives
-   and their share of the fit, and host syncs. Four ranks on one card
-   measure process overhead and host staging, not a cluster; multi-card
-   NCCL is not measured.
+   and their share of the fit, host syncs, and for the streamed runs each
+   rank's loaded and peak bytes beside the one-process run's. Four
+   ranks on one card measure process overhead and host staging, not a
+   cluster; multi-card NCCL is not measured.
 4. Dense slice: ``disco_fit(use_kernel=True)`` at d = 4,096, n = 262,144
    f32 (X is 4 GiB: the per-card shard of the repository's pod-scale dense
    problem, the full sample axis), data made on the card by the
@@ -2167,7 +2177,7 @@ def phase_slice(torch, rt, build, sparse_hvp, ref, errs, keep):
             except RuntimeError as exc:   # a measurement only, not a check
                 print(f"profile unavailable: {exc}", flush=True)
             # the streamed solve, its m = 1 twins this solver re-targeted
-            stream_phase(torch, rt, build, X, y, launches, solver)
+            stream_phase(torch, rt, build, X, y, launches, solver, keep)
         del solver, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2261,7 +2271,8 @@ def sstep_phase(torch, rt, build, X, y, solve, runs, classic, sparse,
 
 
 # ---------------------------------------------------------------------------
-# the multi-process solve (phase 3, after the slice's runs)
+# the multi-process solve (phase 3, after the slice's runs; its resume and
+# refit part after the serving phase)
 # ---------------------------------------------------------------------------
 
 # the one-process runs of RUNS the ranks are held to, bit for bit
@@ -2269,26 +2280,49 @@ DIST_TWINS = (("samples", 1, False), ("samples", 4, False),
               ("features", 4, False))
 DIST_GLOO = (("samples", 4), ("features", 4))   # four gloo ranks on cuda:0
 DIST_NCCL = (("samples", 1),)                   # one NCCL rank
-# Newton steps of each run: DiSCO-F at m = 4 is cut to its first four
-# (315 of its 1,716 PCG iterations) to keep the phase within its budget;
-# its twin is the RUNS solver refit at that depth, whose history is the
-# 10-step run's first four entries
-DIST_DEPTH = {("samples", 4): SOLVE["max_outer"], ("features", 4): 4,
-              ("samples", 1): SOLVE["max_outer"]}
+# Newton steps of each in-memory run, cut to the first four (DiSCO-F at
+# m = 4: 315 of its 1,716 PCG iterations) to keep the phase within its
+# budget; a twin is the RUNS solver refit at that depth, whose history is
+# the 10-step run's first four entries
+DIST_DEPTH = {key: 4 for key in DIST_GLOO + DIST_NCCL}
+# the streamed runs on the four gloo ranks (STREAM_SOLVE, 2 Newton steps):
+# (tag, partition, config overrides, kernels each rank must launch)
+DIST_STREAM = (
+    ("F_m4_f32", "features", {}, ("ell_mv",)),
+    ("S_m4_f32", "samples", {}, ("ell_mv",)),
+    ("S_m4_fused_bf16", "samples",
+     dict(hvp_fused=True, hvp_dtype="bfloat16"), ("ell_mv", "ell_hvp_bf16")),
+)
+# K2's f32 atomics change a fused run's sum order from run to run, so the
+# fused bf16 ranks are held to the f32 two-pass twin at the stream phase's
+# fused bf16 limit, and to each other bit for bit
+DIST_FUSED_TOL = 5e-3
+DIST_KILL_AT = 1                 # the streamed DiSCO-S m = 4 run's kill
+# softmax K = 10 at the dense slice's recipe and shape, 2 Newton steps:
+# DiSCO-S and DiSCO-F on the four gloo ranks, DiSCO-S on one NCCL rank
+DIST_SOFTMAX = dict(SOFTMAX_SOLVE, max_outer=2, n_classes=SOFTMAX_K)
+DIST_SOFTMAX_GLOO = (("samples", 4), ("features", 4))
+DIST_SOFTMAX_NCCL = (("samples", 1),)
+DIST_DENSE_CHUNK = 8192          # columns of X drawn from one generator
 DIST_TIMEOUT_S = 120.0
-DIST_BUDGET_S = 90.0
+# the in-memory runs' gloo and NCCL spawns 90 s, the other paths 90 s
+DIST_BUDGET_S = 180.0
 HISTORY_TIMINGS = ("iter_s",)
 
 
 def result_summary(res) -> dict:
-    """A fit's result without its timings (what the ranks must equal)."""
+    """A fit's result without its timings (what the ranks must equal);
+    a softmax fit's ``W`` stands for ``w``."""
     import numpy as np
-    led = res.ledger
-    return dict(w=np.asarray(res.w),
+    led = getattr(res, "ledger", None)
+    return dict(w=np.asarray(res.w if hasattr(res, "w") else res.W),
                 history=[{k: v for k, v in h.items()
                           if k not in HISTORY_TIMINGS} for h in res.history],
-                ledger=(led.rounds, led.floats, led.spmd_collectives),
-                partition_info=res.partition_info)
+                ledger=(None if led is None else
+                        (led.rounds, led.floats, led.spmd_collectives)),
+                partition_info=getattr(res, "partition_info", None),
+                replan_events=getattr(res, "replan_events", None),
+                stream_stats=getattr(res, "stream_stats", None))
 
 
 def dist_twin(torch, solver, res, setup_s, fit_s, depth) -> dict:
@@ -2321,119 +2355,465 @@ def same_result(a: dict, b: dict) -> bool:
             and a["partition_info"] == b["partition_info"])
 
 
-def dist_rank(group, path: str, runs) -> dict:
-    """The body of a rank of the dist phase (a new interpreter): the
-    slice's CSR from ``path``, then per ``(partition, m)`` run a
-    ``DiscoSolver`` on this rank's shard (``SOLVE``, classic, two-pass,
-    ``DIST_DEPTH`` Newton steps) and one fit under sync debug mode with
-    the launch counts and the group's counters zeroed just before it."""
+def dense_mixing(torch, dev, d, cond_decay, seed):
+    """``make_dense_data``'s feature covariance: the (d, d) f32 mixing
+    matrix, singular values k^-cond_decay / 2 of a seeded Gaussian's QR."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scales = torch.arange(1, d + 1, dtype=torch.float64,
+                          device=dev) ** (-cond_decay)
+    Q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev,
+                                       dtype=torch.float64))
+    return (Q * scales.sqrt()[None, :]).float()
+
+
+def dense_chunk(torch, A, seed, c):
+    """Columns ``[c C, (c + 1) C)`` of the chunk-drawn dense X (``C =
+    DIST_DENSE_CHUNK``): the mixing matrix times a Gaussian block from a
+    generator of its own (seeded by ``seed`` and ``c``), unit-norm
+    columns; so any process draws any block of X alone, bit for bit."""
+    g = torch.Generator(device=A.device).manual_seed(
+        seed * 1_000_003 + 1 + c)
+    Xc = A @ torch.randn((A.shape[0], DIST_DENSE_CHUNK), generator=g,
+                         device=A.device)
+    Xc /= torch.clamp(torch.linalg.norm(Xc, dim=0, keepdim=True), min=1e-12)
+    return Xc
+
+
+def dense_block(torch, A, seed, n, partition, m, shard):
+    """Shard ``shard`` of ``m`` of the chunk-drawn (d, n) X, drawn on
+    ``A``'s device without the rest: its columns (DiSCO-S) or its rows
+    (DiSCO-F, each chunk drawn whole and cut)."""
+    d = A.shape[0]
+    C = DIST_DENSE_CHUNK
+    if partition == "samples":
+        lo, hi = shard * n // m, (shard + 1) * n // m
+        return torch.cat([dense_chunk(torch, A, seed, c)
+                          for c in range(lo // C, hi // C)], dim=1)
+    rows = slice(shard * d // m, (shard + 1) * d // m)
+    out = torch.empty((rows.stop - rows.start, n), device=A.device)
+    for c in range(n // C):
+        out[:, c * C:(c + 1) * C] = dense_chunk(torch, A, seed, c)[rows]
+    return out
+
+
+def dist_softmax_solver(torch, rt, group, path, partition, dev):
+    """A rank's softmax solver on its own block of the chunk-drawn X (the
+    mixing matrix and the labels read from ``path``)."""
+    import numpy as np
+    arr = np.load(path)
+    A = torch.from_numpy(arr["A"]).to(dev)
+    n = int(arr["labels"].shape[0])
+    X_loc = dense_block(torch, A, DENSE["seed"], n, partition, group.size,
+                        group.rank)
+    del A
+    cfg = rt.SoftmaxConfig(partition=partition, **DIST_SOFTMAX)
+    return rt.SoftmaxSolver.from_local_block(
+        X_loc, arr["labels"], cfg, d=X_loc.shape[0] * (
+            group.size if partition == "features" else 1),
+        group=group, device=dev)
+
+
+def dist_job(torch, rt, build, group, job, dev):
+    """Build one job's solver (timed), then one fit under sync debug mode
+    with the launch counts and the group's counters zeroed just before
+    it. A killed fit (``SimulatedKill``) is recorded, not raised: every
+    rank raises at the same step, so the group stays in step."""
+    from repro_torch.data import ShardStore
+    from repro_torch.glm_serve import ModelRegistry, RefitLoop
+    from repro_torch.robust import FaultPlan, SimulatedKill
+    kind = job["kind"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_kw, loop = {}, None
+    if kind == "memory":
+        arr = job["slice"]
+        X = rt.CSRMatrix(arr["indptr"], arr["indices"], arr["data"],
+                         tuple(arr["shape"]))
+        cfg = rt.DiscoConfig(**dict(SOLVE, partition=job["partition"],
+                                    hvp_fused=False,
+                                    max_outer=job["depth"]))
+        solver = rt.DiscoSolver(X, arr["y"], cfg, group=group, device=dev)
+    elif kind == "softmax":
+        solver = dist_softmax_solver(torch, rt, group, job["path"],
+                                     job["partition"], dev)
+    elif kind == "stream":
+        plan = (FaultPlan(kill_at_step=job["kill_at"])
+                if job.get("kill_at") is not None else None)
+        solver = rt.DiscoSolver.from_store(
+            ShardStore(job["store"]), rt.DiscoConfig(**job["cfg"]),
+            group=group, device=dev, fault_plan=plan)
+        if job.get("ckpt"):
+            fit_kw = dict(checkpoint_dir=job["ckpt"],
+                          resume=job.get("kill_at") is None)
+    else:                                               # refit
+        loop = RefitLoop(ModelRegistry(job["registry"]),
+                         ShardStore(job["store"]),
+                         rt.DiscoConfig(**job["cfg"]), group=group,
+                         device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    group.reset_counts()
+    out = {}
+
+    def run():
+        build.reset_launch_counts()
+        try:
+            if loop is not None:
+                out["version"], out["res"] = loop.refit(warm=True)
+            else:
+                out["res"] = solver.fit(**fit_kw)
+        except SimulatedKill:
+            out["res"] = None
+        torch.cuda.synchronize()
+        out["counts"] = build.launch_counts()
+    t0 = time.perf_counter()
+    syncs = count_host_syncs(torch, run)
+    fit_s = time.perf_counter() - t0
+    res = out["res"]
+    row = dict(setup_s=setup_s, fit_s=fit_s, host_syncs=syncs,
+               launches={k: v for k, v in out["counts"].items() if v},
+               group=group.counts(), killed=res is None,
+               summary=None if res is None else result_summary(res),
+               version=out.get("version"))
+    if kind == "memory":
+        row["shard_bytes"] = 4 * (solver.ell_data.numel()
+                                  + solver.ell_dataT.numel())
+    if kind == "softmax":
+        row["shard_bytes"] = solver.X.numel() * solver.X.element_size()
+    return row
+
+
+def dist_rank(group, jobs) -> dict:
+    """The body of a rank of the dist phase (a new interpreter): each
+    job of ``jobs`` (``{key: job}``) on this rank's shard, in order:
+    the slice's in-memory solves (``memory``), softmax on this rank's
+    block of the chunk-drawn dense X (``softmax``), streamed solves of
+    this rank's chunks, killed or resumed (``stream``), a warm refit
+    (``refit``)."""
     import numpy as np
     import torch
     import repro_torch as rt
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False   # as main()
     torch.backends.cudnn.allow_tf32 = False
-    arr = np.load(path)
-    X = rt.CSRMatrix(arr["indptr"], arr["indices"], arr["data"],
-                     tuple(arr["shape"]))
-    y = arr["y"]
     dev = group.device or torch.device("cuda")
     out = {}
-    for partition, m in runs:
-        if m != group.size:
-            raise ValueError(f"run of m = {m} on {group.size} ranks")
-        cfg = rt.DiscoConfig(**dict(
-            SOLVE, partition=partition, hvp_fused=False,
-            max_outer=DIST_DEPTH[(partition, m)]))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver = rt.DiscoSolver(X, y, cfg, group=group, device=dev)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        group.reset_counts()
-        t0 = time.perf_counter()
-        res, counts, syncs = synced_fit(torch, build, solver)
-        fit_s = time.perf_counter() - t0
-        out[(partition, m)] = dict(
-            summary=result_summary(res), setup_s=setup_s, fit_s=fit_s,
-            launches=counts, host_syncs=syncs, group=group.counts(),
-            shard_bytes=4 * (solver.ell_data.numel()
-                             + solver.ell_dataT.numel()))
-        del solver, res
+    for key, job in jobs.items():
+        if job["kind"] == "memory":
+            job = dict(job, slice=dict(np.load(job["path"])))
+        out[key] = dist_job(torch, rt, build, group, job, dev)
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def dist_phase(torch, keep, launches) -> None:
-    """The multi-process solve (lines ``dist ...``): DiSCO-S and DiSCO-F
-    at m = 4 on four gloo ranks sharing the card, and DiSCO-S at m = 1 on
-    one NCCL rank, each rank a process of
-    :func:`repro_torch.parallel.launch.spawn` holding its own shard, at
-    ``DIST_DEPTH`` Newton steps. Each rank's result must equal its
-    one-process twin of ``RUNS`` (``keep``'s ``twins``, made by
-    :func:`dist_twin`) bit for bit, every rank the same, and each rank
-    must have launched K1; their K1 launches join the kernels line's.
-    Four ranks on one card measure process overhead and host staging, not
-    a cluster."""
+def dist_rows(tag, twin, rows, launches, kernels, exact=True) -> None:
+    """The checks of one run on the ranks: each rank launched ``kernels``
+    (their launches join ``launches``), every rank the same, and each
+    equal to ``twin`` (a result summary) bit for bit (``exact``)."""
+    for r, row in enumerate(rows):
+        for k, v in row["launches"].items():
+            if k in launches:
+                launches[k] += v
+        check(all(row["launches"].get(k, 0) > 0 for k in kernels),
+              f"dist {tag}: rank {r} launched " + ", ".join(
+                  f"{k} {row['launches'].get(k, 0)}" for k in kernels))
+    if exact:
+        same = [same_result(row["summary"], twin) for row in rows]
+        check(all(same), f"dist {tag}: every rank's w, history, ledger "
+                         f"and partition_info equal the one-process run's "
+                         f"bit for bit ({same})")
+    check(all(same_result(row["summary"], rows[0]["summary"])
+              for row in rows), f"dist {tag}: every rank the same")
+
+
+def dist_line(tag, spawn_s, twin, rows, **extra) -> None:
+    g = rows[0]["group"]
+    hist = twin["summary"]["history"]
+    line = dict(
+        run=tag, spawn_s=spawn_s,
+        setup_s=[row["setup_s"] for row in rows],
+        fit_s=[row["fit_s"] for row in rows],
+        one_process_setup_s=twin.get("setup_s"),
+        one_process_fit_s=twin.get("fit_s"),
+        newton_iters=len(hist),
+        pcg_iters=sum(int(h["pcg_iters"]) for h in hist),
+        vector_calls=g["vector_calls"], vector_floats=g["vector_floats"],
+        scalar_calls=g["scalar_calls"], gather_calls=g["gather_calls"],
+        barrier_calls=g["barrier_calls"],
+        broadcast_calls=g["broadcast_calls"],
+        ledger_spmd=(twin["summary"]["ledger"] or (None,) * 3)[2],
+        staged_bytes=[row["group"]["staged_bytes"] for row in rows],
+        collective_s=[row["group"]["seconds"] for row in rows],
+        collective_share=[row["group"]["seconds"] / row["fit_s"]
+                          for row in rows],
+        host_syncs=[row["host_syncs"] for row in rows],
+        launches=[row["launches"] for row in rows], **extra)
+    print("dist " + json.dumps(line), flush=True)
+
+
+def dist_stream_checks(tag, want, rows, m=4) -> dict:
+    """A streamed run's byte ledger on the ranks against ``want``, the
+    ``stream_stats`` of a one-process run of ``m`` shards on the same
+    store and tiles: each rank's payload one shard's (the one-process
+    step's ``1 / m``), the rank's peak at most ``STREAM_DEPTH + 2`` of
+    them and every rank's bytes the same; for a twin of the same solve
+    (``m`` > 1) the ranks' bytes also sum to its (another solve runs other
+    passes). Returns the dist line's fields."""
+    st = [row["summary"]["stream_stats"] for row in rows]
+    one = want["max_step_bytes"] // m
+    total = sum(s["bytes_loaded"] for s in st)
+    check((m == 1 or total == want["bytes_loaded"])
+          and all(s["bytes_loaded"] == st[0]["bytes_loaded"]
+                  and s["max_step_bytes"] == one
+                  and s["peak_bytes"] <= (STREAM_DEPTH + 2) * one
+                  for s in st),
+          f"dist {tag}: the ranks' bytes {st[0]['bytes_loaded']} each, "
+          f"{total} in all (one process: {want['bytes_loaded']}); each "
+          f"rank's step {[s['max_step_bytes'] for s in st]} B = {one} "
+          f"(one shard), peak {[s['peak_bytes'] for s in st]} <= "
+          f"{STREAM_DEPTH + 2} x {one} (one process: {want['peak_bytes']})")
+    return dict(bytes_loaded=[s["bytes_loaded"] for s in st],
+                bytes_loaded_one_process=want["bytes_loaded"],
+                peak_bytes=[s["peak_bytes"] for s in st],
+                peak_bytes_one_process=want["peak_bytes"],
+                max_step_bytes=[s["max_step_bytes"] for s in st],
+                max_step_bytes_one_process=want["max_step_bytes"])
+
+
+def dist_softmax_twins(torch, rt, keep) -> dict:
+    """The dense X drawn chunk by chunk in this process (the mixing
+    matrix and the labels saved for the ranks), softmax labels as the
+    softmax phase draws them, and the one-process twins of the softmax
+    runs; X is freed before the ranks start."""
     import numpy as np
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    d, n = DENSE["d"], DENSE["n"]
+    A = dense_mixing(torch, dev, d, DENSE["cond_decay"], DENSE["seed"])
+    X = torch.empty((d, n), device=dev)
+    for c in range(n // DIST_DENSE_CHUNK):
+        X[:, c * DIST_DENSE_CHUNK:(c + 1) * DIST_DENSE_CHUNK] = \
+            dense_chunk(torch, A, DENSE["seed"], c)
+    g = torch.Generator(device=dev).manual_seed(2)
+    W_true = torch.randn((d, SOFTMAX_K), generator=g, device=dev)
+    labels = torch.argmax(X.T @ W_true + torch.randn(
+        (n, SOFTMAX_K), generator=g, device=dev), dim=1).cpu().numpy()
+    path = f"{keep['dir']}/dist_dense.npz"
+    np.savez(path, A=A.cpu().numpy(), labels=labels)
+    torch.cuda.synchronize()
+    print(f"dist dense X drawn by chunks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    twins = {}
+    for partition, m in DIST_SOFTMAX_GLOO + DIST_SOFTMAX_NCCL:
+        cfg = rt.SoftmaxConfig(partition=partition, **DIST_SOFTMAX)
+        t0 = time.perf_counter()
+        solver = rt.SoftmaxSolver(X, labels, cfg,
+                                  group=rt.InProcessGroup(m), device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = solver.fit()
+        torch.cuda.synchronize()
+        twins[(partition, m)] = dict(summary=result_summary(res),
+                                     setup_s=setup_s,
+                                     fit_s=time.perf_counter() - t0)
+        del solver, res
+    del X, A, W_true
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(path=path, twins=twins)
+
+
+def dist_phase(torch, rt, keep, launches) -> dict:
+    """The multi-process solve (lines ``dist ...``), each rank a process
+    of :func:`repro_torch.parallel.launch.spawn` holding its own shard:
+    on four gloo ranks sharing the card, the slice's DiSCO-S and DiSCO-F
+    at m = 4 in memory (``DIST_DEPTH`` steps), softmax K = 10 DiSCO-S and
+    DiSCO-F at m = 4 (each rank drawing its block of the chunk-drawn
+    dense X alone), the streamed runs of ``DIST_STREAM`` (each rank
+    streaming its shard's chunks) and the streamed DiSCO-S run killed at
+    step ``DIST_KILL_AT`` (resumed by :func:`dist_resume_phase` in new
+    processes); on one NCCL rank, DiSCO-S m = 1 in memory and softmax.
+    Each rank's result must equal its one-process twin bit for bit
+    (``keep``'s ``twins`` from :func:`dist_twin`, the stream phase's
+    DiSCO-F m = 4 run, the twins made here), every rank the same, and
+    each rank must have launched its path's kernels; their launches join
+    the kernels line's (the dense kernels' in the returned dict). Four
+    ranks on one card measure process overhead and host staging, not a
+    cluster."""
+    import numpy as np
+    from repro_torch.data import ShardStore
     from repro_torch.parallel.launch import spawn
     t_phase = time.perf_counter()
     X, y = keep["X"], keep["y"]
     path = f"{keep['dir']}/dist_slice.npz"
     np.savez(path, indptr=X.indptr, indices=X.indices, data=X.data,
              shape=np.asarray(X.shape), y=np.asarray(y))
-    twins = keep["twins"]
-    for backend, nproc, runs in (("gloo", 4, DIST_GLOO),
-                                 ("nccl", 1, DIST_NCCL)):
+    twins = dict(keep["twins"])
+    t0 = time.perf_counter()
+    soft = dist_softmax_twins(torch, rt, keep)
+    twins.update({("softmax",) + k: v for k, v in soft["twins"].items()})
+    # the one-process streamed twins: the stream phase's DiSCO-F m = 4,
+    # a DiSCO-S m = 4 run here
+    stores = keep["stream_stores"]
+    twins[("stream", "F_m4_f32")] = keep["stream_twin"]
+    cfg = rt.DiscoConfig(**dict(STREAM_SOLVE, partition="samples"))
+    t1 = time.perf_counter()
+    res = rt.DiscoSolver.from_store(ShardStore(stores["samples"]), cfg,
+                                    group=rt.InProcessGroup(4),
+                                    device="cuda").fit()
+    torch.cuda.synchronize()
+    twins[("stream", "S_m4_f32")] = dict(
+        summary=result_summary(res), fit_s=time.perf_counter() - t1)
+    keep["dist_twins"] = twins
+    twins_s = time.perf_counter() - t0
+    keep["dist_ckpt"] = f"{keep['dir']}/dist_ckpt"
+    gloo = {("memory", p, m): dict(kind="memory", path=path, partition=p,
+                                   depth=DIST_DEPTH[(p, m)])
+            for p, m in DIST_GLOO}
+    gloo.update({("softmax", p, m): dict(kind="softmax", path=soft["path"],
+                                         partition=p)
+                 for p, m in DIST_SOFTMAX_GLOO})
+    for tag, partition, kw, _ in DIST_STREAM:
+        gloo[("stream", tag)] = dict(
+            kind="stream", store=stores[partition],
+            cfg=dict(STREAM_SOLVE, partition=partition, **kw))
+    gloo[("stream", "S_m4_killed")] = dict(
+        gloo[("stream", "S_m4_f32")], kill_at=DIST_KILL_AT,
+        ckpt=keep["dist_ckpt"])
+    nccl = {("memory", p, m): dict(kind="memory", path=path, partition=p,
+                                   depth=DIST_DEPTH[(p, m)])
+            for p, m in DIST_NCCL}
+    nccl.update({("softmax", p, m): dict(kind="softmax", path=soft["path"],
+                                         partition=p)
+                 for p, m in DIST_SOFTMAX_NCCL})
+    dense = dict.fromkeys(("xt_multi", "x_cz_multi"), 0)
+    spawns = {}
+    for backend, nproc, jobs in (("gloo", 4, gloo), ("nccl", 1, nccl)):
         t0 = time.perf_counter()
         per_rank = spawn(dist_rank, nproc, backend=backend,
                          device="cuda" if backend == "gloo" else None,
-                         args=(path, runs), timeout_s=DIST_TIMEOUT_S)
-        spawn_s = time.perf_counter() - t0
-        for partition, m in runs:
-            twin = twins[(partition, m)]
-            tag = f"{run_tag(partition, m, False)} {nproc} {backend} rank" \
-                  + ("s" if nproc > 1 else "")
-            rows = [r[(partition, m)] for r in per_rank]
-            for r, row in enumerate(rows):
-                launches["ell_mv"] += row["launches"]["ell_mv"]
-                check(row["launches"]["ell_mv"] > 0,
-                      f"dist {tag}: rank {r} launched ell_mv "
-                      f"({row['launches']['ell_mv']})")
-            same = [same_result(row["summary"], twin["summary"])
-                    for row in rows]
-            check(all(same), f"dist {tag}: every rank's w, history, ledger "
-                             f"and partition_info equal the one-process "
-                             f"m={m} run's bit for bit ({same})")
-            check(all(same_result(row["summary"], rows[0]["summary"])
-                      for row in rows), f"dist {tag}: every rank the same")
-            g = rows[0]["group"]
-            line = dict(
-                run=tag, spawn_s=spawn_s,
-                setup_s=[row["setup_s"] for row in rows],
-                fit_s=[row["fit_s"] for row in rows],
-                one_process_setup_s=twin["setup_s"],
-                one_process_fit_s=twin["fit_s"],
-                newton_iters=len(twin["summary"]["history"]),
-                pcg_iters=sum(int(h["pcg_iters"])
-                              for h in twin["summary"]["history"]),
-                vector_calls=g["vector_calls"],
-                vector_floats=g["vector_floats"],
-                scalar_calls=g["scalar_calls"],
-                gather_calls=g["gather_calls"],
-                ledger_spmd=twin["summary"]["ledger"][2],
-                staged_bytes=[row["group"]["staged_bytes"] for row in rows],
-                collective_s=[row["group"]["seconds"] for row in rows],
-                collective_share=[row["group"]["seconds"] / row["fit_s"]
-                                  for row in rows],
-                host_syncs=[row["host_syncs"] for row in rows],
-                ell_mv=[row["launches"]["ell_mv"] for row in rows],
-                shard_bytes=[row["shard_bytes"] for row in rows])
-            print("dist " + json.dumps(line), flush=True)
+                         args=(jobs,), timeout_s=DIST_TIMEOUT_S)
+        spawn_s = spawns[backend] = time.perf_counter() - t0
+        ranks = f"{nproc} {backend} rank" + ("s" if nproc > 1 else "")
+        for key in jobs:
+            rows = [r[key] for r in per_rank]
+            if key[0] == "memory":
+                tag = f"{run_tag(key[1], key[2], False)} {ranks}"
+                twin = twins[(key[1], key[2])]
+                dist_rows(tag, twin["summary"], rows, launches, ("ell_mv",))
+                dist_line(tag, spawn_s, twin, rows,
+                          shard_bytes=[row["shard_bytes"] for row in rows])
+            elif key[0] == "softmax":
+                tag = (f"softmax K={SOFTMAX_K} "
+                       f"{'DiSCO-S' if key[1] == 'samples' else 'DiSCO-F'} "
+                       f"m={key[2]} {ranks}")
+                twin = twins[key]
+                dist_rows(tag, twin["summary"], rows, dense,
+                          ("xt_multi", "x_cz_multi"))
+                dist_line(tag, spawn_s, twin, rows,
+                          shard_bytes=[row["shard_bytes"] for row in rows])
+            elif key[1] == "S_m4_killed":
+                check(all(row["killed"] for row in rows),
+                      f"dist stream S_m4 {ranks}: every rank killed at step"
+                      f" {DIST_KILL_AT}")
+                for row in rows:
+                    for k, v in row["launches"].items():
+                        if k in launches:
+                            launches[k] += v
+            else:
+                tag = f"stream {key[1]} {ranks}"
+                spec = {t: (kern, "fused" not in t)
+                        for t, _, _, kern in DIST_STREAM}
+                kernels, exact = spec[key[1]]
+                twin = twins[("stream", "S_m4_f32" if not exact
+                              else key[1])]
+                dist_rows(tag, twin["summary"], rows, launches, kernels,
+                          exact=exact)
+                # the fused run's steps against the stream phase's fused
+                # bf16 m = 1 run's (one chunk a step, as a rank's)
+                extra = (dist_stream_checks(
+                    tag, twin["summary"]["stream_stats"], rows) if exact
+                    else dist_stream_checks(tag, keep["stream_fused_m1"],
+                                            rows, m=1))
+                if not exact:
+                    e = rel_w(rows[0]["summary"]["w"], twin["summary"]["w"])
+                    check(e <= DIST_FUSED_TOL,
+                          f"dist {tag}: w within rel {e:.2e} <= "
+                          f"{DIST_FUSED_TOL:g} of the f32 two-pass "
+                          f"one-process run's")
+                    extra["rel_w_f32_twin"] = e
+                dist_line(tag, spawn_s, twin, rows, **extra)
     t_phase = time.perf_counter() - t_phase
-    print(f"dist phase: {t_phase:.1f} s (budget {DIST_BUDGET_S:.0f} s)",
-          flush=True)
+    keep["dist_s"] = t_phase
+    print("dist phase parts " + json.dumps(dict(
+        twins_s=twins_s, spawn_s=spawns, phase_s=t_phase)), flush=True)
+    return dense
+
+
+def dist_resume_phase(torch, rt, keep, launches) -> None:
+    """The dist phase's second part, after the serving phase (lines
+    ``dist ...``): on four new gloo ranks, the killed streamed DiSCO-S
+    m = 4 run resumed from its checkpoint (rank 0 wrote it, rank 0 reads
+    and broadcasts it), which must equal the uninterrupted run bit for
+    bit; and a one-step warm refit of the serving phase's grown store
+    from its registry's active weights (copies of the registry), which
+    must equal ``InProcessGroup(4)``'s refit of the same store bit for bit
+    and publish one version, the same on every rank."""
+    import shutil
+    from repro_torch.data import ShardStore
+    from repro_torch.glm_serve import ModelRegistry, RefitLoop
+    from repro_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    twins = keep["dist_twins"]
+    reg = f"{keep['dir']}/registry"
+    regs = {k: f"{keep['dir']}/dist_registry_{k}" for k in ("one", "ranks")}
+    for copy in regs.values():
+        shutil.copytree(reg, copy)
+    rcfg = rt.DiscoConfig(**REFIT_SOLVE)
+    t0 = time.perf_counter()
+    loop = RefitLoop(ModelRegistry(regs["one"]), ShardStore(keep["store"]),
+                     rcfg, group=rt.InProcessGroup(4), device="cuda")
+    v_one, res = loop.refit(warm=True)
+    torch.cuda.synchronize()
+    twin_refit = dict(summary=result_summary(res),
+                      fit_s=time.perf_counter() - t0)
+    stores = keep["stream_stores"]
+    jobs = {
+        ("stream", "S_m4_resumed"): dict(
+            kind="stream", store=stores["samples"],
+            cfg=dict(STREAM_SOLVE, partition="samples"),
+            ckpt=keep["dist_ckpt"]),
+        ("refit",): dict(kind="refit", registry=regs["ranks"],
+                         store=keep["store"], cfg=REFIT_SOLVE),
+    }
+    t0 = time.perf_counter()
+    per_rank = spawn(dist_rank, 4, backend="gloo", device="cuda",
+                     args=(jobs,), timeout_s=DIST_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    rows = [r[("stream", "S_m4_resumed")] for r in per_rank]
+    tag = "stream S_m4 resumed 4 gloo ranks"
+    twin = twins[("stream", "S_m4_f32")]
+    dist_rows(tag, twin["summary"], rows, launches, ("ell_mv",))
+    check(all(row["group"]["broadcast_calls"] == 1 for row in rows),
+          f"dist {tag}: the checkpoint read by rank 0 and broadcast once")
+    dist_line(tag, spawn_s, twin, rows, resumed_at=DIST_KILL_AT)
+    rows = [r[("refit",)] for r in per_rank]
+    tag = "refit 4 gloo ranks"
+    dist_rows(tag, twin_refit["summary"], rows, launches, ("ell_mv",))
+    versions = ModelRegistry(regs["ranks"]).versions()
+    check(all(row["version"] == v_one for row in rows)
+          and versions == ModelRegistry(regs["one"]).versions()
+          and versions[-1] == v_one,
+          f"dist {tag}: one version published (v{v_one}), the same on "
+          f"every rank ({[row['version'] for row in rows]}; the ranks' "
+          f"registry {versions})")
+    dist_line(tag, spawn_s, twin_refit, rows, version=v_one)
+    t_phase = time.perf_counter() - t_phase
+    total = keep["dist_s"] + t_phase
+    print(f"dist phase: {total:.1f} s (budget {DIST_BUDGET_S:.0f} s; "
+          f"resume and refit {t_phase:.1f} s)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2736,7 +3116,7 @@ def stream_pass_probe(torch, tag, plan, kind, run_chunk) -> dict:
     return row
 
 
-def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
+def stream_phase(torch, rt, build, X, y, launches, solver_m1, keep) -> None:
     """The streamed (out-of-core) solve on the sparse slice.
 
     Two stores in a temporary directory (samples and features, chunks of
@@ -2758,7 +3138,9 @@ def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
     injected read faults equals its fault-free run bit for bit. Then the
     byte bounds and the bf16 ratio, kill-and-resume / re-plan, one timed
     pass of each HVP stream, two of a plan that keeps no chunk plan,
-    and a profiled streamed Newton step."""
+    and a profiled streamed Newton step. The stores stay in ``keep``'s
+    directory (``stream_stores``) with the DiSCO-F m = 4 run's result
+    (``stream_twin``), which the dist phase's ranks are held to."""
     import copy
     import dataclasses
     import tempfile
@@ -2772,9 +3154,10 @@ def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        stores = {axis: ShardStore.from_csr(X, y, f"{tmp}/{axis}", axis=axis,
-                                            chunk_size=STREAM_CHUNK)
-                  for axis in ("samples", "features")}
+        stores = {axis: ShardStore.from_csr(
+            X, y, f"{keep['dir']}/stream_{axis}", axis=axis,
+            chunk_size=STREAM_CHUNK) for axis in ("samples", "features")}
+        keep["stream_stores"] = {k: v.path for k, v in stores.items()}
         print(f"stream stores: {stores['samples'].n_chunks} sample and "
               f"{stores['features'].n_chunks} feature chunks "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2842,6 +3225,11 @@ def stream_phase(torch, rt, build, X, y, launches, solver_m1) -> None:
                     launches[k] += v
             mem, _, _ = synced_fit(torch, build, twin(partition, m, kw))
             results[tag] = (solver, res, mem)
+            if tag == "F_m4_f32":
+                keep["stream_twin"] = dict(summary=result_summary(res),
+                                           fit_s=t_stream)
+            if tag == "S_m1_fused_bf16":
+                keep["stream_fused_m1"] = res.stream_stats
             e = rel_w(res.w, mem.w)
             h0, g0 = res.history[0], mem.history[0]
             first = max(abs(h0[k] - g0[k]) / abs(g0[k])
@@ -5944,10 +6332,11 @@ def main() -> int:
         keep = dict(dir=tmp)
         timings, launches = phase_slice(torch, rt, build, sparse_hvp, ref,
                                         errs, keep)
-        dist_phase(torch, keep, launches)
+        dist_dense = dist_phase(torch, rt, keep, launches)
         t_sparse = time.perf_counter() - t_start
         serve_glm_phase(torch, rt, build, sparse_hvp, ref, keep, launches,
                         timings)
+        dist_resume_phase(torch, rt, keep, launches)
         del keep
         gc.collect()
         torch.cuda.empty_cache()
@@ -5955,6 +6344,8 @@ def main() -> int:
                                                 ref, errs)
     timings.update(dense_timings)
     launches.update(dense_launches)
+    for k, v in dist_dense.items():         # the dist phase's softmax ranks
+        launches[k] += v
     figure3_phase(torch, rt, build)
     t_model = time.perf_counter()
     flash_rows = phase_flash_timing(torch, flash, ref, errs, bf16_errs)

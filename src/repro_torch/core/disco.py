@@ -72,8 +72,7 @@ from repro_torch.kernels.sparse_hvp import (default_ctas,
                                             ell_schedule,
                                             schedule_parts)
 from repro_torch.obs import tracer as obs
-from repro_torch.parallel.collectives import (InProcessGroup, local_slice,
-                                              require_in_process)
+from repro_torch.parallel.collectives import InProcessGroup, local_slice
 from repro_torch.robust.checkpoint import (CheckpointState, load_checkpoint,
                                            save_checkpoint)
 from repro_torch.robust.faults import FaultInjector, FaultPlan
@@ -636,25 +635,27 @@ class DiscoSolver:
         on it with the chunk's schedule (K1 ``ell_mv`` for margins,
         gradient and two-pass HVPs, K6 ``ell_mm`` in s-step rounds, K2 /
         K7 for the fused DiSCO-S HVP), at ``cfg.hvp_dtype`` in PCG. Peak
-        data-plane memory is ``cfg.prefetch_depth + 2`` steps of ``m``
-        chunks, never the dataset. The chunk-granular LPT assigns chunks
-        to shards from the store's header; at ``partition_block =
-        stream_chunk_size`` the in-memory solver realises the same
-        partition. The outer loop, damped step, stopping rules and
-        preconditioners are the in-memory solver's; :meth:`fit`
-        additionally reports ``stream_stats``.
+        data-plane memory is ``cfg.prefetch_depth + 2`` steps of this
+        process's chunks (one a shard it holds), never the dataset. Under
+        a :class:`repro_torch.parallel.DistributedGroup` every rank plans
+        all ``m`` shards from the header (the same plan on every rank)
+        and streams only its own shard's chunks. The chunk-granular LPT
+        assigns chunks to shards from the store's header; at
+        ``partition_block = stream_chunk_size`` the in-memory solver
+        realises the same partition. The outer loop, damped step,
+        stopping rules and preconditioners are the in-memory solver's;
+        :meth:`fit` additionally reports ``stream_stats``.
 
         Robustness: stream steps are retried per ``cfg.io_retries`` /
         ``io_backoff_s`` / ``io_deadline_s``; with ``cfg.elastic_replan``
         the per-chunk timing ledger feeds an
         :class:`repro_torch.robust.straggler.ElasticReplanner` that
         re-balances the chunk->shard schedule on *measured* seconds
-        (DiSCO-S between PCG rounds, DiSCO-F between outer steps).
+        (DiSCO-S between PCG rounds, DiSCO-F between outer steps; the
+        ranks of a multi-process solve merge their ledgers there first).
         ``fault_plan`` threads a :class:`repro_torch.robust.faults.FaultPlan`
         into the chunk reads and the outer loop (tests).
         """
-        require_in_process(group, "DiscoSolver.from_store (the streamed "
-                                  "solve)")
         if store.axis != cfg.partition:
             raise ValueError(
                 f"store is chunked along {store.axis!r} but cfg.partition "
@@ -674,7 +675,7 @@ class DiscoSolver:
             self._replanner = ElasticReplanner(
                 ledger, threshold=cfg.replan_threshold)
         self._plan = plan_streams(
-            store, self.m, cfg.partition_strategy,
+            store, self.m, cfg.partition_strategy, local=self.group.local,
             block_rows=cfg.ell_block_d, block_cols=cfg.ell_block_n,
             prefetch_depth=cfg.prefetch_depth, device=self.device,
             hvp_dtype=self.hvp_dtype, timing_ledger=ledger,
@@ -687,9 +688,10 @@ class DiscoSolver:
     def _init_streaming(self):
         """The resident (small) tensors of a streamed solve: labels,
         sample weights or mask, and the dense tau-sample preconditioner
-        slab; the X chunks stay in the store."""
-        plan, store, m, tau = self._plan, self._plan.store, self.m, self.tau
-        n = self.n
+        slab, of this process's shards where they are sharded; the X
+        chunks stay in the store."""
+        plan, store, tau = self._plan, self._plan.store, self.tau
+        n, lo = self.n, self._lo
         put = lambda a: _to_device(a, self.device)
         y = np.asarray(store.labels(), np.float32)
         width = plan.width_local
@@ -701,14 +703,15 @@ class DiscoSolver:
             self.smask = put(smask)
             self._perm = np.asarray(self._part.perm)
             self._build_tau_features()
-            self._w_full_shape = self._w_shape = (m, width)
+            self._w_full_shape = (self.m, width)
+            self._w_shape = (self._nl, width)
         else:
             n_padded = plan.axis_padded
             perm = self._part.perm
-            self.y = put(np.pad(y, (0, n_padded - n))[perm]).reshape(m, -1)
-            self.weights = put(np.pad(np.ones(n, np.float32),
-                                      (0, n_padded - n))[perm]
-                               ).reshape(m, -1)
+            local = lambda v: put(np.pad(v, (0, n_padded - n))[perm]
+                                  .reshape(self.m, -1)[lo])
+            self.y = local(y)
+            self.weights = local(np.ones(n, np.float32))
             # the first tau *original* samples, read from the chunks that
             # cover them (sample chunks are in the original order)
             X_tau = np.zeros((plan.other_padded, tau), np.float32)
@@ -726,44 +729,46 @@ class DiscoSolver:
         self.y_tau = put(y[:tau])
 
     def _build_tau_features(self):
-        """(Re)build DiSCO-F's per-shard dense tau slab ``(m, width,
-        tau)`` from the CURRENT schedule, chunk by chunk (the tau columns
-        of each chunk's feature rows), so an elastic re-plan rebuilds it
-        for the new chunk->shard membership."""
-        plan, store, m, tau = self._plan, self._plan.store, self.m, self.tau
+        """(Re)build DiSCO-F's dense tau slab ``(nl, width, tau)`` of this
+        process's shards from the CURRENT schedule, chunk by chunk (the
+        tau columns of each chunk's feature rows), so an elastic re-plan
+        rebuilds it for the new chunk->shard membership."""
+        plan, store, tau = self._plan, self._plan.store, self.tau
         chunk = plan.chunk_size
-        X_tau = np.zeros((m, plan.width_local, tau), np.float32)
-        for s in range(m):
+        X_tau = np.zeros((self._nl, plan.width_local, tau), np.float32)
+        for j, s in enumerate(self.group.local):
             for t in range(plan.n_steps):
                 cid = int(plan.schedule[s, t])
                 if cid < 0:
                     continue
                 slab = store.chunk_csr(cid).take_cols_dense(np.arange(tau))
-                X_tau[s, t * chunk: t * chunk + slab.shape[0]] = slab
+                X_tau[j, t * chunk: t * chunk + slab.shape[0]] = slab
         self.X_tau = _to_device(X_tau, self.device)
 
-    # -- streamed X products: each is one prefetched pass over the store
-    def _slab(self, vec, s, t):
-        """Shard ``s``'s step-``t`` chunk of a sharded ``(m, width, ...)``
-        vector."""
+    # -- streamed X products: each is one prefetched pass over this
+    # process's chunks; payloads and sharded vectors are indexed by the
+    # local shard j (global shard group.local[j])
+    def _slab(self, vec, j, t):
+        """Local shard ``j``'s step-``t`` chunk of a sharded ``(nl, width,
+        ...)`` vector."""
         chunk = self._plan.chunk_size
-        return vec[s, t * chunk:(t + 1) * chunk]
+        return vec[j, t * chunk:(t + 1) * chunk]
 
     def _stream_xt(self, u, local=False, multi=False, hvp=False):
         """Pass A of DiSCO-F, ``z = X^T u``: the transposed chunk layouts,
         each shard's chunks summed in schedule order, then the shards'
         sums all-reduced into the ``(n_padded[, k])`` vector; with
-        ``local=True`` the per-shard sums ``(m, n_padded[, k])`` (the
+        ``local=True`` the per-shard sums ``(nl, n_padded[, k])`` (the
         s-step basis operator, no collective). ``hvp=True`` streams the
         tiles in ``cfg.hvp_dtype`` (PCG's passes)."""
         op = kops.ell_matmat if multi else kops.ell_matvec
-        acc = [None] * self.m
+        acc = [None] * self._nl
         with self._plan.stream("tr", hvp=hvp) as pf:
             for t, pl in enumerate(pf):
-                for s in range(self.m):
-                    part = op(pl["dataT"][s], pl["colsT"][s],
-                              self._slab(u, s, t), sched=pl["schedT"][s])
-                    acc[s] = part if acc[s] is None else acc[s] + part
+                for j in range(self._nl):
+                    part = op(pl["dataT"][j], pl["colsT"][j],
+                              self._slab(u, j, t), sched=pl["schedT"][j])
+                    acc[j] = part if acc[j] is None else acc[j] + part
         if local:
             return torch.stack(acc)
         return self.group.all_reduce(acc)
@@ -771,17 +776,17 @@ class DiscoSolver:
     def _stream_x(self, z, coeffs=None, local=False, multi=False,
                   hvp=False):
         """Pass B of DiSCO-F, ``X (c .* z)``: the forward chunk layouts,
-        each chunk giving its slab of shard ``s``'s rows, joined in
-        schedule order into ``(m, width[, k])``; ``local=True`` reads the
-        per-shard inputs ``z[s]``."""
+        each chunk giving its slab of its shard's rows, joined in schedule
+        order into ``(nl, width[, k])``; ``local=True`` reads the
+        per-shard inputs ``z[j]``."""
         op = kops.ell_matmat if multi else kops.ell_matvec
-        parts = [[None] * self._plan.n_steps for _ in range(self.m)]
+        parts = [[None] * self._plan.n_steps for _ in range(self._nl)]
         with self._plan.stream("fwd", hvp=hvp) as pf:
             for t, pl in enumerate(pf):
-                for s in range(self.m):
-                    parts[s][t] = op(pl["data"][s], pl["cols"][s],
-                                     z[s] if local else z, coeffs,
-                                     sched=pl["sched"][s])
+                for j in range(self._nl):
+                    parts[j][t] = op(pl["data"][j], pl["cols"][j],
+                                     z[j] if local else z, coeffs,
+                                     sched=pl["sched"][j])
         return torch.stack([torch.cat(p) for p in parts])
 
     def _stream_hvp_samples(self, u, coeffs, multi=False):
@@ -795,65 +800,81 @@ class DiscoSolver:
         ``ell_hvp_mm`` with its step schedule; else the two-pass K1 / K6
         pair. Tiles in ``cfg.hvp_dtype`` either way; the choice is made
         once per stream."""
-        plan, m = self._plan, self.m
-        acc = [None] * m
+        plan, nl = self._plan, self._nl
+        acc = [None] * nl
         fused = self.cfg.hvp_fused and plan.fused_hvp_fits(
             self.d, s=(u.shape[1] if multi else 1))
         if fused:
             op = kops.ell_hvp_mm if multi else kops.ell_hvp
             with plan.stream("tr", hvp=True, fused=True) as pf:
                 for t, pl in enumerate(pf):
-                    for s in range(m):
-                        part = op(pl["dataT"][s], pl["colsT"][s], u,
-                                  self._slab(coeffs, s, t),
-                                  sched=pl["hvp_sched"][s])
-                        acc[s] = part if acc[s] is None else acc[s] + part
+                    for j in range(nl):
+                        part = op(pl["dataT"][j], pl["colsT"][j], u,
+                                  self._slab(coeffs, j, t),
+                                  sched=pl["hvp_sched"][j])
+                        acc[j] = part if acc[j] is None else acc[j] + part
             return self.group.all_reduce(acc)
         op = kops.ell_matmat if multi else kops.ell_matvec
         with plan.stream("both", hvp=True) as pf:
             for t, pl in enumerate(pf):
-                for s in range(m):
-                    z = op(pl["dataT"][s], pl["colsT"][s], u,
-                           sched=pl["schedT"][s])
-                    part = op(pl["data"][s], pl["cols"][s], z,
-                              self._slab(coeffs, s, t), sched=pl["sched"][s])
-                    acc[s] = part if acc[s] is None else acc[s] + part
+                for j in range(nl):
+                    z = op(pl["dataT"][j], pl["colsT"][j], u,
+                           sched=pl["schedT"][j])
+                    part = op(pl["data"][j], pl["cols"][j], z,
+                              self._slab(coeffs, j, t), sched=pl["sched"][j])
+                    acc[j] = part if acc[j] is None else acc[j] + part
         return self.group.all_reduce(acc)
 
     def _by_chunk(self, fn, margins):
-        """``fn(margins, y)`` of DiSCO-S's ``(m, width)`` margins, one call
-        a chunk slab."""
+        """``fn(margins, y)`` of DiSCO-S's ``(nl, width)`` margins, one
+        call a chunk slab."""
         steps = self._plan.n_steps
         return torch.stack([torch.cat([
-            fn(self._slab(margins, s, t), self._slab(self.y, s, t))
-            for t in range(steps)]) for s in range(self.m)])
+            fn(self._slab(margins, j, t), self._slab(self.y, j, t))
+            for t in range(steps)]) for j in range(self._nl)])
 
     def _stream_margins_samples(self, w):
-        """DiSCO-S margins, ``(m, width)``: one 'tr' pass, each chunk
+        """DiSCO-S margins, ``(nl, width)``: one 'tr' pass, each chunk
         giving its slab of its shard's margins."""
-        parts = [[None] * self._plan.n_steps for _ in range(self.m)]
+        parts = [[None] * self._plan.n_steps for _ in range(self._nl)]
         with self._plan.stream("tr") as pf:
             for t, pl in enumerate(pf):
-                for s in range(self.m):
-                    parts[s][t] = kops.ell_matvec(
-                        pl["dataT"][s], pl["colsT"][s], w,
-                        sched=pl["schedT"][s])
+                for j in range(self._nl):
+                    parts[j][t] = kops.ell_matvec(
+                        pl["dataT"][j], pl["colsT"][j], w,
+                        sched=pl["schedT"][j])
         return torch.stack([torch.cat(p) for p in parts])
 
     def _stream_grad_samples(self, d1):
         """DiSCO-S's ``sum_s X_s d1_s``: one 'fwd' pass, each shard's
         chunks summed in schedule order, then all-reduced."""
-        acc = [None] * self.m
+        acc = [None] * self._nl
         with self._plan.stream("fwd") as pf:
             for t, pl in enumerate(pf):
-                for s in range(self.m):
-                    part = kops.ell_matvec(pl["data"][s], pl["cols"][s],
-                                           self._slab(d1, s, t),
-                                           sched=pl["sched"][s])
-                    acc[s] = part if acc[s] is None else acc[s] + part
+                for j in range(self._nl):
+                    part = kops.ell_matvec(pl["data"][j], pl["cols"][j],
+                                           self._slab(d1, j, t),
+                                           sched=pl["sched"][j])
+                    acc[j] = part if acc[j] is None else acc[j] + part
         return self.group.all_reduce(acc)
 
     # -- elastic re-planning ---------------------------------------------
+    def _replan(self, trigger: str):
+        """The re-planner's decision at a re-plan window: ``(new_plan,
+        event)`` or None. A process of a multi-process solve has timed
+        only its own chunks, so the ranks first merge their ledgers in one
+        all-reduce (each chunk's seconds and count from the rank that
+        streams it, zeros from the others) and every rank then decides on
+        the same numbers."""
+        ledger = self._replanner.ledger
+        if self._nl < self.m:
+            own = self._plan.schedule[self._lo].reshape(-1)
+            part = torch.from_numpy(ledger.snapshot(own[own >= 0])).to(
+                self.device)
+            ledger.restore(self.group.all_reduce([part]).cpu().numpy())
+        return self._replanner.maybe_replan(
+            self._plan, outer_iter=self._outer_iter, trigger=trigger)
+
     def _replan_mapping(self, new_plan) -> torch.Tensor:
         """Index map old-permuted-position -> new-permuted-position, on
         the device: ``vec_new = vec_old.reshape(-1)[mapping]`` re-permutes
@@ -864,7 +885,12 @@ class DiscoSolver:
             self.device)
 
     def _permute(self, vec, mapping):
-        return vec.reshape(-1)[mapping].reshape(self.m, -1)
+        """A sharded ``(nl, width)`` vector in the new plan's layout: the
+        whole ``(m, width)`` vector (gathered from every process when this
+        one holds only some shards) re-permuted, then this process's
+        rows."""
+        full = self.group.all_gather(vec) if self._nl < self.m else vec
+        return full.reshape(-1)[mapping].reshape(self.m, -1)[self._lo]
 
     def _maybe_replan_samples(self, state: dict) -> None:
         """Between-PCG-rounds re-plan window of streamed DiSCO-S.
@@ -875,8 +901,7 @@ class DiscoSolver:
         Hessian coefficients in ``state``) are re-permuted here."""
         if self._replanner is None:
             return
-        out = self._replanner.maybe_replan(
-            self._plan, outer_iter=self._outer_iter, trigger="pcg")
+        out = self._replan("pcg")
         if out is None:
             return
         new_plan, event = out
@@ -895,17 +920,16 @@ class DiscoSolver:
         iterate is re-permuted and the tau slab rebuilt."""
         if self._replanner is None:
             return w
-        out = self._replanner.maybe_replan(
-            self._plan, outer_iter=self._outer_iter, trigger="outer")
+        out = self._replan("outer")
         if out is None:
             return w
         new_plan, event = out
-        mapping = self._replan_mapping(new_plan)
+        w = self._permute(w, self._replan_mapping(new_plan))
         self._plan, self._part = new_plan, new_plan.partition
         self._perm = np.asarray(self._part.perm)
         self._build_tau_features()
         self._replan_events.append(event.to_dict())
-        return self._permute(w, mapping)
+        return w
 
     def _build_step_streaming(self):
         """The host-driven Newton step of a streamed solve: the in-memory
@@ -913,7 +937,7 @@ class DiscoSolver:
         PCG run by :func:`repro_torch.core.pcg.pcg_streamed`. Returns
         ``step(w, outer_iter=0) -> (w_new, stats)``."""
         cfg, loss, group = self.cfg, self.loss, self.group
-        n, tau, m = self.n, self.tau, self.m
+        n, tau, m, nl = self.n, self.tau, self.m, self._nl
         lam = cfg.lam
         # PCG's 1/n as the in-memory PCG has it, a device scalar (a Python
         # number would divide by its reciprocal on the card)
@@ -928,7 +952,7 @@ class DiscoSolver:
                     obs.instant("comm.allreduce", phase="outer")
 
         if cfg.partition == "features":
-            def step(w, outer_iter=0):                     # w: (m, width)
+            def step(w, outer_iter=0):                    # w: (nl, width)
                 w = self._maybe_replan_features(w)
                 margins = self._stream_xt(w)
                 d1 = loss.d1(margins, self.y) * self.smask
@@ -936,10 +960,10 @@ class DiscoSolver:
                 vals = loss.value(margins, self.y) * self.smask
                 g = self._stream_x(d1) / n + lam * w
                 gnorm = torch.sqrt(group.all_reduce(
-                    [torch.dot(g[s], g[s]) for s in range(m)]))
+                    [torch.dot(g[j], g[j]) for j in range(nl)]))
                 outer_rounds(comm.disco_f_outer_cost(n, self.d, m)[0])
                 fval = torch.sum(vals) / n + 0.5 * lam * group.all_reduce(
-                    [torch.dot(w[s], w[s]) for s in range(m)])
+                    [torch.dot(w[j], w[j]) for j in range(nl)])
                 c_eff = self._subsample(c, outer_iter)
                 coeffs_tau = loss.d2(margins[:tau], self.y_tau)
                 apply_precond = _features_precond(
@@ -980,7 +1004,7 @@ class DiscoSolver:
 
         else:  # samples
             def step(w, outer_iter=0):                     # w: (d_padded,)
-                margins = self._stream_margins_samples(w)  # (m, width)
+                margins = self._stream_margins_samples(w)  # (nl, width)
                 # the loss chunk by chunk, as the in-memory step takes it
                 # shard by shard (so the solve whose shards are the
                 # chunks rounds it alike)
@@ -990,8 +1014,8 @@ class DiscoSolver:
                 gnorm = torch.sqrt(torch.dot(g, g))
                 outer_rounds(comm.disco_s_outer_cost(self.d)[0])
                 fval = group.all_reduce(
-                    [torch.sum(loss.value(margins[s], self.y[s])
-                               * self.weights[s]) for s in range(m)]) / n \
+                    [torch.sum(loss.value(margins[j], self.y[j])
+                               * self.weights[j]) for j in range(nl)]) / n \
                     + 0.5 * lam * torch.dot(w, w)
                 coeffs_tau = loss.d2(self.X_tau.T @ w, self.y_tau)
                 apply_precond = _samples_precond(
@@ -1128,17 +1152,20 @@ class DiscoSolver:
 
         Under a :class:`repro_torch.parallel.DistributedGroup` every rank
         calls ``fit`` with the same ``w0`` and gets the same result
-        (DiSCO-F's rows are gathered); checkpointing raises
-        ``NotImplementedError`` there.
+        (DiSCO-F's rows are gathered). Checkpoints there: every rank
+        gathers the iterate, rank 0 alone writes it and a barrier follows;
+        on resume rank 0 reads the directory (which need exist on its host
+        only) and broadcasts the state, so every rank checks the same
+        config and raises the same ``ValueError`` together.
         """
-        cfg = self.cfg
-        if checkpoint_dir is not None:
-            require_in_process(self.group, "fit(checkpoint_dir=...)")
+        cfg, group = self.cfg, self.group
         history: list[dict[str, Any]] = []
         ledger = comm.CommLedger()
         start_iter = 0
         if checkpoint_dir is not None and resume:
-            state = load_checkpoint(checkpoint_dir)
+            state = group.broadcast_object(
+                load_checkpoint(checkpoint_dir) if group.rank == 0
+                else None)
             if state is not None:
                 if state.cfg != self._cfg_fingerprint():
                     raise ValueError(
@@ -1183,12 +1210,15 @@ class DiscoSolver:
             history.append(stats)
             if checkpoint_dir is not None \
                     and (k + 1) % max(checkpoint_every, 1) == 0:
-                save_checkpoint(checkpoint_dir, CheckpointState(
-                    next_iter=k + 1, w=self._w_to_original(w),
-                    key=self._key_data(), history=history,
-                    ledger=dataclasses.asdict(ledger),
-                    replan_events=list(self._replan_events),
-                    cfg=self._cfg_fingerprint()))
+                w_orig = self._w_to_original(w)       # collective
+                if group.rank == 0:
+                    save_checkpoint(checkpoint_dir, CheckpointState(
+                        next_iter=k + 1, w=w_orig,
+                        key=self._key_data(), history=history,
+                        ledger=dataclasses.asdict(ledger),
+                        replan_events=list(self._replan_events),
+                        cfg=self._cfg_fingerprint()))
+                group.barrier()
             if stats["grad_norm"] <= cfg.grad_tol:
                 converged = True
                 break
@@ -1232,11 +1262,16 @@ def disco_fit_streaming(X, y, store_path: str,
     along ``cfg.partition`` with ``cfg.stream_chunk_size`` indices a
     chunk, and fits it with :meth:`DiscoSolver.from_store`. Reopen an
     existing store with ``DiscoSolver.from_store(ShardStore(path), cfg)``
-    to skip the conversion.
+    to skip the conversion. Under a ``DistributedGroup`` rank 0 alone
+    writes the store (on a file system every rank reads) and every rank
+    opens it after a barrier.
     """
-    require_in_process(group, "disco_fit_streaming (the streamed solve)")
     cfg = cfg or DiscoConfig()
-    store = ShardStore.from_csr(X, y, store_path, axis=cfg.partition,
-                                chunk_size=cfg.stream_chunk_size)
+    group = group or InProcessGroup(1)
+    if group.rank == 0:
+        ShardStore.from_csr(X, y, store_path, axis=cfg.partition,
+                            chunk_size=cfg.stream_chunk_size)
+    group.barrier()
+    store = ShardStore(store_path)
     return DiscoSolver.from_store(store, cfg, group=group,
                                   device=device).fit(w0)

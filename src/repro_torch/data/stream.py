@@ -38,10 +38,11 @@ On the CPU the same code runs without pinning, streams or events, each
 payload in tensors of its own. A failed pin, copy or fill raises; nothing
 falls back to tiles built on the host.
 
-Peak data-plane memory is ``O(m * chunk_size * prefetch_depth)``, set by
-the schedule step, never by the dataset; :class:`PrefetchStats` measures
-it in the reference's terms (a payload's bytes are those of its stacked
-tiles and column ids).
+Peak data-plane memory is ``O(nl * chunk_size * prefetch_depth)``, set by
+the schedule step of the ``nl`` shards this process streams (all ``m``
+in one process, its own in a multi-process solve), never by the
+dataset; :class:`PrefetchStats` measures it in the reference's terms (a
+payload's bytes are those of its stacked tiles and column ids).
 """
 from __future__ import annotations
 
@@ -101,7 +102,7 @@ class PrefetchStats:
     producer thread, in flight, or held by the consumer (the consumer's
     previous payload is released when it takes the next). ``peak_bytes``
     is the high-water mark; ``max_step_bytes`` the largest single payload
-    (one schedule step, all ``m`` shards).
+    (one schedule step of the shards this process streams).
     """
 
     passes: int = 0
@@ -451,7 +452,7 @@ class _DevicePlane:
             self.staged_max = plan._staged_bytes_max()
             tiles = sum(plan._tile_bytes(lay, torch.float32)
                         for lay in ("fwd", "tr"))
-            state = plan.m * 2 * plan._nb("tr") * 4
+            state = plan.n_local * 2 * plan._nb("tr") * 4
             # the staging, then the tiles and the fused kernels' state
             self.slot_bytes = self.staged_max + tiles + state + 4 * _ALIGN
             self.slots = [_Slot(self.slot_bytes, device) for _ in range(n)]
@@ -698,7 +699,10 @@ class StreamPlan:
 
     Built by :func:`plan_streams`. ``schedule[s, t]`` is the store chunk
     id computed by shard ``s`` at step ``t`` (``-1`` = synthetic empty
-    chunk, from padding the chunk count to a multiple of ``m``); the
+    chunk, from padding the chunk count to a multiple of ``m``);
+    ``local`` the shards this process streams (all ``m`` by default; a
+    rank of a multi-process solve streams its own), whose chunks fill a
+    payload's ``(n_local, ...)`` stacks in order; the
     ``partition`` is the matching index-level permutation, identical to
     what the in-memory solver derives at ``partition_block = chunk_size``
     granularity. ``w_fwd``/``w_tr`` are the store-wide max ELL widths
@@ -723,6 +727,7 @@ class StreamPlan:
     timing_ledger: ChunkTimingLedger | None = None  # per-chunk seconds
     fault_injector: FaultInjector | None = None     # test-only failure hook
     retry: RetryPolicy | None = None      # per-step retry/backoff/deadline
+    local: tuple | None = None    # the shards streamed here (None = all)
     # the device plane (CUDA), made at the first pass, and the host's
     # chunk plans and memory maps, shared by the plans replan_streams
     # derives
@@ -730,6 +735,17 @@ class StreamPlan:
         default=None, repr=False, compare=False)
     _cache: _HostCache = dataclasses.field(default_factory=_HostCache,
                                            repr=False, compare=False)
+
+    @property
+    def shards(self) -> tuple:
+        """The global indices of the shards this process streams."""
+        return tuple(range(self.m)) if self.local is None \
+            else tuple(self.local)
+
+    @property
+    def n_local(self) -> int:
+        """How many shards this process streams (a payload's stack)."""
+        return len(self.shards)
 
     @property
     def n_steps(self) -> int:
@@ -803,16 +819,16 @@ class StreamPlan:
     def _layout_shape(self, layout: str) -> tuple[int, int, int, int, int]:
         _, _, r, c = self._dims(layout)
         w = self.w_fwd if layout == "fwd" else self.w_tr
-        return self.m, self._nb(layout), w, r, c
+        return self.n_local, self._nb(layout), w, r, c
 
     def _tile_bytes(self, layout: str, dtype: torch.dtype) -> int:
         return int(np.prod(self._layout_shape(layout))) * _itemsize(dtype)
 
     def _staged_bytes_max(self) -> int:
-        """Bytes of the largest staged step: ``m`` times the store's
-        largest chunk nnz in values and both layouts' offsets, the column
-        ids, the schedules and the fused kernels' step tables."""
-        nnz = self.m * int(self.store.chunk_nnz.max(initial=0))
+        """Bytes of the largest staged step: ``n_local`` times the
+        store's largest chunk nnz in values and both layouts' offsets, the
+        column ids, the schedules and the fused kernels' step tables."""
+        nnz = self.n_local * int(self.store.chunk_nnz.max(initial=0))
         ctas = self._ctas
         sizes = [nnz * 4]
         for lay in ("fwd", "tr"):
@@ -821,7 +837,7 @@ class StreamPlan:
         nbT = self._nb("tr")
         # a step table: live, prefix, first (steps + 1 <= nb + 1), bounds
         # per step
-        sizes.append(self.m * (3 * nbT + 2 + nbT * (ctas + 1)) * 4)
+        sizes.append(self.n_local * (3 * nbT + 2 + nbT * (ctas + 1)) * 4)
         return sum(-(-n // _ALIGN) * _ALIGN for n in sizes) + _ALIGN
 
     # -- the host half of a step --------------------------------------------
@@ -899,14 +915,14 @@ class StreamPlan:
 
     def _host_step(self, t: int, kind: str, hvp: bool = False,
                    fused: bool = False) -> _HostStep:
-        """Step ``t`` of ``kind`` on the host: every shard's chunk read and
-        planned, stacked into the staging arrays, with the K1 / K6
-        schedules and, for a fused stream, the K2 / K7 step tables, built
-        from the host's live counts."""
+        """Step ``t`` of ``kind`` on the host: the chunk of every shard
+        streamed here read and planned, stacked into the staging arrays,
+        with the K1 / K6 schedules and, for a fused stream, the K2 / K7
+        step tables, built from the host's live counts."""
         layouts = _KINDS[kind]
-        cids = [int(self.schedule[s, t]) for s in range(self.m)]
+        cids = [int(self.schedule[s, t]) for s in self.shards]
         per_shard = [self._chunk_read(cid, layouts, shard=s)
-                     for s, cid in enumerate(cids)]
+                     for s, cid in zip(self.shards, cids)]
         tile_dtype = self.tile_dtype(hvp)
         out = {}
         for lay in layouts:
@@ -969,7 +985,7 @@ class StreamPlan:
         ``kind`` selects the layouts streamed: ``'fwd'`` (keys ``data`` /
         ``cols`` / ``sched``: drives ``X v``), ``'tr'`` (``dataT`` /
         ``colsT`` / ``schedT``: ``X^T u``) or ``'both'``; each payload
-        holds ``(m, ...)``-stacked tensors for one step. ``hvp=True``
+        holds ``(n_local, ...)``-stacked tensors for one step. ``hvp=True``
         marks a Hessian-vector-product pass, whose tiles are in
         ``hvp_dtype`` when one is set (margins and gradient passes stay
         f32). ``fused=True`` (with ``'tr'``) adds ``hvp_sched``, each
@@ -1050,7 +1066,8 @@ def plan_streams(store: ShardStore, m: int, strategy: str = "lpt",
                  timing_ledger: ChunkTimingLedger | None = None,
                  fault_injector: FaultInjector | None = None,
                  retry: RetryPolicy | None = None,
-                 chunk_cost: np.ndarray | None = None) -> StreamPlan:
+                 chunk_cost: np.ndarray | None = None,
+                 local=None) -> StreamPlan:
     """Plan a balanced streaming solve over ``store`` for ``m`` shards.
 
     Reads only the store *header* plus each chunk's index structure (to
@@ -1073,7 +1090,9 @@ def plan_streams(store: ShardStore, m: int, strategy: str = "lpt",
     read path, ``retry`` hardens each step's load with bounded retries,
     backoff and a deadline, and ``chunk_cost`` balances the LPT on
     measured cost instead of header nnz (what :func:`replan_streams`
-    passes).
+    passes). ``local`` (the global indices of the shards this process
+    holds, e.g. a ``DistributedGroup``'s ``local``) restricts the streams
+    to those shards' chunks; the plan itself is of all ``m``.
     """
     edge = block_rows if store.axis == "features" else block_cols
     if store.chunk_size % edge != 0:
@@ -1095,7 +1114,8 @@ def plan_streams(store: ShardStore, m: int, strategy: str = "lpt",
                       prefetch_depth=prefetch_depth,
                       device=resolve_device(device),
                       hvp_dtype=hvp_dtype, timing_ledger=timing_ledger,
-                      fault_injector=fault_injector, retry=retry)
+                      fault_injector=fault_injector, retry=retry,
+                      local=None if local is None else tuple(local))
 
 
 def replan_streams(plan: StreamPlan,

@@ -11,6 +11,12 @@ adds chunks to a samples-axis store, so a model is refreshed online:
    streams the grown store from the served weights (``fit(w0=)``);
 3. **publish**: the new :class:`DiscoResult` becomes the next registry
    version and ``ACTIVE`` flips; scoring engines pick it up between ticks.
+
+Under a :class:`repro_torch.parallel.DistributedGroup` every rank runs the
+loop: rank 0 alone appends to the store and publishes, a barrier follows
+each write, and the other ranks re-read the store's header, so every
+rank refits the same data from the same weights and returns the same
+``(version, result)``.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from repro_torch.core.lambda_path import lambda_path_fit
 from repro_torch.data.sparse import CSRMatrix
 from repro_torch.data.store import ShardStore
 from repro_torch.glm_serve.registry import ModelRegistry
-from repro_torch.parallel.collectives import require_in_process
+from repro_torch.parallel.collectives import InProcessGroup
 
 
 class RefitLoop:
@@ -36,26 +42,43 @@ class RefitLoop:
             grown in place by :meth:`ingest`.
         cfg: solver hyperparameters of every refit; ``cfg.partition``
             must match the store's axis (``DiscoSolver.from_store`` checks).
-        group: the shards (default one), as for :class:`DiscoSolver`; an
-            :class:`InProcessGroup` only (its refits stream the store).
+        group: the shards (default one), as for :class:`DiscoSolver`: an
+            :class:`InProcessGroup`, or a ``DistributedGroup`` whose ranks
+            all run the loop (each refit streams this rank's chunks).
         device: where the refits run (default the card; ``'cpu'`` for the
             plain versions).
     """
 
     def __init__(self, registry: ModelRegistry, store: ShardStore,
                  cfg: DiscoConfig, group=None, device=None):
-        require_in_process(group, "glm_serve.RefitLoop")
         self.registry = registry
         self.store = store
         self.cfg = cfg
-        self.group = group
+        self.group = group or InProcessGroup(1)
         self.device = device
 
     def ingest(self, X_new: CSRMatrix, y_new: np.ndarray) -> int:
         """Append new samples to the store; returns the new sample count.
-        Nothing is re-read or re-fit until :meth:`refit`."""
-        self.store.append_chunks(X_new, y_new)
+        Nothing is re-read or re-fit until :meth:`refit`. In a
+        multi-process loop rank 0 appends once no rank reads the store
+        (a barrier before) and the others, after a barrier, re-read the
+        header (``ShardStore`` reads it once)."""
+        self.group.barrier()
+        if self.group.rank == 0:
+            self.store.append_chunks(X_new, y_new)
+        self.group.barrier()
+        if self.group.rank != 0:
+            self.store = ShardStore(self.store.path,
+                                    verify=self.store.verify)
         return self.store.shape[1]
+
+    def _publish(self, result: DiscoResult, cfg: DiscoConfig,
+                 activate: bool) -> int:
+        """Rank 0 publishes; every rank gets the new version number."""
+        version = (self.registry.publish(result, cfg, activate=activate)
+                   if self.group.rank == 0 else None)
+        self.group.barrier()
+        return self.group.broadcast_object(version)
 
     def _active_w(self, warm: bool):
         if warm and self.registry.active_version() is not None:
@@ -72,9 +95,7 @@ class RefitLoop:
         solver = DiscoSolver.from_store(self.store, self.cfg,
                                         group=self.group, device=self.device)
         result = solver.fit(w0=w0)
-        version = self.registry.publish(result, self.cfg,
-                                        activate=activate)
-        return version, result
+        return self._publish(result, self.cfg, activate), result
 
     def refit_path(self, lambdas, X_val=None, y_val=None,
                    warm: bool = True, activate: bool = True):
@@ -96,8 +117,7 @@ class RefitLoop:
         idx = (path.best_index if path.best_index is not None
                else len(path.results) - 1)
         best_cfg = dataclasses.replace(self.cfg, lam=path.lambdas[idx])
-        version = self.registry.publish(path.results[idx], best_cfg,
-                                        activate=activate)
+        version = self._publish(path.results[idx], best_cfg, activate)
         self.cfg = best_cfg
         return version, path
 

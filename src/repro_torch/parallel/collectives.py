@@ -19,7 +19,11 @@ The interface:
   result is the ordered sum ``shard 0 + shard 1 + ...`` on the caller's
   device, so a given ``m`` gives the same bits in either group;
 * ``all_gather(parts)``: every shard's part, stacked in shard order
-  (DiSCO-F's sharded iterate at the end of a fit).
+  (DiSCO-F's sharded iterate at the end of a fit);
+* ``barrier()``: every process reaches it before any leaves (after rank
+  0 alone writes a checkpoint, a store or a registry version);
+* ``broadcast_object(obj, src=0)``: rank ``src``'s picklable ``obj`` on
+  every process (a checkpoint rank 0 read); in process, ``obj`` itself.
 
 Each group counts what it moves in plain attributes (:class:`CommCounts`):
 calls and floats of vector payloads and of scalar ones separately, the
@@ -47,13 +51,14 @@ class CommCounts:
     float (floats: one part's size, as :class:`repro_torch.core.comm
     .CommLedger` counts a payload); ``scalar_calls`` / ``scalar_floats``:
     those of one; ``gather_calls`` / ``gather_floats``: all-gathers;
+    ``barrier_calls``; ``broadcast_calls``: object broadcasts;
     ``staged_bytes``: bytes copied between a card and pinned host buffers
     for a gloo collective; ``seconds``: host seconds inside the transport
     (distributed groups only)."""
 
     FIELDS = ("vector_calls", "vector_floats", "scalar_calls",
               "scalar_floats", "gather_calls", "gather_floats",
-              "staged_bytes", "seconds")
+              "barrier_calls", "broadcast_calls", "staged_bytes", "seconds")
 
     def reset_counts(self) -> None:
         for name in self.FIELDS:
@@ -110,6 +115,15 @@ class InProcessGroup(CommCounts):
         self.gather_floats += parts[0].numel()
         return parts if isinstance(parts, torch.Tensor) else torch.stack(
             list(parts))
+
+    def barrier(self) -> None:
+        """Nothing to wait for: one process holds every shard."""
+        self.barrier_calls += 1
+
+    def broadcast_object(self, obj, src: int = 0):
+        """``obj`` itself (this process is every rank)."""
+        self.broadcast_calls += 1
+        return obj
 
 
 class DistributedGroup(CommCounts):
@@ -263,6 +277,32 @@ class DistributedGroup(CommCounts):
         self.gather_floats += parts[0].numel()
         return torch.stack(self._gather(parts[0]))
 
+    def barrier(self) -> None:
+        """Wait until every rank has called it (gloo's barrier, or
+        NCCL's on this rank's card)."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        self.barrier_calls += 1
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.local_rank])
+        else:
+            dist.barrier()
+        self.seconds += time.perf_counter() - t0
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s ``obj`` (picklable) on every rank, through
+        ``torch.distributed.broadcast_object_list``; the other ranks'
+        ``obj`` is ignored."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        self.broadcast_calls += 1
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(
+            box, src=src,
+            device=self.device if self.backend == "nccl" else None)
+        self.seconds += time.perf_counter() - t0
+        return box[0]
+
 
 def local_slice(group) -> slice:
     """The shards ``group.local`` as one slice of the shard axis (a
@@ -272,11 +312,3 @@ def local_slice(group) -> slice:
         raise ValueError(f"local shards {local} are not consecutive")
     return slice(local[0], local[-1] + 1)
 
-
-def require_in_process(group, what: str) -> None:
-    """Raise for a path not yet ported to one shard a process."""
-    if group is not None and len(group.local) != group.size:
-        raise NotImplementedError(
-            f"{what} runs on an InProcessGroup only; under a "
-            f"{type(group).__name__} (one shard a process) it is not "
-            f"ported yet (ROADMAP Queue 1)")

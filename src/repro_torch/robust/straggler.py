@@ -114,6 +114,26 @@ class ChunkTimingLedger:
         mean = loads.mean()
         return float(loads.max() / mean) if mean > 0 else 1.0
 
+    def snapshot(self, chunks) -> np.ndarray:
+        """``(2, n_chunks)`` f64: the EWMA seconds (row 0) and the
+        observation counts (row 1) of ``chunks``, zeros elsewhere. The
+        processes of a multi-process solve each time only the chunks they
+        stream; the sum of their snapshots of their own chunks is the
+        ledger one process streaming every chunk would hold, which
+        :meth:`restore` then loads on every process."""
+        out = np.zeros((2, self.n_chunks), np.float64)
+        idx = np.asarray(chunks, np.int64)
+        with self._lock:
+            out[0, idx] = self._ewma[idx]
+            out[1, idx] = self._count[idx]
+        return out
+
+    def restore(self, state: np.ndarray) -> None:
+        """Load a :meth:`snapshot`-shaped ``(2, n_chunks)`` state."""
+        with self._lock:
+            self._ewma[:] = state[0]
+            self._count[:] = np.rint(state[1]).astype(np.int64)
+
     def reset(self):
         """Forget all observations (e.g. after conditions change)."""
         with self._lock:

@@ -2245,3 +2245,48 @@ def test_cuda_one_nccl_rank_equals_in_process(dev):
     assert got["ledger"] == twin["ledger"]
     assert o["ell_mv"] > 0 and o["counts"]["staged_bytes"] == 0
     assert o["counts"]["vector_calls"] > 0
+
+
+def test_cuda_two_gloo_ranks_softmax_and_stream_equal_in_process(
+        dev, tmp_path):
+    """Two gloo ranks sharing the card run softmax (K8 / K9) and the
+    streamed DiSCO-S (K1), each rank streaming its own chunks: both equal
+    the card's InProcessGroup(2) run bit for bit, on every rank."""
+    import torch_dist_ranks as ranks
+    from repro_torch.data import ShardStore
+    from repro_torch.parallel.launch import spawn
+    rng = np.random.default_rng(5)
+    Xs = rng.standard_normal((64, 2048)).astype(np.float32)
+    ys = np.argmax(Xs.T @ rng.standard_normal((64, 4)), axis=1)
+    _, y, X = _dist_problem()
+    store = ShardStore.from_csr(X, y, str(tmp_path / "store"),
+                                axis="samples", chunk_size=256).path
+    data = dict(softmax=(Xs, ys), stores=dict(samples=store))
+    cases = {
+        "softmax": dict(kind="softmax", cfg=dict(
+            lam=1e-3, max_outer=3, grad_tol=0.0, tau=24, use_kernel=True,
+            partition="features", pcg_block_s=2)),
+        "stream": dict(kind="stream", cfg=dict(
+            DIST_KW, partition="samples", max_outer=2, partition_block=256,
+            stream_chunk_size=256)),
+    }
+    twins = {name: ranks.path_case(dict(case, name=name), data,
+                                   InProcessGroup(2), str(tmp_path), dev)
+             for name, case in cases.items()}
+    out = spawn(ranks.card_paths, 2, backend="gloo", device="cuda",
+                args=(cases, data, str(tmp_path)), timeout_s=120.0)
+    for o in out:
+        got, counts, launches = o["softmax"]
+        want = twins["softmax"]
+        assert np.array_equal(got["W"], want["W"])
+        assert got["history"] == want["history"]
+        assert launches["xt_multi"] > 0 and launches["x_cz_multi"] > 0
+        assert counts["staged_bytes"] > 0
+        got, counts, launches = o["stream"]
+        want = twins["stream"]
+        assert np.array_equal(got["w"], want["w"])
+        assert got["history"] == want["history"]
+        assert got["ledger"] == want["ledger"]
+        assert launches["ell_mv"] > 0
+    assert sorted(c for o in out for c in o["stream"][0]["chunks"]) == \
+        twins["stream"]["chunks"]

@@ -233,18 +233,19 @@ def test_port_runs_without_jax_or_repro():
     assert "ISOLATED" in r.stdout
 
 
-def test_spawned_ranks_load_no_jax_or_repro():
+def test_spawned_ranks_load_no_jax_or_repro(tmp_path):
     """A rank of ``repro_torch.parallel.launch.spawn`` is a new
     interpreter, which the ``sys.modules["jax"] = None`` check above never
-    sees: each of two gloo ranks runs a distributed solve and reports the
-    modules of JAX, ``ml_dtypes`` and the JAX package it loaded, which
-    must be none."""
+    sees: each of two gloo ranks runs distributed solves (in memory,
+    streamed, softmax) and reports the modules of JAX, ``ml_dtypes`` and
+    the JAX package it loaded, which must be none."""
     import torch_dist_ranks as ranks
     from repro_torch import make_sparse_glm_data
     from repro_torch.parallel.launch import spawn
     X, y, _ = make_sparse_glm_data(d=48, n=80, density=0.2, seed=0)
     out = spawn(ranks.isolated_solve, 2, backend="gloo", device="cpu",
-                args=(((X.indptr, X.indices, X.data, X.shape), y),),
+                args=(((X.indptr, X.indices, X.data, X.shape), y),
+                      str(tmp_path)),
                 timeout_s=60.0)
     assert out == [[], []]
 
