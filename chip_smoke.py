@@ -68,7 +68,10 @@ Eight phases; any failed check makes the exit code nonzero.
    head_dim 32, 64 and 128, S and T at the bf16 kernel's tile edges (127,
    128, 129, 257), each on contiguous inputs, on transposed (B, S, H, Dh)
    views and on views cut from wider rows, each call repeated bit for
-   bit. The s-step Gram solve is
+   bit; and in bf16 at the MoE prefills' calls as the model passes them
+   (qwen3-moe-30b-a3b: 2 x 32 heads over 4 KV heads x 4,096 tokens,
+   causal; mixtral-8x7b: 1 x 32 over 8 x 8,192 through its window of
+   4,096). The s-step Gram solve is
    timed on the card and on the CPU. Then small solves on the card against
    the same solves on the CPU: sparse and dense, classic and s-step (fused
    dense s-step included), a λ-path and softmax; checkpoints written on
@@ -276,7 +279,25 @@ Eight phases; any failed check makes the exit code nonzero.
    teacher-forced replay through ``decode_step`` on 2 x 512 tokens
    (relative L2 <= 1e-3, argmax equal); olmo-1b and chatglm3-6b at 2
    layers, card against CPU (<= 1e-4); chatglm3-6b's bf16 prefill of
-   2 x 2,048 tokens, K11 at GQA group 16.
+   2 x 2,048 tokens, K11 at GQA group 16. Between the two, after the
+   olmo model is freed, the MoE decoders (lines ``moe ...``, budget
+   150 s): qwen3-moe-30b-a3b whole in bf16 (48 layers, 128 experts top-8,
+   30,532,110,336 parameters, 61.1 GB, weights from seed 0 on the card):
+   prefill of 2 x 4,096 tokens (capacity 320 an expert and row, 48 K11
+   launches a forward, time, tokens/s, peak memory, and the profile's
+   device time of K11, the expert products, routing, dispatch, combine
+   and attention), then on its first 16 layers (sharing the weights; the
+   whole model's decode is host-bound at 137-188 ms a step)
+   ``Engine.generate`` of 4 x 128-token prompts and 32 new tokens (ms a
+   step, no K11 launch, repeated, a request alone as in the batch) and
+   ``ContinuousEngine`` (6 requests on 4 slots);
+   mixtral-8x7b at full width cut to 4 of its 32 layers (the whole is
+   93.4 GB), prefill of 1 x 8,192 tokens through K11's window of 4,096;
+   then in f32 (TF32 off) qwen3-moe at 2 layers and mixtral at 1 layer
+   with window 128: card against CPU on 2 x 256 tokens (routing tables
+   equal, tokens at a router tie named, logits <= 1e-4) and prefill
+   against the decode replay on 2 x 512 tokens at capacity factor 4.0
+   (nothing dropped, <= 1e-3, argmax equal).
 8. Report: the kernels' JSON line.
 
 Each slice zeroes the kernels' launch counts just before each fit or
@@ -389,6 +410,14 @@ FLASH_CASES = [
 # contiguous (B, H, S, Dh); a (B, S, H, Dh) tensor transposed, as the
 # model passes its projections; the same cut from rows of Dh + 8
 FLASH_LAYOUTS = ("contiguous", "head_major", "sliced")
+# the MoE prefills' calls, in bf16 as the model passes them (head-major):
+# qwen3-moe-30b-a3b's 2 x 4,096 tokens at GQA group 8, mixtral-8x7b's
+# 1 x 8,192 through its window of 4,096 at group 4; their plain versions'
+# f32 scores take 4.3 and 8.6 GB
+FLASH_MOE_CASES = {
+    "qwen3-moe-30b-a3b": (2, 32, 4, 4096, 4096, 128, True, 0, None),
+    "mixtral-8x7b": (1, 32, 8, 8192, 8192, 128, True, 4096, None),
+}
 FLASH_ROUNDING_RATIO = 1.5   # bf16 error over the output rounding's alone
 # name: B, Hq, Hkv, S (= T), Dh, dtype, reps, time the plain version,
 # layout; all causal. main: olmo-1b's call in a prefill of 4 x 4,096
@@ -413,6 +442,30 @@ PREFILL_REPS = 3
 DECODE_PROFILED = 8          # decode steps under the profiler
 SERVE = dict(batch=4, prompt=128, new=32)
 CONSISTENCY = (2, 512)       # f32 prefill vs decode replay
+# the MoE decoders (phase "moe"): qwen3-moe-30b-a3b whole in bf16, mixtral-8x7b
+# at full width cut in depth, and f32 checks on a layer or two of each
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARAMS = (30_532_110_336, 3_353_020_416)     # all, active a token
+MOE_PREFILL = (2, 4096)      # train_4k's length, the batch cut to 2
+MOE_CAPACITY = 320           # per expert and row at 4,096 tokens, cf 1.25
+MOE_SERVE = dict(batch=4, prompt=128, new=32, max_len=256)
+MOE_DECODE_PROFILED = 4      # decode steps under the profiler (device only)
+# serving runs on the whole model's first MOE_SERVE_LAYERS layers: decode is
+# host-bound (137-188 ms a step at 48 layers on an H100 80GB HBM3 at
+# 700 W), and its three 159-step runs at full depth would take 65-90 s
+MOE_SERVE_LAYERS = 16
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_LAYERS = 4           # of 32: the whole model is 93.4 GB in bf16
+MIXTRAL_PREFILL = (1, 8192)  # twice the window, so the window mask cuts
+MOE_CONSISTENCY = (2, 256)   # f32 card vs CPU
+MOE_REPLAY = (2, 512)        # f32 prefill vs decode replay at cf 4.0
+MOE_F32 = {MOE_ARCH: dict(num_layers=2),
+           MIXTRAL: dict(num_layers=1, window=128)}
+MOE_BUDGET_S = 150.0
+# the profiler ranges a prefill runs in (repro_torch.models.moe.moe_block's
+# parts, each layer's attention), whose device time the profile sums
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+              "attention")
 # bf16 prefill (K11's tensor-core kernel) vs the same forward in f32 on the
 # same weights: bf16 rounds every activation of every layer (2^-9 each),
 # so the limit is bf16-sized; tests/test_torch_models.py holds the CPU's
@@ -5945,7 +5998,8 @@ def flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, seed,
 def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
     """K11 against its plain version on the card, f32 (TF32 off) and bf16
     (against the plain version in f32 on the same bf16 inputs), over
-    FLASH_CASES; each call is repeated and must match bit for bit. For
+    FLASH_CASES, then in bf16 at the MoE prefills' calls (FLASH_MOE_CASES);
+    each call is repeated and must match bit for bit. For
     bf16 it also prints the error of the plain f32 output rounded to bf16,
     the part of the kernel's error that the output dtype alone makes (the
     rest comes from P rounded to bf16 before the PV product)."""
@@ -5978,6 +6032,27 @@ def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
                   and bool(got.isfinite().all()),
                   f"{tag}: rel err {e:.2e} (<= {tol:g}), repeats bit for "
                   f"bit {torch.equal(got, again)}")
+    for name, (B, Hq, Hkv, S, T, Dh, causal, window, kv_len) in \
+            FLASH_MOE_CASES.items():
+        q, k, v = flash_inputs(torch, B, Hq, Hkv, S, T, Dh, torch.bfloat16,
+                               len(name), "head_major")
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        got = flash.flash_attention(q, k, v, **kw)
+        again = flash.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        e = record_err(bf16_errs, "flash_attention", got.float(), want)
+        rounding.append([e, rel_err(want.to(torch.bfloat16).float(), want)])
+        tol = FLASH_TOL["bfloat16"]
+        check(e <= tol and torch.equal(got, again)
+              and bool(got.isfinite().all()),
+              f"flash_attention bf16 head_major at {name}'s prefill B={B} "
+              f"Hq={Hq} Hkv={Hkv} S={S} T={T} Dh={Dh} causal={causal} "
+              f"window={window}: rel err {e:.2e} (<= {tol:g}; output "
+              f"rounding alone {rounding[-1][1]:.2e}), repeats bit for bit "
+              f"{torch.equal(got, again)}")
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
     ratio = max(r[0] / r[1] for r in rounding)
     print("flash_attention bf16 error against output rounding " + json.dumps(
         dict(kernel_rel_err_max=max(r[0] for r in rounding),
@@ -6270,6 +6345,447 @@ def phase_model_consistency(torch, rt, build) -> None:
                      "chatglm3-6b 2 layers")
 
 
+# ---------------------------------------------------------------------------
+# the MoE decoders
+# ---------------------------------------------------------------------------
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of the host, in GiB (/proc/meminfo)."""
+    out = {}
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, val = line.split(":", 1)
+                if key in ("MemTotal", "MemAvailable"):
+                    out[key] = int(val.split()[0]) / 2 ** 20
+    except OSError as exc:
+        out["error"] = repr(exc)
+    return out
+
+
+class recorded_routes:
+    """Within the block, every MoE layer of ``model`` keeps its routing
+    (``MoE.routes``); after it, ``self.calls`` holds ``(x, router, C,
+    routing)`` of each call, layer by layer in call order."""
+
+    def __init__(self, model):
+        self.moes = [layer.moe for layer in model.layers]
+
+    def __enter__(self):
+        for m in self.moes:
+            m.routes = []
+        return self
+
+    def __exit__(self, *exc):
+        self.calls = [(x, m.router, C, r) for m in self.moes
+                      for x, C, r in m.routes]
+        for m in self.moes:
+            m.routes = None
+
+
+def moe_prefill_profile(torch, fn) -> dict:
+    """``fn()`` (one prefill) under the profiler with the MoE ranges: the
+    device time of each range, of K11 and in all, and the top device
+    operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = set(MOE_RANGES)
+    # a range's device time: the kernels its host ops launched (the CPU
+    # event's own total; the profiler also records a device-side span of
+    # each range, idle gaps included, under the same name)
+    ranges = dict.fromkeys(sorted(names), 0.0)
+    for e in prof.events():
+        if e.name in names and e.device_type == DeviceType.CPU:
+            ranges[e.name] += e.device_time_total * 1e-6
+    rows = []
+    for e in prof.key_averages():
+        if e.key in names:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            dev_us = getattr(e, "self_device_time_total", 0)
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) * 1e-6
+    k11 = sum(r[0] for r in rows if FLASH_KERNEL_NAMES.search(r[2])) * 1e-6
+    shares = {k: (v / busy if busy else None) for k, v in ranges.items()}
+    return dict(profiled_wall_s=wall, device_busy_s=busy,
+                busy_share=busy / wall if wall else None, k11_s=k11,
+                k11_share=k11 / busy if busy else None, ranges_s=ranges,
+                range_shares=shares,
+                other_share=(1 - sum(v for v in shares.values() if v)
+                             if busy else None),
+                top=[dict(name=k[:70], calls=c, device_s=t * 1e-6)
+                     for t, c, k in rows[:12]])
+
+
+def moe_prefill(torch, rt, build, cfg, model, tokens, tag, reps):
+    """``reps`` timed prefills (``forward(last_only=True)``) after a
+    warm-up, each with one K11 launch a layer; returns (logits, times,
+    K11 launches)."""
+    prefill = lambda: rt.forward(cfg, model, {"tokens": tokens},
+                                 last_only=True)[0]
+    logits = prefill()
+    torch.cuda.synchronize()
+    launches, times = 0, []
+    for _ in range(reps):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        n = build.launch_counts()["flash_attention"]
+        launches += n
+        check(n == cfg.num_layers, f"{tag} prefill: {n} K11 launches a "
+                                   f"forward (one a layer: {cfg.num_layers})")
+    B = tokens.shape[0]
+    check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+          and logits.dtype == torch.float32
+          and bool(logits.isfinite().all()),
+          f"{tag} prefill logits {tuple(logits.shape)} {logits.dtype}, "
+          f"finite")
+    return logits, times, launches
+
+
+def moe_serve(torch, rt, build, cfg, model) -> None:
+    """``Engine.generate`` (MOE_SERVE) on the card: ms a step, no K11
+    launch, greedy output repeated, a request alone as in the batch; a
+    decode step's profile; ``ContinuousEngine`` with 6 requests on 4
+    slots."""
+    import numpy as np
+    sv = MOE_SERVE
+    rng = np.random.default_rng(2)
+    reqs = [rt.Request(prompt=rng.integers(0, cfg.vocab_size,
+                                           sv["prompt"]).tolist(),
+                       max_new_tokens=sv["new"]) for _ in range(sv["batch"])]
+    eng = rt.Engine(cfg, model, batch_size=sv["batch"], max_len=sv["max_len"])
+    eng.generate([rt.Request(prompt=[1, 2], max_new_tokens=2)])   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = build.launch_counts()["flash_attention"]
+    check(n == 0, f"{cfg.name} decode: {n} K11 launches (decode attention "
+                  f"is plain)")
+    steps = sv["prompt"] + outs[0].steps - 1
+    new = sum(len(o.tokens) for o in outs)
+    check(all(len(o.tokens) == sv["new"] for o in outs),
+          f"{cfg.name} Engine: every request got {sv['new']} tokens")
+    print("moe decode " + json.dumps(dict(
+        arch=cfg.name, layers=cfg.num_layers, batch=sv["batch"],
+        prompt=sv["prompt"], new_tokens=sv["new"], max_len=sv["max_len"],
+        generate_s=dt, decode_steps=steps,
+        ms_per_decode_step=1e3 * dt / steps, new_tokens_per_s=new / dt,
+        max_memory_allocated=torch.cuda.max_memory_allocated())), flush=True)
+    cache = rt.init_cache(cfg, sv["batch"], sv["max_len"])
+    toks = torch.from_numpy(np.array([r.prompt for r in reqs])).cuda()
+
+    def decode(n=MOE_DECODE_PROFILED):
+        nonlocal cache
+        for t in range(n):
+            _, cache = rt.decode_step(cfg, model, toks[:, t:t + 1], cache)
+    decode()                                               # warm-up
+    wall, rows = device_profile(torch, decode, host_ops=False)
+    busy = sum(r[0] for r in rows) * 1e-6
+    print("moe decode profile " + json.dumps(dict(
+        arch=cfg.name, steps=MOE_DECODE_PROFILED, profiled_wall_s=wall,
+        device_busy_s=busy, busy_share=busy / wall if wall else None,
+        device_ms_per_step=1e3 * busy / MOE_DECODE_PROFILED,
+        launches_per_step=sum(r[1] for r in rows) / MOE_DECODE_PROFILED,
+        top=[dict(name=k[:70], calls=c, device_s=t * 1e-6)
+             for t, c, k in rows[:10]])), flush=True)
+    del cache
+    again = eng.generate(reqs)
+    check([o.tokens for o in again] == [o.tokens for o in outs],
+          f"{cfg.name} Engine: greedy output repeats on a second run")
+    solo = eng.generate(reqs[:1])
+    check(solo[0].tokens == outs[0].tokens,
+          f"{cfg.name} Engine: a request alone equals the same request in "
+          f"the batch")
+    ce = rt.ContinuousEngine(cfg, model, batch_size=sv["batch"],
+                             max_len=sv["max_len"])
+    for _ in range(6):
+        ce.submit(rt.Request(prompt=rng.integers(0, cfg.vocab_size,
+                                                 16).tolist(),
+                             max_new_tokens=8))
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = ce.run_until_done(max_ticks=200)
+    torch.cuda.synchronize()
+    check(sorted(done) == list(range(6))
+          and all(len(c.tokens) == 8 for c in done.values())
+          and build.launch_counts()["flash_attention"] == 0,
+          f"{cfg.name} ContinuousEngine: 6 requests over {sv['batch']} "
+          f"slots all finished in {ce.ticks} ticks "
+          f"({time.perf_counter() - t0:.1f} s), no K11 launch")
+
+
+def depth_prefix(torch, cfg, model, layers):
+    """(config, model) of the first ``layers`` layers of ``model``, sharing
+    its weights (nothing is copied); the cut is printed."""
+    from torch import nn
+    from repro_torch.models import DecoderLM
+    cut = cfg.replace(num_layers=layers)
+    view = DecoderLM(cut, None, cfg.torch_dtype, torch.device("meta"))
+    view.embed, view.final_norm = model.embed, model.final_norm
+    view.layers = nn.ModuleList(model.layers[:layers])
+    print(f"moe cut: {cfg.name} serving (Engine, ContinuousEngine) on the "
+          f"first {layers} of its {cfg.num_layers} layers, sharing the "
+          f"whole model's weights", flush=True)
+    return cut, view
+
+
+def moe_whole(torch, rt, build) -> int:
+    """qwen3-moe-30b-a3b whole in bf16, weights from seed 0 on the card:
+    the parameter counts, prefill of MOE_PREFILL tokens (its capacity and
+    dispatch buffer, K11 launches, time, peak memory, the profile of where
+    the time goes) and serving on its first MOE_SERVE_LAYERS layers.
+    Returns K11's launches."""
+    cfg = rt.get_config(MOE_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.num_experts, cfg.top_k, cfg.d_ff,
+           cfg.vocab_size, cfg.dtype)
+          == (48, 2048, 32, 4, 128, 128, 8, 768, 151936, "bfloat16"),
+          f"{MOE_ARCH} at its published width in bf16")
+    check((cfg.param_count(), cfg.active_param_count()) == MOE_PARAMS,
+          f"{MOE_ARCH}: {cfg.param_count():,} parameters, "
+          f"{cfg.active_param_count():,} active a token")
+    t0 = time.perf_counter()
+    model = rt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    routers = {p.dtype for n, p in model.named_parameters()
+               if n.endswith("moe.router")}
+    check(n_params == MOE_PARAMS[0] and routers == {torch.float32},
+          f"{MOE_ARCH}: {n_params:,} parameters on the card, "
+          f"{nbytes / 1e9:.2f} GB, the routers f32 "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    from repro_torch.models import moe
+    B, S = MOE_PREFILL
+    C = moe.capacity(cfg, S)
+    dispatch_bytes = B * cfg.num_experts * C * cfg.d_model * 2
+    check(C == MOE_CAPACITY, f"{MOE_ARCH} at S = {S}: capacity {C} a "
+                             f"expert and row, dispatch buffer "
+                             f"{dispatch_bytes / 1e6:.1f} MB a layer")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    logits, times, launches = moe_prefill(torch, rt, build, cfg, model,
+                                          tokens, MOE_ARCH, PREFILL_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    with recorded_routes(model) as rec:          # one more, for the drops
+        rt.forward(cfg, model, {"tokens": tokens}, last_only=True)
+    dropped = [float(r.dropped.mean()) for *_, r in rec.calls]
+    del rec
+    t_draw_prefill = time.perf_counter() - t0
+    prof = moe_prefill_profile(torch, lambda: rt.forward(
+        cfg, model, {"tokens": tokens}, last_only=True))
+    t_profile = time.perf_counter() - t0 - t_draw_prefill
+    med = statistics.median(times)
+    print("moe prefill " + json.dumps(dict(
+        arch=MOE_ARCH, batch=B, seq=S, dtype=cfg.dtype, params=n_params,
+        param_bytes=nbytes, capacity=C, dispatch_bytes_per_layer=
+        dispatch_bytes, dropped_frac_mean=statistics.mean(dropped),
+        dropped_frac_max=max(dropped), forward_s=times,
+        forward_s_median=med, tokens_per_s=B * S / med,
+        max_memory_allocated=peak, **prof)), flush=True)
+    del logits
+    moe_serve(torch, rt, build, *depth_prefix(torch, cfg, model,
+                                              MOE_SERVE_LAYERS))
+    t = time.perf_counter() - t0
+    print(f"moe {MOE_ARCH}: {t:.1f} s (draw and prefill "
+          f"{t_draw_prefill:.1f}, profile {t_profile:.1f}, serving "
+          f"{t - t_draw_prefill - t_profile:.1f})", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_mixtral(torch, rt, build) -> int:
+    """mixtral-8x7b at full width in bf16, cut to MIXTRAL_LAYERS layers
+    (the whole model does not fit the card): prefill of MIXTRAL_PREFILL
+    tokens, twice the window, so K11's window mask cuts. Returns K11's
+    launches."""
+    whole = rt.get_config(MIXTRAL)
+    from repro_torch.models import moe
+    check((whole.num_layers, whole.d_model, whole.num_heads,
+           whole.num_kv_heads, whole.d_ff, whole.num_experts, whole.top_k,
+           whole.attention, whole.window, whole.dtype)
+          == (32, 4096, 32, 8, 14336, 8, 2, "sliding", 4096, "bfloat16"),
+          f"{MIXTRAL} at its published width in bf16")
+    cfg = whole.replace(num_layers=MIXTRAL_LAYERS)
+    print(f"moe cut: {MIXTRAL} {whole.param_count():,} parameters "
+          f"({2 * whole.param_count() / 1e9:.1f} GB in bf16) do not fit "
+          f"the card's 80 GB; cut to {MIXTRAL_LAYERS} of "
+          f"{whole.num_layers} layers ({cfg.param_count():,} parameters)",
+          flush=True)
+    model = rt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    B, S = MIXTRAL_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    logits, times, launches = moe_prefill(torch, rt, build, cfg, model,
+                                          tokens, f"{MIXTRAL} x{cfg.num_layers}",
+                                          PREFILL_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    full = rt.forward(cfg.replace(attention="full"), model,
+                      {"tokens": tokens}, last_only=True)[0]
+    moved = rel_err(full, logits)
+    check(moved > 1e-3, f"{MIXTRAL}: the window acts (the same prefill "
+                        f"without it moves the last logits by rel "
+                        f"{moved:.2e})")
+    med = statistics.median(times)
+    print("moe prefill " + json.dumps(dict(
+        arch=MIXTRAL, layers=cfg.num_layers, batch=B, seq=S,
+        window=cfg.window, capacity=moe.capacity(cfg, S), forward_s=times,
+        forward_s_median=med, tokens_per_s=B * S / med,
+        max_memory_allocated=peak, window_moves_logits=moved)), flush=True)
+    del model, logits, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def route_ties(torch, card, cpu, k) -> list:
+    """(layer, row, token, gap) of each token whose k-th and (k+1)-th
+    router probabilities lie within the f32 difference between the card's
+    and the CPU's probabilities of that layer (four times its largest),
+    where the two may route apart; ``card`` and ``cpu`` are the recorded
+    routes of one forward each."""
+    from repro_torch.models import moe
+    ties = []
+    for layer, ((xg, rg, _, _), (xc, rc, _, _)) in enumerate(zip(card, cpu)):
+        pg = moe._router_probs(rg, xg).cpu()
+        pc = moe._router_probs(rc, xc)
+        slack = 4 * float((pg - pc).abs().max())
+        top = torch.sort(pc, dim=-1, descending=True).values
+        gap = top[..., k - 1] - top[..., k]
+        for b, t in zip(*torch.nonzero(gap <= slack, as_tuple=True)):
+            ties.append((layer, int(b), int(t), float(gap[b, t])))
+    return ties
+
+
+def moe_card_against_cpu(torch, rt, cfg, seq, seed, tag) -> None:
+    """f32 ``forward`` on the card against the port on the CPU on the same
+    weights: every layer's routing table equal, the logits within relative
+    L2 1e-4. A token at a router tie (:func:`route_ties`) may route apart;
+    each is named, and the rows it moves are held up to it only."""
+    from repro_torch.models import DecoderLM
+    model = rt.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    on_cpu = DecoderLM(cfg, None, torch.float32, torch.device("cpu"))
+    on_cpu.load_state_dict(model.state_dict())
+    B, S = seq
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed))
+    with recorded_routes(model) as on_card, recorded_routes(on_cpu) as here:
+        got = rt.forward(cfg, model, {"tokens": tokens})[0].cpu()
+        want = rt.forward(cfg, on_cpu, {"tokens": tokens})[0]
+    card, cpu = on_card.calls, here.calls
+    ties = route_ties(torch, card, cpu, cfg.top_k)
+    tie_at = {(l, b, t) for l, b, t, _ in ties}
+    apart, first = [], {}
+    for layer, ((_, _, C, rg), (_, _, _, rc)) in enumerate(zip(card, cpu)):
+        diff = (rg.sel.cpu() != rc.sel).any(-1)
+        for b, t in zip(*torch.nonzero(diff, as_tuple=True)):
+            b, t = int(b), int(t)
+            apart.append((layer, b, t))
+            first[b] = min(first.get(b, S), t)
+        rows = [b for b in range(B) if b not in first]
+        same = all(torch.equal(rg.buf_tok[b].cpu(), rc.buf_tok[b])
+                   and torch.equal(rg.tok_slot[b].cpu(), rc.tok_slot[b])
+                   for b in rows)
+        check(same, f"{tag} layer {layer}: routing tables (buf_tok, "
+                    f"tok_slot) equal card vs CPU in rows {rows}")
+    check(all(a in tie_at for a in apart),
+          f"{tag}: tokens routed apart {apart}, each at a router tie "
+          f"{ties}")
+    keep = torch.ones(B, S, dtype=torch.bool)
+    for b, t in first.items():
+        keep[b, t:] = False
+    e = rel_err(got[keep], want[keep])
+    check(e <= 1e-4, f"{tag}: card vs CPU forward of {B}x{S} tokens in f32, "
+                     f"rel L2 {e:.2e} (<= 1e-4) over {int(keep.sum())} "
+                     f"positions (ties: {ties or 'none'})")
+    del model, on_cpu, on_card, here
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_replay(torch, rt, build, cfg, seq, seed, tag) -> None:
+    """f32 prefill (K11) against the teacher-forced ``decode_step`` replay
+    at capacity factor 4.0, nothing dropped: last logits relative L2 <=
+    1e-3, argmax equal."""
+    cfg = cfg.replace(capacity_factor=4.0)
+    model = rt.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    B, S = seq
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed + 1))
+    build.reset_launch_counts()
+    with recorded_routes(model) as rec:
+        fwd = rt.forward(cfg, model, {"tokens": tokens}, last_only=True)[0]
+    n = build.launch_counts()["flash_attention"]
+    dropped = max(float(r.dropped.max()) for *_, r in rec.calls)
+    check(dropped == 0.0, f"{tag} at capacity factor 4.0 (C = "
+                          f"{rec.calls[0][2]} for S = {S}): no token "
+                          f"dropped ({dropped})")
+    del rec
+    t0 = time.perf_counter()
+    cache = rt.init_cache(cfg, B, S)
+    for t in range(S):
+        dec, cache = rt.decode_step(cfg, model, tokens[:, t:t + 1], cache)
+    torch.cuda.synchronize()
+    e = rel_err(dec, fwd)
+    same = bool((dec.argmax(-1) == fwd.argmax(-1)).all())
+    check(e <= 1e-3 and same and n == cfg.num_layers,
+          f"{tag} f32 B={B} S={S}: prefill ({n} K11 launches) vs decode "
+          f"replay ({time.perf_counter() - t0:.1f} s), last logits rel L2 "
+          f"{e:.2e} (<= 1e-3), argmax equal {same}")
+    del model, cache, fwd, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase(torch, rt, build) -> int:
+    """The MoE decoders on the card (after the olmo model is freed):
+    qwen3-moe-30b-a3b whole in bf16 (:func:`moe_whole`), mixtral-8x7b at
+    full width over MIXTRAL_LAYERS layers (:func:`moe_mixtral`), then in
+    f32 with TF32 off a layer or two of each (MOE_F32; mixtral at window
+    128) card against CPU (:func:`moe_card_against_cpu`) and prefill
+    against the decode replay (:func:`moe_replay`). Returns K11's
+    launches on its main path."""
+    t0 = time.perf_counter()
+    print("moe host memory " + json.dumps(host_memory()), flush=True)
+    launches = moe_whole(torch, rt, build)
+    t_whole = time.perf_counter() - t0
+    launches += moe_mixtral(torch, rt, build)
+    t_bf16 = time.perf_counter() - t0
+    for arch, cut in MOE_F32.items():
+        cfg = rt.get_config(arch).replace(dtype="float32", **cut)
+        tag = f"{arch} " + " ".join(f"{k}={v}" for k, v in cut.items())
+        moe_card_against_cpu(torch, rt, cfg, MOE_CONSISTENCY, 4, tag)
+        moe_replay(torch, rt, build, cfg, MOE_REPLAY, 5, tag)
+    t = time.perf_counter() - t0
+    print(f"moe phase: {t:.1f} s (budget {MOE_BUDGET_S:.0f} s; "
+          f"{MOE_ARCH} {t_whole:.1f}, {MIXTRAL} {t_bf16 - t_whole:.1f}, "
+          f"f32 checks {t - t_bf16:.1f})", flush=True)
+    return launches
+
+
 def report_row(name, t, launches, err) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line: the
     contract's keys, then the rest of its timing record."""
@@ -6350,6 +6866,7 @@ def main() -> int:
     t_model = time.perf_counter()
     flash_rows = phase_flash_timing(torch, flash, ref, errs, bf16_errs)
     launches["flash_attention"] = phase_model(torch, rt, build)
+    launches["flash_attention"] += moe_phase(torch, rt, build)
     phase_model_consistency(torch, rt, build)
     main_row = flash_rows["main_bf16"]
     timings["flash_attention"] = dict(

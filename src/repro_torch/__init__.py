@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the DiSCO solver and of the model zoo's dense
-decoders (the JAX package ``repro`` is the reference it is held against).
+"""PyTorch/CUDA port of the DiSCO solver and of the model zoo's dense and
+MoE decoders (the JAX package ``repro`` is the reference it is held
+against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
 entry points (:func:`disco_fit`, :class:`DiscoSolver` and its streamed
@@ -17,8 +18,10 @@ live in one process (:class:`InProcessGroup`) or one a process
 (:class:`DistributedGroup`, ``torch.distributed``; the in-memory DiSCO
 solve, the λ-path and the baselines).
 
-The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b:
-:func:`get_config`) are served by :func:`init_params`, :func:`forward`
+The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b)
+and the MoE decoders (mixtral-8x7b, qwen3-moe-30b-a3b: top-k routing,
+per-row capacity dispatch in prefill, token-choice decode), from
+:func:`get_config`, are served by :func:`init_params`, :func:`forward`
 (prefill, every layer's attention on the hand-written flash kernel),
 :func:`init_cache` / :func:`decode_step`, :class:`Engine` and
 :class:`ContinuousEngine`, and ``python -m repro_torch.launch.serve``;

@@ -1,7 +1,7 @@
 """Registry of the model configurations the port runs.
 
-The dense decoders are ported (:data:`ARCHS`); the JAX package's other
-architectures (MoE, SSM, hybrid, audio, VLM) raise "not yet ported".
+The dense and MoE decoders are ported (:data:`ARCHS`); the JAX package's
+other architectures (SSM, hybrid, audio, VLM) raise "not yet ported".
 """
 from __future__ import annotations
 
@@ -9,9 +9,10 @@ import importlib
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
-ARCHS = ["olmo_1b", "chatglm3_6b", "phi3_medium_14b", "qwen2_5_32b"]
-NOT_YET_PORTED = ["whisper_medium", "mixtral_8x7b", "qwen3_moe_30b_a3b",
-                  "falcon_mamba_7b", "qwen2_vl_72b", "zamba2_2_7b"]
+ARCHS = ["olmo_1b", "chatglm3_6b", "phi3_medium_14b", "qwen2_5_32b",
+         "mixtral_8x7b", "qwen3_moe_30b_a3b"]
+NOT_YET_PORTED = ["whisper_medium", "falcon_mamba_7b", "qwen2_vl_72b",
+                  "zamba2_2_7b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS + NOT_YET_PORTED}
 _ALIAS.update({"qwen2.5-32b": "qwen2_5_32b", "zamba2-2.7b": "zamba2_2_7b"})

@@ -111,6 +111,12 @@ class ModelConfig:
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: the MoE layers' expert matrices
+        count ``top_k / num_experts`` of their size."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

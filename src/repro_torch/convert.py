@@ -128,8 +128,9 @@ def lm_params_from_jax(cfg, params: Mapping, *, device=None) -> DecoderLM:
     layer arrays are split layer by layer (``params["layers"]["attn"]
     ["wq"][i]`` becomes ``layers.i.attn.wq``); every weight keeps the JAX
     ``(in, out)`` orientation, which the port's layers use as it is
-    (``y = x @ w``). The model's dtype is the arrays'. Raises on a missing,
-    extra or misshapen array.
+    (``y = x @ w``). The model's dtype is the embedding's; an MoE router
+    is f32 in any model. Raises on a missing, extra, misshapen or
+    differently typed array (a cast would hide a bf16 router).
     """
     check_ported(cfg)
     dev = resolve_device(device)
@@ -158,5 +159,8 @@ def lm_params_from_jax(cfg, params: Mapping, *, device=None) -> DecoderLM:
             if tuple(state[name].shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(state[name].shape)}, "
                                  f"expected {tuple(p.shape)}")
+            if state[name].dtype != p.dtype:
+                raise ValueError(f"{name}: dtype {state[name].dtype}, "
+                                 f"expected {p.dtype}")
             p.copy_(state[name])
     return model

@@ -429,22 +429,32 @@ class EllPair(NamedTuple):
         return nrb * br, ncb * bc
 
 
-def stack_shard_ells(ells: list[BlockedEll]
+def stack_shard_ells(csrs: list[CSRMatrix], block_rows: int,
+                     block_cols: int, width: int | None = None, *,
+                     transpose: bool = False
                      ) -> tuple[np.ndarray, np.ndarray]:
-    """Stack per-shard ELLs into uniform ``(m, ...)`` arrays.
+    """The shards' :func:`ell_from_csr` layouts (``transpose=True``: of
+    their transposes), stacked into uniform ``(m, ...)`` arrays in
+    ``(block_rows, block_cols)`` tiles.
 
-    Every shard is padded to the *global* max ELL width (zero tiles,
-    ``cols = 0``). Filled into one preallocated array rather than padded
-    and stacked, so a layout of several GB is copied once.
+    Every shard is padded to the *global* max ELL width, or to ``width``
+    (zero tiles, ``cols = 0``). Each shard is planned from its index
+    structure (:func:`ell_plan`) and its values are filled in place into
+    one lazily zeroed stack: a layout of several GB, mostly zero pages
+    never touched, is neither zeroed nor copied, and no transposed CSR is
+    built.
     """
-    W = max(e.width for e in ells)
-    nb, _, br, bc = ells[0].data.shape
-    data = np.zeros((len(ells), nb, W, br, bc), ells[0].data.dtype)
-    cols = np.zeros((len(ells), nb, W), ells[0].cols.dtype)
-    for s, e in enumerate(ells):
-        data[s, :, :e.width] = e.data
-        cols[s, :, :e.width] = e.cols
-    return data, cols
+    plan = lambda c, w: ell_plan(c, block_rows, block_cols, w,
+                                 transpose=transpose)
+    plans = [plan(c, width) for c in csrs]
+    W = max(p.shape[1] for p in plans)
+    plans = [p if p.shape[1] == W else plan(c, W)
+             for c, p in zip(csrs, plans)]
+    values = [np.asarray(c.data) for c in csrs]
+    data = np.zeros((len(plans),) + plans[0].shape, values[0].dtype)
+    for s, (p, v) in enumerate(zip(plans, values)):
+        data[s].reshape(-1)[p.offsets] = v
+    return data, np.stack([p.cols for p in plans])
 
 
 def shard_csrs_from_partition(X: CSRMatrix, part, axis: str
@@ -487,13 +497,9 @@ def build_shard_ell_pairs(shard_csrs: list[CSRMatrix], block_rows: int,
         width = max(w for w, _ in widths)
         width_t = max(w for _, w in widths)
         shard_csrs = shard_csrs[local]
-    fwd = [ell_from_csr(c, block_rows, block_cols, width=width)
-           for c in shard_csrs]
-    data, cols = stack_shard_ells(fwd)
-    del fwd
-    tr = [ell_from_csr(c.transpose(), block_cols, block_rows, width=width_t)
-          for c in shard_csrs]
-    dataT, colsT = stack_shard_ells(tr)
+    data, cols = stack_shard_ells(shard_csrs, block_rows, block_cols, width)
+    dataT, colsT = stack_shard_ells(shard_csrs, block_cols, block_rows,
+                                    width_t, transpose=True)
     if dtype is not None and dtype != torch.float32:
         data = torch.from_numpy(data).to(dtype)
         dataT = torch.from_numpy(dataT).to(dtype)

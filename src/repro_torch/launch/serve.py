@@ -1,7 +1,8 @@
 """Serving launcher:  python -m repro_torch.launch.serve --arch olmo-1b ...
 
-Spins up the batched decode engine on the reduced config and serves a
-synthetic request batch, on the card unless ``--device cpu``.
+Spins up the batched decode engine on the reduced config of a dense or
+MoE decoder (``--arch mixtral-8x7b``, ``--arch qwen3-moe-30b-a3b``) and
+serves a synthetic request batch, on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 

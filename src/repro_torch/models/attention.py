@@ -7,7 +7,7 @@ flash kernel, CPU tensors take its plain version. There is no
 ``REPRO_ATTN_IMPL`` switch, so on the CPU the port computes what the JAX
 function computes under ``REPRO_ATTN_IMPL=flash``, which equals the JAX
 default (``full_attention``) wherever positions run 0..S-1, as in every
-forward of the dense family. ``blockwise_attention`` (the JAX package's
+forward of the dense and MoE families. ``blockwise_attention`` (the JAX package's
 memory workaround for training) waits for the training slice.
 
 Single-token decode (:func:`decode_attention`) is plain torch, as the JAX

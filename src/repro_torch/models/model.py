@@ -1,24 +1,30 @@
-"""The dense decoder family: init / forward / decode (``repro/models/model.py``).
+"""The dense and MoE decoder families: init / forward / decode
+(``repro/models/model.py``).
 
 ``arch_type == "dense"``: a decoder-only transformer (GQA, a RoPE variant,
-an MLP) as an ``nn.Module``, :class:`DecoderLM`, whose ``layers`` are an
-``nn.ModuleList`` of blocks in place of the JAX package's stacked pytree
-scanned with ``lax.scan``; its parameter names are the JAX dict's keys
-(``layers.3.attn.wq`` is ``params["layers"]["attn"]["wq"][3]``). The
-JAX functions keep their names here, at module level: :func:`init_params`,
-:func:`forward`, :func:`init_cache`, :func:`decode_step` and
-:func:`count_params_analytic`. The MoE, SSM, hybrid, audio and VLM
-families raise "not yet ported".
+an MLP); ``arch_type == "moe"``: the same with a Mixture-of-Experts FFN in
+every layer (:mod:`repro_torch.models.moe`). The model is an ``nn.Module``,
+:class:`DecoderLM`, whose ``layers`` are an ``nn.ModuleList`` of blocks in
+place of the JAX package's stacked pytree scanned with ``lax.scan``; its
+parameter names are the JAX dict's keys (``layers.3.attn.wq`` is
+``params["layers"]["attn"]["wq"][3]``, ``layers.3.moe.router`` is
+``params["layers"]["moe"]["router"][3]``). The JAX functions keep their
+names here, at module level: :func:`init_params`, :func:`forward`,
+:func:`init_cache`, :func:`decode_step` and :func:`count_params_analytic`.
+The SSM, hybrid, audio and VLM families raise "not yet ported".
 
 ``forward`` is the prefill of serving (``last_only=True`` unembeds only
 the last position): every layer's self-attention is one launch of the
-flash kernel on the card. ``decode_step`` attends over the KV cache in
-plain torch and updates the cache in place.
+flash kernel on the card; an MoE layer routes and dispatches at its
+capacity. ``decode_step`` attends over the KV cache in plain torch,
+updates the cache in place and runs an MoE layer token-choice (each token
+its k experts).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.core.disco import resolve_device
 from repro_torch.models.attention import (attention_block, decode_attention,
@@ -26,14 +32,20 @@ from repro_torch.models.attention import (attention_block, decode_attention,
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        unembed)
+from repro_torch.models.moe import init_moe, moe_block, token_choice
 from repro_torch.models.rope import default_positions
+
+PORTED = ("dense", "moe")
 
 
 def check_ported(cfg) -> None:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in PORTED:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) is not yet ported to "
-            f"repro_torch; the dense decoders are")
+            f"repro_torch; the dense and MoE decoders are")
+    if cfg.arch_type == "moe" and cfg.moe_layer_period != 1:
+        raise ValueError("the MoE family has an MoE FFN in every layer "
+                         "(moe_layer_period 1)")
 
 
 class DenseBlock(nn.Module):
@@ -47,6 +59,18 @@ class DenseBlock(nn.Module):
         self.mlp = init_mlp(cfg, generator, dtype, device)
 
 
+class MoEBlock(nn.Module):
+    """One pre-norm block with an MoE FFN: norm1, attn, norm2, moe (the
+    router f32 whatever ``dtype``)."""
+
+    def __init__(self, cfg, generator=None, dtype=None, device=None):
+        super().__init__()
+        self.norm1 = init_norm(cfg, dtype, device)
+        self.attn = init_attention(cfg, generator, dtype, device)
+        self.norm2 = init_norm(cfg, dtype, device)
+        self.moe = init_moe(cfg, generator, dtype, device)
+
+
 class DecoderLM(nn.Module):
     """embed, final_norm and ``cfg.num_layers`` blocks. With a generator
     the weights are drawn from it; without, they are left unfilled."""
@@ -57,8 +81,9 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.embed = init_embedding(cfg, generator, dtype, device)
         self.final_norm = init_norm(cfg, dtype, device)
+        block = MoEBlock if cfg.arch_type == "moe" else DenseBlock
         self.layers = nn.ModuleList(
-            DenseBlock(cfg, generator, dtype, device)
+            block(cfg, generator, dtype, device)
             for _ in range(cfg.num_layers))
 
     @property
@@ -82,11 +107,25 @@ def init_params(cfg, generator=None, *, device=None, dtype=None) -> DecoderLM:
     return DecoderLM(cfg, generator, dtype or cfg.torch_dtype, dev)
 
 
-def count_params_analytic(cfg) -> int:
+def count_params_analytic(cfg, active_only=False) -> int:
     """Exact parameter count from the shapes on the meta device (nothing
-    is allocated)."""
+    is allocated). ``active_only``: an MoE expert matrix counts
+    ``top_k / num_experts`` of its size, truncated per matrix stacked over
+    the layers, as the reference truncates its stacked leaves."""
+    check_ported(cfg)
     model = DecoderLM(cfg, None, cfg.torch_dtype, torch.device("meta"))
-    return sum(p.numel() for p in model.parameters())
+    stacked = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        key = ".".join(parts[:1] + parts[2:]) if parts[0] == "layers" \
+            else name
+        stacked[key] = stacked.get(key, 0) + p.numel()
+    total = 0
+    for key, n in stacked.items():
+        if active_only and cfg.moe and ".moe.w_" in f".{key}":
+            n = int(n * cfg.top_k / cfg.num_experts)
+        total += n
+    return total
 
 
 def _tokens(model, tokens) -> torch.Tensor:
@@ -97,10 +136,23 @@ def _tokens(model, tokens) -> torch.Tensor:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _dense_layer_fwd(cfg, lp, x, positions):
-    h = x + attention_block(cfg, lp.attn, apply_norm(cfg, lp.norm1, x),
-                            positions)
-    return h + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.norm2, h))
+def _attention(cfg, lp, x, positions):
+    """x plus the attention of its norm; the attention runs inside a
+    profiler range named ``attention``."""
+    xn = apply_norm(cfg, lp.norm1, x)
+    with record_function("attention"):
+        a = attention_block(cfg, lp.attn, xn, positions)
+    return x + a
+
+
+def _layer_fwd(cfg, lp, x, positions):
+    """One block's prefill: (x, the MoE aux loss or None)."""
+    h = _attention(cfg, lp, x, positions)
+    hn = apply_norm(cfg, lp.norm2, h)
+    if isinstance(lp, MoEBlock):
+        ff, aux = moe_block(cfg, lp.moe, hn)
+        return h + ff, aux["aux_loss"]
+    return h + apply_mlp(cfg, lp.mlp, hn), None
 
 
 @torch.no_grad()
@@ -110,7 +162,8 @@ def forward(cfg, model, batch, last_only=False):
     ``batch["tokens"]`` (B, S) ints, optional ``batch["positions"]``
     (B, S). ``last_only=True`` (the prefill serving path) unembeds only
     the final position: (B, 1, padded_vocab). The aux loss is the MoE
-    family's; for the dense family it is 0.
+    family's load-balancing loss summed over the layers; for the dense
+    family it is 0.
     """
     check_ported(cfg)
     tokens = _tokens(model, batch["tokens"])
@@ -122,12 +175,14 @@ def forward(cfg, model, batch, last_only=False):
         positions = _tokens(model, positions)
 
     x = embed_tokens(cfg, model.embed, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for lp in model.layers:
-        x = _dense_layer_fwd(cfg, lp, x, positions)
+        x, layer_aux = _layer_fwd(cfg, lp, x, positions)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = apply_norm(cfg, model.final_norm, x)
     if last_only:
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return unembed(cfg, model.embed, x), aux
 
 
@@ -145,12 +200,17 @@ def init_cache(cfg, batch, max_len, dtype=None, *, device=None):
                                     dtype or cfg.torch_dtype, dev)}
 
 
-def _dense_layer_step(cfg, lp, x, lcache, index):
+def _layer_step(cfg, lp, x, lcache, index):
     h_attn, lcache = decode_attention(cfg, lp.attn,
                                       apply_norm(cfg, lp.norm1, x),
                                       lcache, index)
     h = x + h_attn
-    return h + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.norm2, h)), lcache
+    hn = apply_norm(cfg, lp.norm2, h)
+    if isinstance(lp, MoEBlock):
+        # token-choice: each token runs its k experts, not the capacity
+        # dispatch over all E; decode discards the aux loss
+        return h + token_choice(cfg, lp.moe, hn)[0], lcache
+    return h + apply_mlp(cfg, lp.mlp, hn), lcache
 
 
 @torch.no_grad()
@@ -164,7 +224,7 @@ def decode_step(cfg, model, tokens, cache):
     layers = cache["layers"]
     for i, lp in enumerate(model.layers):
         lcache = {name: a[i] for name, a in layers.items()}
-        x, _ = _dense_layer_step(cfg, lp, x, lcache, index)
+        x, _ = _layer_step(cfg, lp, x, lcache, index)
     x = apply_norm(cfg, model.final_norm, x)
     cache["index"] = index + 1
     return unembed(cfg, model.embed, x), cache

@@ -1,4 +1,4 @@
-"""LLM token-decode serving over the port's dense decoders
+"""LLM token-decode serving over the port's dense and MoE decoders
 (``repro/serve``)."""
 from repro_torch.serve.engine import (Completion, Engine, Request,
                                       make_serve_step)

@@ -1,5 +1,5 @@
-"""LLM serving over the dense decoders: single-token decode and a batched
-engine (``repro/serve/engine.py``).
+"""LLM serving over the dense and MoE decoders: single-token decode and a
+batched engine (``repro/serve/engine.py``).
 
 ``Engine.generate`` works as the JAX engine's: prompts are left-padded
 into the batch's static slots and replayed token by token through
@@ -66,7 +66,8 @@ def model_and_device(model_cfg, model, seed, device):
 
 
 class Engine:
-    """Static-batch greedy/temperature decode engine over the dense zoo."""
+    """Static-batch greedy/temperature decode engine over the dense and MoE
+    decoders."""
 
     def __init__(self, model_cfg, model=None, batch_size: int = 4,
                  max_len: int = 512, seed: int = 0, device=None):

@@ -1150,6 +1150,53 @@ def test_cuda_dense_decoder_matches_cpu(dev):
                           max_len=32).generate(reqs)[0].tokens
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_cuda_moe_decoder_matches_cpu(dev, arch):
+    """The MoE smoke configs in f32 (mixtral's at window 16, so the mask
+    acts): the routing tables of every layer on the card equal the CPU's,
+    prefill and decode equal the CPU's (relative L2 <= 1e-4), the prefill
+    runs one flash launch per layer and repeats bit for bit, decode none,
+    and greedy serving gives the CPU's tokens."""
+    from repro_torch import (Engine, Request, decode_step, forward,
+                             get_smoke_config, init_cache, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(capacity_factor=4.0)
+    if cfg.attention == "sliding":
+        cfg = cfg.replace(window=16)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    on_cpu = init_params(cfg, device="cpu")
+    on_cpu.load_state_dict(model.state_dict())
+    assert model.layers[0].moe.router.dtype == torch.float32
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    layers = [(a.moe, b.moe) for a, b in zip(model.layers, on_cpu.layers)]
+    for a, b in layers:
+        a.routes, b.routes = [], []
+    build.reset_launch_counts()
+    got, aux = forward(cfg, model, {"tokens": tokens})
+    assert build.launch_counts()["flash_attention"] == cfg.num_layers
+    want, want_aux = forward(cfg, on_cpu, {"tokens": tokens})
+    tables = [(a.routes[0][2], b.routes[0][2]) for a, b in layers]
+    for a, b in layers:
+        a.routes = b.routes = None
+    for a, b in tables:
+        assert torch.equal(a.sel.cpu(), b.sel)
+        assert torch.equal(a.buf_tok.cpu(), b.buf_tok)
+        assert torch.equal(a.tok_slot.cpu(), b.tok_slot)
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+    assert torch.equal(got, forward(cfg, model, {"tokens": tokens})[0])
+    cache = init_cache(cfg, 2, 48)
+    build.reset_launch_counts()
+    for t in range(24):
+        step, cache = decode_step(cfg, model, tokens[:, t:t + 1], cache)
+        assert _rel(step[:, 0].cpu(), want[:, t]) <= 1e-4
+    assert build.launch_counts()["flash_attention"] == 0
+    reqs = [Request(prompt=[5, 6, 7], max_new_tokens=5)]
+    assert Engine(cfg, model, batch_size=2, max_len=32).generate(reqs)[0] \
+        .tokens == Engine(cfg, on_cpu, batch_size=2,
+                          max_len=32).generate(reqs)[0].tokens
+
+
 # ---------------------------------------------------------------------------
 # bf16 tiles: the bf16 instances of K1, K2, K6 and K7
 # ---------------------------------------------------------------------------

@@ -81,6 +81,30 @@ def test_build_shard_ell_pairs_identical(axis, m, block):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("axis", ["features", "samples"])
+@pytest.mark.parametrize("br,bc", [(8, 16), (16, 8)])
+def test_build_shard_ell_pairs_rectangular_tiles_and_local(axis, br, bc):
+    """Tiles of unequal edges (the transposed layout swaps them) equal the
+    reference's; a process's slice of the shards equals those rows of the
+    whole stack."""
+    (Xj, _, _), _ = _both_data(d=96, n=200, density=0.2, alpha=0.8,
+                               beta=0.5, seed=3)
+    pad = max(br, bc)
+    pj = jpart.make_partition(Xj, axis, 4, "lpt", pad_multiple=pad)
+    pt = tpart.make_partition(_port_csr(Xj), axis, 4, "lpt",
+                              pad_multiple=pad)
+    ref = jsparse.build_shard_ell_pairs(
+        jsparse.shard_csrs_from_partition(Xj, pj, axis), br, bc)
+    shards = tsparse.shard_csrs_from_partition(_port_csr(Xj), pt, axis)
+    got = tsparse.build_shard_ell_pairs(shards, br, bc)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    part = tsparse.build_shard_ell_pairs(shards, br, bc, local=slice(1, 3))
+    for a, b in zip(part, got):
+        np.testing.assert_array_equal(a, b[1:3])
+
+
 @pytest.mark.parametrize("br,bc", [(8, 8), (16, 16), (8, 16)])
 def test_ell_from_csr_identical_and_roundtrips(br, bc):
     (Xj, _, _), _ = _both_data(d=50, n=70, density=0.15, seed=2)

@@ -96,12 +96,17 @@ def test_schedule_of_shards_stacked_to_the_global_width(axis, layout):
     counts are its own tiles, the padding past them is skipped."""
     X = _rcv1_like(seed=1)
     part = make_partition(X, axis, 4, "lpt", pad_multiple=16)
-    csrs = shard_csrs_from_partition(X, part, axis)
-    if layout == "transposed":
-        csrs = [c.transpose() for c in csrs]
+    shards = shard_csrs_from_partition(X, part, axis)
+    transpose = layout == "transposed"
+    data, cols = stack_shard_ells(shards, 16, 16, transpose=transpose)
+    csrs = [c.transpose() for c in shards] if transpose else shards
     ells = [ell_from_csr(c, 16, 16) for c in csrs]
-    data, cols = stack_shard_ells(ells)
     assert min(e.width for e in ells) < data.shape[2]   # padded shards
+    for s, e in enumerate(ells):        # each shard's own layout, padded
+        np.testing.assert_array_equal(data[s, :, :e.width], e.data)
+        np.testing.assert_array_equal(cols[s, :, :e.width], e.cols)
+        assert not data[s, :, e.width:].any()
+        assert not cols[s, :, e.width:].any()
     for s, csr in enumerate(csrs):
         sched = ell_schedule(torch.from_numpy(data[s]),
                              torch.from_numpy(cols[s]), 132)

@@ -137,6 +137,20 @@ SCRIPT = textwrap.dedent("""
     eng = ContinuousEngine(cfg, model, batch_size=2, max_len=16)
     eng.submit(Request(prompt=[3], max_new_tokens=2))
     assert len(eng.run_until_done()[0].tokens) == 2
+    import repro_torch.models.moe
+    for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b"):
+        cfg = get_smoke_config(arch)
+        model = init_params(cfg, device="cpu")
+        logits, aux = forward(cfg, model, {"tokens": np.ones((2, 9), np.int64)},
+                              last_only=True)
+        assert logits.shape == (2, 1, cfg.padded_vocab) and float(aux) > 0
+        cache = init_cache(cfg, 2, 8, device="cpu")
+        logits, cache = decode_step(cfg, model, np.ones((2, 1), np.int64),
+                                    cache)
+        assert torch.isfinite(logits).all() and cache["index"] == 1
+        out = Engine(cfg, model, batch_size=2, max_len=16).generate(
+            [Request(prompt=[1, 2], max_new_tokens=3)])
+        assert len(out[0].tokens) == 3
     import repro_torch.obs, repro_torch.robust, repro_torch.data.store
     from repro_torch import obs
     from repro_torch.data import ShardStore

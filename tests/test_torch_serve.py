@@ -1,5 +1,6 @@
-"""The port's serving engines against the JAX package's, and the serving
-properties of ``tests/test_serve.py`` on the port.
+"""The port's serving engines against the JAX package's (the dense and
+the MoE smoke configs), and the serving properties of
+``tests/test_serve.py`` on the port.
 
 The JAX engines and the port's run on the same parameters (JAX
 ``init_params(PRNGKey(0))`` read as numpy, crossed with
@@ -23,7 +24,7 @@ from repro_torch.launch import serve as launcher
 from repro_torch.serve import (ContinuousEngine, Engine, Request,
                                make_serve_step)
 
-ARCHS = ["olmo_1b", "chatglm3_6b"]
+ARCHS = ["olmo_1b", "chatglm3_6b", "qwen3_moe_30b_a3b", "mixtral_8x7b"]
 REQUESTS = [([5, 6, 7], 6), ([9, 8], 4), ([3], 5)]
 
 
@@ -154,3 +155,23 @@ def test_launcher_serves_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "serving chatglm3-6b" in out and "on cpu" in out
     assert "3 requests, 12 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_launcher_serves_moe_on_the_cpu(capsys, arch):
+    launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                   "--requests", "3", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert f"serving {arch}" in out and "on cpu" in out
+    assert "3 requests, 12 tokens" in out
+
+
+def test_moe_engine_batch_and_repeat(monkeypatch):
+    """An MoE engine's greedy output repeats, and a request alone gets what
+    it gets in a batch (each token routes on its own in decode)."""
+    cfg = tcfgs.get_smoke_config("qwen3_moe_30b_a3b")
+    eng = Engine(cfg, batch_size=3, max_len=32, device="cpu")
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in REQUESTS]
+    outs = eng.generate(reqs)
+    assert [c.tokens for c in eng.generate(reqs)] == [c.tokens for c in outs]
+    assert eng.generate(reqs[:1])[0].tokens == outs[0].tokens

@@ -34,214 +34,32 @@ Counterparts of the reference's streamed cases: ``tests/test_streaming.py``
 kill and resume, a config mismatch, re-plan against static) and
 ``tests/test_obs.py`` (traced streamed rounds equal the ledger; a streamed
 checkpoint round trip).
+
+The cells against the port's in-memory solve are in
+``tests/test_torch_streaming_port.py``, those against the reference's in
+``tests/test_torch_streaming_reference.py``; what the three files share is
+``tests/torch_streaming_common.py``.
 """
 import dataclasses
-import json
-import os
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
 
-from repro import obs as jobs
 from repro.core import DiscoConfig as JDiscoConfig
 from repro.core import DiscoSolver as JDiscoSolver
 from repro.core.hvp import operator_cells as j_operator_cells
 from repro.data.sparse import make_sparse_glm_data
 from repro_torch import (CSRMatrix, DiscoConfig, DiscoSolver, InProcessGroup,
                          disco_fit, disco_fit_streaming, obs)
-from repro_torch.core.hvp import (UnsupportedHvpError, cell_id,
-                                  operator_cells)
+from repro_torch.core.hvp import UnsupportedHvpError, cell_id, operator_cells
 from repro_torch.data.store import ShardStore
 from repro_torch.data.stream import plan_streams
 from repro_torch.robust import (FaultPlan, SimulatedKill, latest_checkpoint,
                                 load_checkpoint)
-
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-DATA = dict(d=96, n=160, density=0.2, alpha=1.0, beta=0.5, seed=1)
-SOLVE = dict(loss="logistic", lam=1e-2, tau=16, max_outer=5,
-             grad_tol=1e-10, ell_block_d=8, ell_block_n=8,
-             partition_block=16, stream_chunk_size=16)
-RTOL, ATOL = 1e-4, 1e-6
-REL_F32, REL_BF16 = 1e-5, 3e-4
-
-VARIANTS = {"classic": {}, "s2": dict(pcg_block_s=2),
-            "s3": dict(pcg_block_s=3),
-            "subsampled": dict(hessian_subsample=0.5, lam=1e-1, seed=7),
-            "fused": dict(hvp_fused=True),
-            "fused-s2": dict(hvp_fused=True, pcg_block_s=2),
-            "bf16": dict(hvp_dtype="bfloat16"),
-            "fused-bf16": dict(hvp_fused=True, hvp_dtype="bfloat16")}
-CELLS = [(p, m, v) for p in ("samples", "features") for m in (1, 4)
-         for v in VARIANTS if not (p == "features" and "fused" in v)]
-# the cells also held to the reference (no subsampling draws)
-REF_CELLS = [c for c in CELLS if c[2] != "subsampled"]
-
-
-@pytest.fixture(autouse=True)
-def _obs_clean():
-    obs.disable()
-    jobs.disable()
-    yield
-    obs.disable()
-    jobs.disable()
-
-
-def _data(seed=1):
-    X, y, _ = make_sparse_glm_data(**dict(DATA, seed=seed))
-    return X, y, CSRMatrix(X.indptr, X.indices, X.data, X.shape)
-
-
-def _cfg(partition, variant="classic", **kw):
-    return DiscoConfig(partition=partition,
-                       **dict(SOLVE, **VARIANTS[variant], **kw))
-
-
-@pytest.fixture(scope="module")
-def stores(tmp_path_factory):
-    X, y, _ = _data()
-    root = tmp_path_factory.mktemp("streaming_stores")
-    return {axis: ShardStore.from_csr(X, y, str(root / axis), axis=axis,
-                                      chunk_size=16).path
-            for axis in ("samples", "features")}
-
-
-def _streamed(stores, partition, m, cfg, **kw):
-    return DiscoSolver.from_store(ShardStore(stores[partition]), cfg,
-                                  group=InProcessGroup(m), device="cpu",
-                                  **kw)
-
-
-def _iters(res):
-    return [int(h["pcg_iters"]) for h in res.history]
-
-
-def _rel(a, b):
-    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-
-# ---------------------------------------------------------------------------
-# every cell against the port's in-memory solve
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("partition,m,variant", CELLS,
-                         ids=[f"{p}-m{m}-{v}" for p, m, v in CELLS])
-def test_streamed_matches_port_inmemory(stores, partition, m, variant):
-    _, y, X = _data()
-    cfg = _cfg(partition, variant)
-    rs = _streamed(stores, partition, m, cfg).fit()
-    rm = DiscoSolver(X, y, cfg, group=InProcessGroup(m), device="cpu").fit()
-    assert rs.partition_info == rm.partition_info
-    assert rs.ledger.rounds > 0 and len(rs.history) == len(rm.history)
-    if cfg.hvp_dtype == "bfloat16":
-        assert _rel(rs.w, rm.w) <= REL_BF16
-        assert all(abs(a - b) <= 1 for a, b in zip(_iters(rs), _iters(rm)))
-    else:
-        assert _rel(rs.w, rm.w) <= REL_F32, _rel(rs.w, rm.w)
-        assert _iters(rs) == _iters(rm)
-        assert rs.ledger == rm.ledger
-    st = rs.stream_stats
-    assert st["passes"] > 0 and st["steps"] > 0
-    assert st["peak_bytes"] <= (cfg.prefetch_depth + 2) \
-        * st["max_step_bytes"]
-    assert st["peak_bytes"] < st["bytes_loaded"] / 4
-    assert rm.stream_stats is None and rs.replan_events == []
-
-
-def test_streamed_subsample_masks_equal_inmemory(stores, monkeypatch):
-    """The streamed step draws the in-memory step's masks: the subsampled
-    coefficients of every step are the same, shard by shard."""
-    from repro_torch.core import disco
-    _, y, X = _data()
-    seen = []
-    orig = disco.DiscoSolver._subsample
-
-    def spy(self, c, k):
-        out = orig(self, c, k)
-        seen.append((self._streaming, k, (out == 0).cpu().numpy()))
-        return out
-    monkeypatch.setattr(disco.DiscoSolver, "_subsample", spy)
-    for partition in ("samples", "features"):
-        seen.clear()
-        cfg = _cfg(partition, "subsampled", max_outer=3)
-        _streamed(stores, partition, 4, cfg).fit()
-        DiscoSolver(X, y, cfg, group=InProcessGroup(4), device="cpu").fit()
-        s = [z for st, _, z in seen if st]
-        mem = [z for st, _, z in seen if not st]
-        assert len(s) == len(mem) == 3
-        for a, b in zip(s, mem):
-            np.testing.assert_array_equal(a, b)
-
-
-# ---------------------------------------------------------------------------
-# against the reference's in-memory solve
-# ---------------------------------------------------------------------------
-
-def _ref_kw(partition, variant):
-    kw = dict(SOLVE, **VARIANTS[variant])
-    kw["partition"] = partition
-    return kw
-
-
-SCRIPT_4 = textwrap.dedent("""
-    import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ["REPRO_KERNEL_MODE"] = "ref"
-    import jax
-    import numpy as np
-    assert len(jax.devices()) == 4
-    from repro.core import DiscoConfig, DiscoSolver
-    from repro.data.sparse import make_sparse_glm_data
-    DATA, CASES = json.loads(sys.argv[1])
-    X, y, _ = make_sparse_glm_data(**DATA)
-    out = []
-    for kw in CASES:
-        axis = "model" if kw["partition"] == "features" else "data"
-        r = DiscoSolver(X, y, DiscoConfig(**kw),
-                        mesh=jax.make_mesh((4,), (axis,))).fit()
-        out.append(dict(w=np.asarray(r.w).tolist(),
-                        pcg_iters=[int(h["pcg_iters"]) for h in r.history],
-                        partition_info=r.partition_info))
-    print("RESULT " + json.dumps(out))
-""")
-
-
-@pytest.fixture(scope="module")
-def ref_m4():
-    cases = [c for c in REF_CELLS if c[1] == 4]
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    r = subprocess.run(
-        [sys.executable, "-c", SCRIPT_4,
-         json.dumps([DATA, [_ref_kw(p, v) for p, _, v in cases]])],
-        env=env, capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stdout + r.stderr
-    line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")][-1]
-    return dict(zip(cases, json.loads(line[len("RESULT "):])))
-
-
-@pytest.mark.parametrize("partition,m,variant", REF_CELLS,
-                         ids=[f"{p}-m{m}-{v}" for p, m, v in REF_CELLS])
-def test_streamed_matches_reference_inmemory(stores, monkeypatch, ref_m4,
-                                             partition, m, variant):
-    X, y, _ = _data()
-    cfg = _cfg(partition, variant)
-    rs = _streamed(stores, partition, m, cfg).fit()
-    if m == 1:
-        monkeypatch.setenv("REPRO_KERNEL_MODE", "ref")
-        r = JDiscoSolver(X, y, JDiscoConfig(**_ref_kw(partition, variant))
-                         ).fit()
-        ref = dict(w=np.asarray(r.w), partition_info=r.partition_info)
-    else:
-        ref = ref_m4[(partition, m, variant)]
-    assert rs.partition_info == ref["partition_info"]
-    w_ref = np.asarray(ref["w"], np.float32)
-    if cfg.hvp_dtype == "bfloat16":
-        assert _rel(rs.w, w_ref) <= REL_BF16
-    else:
-        np.testing.assert_allclose(rs.w, w_ref, rtol=RTOL, atol=ATOL)
+# _obs_clean (autouse) and stores are the shared module's fixtures
+from torch_streaming_common import (_obs_clean, SOLVE, RTOL, ATOL, VARIANTS,
+                                    _data, _cfg, stores, _streamed, _iters,
+                                    _rel)
 
 
 # ---------------------------------------------------------------------------
