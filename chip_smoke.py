@@ -297,7 +297,23 @@ Eight phases; any failed check makes the exit code nonzero.
    with window 128: card against CPU on 2 x 256 tokens (routing tables
    equal, tokens at a router tie named, logits <= 1e-4) and prefill
    against the decode replay on 2 x 512 tokens at capacity factor 4.0
-   (nothing dropped, <= 1e-3, argmax equal).
+   (nothing dropped, <= 1e-3, argmax equal). After them the SSM and
+   hybrid decoders (lines ``ssm ...``, budget 120 s): falcon-mamba-7b
+   (64 Mamba1 layers, d_model 4,096, d_inner 8,192, state 16; 14.56 GB,
+   A_log and D f32) and zamba2-2.7b (54 Mamba2 layers, d_model 2,560,
+   state 64, two shared attention blocks of 32 heads of 80 invoked 9
+   times, window 4,096; 5.29 GB) whole in bf16 from seed 0: prefill of
+   2 x 4,096 tokens (K11 launches: none, and 9 a forward; time,
+   tokens/s, peak memory, the profile's device time of ``ssm.proj``,
+   ``ssm.conv``, ``ssm.scan``, attention and the rest (falcon-mamba's on
+   its first 16 layers), and the scan of one layer timed alone against
+   the forward), then serving on falcon-mamba's first 32 layers and
+   zamba2's first 18 (printed cuts) as the MoE decoders'; then in
+   f32 falcon-mamba at 2 layers and zamba2 at 4 layers (period 2, window
+   128): card against CPU on 2 x 300 tokens (across a chunk edge,
+   <= 1e-4), prefill against the decode replay on 2 x 512 tokens (<=
+   1e-3, argmax equal), and the same layers in bf16 against f32 (<=
+   5e-2).
 8. Report: the kernels' JSON line.
 
 Each slice zeroes the kernels' launch counts just before each fit or
@@ -406,24 +422,33 @@ FLASH_CASES = [
     (1, 16, 1, 128, 129, 128, False, 0, None),
     # q tiles that attend no key: alone, and paired with one that does
     (1, 4, 1, 600, 97, 32, True, 64, None),
+    # Dh = 80 (zamba2-2.7b's shared attention): the bf16 kernel's
+    # 128-column tiles, columns 80-127 TMA's zero fill
+    (1, 4, 2, 257, 257, 80, True, 100, None),
+    (2, 32, 32, 130, 130, 80, True, 0, None),
+    (1, 5, 1, 63, 200, 80, False, 50, 150),
 ]
 # contiguous (B, H, S, Dh); a (B, S, H, Dh) tensor transposed, as the
 # model passes its projections; the same cut from rows of Dh + 8
 FLASH_LAYOUTS = ("contiguous", "head_major", "sliced")
-# the MoE prefills' calls, in bf16 as the model passes them (head-major):
-# qwen3-moe-30b-a3b's 2 x 4,096 tokens at GQA group 8, mixtral-8x7b's
-# 1 x 8,192 through its window of 4,096 at group 4; their plain versions'
-# f32 scores take 4.3 and 8.6 GB
-FLASH_MOE_CASES = {
+# the model prefills' calls, in bf16 as the model passes them
+# (head-major): qwen3-moe-30b-a3b's 2 x 4,096 tokens at GQA group 8,
+# mixtral-8x7b's 1 x 8,192 through its window of 4,096 at group 4,
+# zamba2-2.7b's 2 x 4,096 at Dh = 80 and its window of 4,096 at 8,192;
+# their plain versions' f32 scores take 4.3 to 8.6 GB
+FLASH_MODEL_CASES = {
     "qwen3-moe-30b-a3b": (2, 32, 4, 4096, 4096, 128, True, 0, None),
     "mixtral-8x7b": (1, 32, 8, 8192, 8192, 128, True, 4096, None),
+    "zamba2-2.7b": (2, 32, 32, 4096, 4096, 80, True, 0, None),
+    "zamba2-2.7b at 8,192": (1, 32, 32, 8192, 8192, 80, True, 4096, None),
 }
 FLASH_ROUNDING_RATIO = 1.5   # bf16 error over the output rounding's alone
 # name: B, Hq, Hkv, S (= T), Dh, dtype, reps, time the plain version,
 # layout; all causal. main: olmo-1b's call in a prefill of 4 x 4,096
 # tokens (one layer), contiguous and as the model passes it (head-major
 # views); prefill_32k: one layer's call at that shape's length, whose
-# plain version would need 68 GB of f32 scores; gqa: chatglm3-6b's heads
+# plain version would need 68 GB of f32 scores; gqa: chatglm3-6b's heads;
+# zamba2: a shared block's call in its prefill of 2 x 4,096 (Dh = 80)
 FLASH_TIMED = {
     "main_bf16": (4, 16, 16, 4096, 128, "bfloat16", REPS, True,
                   "contiguous"),
@@ -433,6 +458,8 @@ FLASH_TIMED = {
     "prefill_32k_bf16": (1, 16, 16, 32768, 128, "bfloat16", 3, False,
                          "contiguous"),
     "gqa_bf16": (2, 32, 2, 2048, 128, "bfloat16", REPS, True, "contiguous"),
+    "zamba2_bf16_head_major": (2, 32, 32, 4096, 80, "bfloat16", REPS, True,
+                               "head_major"),
 }
 # K11's device functions, as the profiler names them
 FLASH_KERNEL_NAMES = re.compile(r"flash_(wgmma|f32)_kernel")
@@ -448,6 +475,7 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_PARAMS = (30_532_110_336, 3_353_020_416)     # all, active a token
 MOE_PREFILL = (2, 4096)      # train_4k's length, the batch cut to 2
 MOE_CAPACITY = 320           # per expert and row at 4,096 tokens, cf 1.25
+# the serving of the MoE decoders and (phase "ssm") the SSM and hybrid ones
 MOE_SERVE = dict(batch=4, prompt=128, new=32, max_len=256)
 MOE_DECODE_PROFILED = 4      # decode steps under the profiler (device only)
 # serving runs on the whole model's first MOE_SERVE_LAYERS layers: decode is
@@ -466,6 +494,33 @@ MOE_BUDGET_S = 150.0
 # parts, each layer's attention), whose device time the profile sums
 MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
               "attention")
+# the SSM and hybrid decoders (phase "ssm"): both whole in bf16, prefill
+# and serving, then f32 checks on a few layers of each
+SSM_WHOLE = {
+    # published width and depth: layers, d_model, d_inner, state, heads
+    # of the shared attention, head_dim, vocab; parameters
+    "falcon-mamba-7b": ((64, 4096, 8192, 16, 0, 0, 65024), 7_272_665_088),
+    "zamba2-2.7b": ((54, 2560, 5120, 64, 32, 80, 32000), 2_645_497_760),
+}
+SSM_PREFILL = (2, 4096)      # train_4k's length, the batch cut to 2
+SSM_PREFILL_REPS = 2
+# serving runs on the first half of falcon-mamba-7b's layers and the
+# first third of zamba2-2.7b's (3 of its 9 shared-block groups): decode
+# is host-bound (76 ms a step at falcon-mamba's 64 layers, 85 ms at
+# zamba2's 54, 51 ms at 30, on an H100 80GB HBM3 at 700 W), and three
+# 159-step runs of each at full depth put the phase over its budget
+SSM_SERVE_LAYERS = {"falcon-mamba-7b": 32, "zamba2-2.7b": 18}
+# the profiled prefill of falcon-mamba-7b runs on its first 16 layers
+# (all alike) at the full 2 x 4,096 tokens: the profiler took about a
+# minute to process the whole model's 45,000 kernels of one forward
+SSM_PROFILE_LAYERS = {"falcon-mamba-7b": 16}
+SSM_F32 = {"falcon-mamba-7b": dict(num_layers=2),
+           "zamba2-2.7b": dict(num_layers=4, shared_attn_period=2,
+                               window=128)}
+SSM_CONSISTENCY = (2, 300)   # f32 card vs CPU, across the chunk edge (256)
+SSM_REPLAY = (2, 512)        # f32 prefill vs decode replay
+SSM_BUDGET_S = 120.0
+SSM_RANGES = ("ssm.proj", "ssm.conv", "ssm.scan", "attention")
 # bf16 prefill (K11's tensor-core kernel) vs the same forward in f32 on the
 # same weights: bf16 rounds every activation of every layer (2^-9 each),
 # so the limit is bf16-sized; tests/test_torch_models.py holds the CPU's
@@ -5998,7 +6053,7 @@ def flash_inputs(torch, B, Hq, Hkv, S, T, Dh, dtype, seed,
 def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
     """K11 against its plain version on the card, f32 (TF32 off) and bf16
     (against the plain version in f32 on the same bf16 inputs), over
-    FLASH_CASES, then in bf16 at the MoE prefills' calls (FLASH_MOE_CASES);
+    FLASH_CASES, then in bf16 at the model prefills' calls (FLASH_MODEL_CASES);
     each call is repeated and must match bit for bit. For
     bf16 it also prints the error of the plain f32 output rounded to bf16,
     the part of the kernel's error that the output dtype alone makes (the
@@ -6033,7 +6088,7 @@ def phase_flash_kernel(torch, flash, ref, errs, bf16_errs) -> None:
                   f"{tag}: rel err {e:.2e} (<= {tol:g}), repeats bit for "
                   f"bit {torch.equal(got, again)}")
     for name, (B, Hq, Hkv, S, T, Dh, causal, window, kv_len) in \
-            FLASH_MOE_CASES.items():
+            FLASH_MODEL_CASES.items():
         q, k, v = flash_inputs(torch, B, Hq, Hkv, S, T, Dh, torch.bfloat16,
                                len(name), "head_major")
         kw = dict(causal=causal, window=window, kv_len=kv_len)
@@ -6268,7 +6323,7 @@ def bf16_against_f32(torch, rt, cfg, model, tokens, logits, tag) -> None:
     torch.cuda.empty_cache()
 
 
-def card_against_cpu(torch, rt, cfg, seq, seed, tag) -> None:
+def card_against_cpu(torch, rt, cfg, seq, seed, tag, batch=1) -> None:
     """``forward`` on the card (K11, f32) against the port on the CPU (the
     plain version) on the same weights: relative L2 <= 1e-4."""
     from repro_torch.models import DecoderLM
@@ -6276,13 +6331,13 @@ def card_against_cpu(torch, rt, cfg, seq, seed, tag) -> None:
                            .manual_seed(seed))
     on_cpu = DecoderLM(cfg, None, torch.float32, torch.device("cpu"))
     on_cpu.load_state_dict(model.state_dict())
-    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(seed))
     got = rt.forward(cfg, model, {"tokens": tokens})[0].cpu()
     want = rt.forward(cfg, on_cpu, {"tokens": tokens})[0]
     e = rel_err(got, want)
-    check(e <= 1e-4, f"{tag}: card vs CPU forward of {seq} tokens in f32, "
-                     f"rel L2 {e:.2e} (<= 1e-4)")
+    check(e <= 1e-4, f"{tag}: card vs CPU forward of {batch}x{seq} tokens "
+                     f"in f32, rel L2 {e:.2e} (<= 1e-4)")
     del model, on_cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -6383,9 +6438,9 @@ class recorded_routes:
             m.routes = None
 
 
-def moe_prefill_profile(torch, fn) -> dict:
-    """``fn()`` (one prefill) under the profiler with the MoE ranges: the
-    device time of each range, of K11 and in all, and the top device
+def prefill_profile(torch, fn, names=MOE_RANGES) -> dict:
+    """``fn()`` (one prefill) under the profiler with the ranges ``names``:
+    the device time of each range, of K11 and in all, and the top device
     operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -6395,7 +6450,7 @@ def moe_prefill_profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    names = set(MOE_RANGES)
+    names = set(names)
     # a range's device time: the kernels its host ops launched (the CPU
     # event's own total; the profiler also records a device-side span of
     # each range, idle gaps included, under the same name)
@@ -6425,10 +6480,14 @@ def moe_prefill_profile(torch, fn) -> dict:
                      for t, c, k in rows[:12]])
 
 
-def moe_prefill(torch, rt, build, cfg, model, tokens, tag, reps):
+def decoder_prefill(torch, rt, build, cfg, model, tokens, tag, reps,
+                    attention_layers=None):
     """``reps`` timed prefills (``forward(last_only=True)``) after a
-    warm-up, each with one K11 launch a layer; returns (logits, times,
-    K11 launches)."""
+    warm-up, each with one K11 launch a layer (or an attention block:
+    ``attention_layers`` of them); returns (logits, times, K11
+    launches)."""
+    if attention_layers is None:
+        attention_layers = cfg.num_layers
     prefill = lambda: rt.forward(cfg, model, {"tokens": tokens},
                                  last_only=True)[0]
     logits = prefill()
@@ -6442,8 +6501,9 @@ def moe_prefill(torch, rt, build, cfg, model, tokens, tag, reps):
         times.append(time.perf_counter() - t0)
         n = build.launch_counts()["flash_attention"]
         launches += n
-        check(n == cfg.num_layers, f"{tag} prefill: {n} K11 launches a "
-                                   f"forward (one a layer: {cfg.num_layers})")
+        check(n == attention_layers,
+              f"{tag} prefill: {n} K11 launches a forward (one an "
+              f"attention block: {attention_layers})")
     B = tokens.shape[0]
     check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
           and logits.dtype == torch.float32
@@ -6453,11 +6513,11 @@ def moe_prefill(torch, rt, build, cfg, model, tokens, tag, reps):
     return logits, times, launches
 
 
-def moe_serve(torch, rt, build, cfg, model) -> None:
+def decoder_serve(torch, rt, build, cfg, model, label="moe") -> None:
     """``Engine.generate`` (MOE_SERVE) on the card: ms a step, no K11
     launch, greedy output repeated, a request alone as in the batch; a
     decode step's profile; ``ContinuousEngine`` with 6 requests on 4
-    slots."""
+    slots. Lines ``{label} decode ...``."""
     import numpy as np
     sv = MOE_SERVE
     rng = np.random.default_rng(2)
@@ -6479,7 +6539,7 @@ def moe_serve(torch, rt, build, cfg, model) -> None:
     new = sum(len(o.tokens) for o in outs)
     check(all(len(o.tokens) == sv["new"] for o in outs),
           f"{cfg.name} Engine: every request got {sv['new']} tokens")
-    print("moe decode " + json.dumps(dict(
+    print(f"{label} decode " + json.dumps(dict(
         arch=cfg.name, layers=cfg.num_layers, batch=sv["batch"],
         prompt=sv["prompt"], new_tokens=sv["new"], max_len=sv["max_len"],
         generate_s=dt, decode_steps=steps,
@@ -6495,7 +6555,7 @@ def moe_serve(torch, rt, build, cfg, model) -> None:
     decode()                                               # warm-up
     wall, rows = device_profile(torch, decode, host_ops=False)
     busy = sum(r[0] for r in rows) * 1e-6
-    print("moe decode profile " + json.dumps(dict(
+    print(f"{label} decode profile " + json.dumps(dict(
         arch=cfg.name, steps=MOE_DECODE_PROFILED, profiled_wall_s=wall,
         device_busy_s=busy, busy_share=busy / wall if wall else None,
         device_ms_per_step=1e3 * busy / MOE_DECODE_PROFILED,
@@ -6528,18 +6588,25 @@ def moe_serve(torch, rt, build, cfg, model) -> None:
           f"({time.perf_counter() - t0:.1f} s), no K11 launch")
 
 
-def depth_prefix(torch, cfg, model, layers):
+def depth_prefix(torch, cfg, model, layers, label="moe",
+                 what="serving (Engine, ContinuousEngine)"):
     """(config, model) of the first ``layers`` layers of ``model``, sharing
-    its weights (nothing is copied); the cut is printed."""
+    its weights (nothing is copied; a hybrid keeps its shared blocks and
+    the projections of the invocations left); the cut is printed."""
     from torch import nn
     from repro_torch.models import DecoderLM
     cut = cfg.replace(num_layers=layers)
     view = DecoderLM(cut, None, cfg.torch_dtype, torch.device("meta"))
     view.embed, view.final_norm = model.embed, model.final_norm
     view.layers = nn.ModuleList(model.layers[:layers])
-    print(f"moe cut: {cfg.name} serving (Engine, ContinuousEngine) on the "
-          f"first {layers} of its {cfg.num_layers} layers, sharing the "
-          f"whole model's weights", flush=True)
+    if cfg.arch_type == "hybrid":
+        view.shared = model.shared
+        view.shared_proj = nn.Parameter(
+            model.shared_proj[:layers // cfg.shared_attn_period],
+            requires_grad=False)
+    print(f"{label} cut: {cfg.name} {what} on the first {layers} of its "
+          f"{cfg.num_layers} layers, sharing the whole model's weights",
+          flush=True)
     return cut, view
 
 
@@ -6580,15 +6647,15 @@ def moe_whole(torch, rt, build) -> int:
                            generator=torch.Generator(device="cuda")
                            .manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
-    logits, times, launches = moe_prefill(torch, rt, build, cfg, model,
-                                          tokens, MOE_ARCH, PREFILL_REPS)
+    logits, times, launches = decoder_prefill(torch, rt, build, cfg, model,
+                                              tokens, MOE_ARCH, PREFILL_REPS)
     peak = torch.cuda.max_memory_allocated()
     with recorded_routes(model) as rec:          # one more, for the drops
         rt.forward(cfg, model, {"tokens": tokens}, last_only=True)
     dropped = [float(r.dropped.mean()) for *_, r in rec.calls]
     del rec
     t_draw_prefill = time.perf_counter() - t0
-    prof = moe_prefill_profile(torch, lambda: rt.forward(
+    prof = prefill_profile(torch, lambda: rt.forward(
         cfg, model, {"tokens": tokens}, last_only=True))
     t_profile = time.perf_counter() - t0 - t_draw_prefill
     med = statistics.median(times)
@@ -6600,8 +6667,8 @@ def moe_whole(torch, rt, build) -> int:
         forward_s_median=med, tokens_per_s=B * S / med,
         max_memory_allocated=peak, **prof)), flush=True)
     del logits
-    moe_serve(torch, rt, build, *depth_prefix(torch, cfg, model,
-                                              MOE_SERVE_LAYERS))
+    decoder_serve(torch, rt, build, *depth_prefix(torch, cfg, model,
+                                                  MOE_SERVE_LAYERS))
     t = time.perf_counter() - t0
     print(f"moe {MOE_ARCH}: {t:.1f} s (draw and prefill "
           f"{t_draw_prefill:.1f}, profile {t_profile:.1f}, serving "
@@ -6636,9 +6703,9 @@ def moe_mixtral(torch, rt, build) -> int:
                            generator=torch.Generator(device="cuda")
                            .manual_seed(2))
     torch.cuda.reset_peak_memory_stats()
-    logits, times, launches = moe_prefill(torch, rt, build, cfg, model,
-                                          tokens, f"{MIXTRAL} x{cfg.num_layers}",
-                                          PREFILL_REPS)
+    logits, times, launches = decoder_prefill(
+        torch, rt, build, cfg, model, tokens, f"{MIXTRAL} x{cfg.num_layers}",
+        PREFILL_REPS)
     peak = torch.cuda.max_memory_allocated()
     full = rt.forward(cfg.replace(attention="full"), model,
                       {"tokens": tokens}, last_only=True)[0]
@@ -6786,6 +6853,175 @@ def moe_phase(torch, rt, build) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the SSM and hybrid decoders
+# ---------------------------------------------------------------------------
+
+def attention_blocks(cfg) -> int:
+    """Attention blocks a forward runs: a hybrid's shared-block
+    invocations, none in the SSM."""
+    from repro_torch.models.model import shared_invocations
+    return shared_invocations(cfg) if cfg.arch_type == "hybrid" else 0
+
+
+def scan_ms(torch, cfg, model, tokens) -> float:
+    """Device ms of one layer's scan at the prefill's shape (layer 0 on
+    the normed embeddings, CUDA events): the plain-torch part of a Mamba
+    layer that a fused selective-scan kernel would replace."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    lp = model.layers[0].mamba
+    with torch.no_grad():
+        x = apply_norm(cfg, model.layers[0].norm1,
+                       embed_tokens(cfg, model.embed, tokens))
+        A = -torch.exp(lp.A_log)
+        if cfg.arch_type == "ssm":
+            u, _, dt, Bc, Cc = mb._mamba1_inputs(cfg, lp, x)
+            fn = lambda: mb._selective_scan(u, dt, A, Bc, Cc, cfg.ssm_chunk)
+        else:
+            u, _, dt, Bc, Cc = mb._mamba2_inputs(cfg, lp, x)
+            fn = lambda: mb._ssd(cfg, u, dt, A, Bc, Cc, cfg.ssm_chunk)
+        return time_ms(fn, reps=3)
+
+
+def ssm_whole(torch, rt, build, arch) -> int:
+    """``arch`` whole in bf16 from seed 0: published width and depth, the
+    parameter count and the f32 leaves; prefill of SSM_PREFILL tokens
+    (K11 launches, time, tokens/s, peak memory, the profile by range, one
+    layer's scan timed alone) and serving on its first
+    SSM_SERVE_LAYERS layers. Returns K11's launches."""
+    t0 = time.perf_counter()
+    width, n_want = SSM_WHOLE[arch]
+    cfg = rt.get_config(arch)
+    check((cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+           cfg.num_heads, cfg.head_dim, cfg.vocab_size, cfg.dtype)
+          == width + ("bfloat16",),
+          f"{arch} at its published width and depth in bf16")
+    model = rt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    f32 = sorted({n.split(".")[-1] for n, p in model.named_parameters()
+                  if p.dtype == torch.float32})
+    want_f32 = sorted(["A_log", "D"] + (["dt_bias"] if cfg.arch_type
+                                        == "hybrid" else []))
+    check(n_params == n_want == cfg.param_count() and f32 == want_f32,
+          f"{arch}: {n_params:,} parameters on the card, "
+          f"{nbytes / 1e9:.2f} GB, f32 leaves {f32} "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    attn = attention_blocks(cfg)
+    B, S = SSM_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    logits, times, launches = decoder_prefill(torch, rt, build, cfg, model,
+                                              tokens, arch, SSM_PREFILL_REPS,
+                                              attention_layers=attn)
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    t_prefill = time.perf_counter() - t0
+    pcfg, pmodel = cfg, model
+    if arch in SSM_PROFILE_LAYERS:
+        pcfg, pmodel = depth_prefix(torch, cfg, model,
+                                    SSM_PROFILE_LAYERS[arch], "ssm",
+                                    "the prefill profile")
+    prof = prefill_profile(torch, lambda: rt.forward(
+        pcfg, pmodel, {"tokens": tokens}, last_only=True), SSM_RANGES)
+    del pmodel
+    one = scan_ms(torch, cfg, model, tokens)
+    t_profile = time.perf_counter() - t0 - t_prefill
+    med = statistics.median(times)
+    check(prof["ranges_s"]["ssm.scan"] > 0
+          and (prof["k11_s"] > 0) == (attn > 0),
+          f"{arch} prefill profile: the ssm ranges found, K11's kernels "
+          f"{'found' if attn else 'absent'}")
+    print("ssm prefill " + json.dumps(dict(
+        arch=arch, arch_type=cfg.arch_type, batch=B, seq=S, dtype=cfg.dtype,
+        params=n_params, param_bytes=nbytes,
+        k11_launches_per_forward=attn, forward_s=times,
+        forward_s_median=med, tokens_per_s=B * S / med,
+        max_memory_allocated=peak, scan_ms_one_layer=one,
+        scan_share_of_forward=cfg.num_layers * one * 1e-3 / med,
+        profiled_layers=pcfg.num_layers,
+        ranges_over_busy=(sum(prof["ranges_s"].values())
+                          / prof["device_busy_s"]
+                          if prof["device_busy_s"] else None),
+        **prof)), flush=True)
+    decoder_serve(torch, rt, build, *depth_prefix(
+        torch, cfg, model, SSM_SERVE_LAYERS[arch], "ssm"), "ssm")
+    t = time.perf_counter() - t0
+    print(f"ssm {arch}: {t:.1f} s (draw and prefill {t_prefill:.1f}, "
+          f"profile and scan timing {t_profile:.1f}, serving "
+          f"{t - t_prefill - t_profile:.1f})", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssm_replay(torch, rt, build, cfg, seq, seed, tag) -> None:
+    """f32 prefill (K11 in a hybrid's shared blocks) against the
+    teacher-forced ``decode_step`` replay: last logits relative L2 <=
+    1e-3, argmax equal."""
+    model = rt.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    B, S = seq
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed + 1))
+    build.reset_launch_counts()
+    fwd = rt.forward(cfg, model, {"tokens": tokens}, last_only=True)[0]
+    n = build.launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    cache = rt.init_cache(cfg, B, S)
+    for t in range(S):
+        dec, cache = rt.decode_step(cfg, model, tokens[:, t:t + 1], cache)
+    torch.cuda.synchronize()
+    e = rel_err(dec, fwd)
+    same = bool((dec.argmax(-1) == fwd.argmax(-1)).all())
+    check(e <= 1e-3 and same and n == attention_blocks(cfg),
+          f"{tag} f32 B={B} S={S}: prefill ({n} K11 launches) vs decode "
+          f"replay ({time.perf_counter() - t0:.1f} s), last logits rel L2 "
+          f"{e:.2e} (<= 1e-3), argmax equal {same}")
+    del model, cache, fwd, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(torch, rt, build) -> int:
+    """The SSM and hybrid decoders on the card (after the MoE models are
+    freed): falcon-mamba-7b and zamba2-2.7b whole in bf16
+    (:func:`ssm_whole`), then in f32 with TF32 off a few layers of each
+    (SSM_F32) card against CPU, prefill against the decode replay
+    (:func:`ssm_replay`), and the same layers in bf16 against f32.
+    Returns K11's launches on its main path."""
+    t0 = time.perf_counter()
+    launches = sum(ssm_whole(torch, rt, build, arch) for arch in SSM_WHOLE)
+    t_whole = time.perf_counter() - t0
+    for arch, cut in SSM_F32.items():
+        cfg = rt.get_config(arch).replace(dtype="float32", **cut)
+        tag = f"{arch} " + " ".join(f"{k}={v}" for k, v in cut.items())
+        B, S = SSM_CONSISTENCY
+        card_against_cpu(torch, rt, cfg, S, 4, tag, batch=B)
+        ssm_replay(torch, rt, build, cfg, SSM_REPLAY, 5, tag)
+        bf16 = cfg.replace(dtype="bfloat16")
+        model = rt.init_params(bf16, torch.Generator(device="cuda")
+                               .manual_seed(6))
+        tokens = torch.randint(0, cfg.vocab_size, SSM_REPLAY, device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(7))
+        logits = rt.forward(bf16, model, {"tokens": tokens},
+                            last_only=True)[0]
+        bf16_against_f32(torch, rt, bf16, model, tokens, logits,
+                         f"{tag} {SSM_REPLAY[0]}x{SSM_REPLAY[1]}")
+        del model, logits
+    t = time.perf_counter() - t0
+    print(f"ssm phase: {t:.1f} s (budget {SSM_BUDGET_S:.0f} s; whole "
+          f"models {t_whole:.1f}, f32 checks {t - t_whole:.1f})", flush=True)
+    return launches
+
+
 def report_row(name, t, launches, err) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line: the
     contract's keys, then the rest of its timing record."""
@@ -6867,6 +7103,7 @@ def main() -> int:
     flash_rows = phase_flash_timing(torch, flash, ref, errs, bf16_errs)
     launches["flash_attention"] = phase_model(torch, rt, build)
     launches["flash_attention"] += moe_phase(torch, rt, build)
+    launches["flash_attention"] += ssm_phase(torch, rt, build)
     phase_model_consistency(torch, rt, build)
     main_row = flash_rows["main_bf16"]
     timings["flash_attention"] = dict(
@@ -6874,7 +7111,10 @@ def main() -> int:
         max_rel_err_bf16=bf16_errs["flash_attention"]["rel"],
         max_abs_err_bf16=bf16_errs["flash_attention"]["abs"],
         **{f"{k}_ms": r["ms"] for k, r in flash_rows.items()
-           if k != "main_bf16"})
+           if k != "main_bf16"},
+        **{f"zamba2_bf16_head_major_{k}": flash_rows[
+            "zamba2_bf16_head_major"][k] for k in ("bound_ms",
+                                                   "library_ms")})
     t_model = time.perf_counter() - t_model
 
     kernels = []

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the DiSCO solver and of the model zoo's dense and
-MoE decoders (the JAX package ``repro`` is the reference it is held
+"""PyTorch/CUDA port of the DiSCO solver and of the model zoo's dense, MoE,
+SSM and hybrid decoders (the JAX package ``repro`` is the reference it is held
 against).
 
 Imports ``torch`` and never ``jax``, and nothing of ``repro``. The
@@ -20,7 +20,9 @@ solve, the λ-path and the baselines).
 
 The dense decoders (olmo-1b, chatglm3-6b, phi3-medium-14b, qwen2.5-32b)
 and the MoE decoders (mixtral-8x7b, qwen3-moe-30b-a3b: top-k routing,
-per-row capacity dispatch in prefill, token-choice decode), from
+per-row capacity dispatch in prefill, token-choice decode), the SSM
+decoder falcon-mamba-7b (Mamba1) and the hybrid zamba2-2.7b (Mamba2 with
+shared attention blocks), from
 :func:`get_config`, are served by :func:`init_params`, :func:`forward`
 (prefill, every layer's attention on the hand-written flash kernel),
 :func:`init_cache` / :func:`decode_step`, :class:`Engine` and

@@ -1,7 +1,8 @@
 """Registry of the model configurations the port runs.
 
-The dense and MoE decoders are ported (:data:`ARCHS`); the JAX package's
-other architectures (SSM, hybrid, audio, VLM) raise "not yet ported".
+The dense, MoE, SSM (Mamba1) and hybrid (Mamba2 with shared attention)
+decoders are ported (:data:`ARCHS`); the JAX package's other
+architectures (audio, VLM) raise "not yet ported".
 """
 from __future__ import annotations
 
@@ -10,9 +11,9 @@ import importlib
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
 ARCHS = ["olmo_1b", "chatglm3_6b", "phi3_medium_14b", "qwen2_5_32b",
-         "mixtral_8x7b", "qwen3_moe_30b_a3b"]
-NOT_YET_PORTED = ["whisper_medium", "falcon_mamba_7b", "qwen2_vl_72b",
-                  "zamba2_2_7b"]
+         "mixtral_8x7b", "qwen3_moe_30b_a3b", "falcon_mamba_7b",
+         "zamba2_2_7b"]
+NOT_YET_PORTED = ["whisper_medium", "qwen2_vl_72b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS + NOT_YET_PORTED}
 _ALIAS.update({"qwen2.5-32b": "qwen2_5_32b", "zamba2-2.7b": "zamba2_2_7b"})
@@ -22,8 +23,9 @@ def _module(name: str):
     mod_name = _ALIAS.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name in NOT_YET_PORTED:
         raise NotImplementedError(
-            f"architecture {name!r} is not yet ported to repro_torch "
-            f"(ported: {', '.join(ARCHS)})")
+            f"architecture {name!r} is not yet ported to repro_torch (the "
+            f"audio and VLM families are still to come; ported: "
+            f"{', '.join(ARCHS)})")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

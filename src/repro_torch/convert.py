@@ -124,25 +124,33 @@ def lm_params_from_jax(cfg, params: Mapping, *, device=None) -> DecoderLM:
     """The port's model holding a JAX parameter dict's weights.
 
     ``params`` is the nested dict of ``repro.models.init_params`` (numpy
-    or anything ``np.asarray`` reads). Its stacked ``(num_layers, ...)``
-    layer arrays are split layer by layer (``params["layers"]["attn"]
-    ["wq"][i]`` becomes ``layers.i.attn.wq``); every weight keeps the JAX
-    ``(in, out)`` orientation, which the port's layers use as it is
-    (``y = x @ w``). The model's dtype is the embedding's; an MoE router
-    is f32 in any model. Raises on a missing, extra, misshapen or
-    differently typed array (a cast would hide a bf16 router).
+    or anything ``np.asarray`` reads). Its stacked arrays are split along
+    their leading axis: ``params["layers"]["attn"]["wq"][i]`` becomes
+    ``layers.i.attn.wq`` (``num_layers`` stacked), and a hybrid's
+    ``params["shared"]["attn"]["wq"][j]`` becomes ``shared.j.attn.wq``
+    (``n_shared_blocks`` stacked); ``shared_proj`` crosses whole. Every
+    weight keeps the JAX ``(in, out)`` orientation, which the port's layers
+    use as it is (``y = x @ w``). The model's dtype is the embedding's; an
+    MoE router, a Mamba block's ``A_log`` and ``D`` and a Mamba2 block's
+    ``dt_bias`` are f32 in any model. Raises on a missing, extra,
+    misshapen or differently typed array (a cast would hide a bf16 router
+    or ``A_log``).
     """
     check_ported(cfg)
     dev = resolve_device(device)
+    stacks = {"layers": cfg.num_layers}
+    if cfg.arch_type == "hybrid":
+        stacks["shared"] = cfg.n_shared_blocks
     state = {}
     for path, arr in _flatten(params):
         t = _to_tensor(arr)
-        if path[0] == "layers":
-            if t.shape[0] != cfg.num_layers:
+        n = stacks.get(path[0])
+        if n is not None and len(path) > 1:
+            if t.shape[0] != n:
                 raise ValueError(f"{'/'.join(path)}: {t.shape[0]} stacked "
-                                 f"layers, expected {cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                state[".".join(("layers", str(i)) + path[1:])] = t[i]
+                                 f"{path[0]}, expected {n}")
+            for i in range(n):
+                state[".".join((path[0], str(i)) + path[1:])] = t[i]
         else:
             state[".".join(path)] = t
     emb = state.get("embed.embedding")

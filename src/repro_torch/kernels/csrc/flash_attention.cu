@@ -16,7 +16,7 @@
 // (window > 0). Inputs f32 or bf16; scores, softmax statistics and the
 // accumulator f32; output in the input dtype. A masked score never
 // contributes (p = 0), and the denominator is floored at 1e-30, so a row
-// with no key to attend is 0, never NaN. Dh is 32, 64 or 128. S and T are
+// with no key to attend is 0, never NaN. Dh is 32, 64, 80 or 128. S and T are
 // taken as they are: the ragged last q tile and the rows past T or kv_len
 // are masked here, nothing is padded.
 //
@@ -84,6 +84,18 @@
 //    byte offset (V is MN-major: the transpose bit, leading offset = the
 //    panel stride, stride offset = 8 keys). Dh = 32 (64-byte rows) takes
 //    the 64-byte swizzle and 512-byte atoms. Every tile starts on 1024 B.
+//  * A Dh that is not a multiple of 64 (zamba2's 80). Its tiles take the
+//    layout of the next multiple, Plan::kWidth (128 at Dh = 80: two
+//    64-column panels, the 128-byte swizzle). The tensor maps' inner
+//    extent stays Dh, so the second panel's box reads columns 64-79 and
+//    TMA fills columns 80-127 with zeros (the full box's bytes still
+//    complete the barrier). Q K^T takes Dh / 16 k-steps (5), so it never
+//    reads the fill; P V runs at N = kWidth over it, and the epilogue
+//    stores only O's first Dh columns. The cost: P V at 128 / 80 of its
+//    work and the accumulator of Dh = 128. A native 64 + 16 layout (a
+//    second panel of 32-byte rows) would save that work, but needs a
+//    third swizzle mode, mixed descriptors in one product and an n80
+//    wgmma; this one reuses the Dh = 128 path as it is.
 //  * Fragment layouts. The m64nN accumulator gives warp w of a warpgroup
 //    rows 16 w + lane / 4 (+ 8) and, in column tile n, columns
 //    8 n + 2 (lane % 4) (+ 1): the m16n8 layout repeated N / 8 times. For
@@ -178,11 +190,18 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 
 // Shared-memory plan of one CTA for head dim DH, in bytes. A tile is
-// kPanels panels of kPanel columns, each rows x kRowBytes, swizzled.
+// kPanels panels of kPanel columns, each rows x kRowBytes, swizzled; it
+// holds kWidth >= DH columns, those past DH zero (TMA's fill).
 template <int DH>
 struct Plan {
   static constexpr int kPanel = DH < 64 ? DH : 64;
-  static constexpr int kPanels = DH / kPanel;
+  static constexpr int kPanels = (DH + kPanel - 1) / kPanel;
+  static constexpr int kWidth = kPanels * kPanel;      // O's accumulator
+  static_assert(DH % 16 == 0 && kWidth >= DH && kWidth - DH < kPanel &&
+                    (kPanel == 32 || kPanel == 64) &&
+                    (kWidth == 32 || kWidth == 64 || kWidth == 128),
+                "the panels must cover Dh in 16-column k-steps, with a "
+                "swizzle mode and a wgmma_rs instance for their width");
   static constexpr int kRowBytes = 2 * kPanel;         // 128, or 64 at Dh 32
   static constexpr int kAtom = 8 * kRowBytes;          // 8 rows of a panel
   static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // desc.
@@ -489,9 +508,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2],
 }
 
 // Issue O += P V (one commit group): 16 keys (two 8-key atoms) a k-step;
-// V's second 64-column panel through the leading byte offset.
+// V's second 64-column panel through the leading byte offset. N is the
+// tile's width, the zero columns past Dh included.
 template <int DH>
-__device__ __forceinline__ void issue_pv(float (&acc)[DH / 2],
+__device__ __forceinline__ void issue_pv(float (&acc)[Plan<DH>::kWidth / 2],
                                          const uint32_t (&pa)[kTileN / 16][4],
                                          uint32_t v_addr) {
   using P = Plan<DH>;
@@ -499,7 +519,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DH / 2],
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < kTileN / 16; ++j)
-    wgmma_rs<DH>(acc, pa[j],
+    wgmma_rs<P::kWidth>(acc, pa[j],
                  gmma_desc(v_addr + j * 2 * P::kAtom, P::kKVPanel, P::kAtom,
                            P::kSwizzle));
   wgmma_commit();
@@ -508,11 +528,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DH / 2],
 // O *= the rows' corrections; skipped when no row of the warp has a new
 // max (c = 1), as in most tiles past the first few.
 template <int DH>
-__device__ __forceinline__ void rescale(float (&acc)[DH / 2], float c0,
-                                        float c1) {
+__device__ __forceinline__ void rescale(float (&acc)[Plan<DH>::kWidth / 2],
+                                        float c0, float c1) {
   if (!__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) return;
 #pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn) {
+  for (int dn = 0; dn < Plan<DH>::kWidth / 8; ++dn) {
     acc[4 * dn] *= c0;
     acc[4 * dn + 1] *= c0;
     acc[4 * dn + 2] *= c1;
@@ -635,11 +655,11 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
       const int row0 = wrow + 16 * warp + g, row1 = row0 + 8;
       const uint32_t q_addr =
           smem_u32(q_tile(j)) + wg * kWgRows * P::kRowBytes;
-      float s[kTileN / 2], acc[DH / 2];
+      float s[kTileN / 2], acc[P::kWidth / 2];
 #pragma unroll
       for (int i = 0; i < kTileN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < P::kWidth / 2; ++i) acc[i] = 0.f;
       float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
       float c0 = 1.f, c1 = 1.f;               // O's pending correction
       uint32_t pa[kTileN / 16][4];
@@ -727,7 +747,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
       __nv_bfloat16* o0 = ob + row0 * ol.r;
       __nv_bfloat16* o1 = ob + row1 * ol.r;
 #pragma unroll
-      for (int dn = 0; dn < DH / 8; ++dn) {
+      for (int dn = 0; dn < DH / 8; ++dn) {     // O's first Dh columns
         const int c = 8 * dn + 2 * t;
         if (row0 < S)
           *reinterpret_cast<uint32_t*>(o0 + c) =
@@ -911,7 +931,7 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // The 4-D map (Dh, rows, heads, batch) of a bf16 tensor, in boxes of one
 // panel's columns by box_rows rows, swizzled as the wgmma descriptors
-// expect; rows past `rows` read as zeros.
+// expect; rows past `rows` and columns past Dh read as zeros.
 template <int DH>
 CUresult encode_map(CUtensorMap* map, const void* base, int rows, int heads,
                     int B, const Layout& l, int box_rows) {
@@ -1023,6 +1043,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return launch<32>(a, bf16);
     case 64:
       return launch<64>(a, bf16);
+    case 80:
+      return launch<80>(a, bf16);
     case 128:
       return launch<128>(a, bf16);
     default:

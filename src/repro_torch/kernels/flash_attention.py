@@ -30,7 +30,11 @@ import torch
 
 from repro_torch.kernels.build import FLASH_ATTENTION, check_card, ptr, stream_of
 
-HEAD_DIMS = (32, 64, 128)     # every head_dim of the repository's configs
+# the head dims with a kernel instance: those of the repository's configs
+# (128 the transformers', 80 zamba2-2.7b's shared blocks', 64
+# whisper-medium's, 32 the smoke configs'); at 80 the bf16 kernel runs in
+# the 128-column layout (csrc/flash_attention.cu)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,8 +1,9 @@
 """Serving launcher:  python -m repro_torch.launch.serve --arch olmo-1b ...
 
-Spins up the batched decode engine on the reduced config of a dense or
-MoE decoder (``--arch mixtral-8x7b``, ``--arch qwen3-moe-30b-a3b``) and
-serves a synthetic request batch, on the card unless ``--device cpu``.
+Spins up the batched decode engine on the reduced config of a dense, MoE
+(``--arch mixtral-8x7b``, ``--arch qwen3-moe-30b-a3b``), SSM (``--arch
+falcon-mamba-7b``) or hybrid (``--arch zamba2-2.7b``) decoder and serves a
+synthetic request batch, on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from repro_torch.serve import Engine, Request
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b",
-                    help=f"one of {', '.join(ARCHS)}")
+                    help="one of " + ", ".join(a.replace("_", "-")
+                                               for a in ARCHS)
+                    + " (dense, MoE, SSM and hybrid decoders)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)

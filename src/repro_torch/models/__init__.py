@@ -1,4 +1,5 @@
-"""The model zoo's dense and MoE decoders in PyTorch (``repro/models``)."""
+"""The model zoo's dense, MoE, SSM and hybrid decoders in PyTorch
+(``repro/models``)."""
 from repro_torch.models.model import (DecoderLM, count_params_analytic,
                                       decode_step, forward, init_cache,
                                       init_params)

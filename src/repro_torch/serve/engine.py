@@ -1,10 +1,11 @@
-"""LLM serving over the dense and MoE decoders: single-token decode and a
-batched engine (``repro/serve/engine.py``).
+"""LLM serving over the dense, MoE, SSM and hybrid decoders: single-token
+decode and a batched engine (``repro/serve/engine.py``).
 
 ``Engine.generate`` works as the JAX engine's: prompts are left-padded
 into the batch's static slots and replayed token by token through
 :func:`~repro_torch.models.decode_step` (prefill as decode steps; no
-launch of the flash kernel), then decoded greedily (``argmax``) or by
+launch of the flash kernel; a Mamba layer's state advances a token a
+step, as in the reference), then decoded greedily (``argmax``) or by
 temperature sampling from the engine's ``torch.Generator``, with per-slot
 eos and ``max_new_tokens``. Prefill of a whole prompt batch in one pass
 is :func:`~repro_torch.models.forward` with ``last_only=True``.
@@ -66,8 +67,8 @@ def model_and_device(model_cfg, model, seed, device):
 
 
 class Engine:
-    """Static-batch greedy/temperature decode engine over the dense and MoE
-    decoders."""
+    """Static-batch greedy/temperature decode engine over the dense, MoE,
+    SSM and hybrid decoders."""
 
     def __init__(self, model_cfg, model=None, batch_size: int = 4,
                  max_len: int = 512, seed: int = 0, device=None):

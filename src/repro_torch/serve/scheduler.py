@@ -9,7 +9,8 @@
   2. decodes one token for every active slot;
   3. retires slots that hit max_new_tokens or eos, immediately reusable.
 
-All slots share one (B, ...) cache, so every tick is the same
+All slots share one (B, ...) cache (KV entries, or a Mamba layer's conv
+inputs and SSM state), so every tick is the same
 :func:`~repro_torch.models.decode_step` whatever the request mix.
 """
 from __future__ import annotations
@@ -78,10 +79,21 @@ class ContinuousEngine:
             slot.done = False
 
     def _reset_slot(self, i: int):
-        """Invalidate the previous occupant's KV entries in slot i: they
-        are masked out by pos = -1 (decode_attention treats pos < 0 as
-        empty)."""
-        self.cache["layers"]["pos"][:, i] = -1
+        """Clear the previous occupant's state from slot i, as the
+        reference does: KV entries are masked out by pos = -1
+        (decode_attention treats pos < 0 as empty); for the SSM and hybrid
+        families every other array of the slot (the conv inputs, the SSM
+        states, a hybrid's shared-attention k and v) is zeroed, so that a
+        reused slot carries no recurrent state."""
+        recurrent = self.cfg.arch_type in ("ssm", "hybrid")
+        for part, arrays in self.cache.items():
+            if part == "index":
+                continue
+            for name, a in arrays.items():
+                if name == "pos":
+                    a[:, i] = -1
+                elif recurrent:
+                    a[:, i] = 0
 
     def tick(self):
         """One global decode step across all slots."""

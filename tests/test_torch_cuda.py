@@ -1023,6 +1023,11 @@ FLASH_CASES = [
     (1, 16, 1, 128, 129, 128, False, 0, None),
     # q tiles that attend no key: alone, and paired with one that does
     (1, 4, 1, 600, 97, 32, True, 64, None),
+    # Dh = 80 (zamba2-2.7b's shared attention): the bf16 kernel's
+    # 128-column tiles, columns 80-127 TMA's zero fill
+    (1, 4, 2, 257, 257, 80, True, 100, None),
+    (2, 32, 32, 130, 130, 80, True, 0, None),
+    (1, 5, 1, 63, 200, 80, False, 50, 150),
 ]
 # contiguous (B, H, S, Dh); a (B, S, H, Dh) tensor transposed, as the
 # model passes its projections; the same cut from rows of Dh + 8
@@ -1099,7 +1104,7 @@ def test_cuda_flash_attention_scale(dev, scale, dtype):
                                        else 1e-2)
 
 
-@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Dh", [32, 64, 80, 128])
 @pytest.mark.parametrize("S", [100, 256])
 def test_cuda_flash_attention_one_key_per_row(dev, Dh, S):
     """Each q row scores one key far above the rest, so P is a permutation
@@ -1118,6 +1123,31 @@ def test_cuda_flash_attention_one_key_per_row(dev, Dh, S):
     got = flash.flash_attention(q, k, v, causal=False, scale=1.0)
     torch.cuda.synchronize()
     assert torch.equal(got[0, 0], v[0, 0][perm])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 512])
+def test_cuda_flash_attention_head_dim_80(dev, dtype, window):
+    """K11 at zamba2-2.7b's heads (32, Dh = 80) on head-major views of
+    (B, S, H, Dh) projections, as its shared attention passes them, in
+    f32 (<= 1e-5) and bf16 (<= 1e-2, and at most 1.5 times the error of
+    rounding the plain f32 output to bf16); repeated bit for bit."""
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v = _flash_inputs(dev, 2, 32, 32, 1100, 1100, 80, dtype, seed=8,
+                            layout="head_major")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = flash.flash_attention(q, k, v, causal=True, window=window)
+    again = flash.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True, window=window)
+    assert torch.equal(got, again) and got.transpose(1, 2).is_contiguous()
+    e = _rel(got.float(), want)
+    if dtype == torch.float32:
+        assert e <= 1e-5
+    else:
+        assert e <= 1e-2
+        assert e <= 1.5 * _rel(want.to(torch.bfloat16).float(), want)
 
 
 def test_cuda_dense_decoder_matches_cpu(dev):
@@ -1188,6 +1218,42 @@ def test_cuda_moe_decoder_matches_cpu(dev, arch):
     cache = init_cache(cfg, 2, 48)
     build.reset_launch_counts()
     for t in range(24):
+        step, cache = decode_step(cfg, model, tokens[:, t:t + 1], cache)
+        assert _rel(step[:, 0].cpu(), want[:, t]) <= 1e-4
+    assert build.launch_counts()["flash_attention"] == 0
+    reqs = [Request(prompt=[5, 6, 7], max_new_tokens=5)]
+    assert Engine(cfg, model, batch_size=2, max_len=32).generate(reqs)[0] \
+        .tokens == Engine(cfg, on_cpu, batch_size=2,
+                          max_len=32).generate(reqs)[0].tokens
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_cuda_ssm_and_hybrid_decoders_match_cpu(dev, arch):
+    """The SSM and hybrid smoke configs in f32 over 80 tokens (past
+    zamba2-smoke's window of 64, across chunks of 32): prefill and decode
+    on the card equal the CPU's (relative L2 <= 1e-4), the prefill repeats
+    bit for bit and runs one flash launch per shared-block invocation
+    (none in the SSM), decode none, and greedy serving gives the CPU's
+    tokens."""
+    from repro_torch import (Engine, Request, decode_step, forward,
+                             get_smoke_config, init_cache, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    on_cpu = init_params(cfg, device="cpu")
+    on_cpu.load_state_dict(model.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 80))
+    build.reset_launch_counts()
+    got, _ = forward(cfg, model, {"tokens": tokens})
+    invocations = (cfg.num_layers // cfg.shared_attn_period
+                   if cfg.arch_type == "hybrid" else 0)
+    assert build.launch_counts()["flash_attention"] == invocations
+    want, _ = forward(cfg, on_cpu, {"tokens": tokens})
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert torch.equal(got, forward(cfg, model, {"tokens": tokens})[0])
+    cache = init_cache(cfg, 2, 96)
+    build.reset_launch_counts()
+    for t in range(80):
         step, cache = decode_step(cfg, model, tokens[:, t:t + 1], cache)
         assert _rel(step[:, 0].cpu(), want[:, t]) <= 1e-4
     assert build.launch_counts()["flash_attention"] == 0

@@ -105,6 +105,22 @@ def test_flash_kv_len_matches_jax_kernel(causal, win):
     np.testing.assert_allclose(got, cut, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("Hq,Hkv,S,causal,win", [
+    (4, 4, 128, True, 0), (4, 4, 192, True, 64), (8, 2, 128, False, 0),
+    (8, 2, 192, True, 50)], ids=["causal", "window", "gqa", "gqa-window"])
+def test_flash_at_head_dim_80_matches_jax_kernel(Hq, Hkv, S, causal, win):
+    """zamba2-2.7b's head_dim: the plain version against the Pallas kernel
+    in interpret mode (its blocks span the whole 80 columns)."""
+    q, k, v = _qkv(1, Hq, Hkv, S, S, 80, seed=S + Hq)
+    want = _jax(jax_flash_kernel, q, k, v, causal=causal, window=win,
+                block_q=64, block_k=64, interpret=True)
+    got = _port(tref.flash_attention_ref, q, k, v, causal=causal, window=win)
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+    op = _port(tops.flash_attention, q, k, v, causal=causal, window=win)
+    np.testing.assert_array_equal(op, got)
+    assert 80 in tflash.HEAD_DIMS
+
+
 @pytest.mark.parametrize("Hkv,S,T,win", [(2, 128, 128, 0), (1, 96, 160, 0),
                                           (2, 130, 130, 50)])
 def test_flash_op_bf16_matches_jax(Hkv, S, T, win):

@@ -151,6 +151,21 @@ SCRIPT = textwrap.dedent("""
         out = Engine(cfg, model, batch_size=2, max_len=16).generate(
             [Request(prompt=[1, 2], max_new_tokens=3)])
         assert len(out[0].tokens) == 3
+    import repro_torch.models.mamba
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch)
+        model = init_params(cfg, device="cpu")
+        logits, _ = forward(cfg, model, {"tokens": np.ones((2, 40), np.int64)},
+                            last_only=True)
+        assert logits.shape == (2, 1, cfg.padded_vocab)
+        assert torch.isfinite(logits).all()
+        cache = init_cache(cfg, 2, 8, device="cpu")
+        logits, cache = decode_step(cfg, model, np.ones((2, 1), np.int64),
+                                    cache)
+        assert torch.isfinite(logits).all() and cache["index"] == 1
+        out = Engine(cfg, model, batch_size=2, max_len=16).generate(
+            [Request(prompt=[1, 2], max_new_tokens=3)])
+        assert len(out[0].tokens) == 3
     import repro_torch.obs, repro_torch.robust, repro_torch.data.store
     from repro_torch import obs
     from repro_torch.data import ShardStore

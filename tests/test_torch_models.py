@@ -83,24 +83,25 @@ def test_param_count_matches_jax_without_allocating(arch):
 
 
 def test_other_architectures_are_not_yet_ported():
-    """The four families still unported (SSM, hybrid, audio, VLM) raise;
-    the MoE family is ported (``tests/test_torch_moe.py``)."""
+    """The two families still unported (audio, VLM) raise; the MoE, SSM
+    and hybrid families are ported (``tests/test_torch_moe.py``,
+    ``tests/test_torch_mamba.py``)."""
     assert sorted(tcfgs.NOT_YET_PORTED) == sorted(
-        set(jcfgs.ARCHS) - set(tcfgs.ARCHS))
-    for name in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium",
-                 "qwen2-vl-72b"):
+        set(jcfgs.ARCHS) - set(tcfgs.ARCHS)) == ["qwen2_vl_72b",
+                                                  "whisper_medium"]
+    for name in ("whisper-medium", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcfgs.get_config(name)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match="audio and VLM"):
             tcfgs.get_smoke_config(name)
     with pytest.raises(KeyError):
         tcfgs.get_config("gpt-5")
-    ssm = tcfgs.get_smoke_config("olmo_1b").replace(arch_type="ssm")
-    for call in (lambda: init_params(ssm, device="cpu"),
-                 lambda: DecoderLM(ssm),
-                 lambda: init_cache(ssm, 1, 8, device="cpu"),
-                 lambda: count_params_analytic(ssm)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    audio = tcfgs.get_smoke_config("olmo_1b").replace(arch_type="audio")
+    for call in (lambda: init_params(audio, device="cpu"),
+                 lambda: DecoderLM(audio),
+                 lambda: init_cache(audio, 1, 8, device="cpu"),
+                 lambda: count_params_analytic(audio)):
+        with pytest.raises(NotImplementedError, match="audio and VLM"):
             call()
 
 

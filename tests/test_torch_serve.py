@@ -1,5 +1,5 @@
-"""The port's serving engines against the JAX package's (the dense and
-the MoE smoke configs), and the serving properties of
+"""The port's serving engines against the JAX package's (the dense, MoE,
+SSM and hybrid smoke configs), and the serving properties of
 ``tests/test_serve.py`` on the port.
 
 The JAX engines and the port's run on the same parameters (JAX
@@ -24,7 +24,8 @@ from repro_torch.launch import serve as launcher
 from repro_torch.serve import (ContinuousEngine, Engine, Request,
                                make_serve_step)
 
-ARCHS = ["olmo_1b", "chatglm3_6b", "qwen3_moe_30b_a3b", "mixtral_8x7b"]
+ARCHS = ["olmo_1b", "chatglm3_6b", "qwen3_moe_30b_a3b", "mixtral_8x7b",
+         "falcon_mamba_7b", "zamba2_2_7b"]
 REQUESTS = [([5, 6, 7], 6), ([9, 8], 4), ([3], 5)]
 
 
@@ -175,3 +176,42 @@ def test_moe_engine_batch_and_repeat(monkeypatch):
     outs = eng.generate(reqs)
     assert [c.tokens for c in eng.generate(reqs)] == [c.tokens for c in outs]
     assert eng.generate(reqs[:1])[0].tokens == outs[0].tokens
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_launcher_serves_ssm_and_hybrid_on_the_cpu(capsys, arch):
+    launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                   "--requests", "3", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert f"serving {arch}" in out and "on cpu" in out
+    assert "3 requests, 12 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_2_7b"])
+def test_reused_slot_carries_no_recurrent_state(arch):
+    """A request served in a slot that served another first equals that
+    request served alone: the reset zeroes the slot's conv inputs and SSM
+    states (and a hybrid's shared k and v, pos = -1) and leaves the other
+    slots' as they are."""
+    cfg = tcfgs.get_smoke_config(arch)
+    model = lm_params_from_jax(cfg, jax.tree.map(np.asarray, jinit(
+        jcfgs.get_smoke_config(arch), jax.random.PRNGKey(0))), device="cpu")
+    eng = ContinuousEngine(cfg, model, batch_size=2, max_len=64)
+    first = eng.submit(Request(prompt=[4, 5, 6, 7, 8], max_new_tokens=6))
+    eng.submit(Request(prompt=[1, 2], max_new_tokens=2))
+    third = eng.submit(Request(prompt=[7, 8, 9], max_new_tokens=5))
+    done = eng.run_until_done()
+    alone = ContinuousEngine(cfg, model, batch_size=2, max_len=64)
+    alone.submit(Request(prompt=[7, 8, 9], max_new_tokens=5))
+    assert len(done[first].tokens) == 6
+    assert done[third].tokens == alone.run_until_done()[0].tokens
+    before = {p: {n: a.clone() for n, a in arrays.items()}
+              for p, arrays in eng.cache.items() if p != "index"}
+    assert all(bool(a[:, 1].any()) for a in before["layers"].values())
+    eng._reset_slot(1)
+    for part, arrays in eng.cache.items():
+        if part == "index":
+            continue
+        for name, a in arrays.items():
+            assert bool((a[:, 1] == (-1 if name == "pos" else 0)).all())
+            assert torch.equal(a[:, 0], before[part][name][:, 0])

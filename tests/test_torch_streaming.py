@@ -56,10 +56,11 @@ from repro_torch.data.store import ShardStore
 from repro_torch.data.stream import plan_streams
 from repro_torch.robust import (FaultPlan, SimulatedKill, latest_checkpoint,
                                 load_checkpoint)
-# _obs_clean (autouse) and stores are the shared module's fixtures
-from torch_streaming_common import (_obs_clean, SOLVE, RTOL, ATOL, VARIANTS,
-                                    _data, _cfg, stores, _streamed, _iters,
-                                    _rel)
+# _obs_clean, _one_thread (autouse) and stores are the shared module's
+# fixtures
+from torch_streaming_common import (_obs_clean, _one_thread, SOLVE, RTOL, ATOL,
+                                    VARIANTS, _data, _cfg, stores, _streamed,
+                                    _iters, _rel)
 
 
 # ---------------------------------------------------------------------------

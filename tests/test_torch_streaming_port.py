@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 
 from repro_torch import DiscoSolver, InProcessGroup
-# _obs_clean (autouse) and stores are the shared module's fixtures
-from torch_streaming_common import (_obs_clean, REL_F32, REL_BF16, CELLS,
-                                    _data, _cfg, stores, _streamed, _iters,
-                                    _rel)
+# _obs_clean, _one_thread (autouse) and stores are the shared module's
+# fixtures
+from torch_streaming_common import (_obs_clean, _one_thread, REL_F32, REL_BF16,
+                                    CELLS, _data, _cfg, stores, _streamed,
+                                    _iters, _rel)
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,11 @@ import pytest
 
 from repro.core import DiscoConfig as JDiscoConfig
 from repro.core import DiscoSolver as JDiscoSolver
-# _obs_clean (autouse) and stores are the shared module's fixtures
-from torch_streaming_common import (_obs_clean, SRC, DATA, SOLVE, RTOL, ATOL,
-                                    REL_BF16, VARIANTS, REF_CELLS, _data, _cfg,
-                                    stores, _streamed, _rel)
+# _obs_clean, _one_thread (autouse) and stores are the shared module's
+# fixtures
+from torch_streaming_common import (_obs_clean, _one_thread, SRC, DATA, SOLVE,
+                                    RTOL, ATOL, REL_BF16, VARIANTS, REF_CELLS,
+                                    _data, _cfg, stores, _streamed, _rel)
 
 
 # ---------------------------------------------------------------------------

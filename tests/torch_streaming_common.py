@@ -1,7 +1,7 @@
 """What the streamed-solve tests share: the problem, the solver settings
-and variants, the cells, and the module fixture ``stores`` (the problem
+and variants, the cells, and the module fixtures ``stores`` (the problem
 written once a module as a samples store and a features store of 16-index
-chunks).
+chunks) and ``_one_thread`` (autouse: one intra-op thread).
 
 ``tests/test_torch_streaming.py`` (the reference's streamed cases, robustness,
 tracing and checkpoints), ``tests/test_torch_streaming_port.py`` (every
@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from repro import obs as jobs
 from repro.data.sparse import make_sparse_glm_data
@@ -40,6 +41,19 @@ CELLS = [(p, m, v) for p in ("samples", "features") for m in (1, 4)
          for v in VARIANTS if not (p == "features" and "fused" in v)]
 # the cells also held to the reference (no subsampling draws)
 REF_CELLS = [c for c in CELLS if c[2] != "subsampled"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module, restored after. The problem is
+    tiny (d = 96, n = 160), so torch's 8 threads a process only contend:
+    with the suite's 6 workers on 8 cores these three files ran 20-35
+    times slower than alone (525 s against 17-50 s for each of 4
+    concurrent files at one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
